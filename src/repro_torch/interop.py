@@ -1,0 +1,67 @@
+"""Carry weights and LC state between numpy and the port, and pick devices.
+
+The JAX package hands its arrays over as numpy
+(``jax.tree_util.tree_map(np.asarray, tree)``); these functions put them
+on a torch device and back, so both packages can compute from the same
+inputs. Θ NamedTuples are matched by their field names (a JAX
+``QuantTheta`` becomes the port's ``QuantTheta``), dicts stay dicts.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_map
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card. Raises when CUDA is asked for and absent:
+    nothing falls back to the CPU unless the caller asks for it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available: repro_torch runs on the GPU by "
+                "default; pass device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _to_tensor(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+
+def params_from_numpy(tree, device) -> dict:
+    """Nested dict of numpy arrays → same tree of tensors on ``device``."""
+    return tree_map(lambda x: _to_tensor(x, device), tree)
+
+
+def to_numpy(tree):
+    """Tree of tensors → same tree of numpy arrays (NamedTuples keep their
+    class; 0-d tensors become 0-d arrays)."""
+    return tree_map(lambda t: t.detach().cpu().numpy()
+                    if isinstance(t, torch.Tensor) else t, tree)
+
+
+def _theta_from_numpy(theta, device):
+    from repro_torch.core.schemes.quantize import QuantTheta
+    if isinstance(theta, tuple) and getattr(theta, "_fields", None) == \
+            QuantTheta._fields:
+        return QuantTheta(*(_to_tensor(x, device) for x in theta))
+    return params_from_numpy(theta, device)
+
+
+def lc_state_from_numpy(state: dict, device) -> dict:
+    """An LC state as numpy (``{"tasks": {name: {"theta", "lam", "a"}},
+    "mu", "k"}``) → the port's LC state on ``device``."""
+    tasks = {
+        name: {"theta": _theta_from_numpy(ts["theta"], device),
+               "lam": params_from_numpy(ts["lam"], device),
+               "a": params_from_numpy(ts["a"], device)}
+        for name, ts in state["tasks"].items()}
+    return {"tasks": tasks,
+            "mu": torch.tensor(float(state["mu"]), dtype=torch.float32,
+                               device=device),
+            "k": torch.tensor(int(state["k"]), dtype=torch.int32,
+                              device=device)}

@@ -1,0 +1,110 @@
+"""Build and bind the port's CUDA C++ kernels.
+
+Each source under ``csrc/`` has a plain C interface. At first use it is
+compiled with ``nvcc`` for ``sm_90a`` into
+``<checkout>/build/repro_torch/<stem>-<hash>.so`` (the hash covers the
+source and the flags, so an edited source rebuilds) and loaded with
+``ctypes``. :func:`build` compiles several sources at once, one ``nvcc``
+process each. A failed build or a failed launch raises; nothing falls
+back to another implementation.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("kmeans_assign_moments.cu", "count_above.cu")
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels need the CUDA toolkit "
+            "(nvcc on PATH or under /usr/local/cuda/bin)")
+    return path
+
+
+def library_path(source: str) -> Path:
+    src = CSRC / source
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}-{digest}.so"
+
+
+def build(sources=SOURCES) -> dict[str, str]:
+    """Compile every source of ``sources`` that is not built yet, all
+    ``nvcc`` processes started together. Returns ``{source: nvcc log}``
+    for the sources compiled by this call (``-Xptxas -v`` puts each
+    kernel's registers and shared memory in the log)."""
+    todo = [s for s in sources if not library_path(s).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    try:
+        for s in todo:
+            tmp = library_path(s).with_suffix(f".{os.getpid()}.tmp")
+            procs[s] = (subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp)
+        logs, failed = {}, []
+        for s, (proc, tmp) in procs.items():
+            logs[s], _ = proc.communicate()
+            if proc.returncode:
+                failed.append(f"nvcc failed on {s}:\n{logs[s]}")
+            else:
+                os.replace(tmp, library_path(s))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        return logs
+    finally:
+        for proc, tmp in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            tmp.unlink(missing_ok=True)
+
+
+class CudaKernel:
+    """One C entry point of a ``csrc/`` source, built and loaded at its
+    first launch. The entry point returns a ``cudaError_t``; a nonzero
+    one raises. ``launches`` counts the successful launches."""
+
+    def __init__(self, source: str, symbol: str, argtypes: list):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+        self._lock = threading.Lock()
+
+    def _load(self):
+        with self._lock:
+            if self._fn is None:
+                build([self.source])
+                lib = ctypes.CDLL(str(library_path(self.source)))
+                fn = getattr(lib, self.symbol)
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+                self._lib, self._fn = lib, fn
+        return self._fn
+
+    def __call__(self, *args) -> None:
+        err = self._load()(*args)
+        if err:
+            raise RuntimeError(
+                f"{self.symbol} ({self.source}): CUDA launch failed with "
+                f"cudaError_t {err}")
+        self.launches += 1

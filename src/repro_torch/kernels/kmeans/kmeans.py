@@ -1,0 +1,71 @@
+"""K1: batched k-means assignment + cluster moments, a CUDA kernel.
+
+The port of ``src/repro/kernels/kmeans/kmeans.py:
+kmeans_assign_moments_batched`` (Pallas, TPU). The kernel source is
+``../csrc/kmeans_assign_moments.cu``; its note gives the design and the
+bound. :func:`kmeans_assign_moments_batched` launches it for a CUDA tensor
+and runs :func:`kmeans_assign_moments_batched_plain` for a CPU tensor.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.kmeans.ref import (  # noqa: F401  (the plain version)
+    kmeans_assign_moments_batched_plain)
+
+#: elements per block (kTile in the .cu source)
+TILE = 4096
+MAX_K = 256
+
+_p = ctypes.c_void_p
+KERNEL = CudaKernel(
+    "kmeans_assign_moments.cu", "kmeans_assign_moments_batched",
+    [_p, _p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+     ctypes.c_longlong, _p, _p, _p, _p, _p, _p])
+
+
+def kmeans_assign_moments_batched(w: torch.Tensor, codebooks: torch.Tensor):
+    """w (I, P) f32, codebooks (I, K) f32 with K ≤ 256 → (assign (I, P)
+    i32, sums (I, K) f32, counts (I, K) i32).
+
+    On a CUDA tensor this launches the kernel on the current stream
+    without synchronising; on a CPU tensor it runs the plain version."""
+    if w.device.type == "cpu":
+        return kmeans_assign_moments_batched_plain(w, codebooks)
+    if w.device.type != "cuda":
+        raise ValueError(f"kmeans_assign_moments_batched: no kernel for "
+                         f"device {w.device}")
+    if w.dtype != torch.float32 or codebooks.dtype != torch.float32:
+        raise TypeError("kmeans_assign_moments_batched needs float32 "
+                        f"operands, got {w.dtype} and {codebooks.dtype}")
+    if (w.ndim != 2 or codebooks.ndim != 2
+            or codebooks.shape[0] != w.shape[0]):
+        raise ValueError(f"need w (I, P) and codebooks (I, K), got "
+                         f"{tuple(w.shape)} and {tuple(codebooks.shape)}")
+    n_items, p = w.shape
+    k = codebooks.shape[1]
+    if not (1 <= n_items <= 65535 and p >= 1 and 1 <= k <= MAX_K):
+        raise ValueError(f"kmeans kernel takes 1 ≤ I ≤ 65535, P ≥ 1, "
+                         f"1 ≤ K ≤ {MAX_K}; got I={n_items}, P={p}, K={k}")
+    if codebooks.device != w.device:
+        raise ValueError("w and codebooks must be on the same device")
+    if not (w.is_contiguous() and codebooks.is_contiguous()):
+        raise ValueError("kmeans kernel needs contiguous operands")
+    n_tiles = -(-p // TILE)
+    dev = w.device
+    assign = torch.empty((n_items, p), dtype=torch.int32, device=dev)
+    part_sums = torch.empty((n_items, n_tiles, k), dtype=torch.float32,
+                            device=dev)
+    part_counts = torch.empty((n_items, n_tiles, k), dtype=torch.int32,
+                              device=dev)
+    sums = torch.empty((n_items, k), dtype=torch.float32, device=dev)
+    counts = torch.empty((n_items, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        KERNEL(w.data_ptr(), codebooks.data_ptr(), n_items, p, k, n_tiles,
+               assign.data_ptr(), part_sums.data_ptr(),
+               part_counts.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+               torch.cuda.current_stream(dev).cuda_stream)
+    return assign, sums, counts

@@ -1,0 +1,38 @@
+"""Plain PyTorch version of the k-means assignment + moments kernel (K1).
+
+It computes what ``kmeans.kmeans_assign_moments_batched`` computes, with
+the same semantics as the JAX package's kernel: assignment by explicit
+squared-distance argmin (first index on ties, +inf entries never win),
+per-cluster Σw in f32 and int32 counts. The CPU tests and the chip smoke
+test hold the kernel against it.
+"""
+from __future__ import annotations
+
+import torch
+
+#: columns per pass: bounds the (I, K, chunk) intermediates, so the LM
+#: group (I=8, P=25,165,824, K=16) needs ~1 GB instead of ~13 GB. Sums
+#: over more than one chunk add the chunks' sums in order, which rounds
+#: differently from one pass (rtol ~1e-6).
+CHUNK = 1 << 20
+
+
+def kmeans_assign_moments_batched_plain(w: torch.Tensor,
+                                        codebooks: torch.Tensor):
+    """w (I, P) f32, codebooks (I, K) f32 → (assign (I, P) i32,
+    sums (I, K) f32, counts (I, K) i32)."""
+    n_items, p = w.shape
+    k = codebooks.shape[-1]
+    ks = torch.arange(k, dtype=torch.int32, device=w.device)[None, :, None]
+    assign = torch.empty((n_items, p), dtype=torch.int32, device=w.device)
+    sums = torch.zeros((n_items, k), dtype=torch.float32, device=w.device)
+    counts = torch.zeros((n_items, k), dtype=torch.int32, device=w.device)
+    for lo in range(0, p, CHUNK):
+        wc = w[:, lo:lo + CHUNK]
+        d = wc[:, :, None] - codebooks[:, None, :]
+        a = torch.argmin(d * d, dim=-1).to(torch.int32)
+        assign[:, lo:lo + CHUNK] = a
+        onehot = a[:, None, :] == ks                      # (I, K, chunk)
+        sums += torch.where(onehot, wc[:, None, :], 0.0).sum(-1)
+        counts += onehot.sum(-1, dtype=torch.int32)
+    return assign, sums, counts

@@ -1,0 +1,266 @@
+"""The port's C-step kernels and solvers against the JAX package.
+
+The JAX side runs its Pallas kernels in interpret mode, as its own tests
+do; the port's wrappers run each kernel's plain PyTorch version on CPU
+tensors (the CUDA kernels themselves are held against the same plain
+versions on the card by ``chip_smoke.py`` and the ``cuda`` test below).
+Inputs come from numpy with a fixed seed and go to both packages.
+
+Tolerances (ROADMAP queue 3):
+* bit-identical — assignments, integer counts, top-κ masks (the
+  bisection driver against JAX's ``interpret`` driver included),
+  ``soft_threshold``;
+* K1 moments against the JAX kernel: the reference's own bound, sums
+  rtol 3e-4 / atol 1e-2 (tests/test_kernel_dispatch.py), codebooks after
+  a Lloyd loop atol 1e-3 (``KMEANS_CB_ATOL``);
+* other float reductions: rtol 1e-6 (atol 1e-5 where sums cancel).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import dispatch as jdispatch
+from repro.kernels.kmeans import ops as jkops
+from repro.kernels.kmeans import ref as jkref
+from repro.kernels.prune import ops as jpops
+from repro.kernels.prune.prune import count_above_batched as j_count
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.kmeans import kmeans as k1
+from repro_torch.kernels.kmeans import ops as kops
+from repro_torch.kernels.prune import ops as pops
+from repro_torch.kernels.prune import prune as k2
+
+KMEANS_CB_ATOL = 1e-3
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def _weights(seed, i, p, tie_every=0):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((i, p)).astype(np.float32)
+    if tie_every:
+        # magnitude ties across signs and positions
+        w[:, ::tie_every] = np.float32(0.5) * np.sign(w[:, ::tie_every])
+    return w
+
+
+def _codebooks(seed, i, k, kvalid=None):
+    rng = np.random.default_rng(seed + 1)
+    cb = np.sort(rng.standard_normal((i, k)).astype(np.float32), axis=-1)
+    if kvalid is not None:
+        cb = np.where(np.arange(k)[None, :] < np.asarray(kvalid)[:, None],
+                      cb, np.inf).astype(np.float32)
+    return cb
+
+
+# ----------------------------------------------------------------------
+# K1: assignment + moments
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("i,p,k,kvalid", [
+    (1, 2048, 4, None), (3, 5000, 8, None), (2, 1023, 16, None),
+    (4, 4096, 16, [16, 4, 9, 2]),           # mixed K: +inf entries
+])
+def test_k1_plain_matches_jax_kernel(i, p, k, kvalid):
+    w, cb = _weights(i * p, i, p), _codebooks(k, i, k, kvalid)
+    a1, s1, c1 = k1.kmeans_assign_moments_batched(_t(w), _t(cb))
+    a2, s2, c2 = jkops.assign_moments_batched(jnp.asarray(w),
+                                              jnp.asarray(cb),
+                                              interpret=True)
+    np.testing.assert_array_equal(_np(a1), np.asarray(a2))
+    np.testing.assert_array_equal(_np(c1), np.asarray(c2).astype(np.int32))
+    np.testing.assert_allclose(_np(s1), np.asarray(s2), rtol=3e-4, atol=1e-2)
+    # against the segment-sum oracle: a float reduction in another order
+    a3, s3, c3 = jkref.kmeans_assign_moments_batched_ref(jnp.asarray(w),
+                                                         jnp.asarray(cb))
+    np.testing.assert_array_equal(_np(a1), np.asarray(a3))
+    np.testing.assert_allclose(_np(s1), np.asarray(s3), rtol=1e-6, atol=1e-5)
+
+
+def test_k1_plain_chunked_matches_one_pass(monkeypatch):
+    """Items longer than the plain version's column chunk add the chunk
+    sums in order: same assignments and counts, sums to rtol 1e-6."""
+    from repro_torch.kernels.kmeans import ref
+    w, cb = _weights(3, 2, 10_000), _codebooks(3, 2, 8)
+    one = ref.kmeans_assign_moments_batched_plain(_t(w), _t(cb))
+    monkeypatch.setattr(ref, "CHUNK", 1024)
+    chunked = ref.kmeans_assign_moments_batched_plain(_t(w), _t(cb))
+    np.testing.assert_array_equal(_np(one[0]), _np(chunked[0]))
+    np.testing.assert_array_equal(_np(one[2]), _np(chunked[2]))
+    np.testing.assert_allclose(_np(one[1]), _np(chunked[1]), rtol=1e-6,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("impl,jimpl", [("kernel", "interpret"),
+                                        ("torch", "jnp")])
+@pytest.mark.parametrize("kvalid", [None, [4, 8, 2]])
+def test_kmeans_batched_matches_jax(impl, jimpl, kvalid):
+    w = _weights(11, 3, 3000)
+    cb0 = _codebooks(5, 3, 8)
+    kv_t = None if kvalid is None else torch.tensor(kvalid, dtype=torch.int32)
+    kv_j = None if kvalid is None else jnp.asarray(kvalid, jnp.int32)
+    cb1, a1 = kops.kmeans_batched(_t(w), _t(cb0), kv_t, iters=6, impl=impl)
+    cb2, a2 = jkops.kmeans_batched(jnp.asarray(w), jnp.asarray(cb0), kv_j,
+                                   iters=6, impl=jimpl)
+    np.testing.assert_allclose(_np(cb1), np.asarray(cb2),
+                               atol=KMEANS_CB_ATOL)
+    np.testing.assert_array_equal(_np(a1), np.asarray(a2))
+    if kvalid is not None:
+        for r, kv in enumerate(kvalid):   # padded slots pinned to +inf
+            assert np.isinf(_np(cb1)[r, kv:]).all()
+            assert np.isfinite(_np(cb1)[r, :kv]).all()
+
+
+# ----------------------------------------------------------------------
+# K2: threshold count, and the top-κ bisection driver
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("strict", [True, False])
+@pytest.mark.parametrize("i,p", [(1, 1024), (3, 2500), (2, 4096)])
+def test_k2_plain_matches_jax_kernel(strict, i, p):
+    w = _weights(i + p, i, p, tie_every=7)
+    t = np.abs(w).max(-1) * np.float32(0.3)
+    t[0] = np.float32(0.5)                      # exactly the tied class
+    c1 = k2.count_above_batched(_t(w), _t(t), strict=strict)
+    pad = (-p) % 1024                           # zeros: below every t > 0
+    wp = np.pad(w, ((0, 0), (0, pad)))
+    c2 = j_count(jnp.asarray(wp), jnp.asarray(t), interpret=True,
+                 strict=strict)
+    assert c1.dtype == torch.int32
+    np.testing.assert_array_equal(_np(c1), np.asarray(c2).astype(np.int32))
+
+
+@pytest.mark.parametrize("impl,jimpl", [("kernel", "interpret"),
+                                        ("torch", "jnp")])
+@pytest.mark.parametrize("i,p,kappa,tie_every", [
+    (1, 1000, [37], 0),
+    (3, 2500, [1, 250, 2499], 5),              # ragged P, tied magnitudes
+    (4, 777, [100, 100, 7, 777], 3),           # mixed κ, κ = P
+])
+def test_topk_mask_batched_bit_identical(impl, jimpl, i, p, kappa,
+                                         tie_every):
+    w = _weights(p, i, p, tie_every=tie_every)
+    kap = np.asarray(kappa, np.int32)
+    out = pops.topk_mask_batched(_t(w), _t(kap), impl=impl)
+    ref = jpops.topk_mask_batched(jnp.asarray(w), jnp.asarray(kap),
+                                  impl=jimpl)
+    np.testing.assert_array_equal(_np(out), np.asarray(ref))
+    np.testing.assert_array_equal((_np(out) != 0).sum(-1),
+                                  np.minimum(kap, p))
+
+
+def test_topk_kernel_driver_launch_count_and_no_sync_state():
+    """The driver makes iters + 1 count calls; on CPU tensors they run the
+    plain version and the kernel's launch counter stays put."""
+    calls = []
+    real = pops.count_above_batched
+
+    def spy(w, t, strict=True):
+        calls.append((tuple(w.shape), strict))
+        return real(w, t, strict)
+
+    w = _weights(1, 2, 500)
+    before = k2.KERNEL.launches
+    pops.count_above_batched = spy
+    try:
+        pops.topk_mask_batched(_t(w), torch.tensor([10, 20]), iters=30,
+                               impl="kernel")
+    finally:
+        pops.count_above_batched = real
+    assert len(calls) == 31 and all(not s for _, s in calls)
+    assert k2.KERNEL.launches == before
+
+
+def test_l1_solvers_match_jax():
+    w = _weights(9, 3, 600)
+    radius = np.asarray([5.0, 1e6, 40.0], np.float32)   # row 1 inside
+    alpha = np.asarray([1e-4, 3e-4, 0.0], np.float32)
+    mu = np.float32(1.3e-3)
+    p1 = pops.project_l1_ball_batched(_t(w), _t(radius))
+    p2 = jpops.project_l1_ball_batched(jnp.asarray(w), jnp.asarray(radius))
+    np.testing.assert_allclose(_np(p1), np.asarray(p2), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_array_equal(_np(p1)[1], w[1])
+    s1 = pops.soft_threshold_batched(_t(w), _t(alpha),
+                                     torch.tensor(mu))
+    s2 = jpops.soft_threshold_batched(jnp.asarray(w), jnp.asarray(alpha),
+                                      jnp.float32(mu))
+    np.testing.assert_array_equal(_np(s1), np.asarray(s2))
+
+
+# ----------------------------------------------------------------------
+# wrappers and dispatch rules on CPU tensors
+# ----------------------------------------------------------------------
+def test_wrappers_use_plain_version_only_on_cpu():
+    w, cb = _t(_weights(2, 2, 300)), _t(_codebooks(2, 2, 4))
+    t = torch.tensor([0.5, 1.0])
+    n1, n2 = k1.KERNEL.launches, k2.KERNEL.launches
+    for got, want in zip(k1.kmeans_assign_moments_batched(w, cb),
+                         k1.kmeans_assign_moments_batched_plain(w, cb)):
+        assert torch.equal(got, want)
+    assert torch.equal(k2.count_above_batched(w, t, strict=False),
+                       k2.count_above_batched_plain(w, t, strict=False))
+    assert (k1.KERNEL.launches, k2.KERNEL.launches) == (n1, n2)
+    # no kernel and no plain version for other devices: the wrappers raise
+    with pytest.raises(ValueError):
+        k1.kmeans_assign_moments_batched(w.to("meta"), cb.to("meta"))
+    with pytest.raises(ValueError):
+        k2.count_above_batched(w.to("meta"), t.to("meta"))
+
+
+def test_dispatch_rules():
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    assert dispatch.resolve_backend("auto", cpu) == "torch"
+    assert dispatch.resolve_backend("auto", cuda) == "cuda"
+    assert dispatch.resolve_backend("cuda", cpu) == "cuda"
+    assert dispatch.resolve_backend("torch", cuda) == "torch"
+    assert dispatch.resolve_backend("off", cpu) is None
+    assert dispatch.resolve_backend(None, cpu) is None
+    with pytest.raises(ValueError):
+        dispatch.resolve_backend("pallas", cpu)
+    fn, backend = dispatch.lookup("topk_mask", "cuda", cpu)
+    assert backend == "cuda" and fn.keywords["impl"] == "kernel"
+    assert dispatch.lookup("kmeans_lloyd", "auto", cpu)[1] == "torch"
+    # backend gap: plain-only solvers serve a cuda request
+    assert dispatch.lookup("project_l1_ball", "cuda", cpu)[1] == "torch"
+    assert dispatch.lookup("soft_threshold", "auto", cuda)[1] == "torch"
+    assert dispatch.lookup("lowrank_rsvd", "auto", cpu) == (None, None)
+    assert dispatch.lookup("topk_mask", "off", cpu) == (None, None)
+    assert dispatch.solver_table() == {
+        "kmeans_lloyd": ("cuda", "torch"), "project_l1_ball": ("torch",),
+        "soft_threshold": ("torch",), "topk_mask": ("cuda", "torch")}
+    # the scheme operands bind to the same solver parameters as in JAX
+    for solver in ("kmeans_lloyd", "topk_mask", "project_l1_ball",
+                   "soft_threshold"):
+        ours = dispatch.solver_signature(solver)
+        theirs = jdispatch.solver_signature(solver)
+        n = {"kmeans_lloyd": 3, "topk_mask": 2}.get(solver, len(theirs))
+        assert ours[:n] == theirs[:n], solver
+    assert set(dispatch.registry_entries()) == set(dispatch.solver_table())
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_card():
+    """Build both CUDA kernels and hold them against their plain versions
+    on the card (run on a machine with an NVIDIA GPU and nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    w = torch.randn((3, 50_001), device="cuda", generator=g)
+    cb = torch.sort(torch.randn((3, 16), device="cuda", generator=g),
+                    -1).values
+    cb[1, 5:] = torch.inf
+    got = k1.kmeans_assign_moments_batched(w, cb)
+    want = k1.kmeans_assign_moments_batched_plain(w, cb)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-3)
+    t = w.abs().amax(-1) * 0.3
+    for strict in (True, False):
+        assert torch.equal(k2.count_above_batched(w, t, strict),
+                           k2.count_above_batched_plain(w, t, strict))
