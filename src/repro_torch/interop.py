@@ -52,6 +52,36 @@ def _theta_from_numpy(theta, device):
     return params_from_numpy(theta, device)
 
 
+_FORM_FIELDS = {
+    "QuantizedWeight": ("packed", "codebook"),
+    "LowRankWeight": ("u", "vt"),
+    "SparseWeight": ("values", "rows", "cols"),
+}
+
+
+def serving_params_from_numpy(tree, device):
+    """A serving tree from the JAX package, its arrays turned to numpy
+    (``jax.tree_util.tree_map(np.asarray, tree)``: the weight-form
+    objects keep their class and hold numpy fields) → the same tree with
+    the port's ``QuantizedWeight``/``LowRankWeight``/``SparseWeight`` on
+    ``device``. Forms are matched by class name and field names, so
+    nothing of the JAX package is imported."""
+    from repro_torch.runtime import compressed as cforms
+    if isinstance(tree, dict):
+        return {k: serving_params_from_numpy(v, device)
+                for k, v in tree.items()}
+    name = type(tree).__name__
+    if name in _FORM_FIELDS:
+        arrays = [_to_tensor(getattr(tree, f), device)
+                  for f in _FORM_FIELDS[name]]
+        if name == "QuantizedWeight":
+            return cforms.QuantizedWeight(*arrays, tree.shape, tree.bits)
+        if name == "SparseWeight":
+            return cforms.SparseWeight(*arrays, tree.shape)
+        return cforms.LowRankWeight(*arrays)
+    return _to_tensor(tree, device)
+
+
 def lc_state_from_numpy(state: dict, device) -> dict:
     """An LC state as numpy (``{"tasks": {name: {"theta", "lam", "a"}},
     "mu", "k"}``) → the port's LC state on ``device``."""

@@ -1,0 +1,75 @@
+"""K6: fused flash-attention forward (causal + window, GQA-native), a
+CUDA kernel.
+
+The port of ``src/repro/kernels/flash_attention/flash_attention.py:
+flash_attention`` (Pallas, TPU). The kernel source is
+``../csrc/flash_attention.cu``; its note gives the design and the bound.
+:func:`flash_attention` launches it for a CUDA tensor and runs
+:func:`flash_attention_plain` for a CPU tensor.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_ref as flash_attention_plain)
+
+#: head dims the kernel is instantiated for
+HEAD_DIMS = (8, 16, 32, 64, 96, 128)
+#: query rows per block (all G grouped heads × the positions of a q tile)
+ROWS = 64
+MAX_GRID = 65535
+
+_p = ctypes.c_void_p
+KERNEL = CudaKernel(
+    "flash_attention.cu", "flash_attention_fwd",
+    [_p, _p, _p, _p, ctypes.c_longlong, ctypes.c_longlong,
+     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+     ctypes.c_float, _p])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0) -> torch.Tensor:
+    """q: (B, KV, G, S, D); k, v: (B, KV, S, D) → (B, KV, G, S, D) f32.
+
+    Causal over positions 0..S-1 (+ sliding window when ``window > 0``),
+    scale 1/√D. On a CUDA tensor this launches the kernel on the current
+    stream without synchronising; on a CPU tensor it runs the plain
+    version."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if any(t.dtype != torch.float32 for t in (q, k, v)):
+        raise TypeError("flash_attention kernel needs float32 operands, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.ndim != 5 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"need q (B, KV, G, S, D) and k, v (B, KV, S, D); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, kvh, g, s, d = q.shape
+    if (k.shape[0], k.shape[1], k.shape[2], k.shape[3]) != (b, kvh, s, d):
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes D in {HEAD_DIMS}, "
+                         f"got {d}")
+    if not (1 <= g <= ROWS and 1 <= b <= MAX_GRID and 1 <= kvh <= MAX_GRID
+            and s >= 1):
+        raise ValueError(f"flash_attention kernel takes 1 ≤ G ≤ {ROWS}, "
+                         f"1 ≤ B, KV ≤ {MAX_GRID}, S ≥ 1; got B={b}, "
+                         f"KV={kvh}, G={g}, S={s}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must be on the same device")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention kernel needs contiguous operands")
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               b, kvh, g, s, d, int(window), 1.0 / math.sqrt(d),
+               torch.cuda.current_stream(q.device).cuda_stream)
+    return out

@@ -1,0 +1,26 @@
+"""Plain PyTorch version of the flash-attention kernel (causal + window):
+the oracle for K6 and what its wrapper runs on CPU tensors."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        window: int = 0) -> torch.Tensor:
+    """q: (B, KV, G, Sq, D); k, v: (B, KV, Sk, D) → (B, KV, G, Sq, D) f32.
+
+    Causal over absolute positions (Sq == Sk); with ``window > 0`` a
+    query at position i sees keys i - window < j ≤ i."""
+    sq, sk = q.shape[3], k.shape[2]
+    d = q.shape[-1]
+    s = torch.einsum("bkgqd,bkcd->bkgqc", q.float(), k.float()) / math.sqrt(d)
+    qpos = torch.arange(sq, device=q.device)
+    kpos = torch.arange(sk, device=q.device)
+    mask = kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgqc,bkcd->bkgqd", p, v.float())

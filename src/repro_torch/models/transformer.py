@@ -1,0 +1,335 @@
+"""Decoder stack: pattern-repeated blocks + embeddings + head.
+
+Port of ``src/repro/models/transformer.py`` for ``attn`` mixers and
+``dense``/``none`` FFNs. A model = embedding → [stages] → final norm →
+unembed. A stage is either ``reps`` repetitions of a layer pattern (one
+set of block params per pattern position, stacked over reps; the
+reference's ``lax.scan`` becomes a Python loop over the stacked reps,
+without remat since serving takes no gradient) or an unrolled run of
+layers. Blocks are pre-norm residual: mixer then FFN.
+
+The MLA, Mamba and xLSTM mixers and the MoE FFN raise
+``NotImplementedError`` naming their ROADMAP item; nothing falls back.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.interop import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    cdtype, dense_ffn, embed, init_dense_ffn, init_embed, rms_norm, unembed)
+
+
+def _not_ported(what: str, item: str):
+    def fail(*args, **kwargs):
+        raise NotImplementedError(
+            f"{what} is not ported yet (ROADMAP item {item})")
+    return fail
+
+
+# mixer registry: init, forward, decode, cache-init
+MIXERS = {
+    "attn": (attn.init_attn, attn.attn_forward, attn.attn_decode,
+             attn.init_attn_cache),
+    **{name: (_not_ported(f"the {name} mixer", "10"),) * 4
+       for name in ("mla", "mamba", "mlstm", "slstm")},
+}
+_moe_ffn = _not_ported("the moe FFN", "10")
+
+
+# ----------------------------------------------------------------------
+# Stage planning
+# ----------------------------------------------------------------------
+def plan_stages(cfg) -> list[dict]:
+    stages = []
+    if cfg.lead:
+        stages.append({"kind": "unroll", "specs": list(cfg.lead), "reps": 1})
+    if cfg.pattern_reps > 1:
+        stages.append({"kind": "scan", "specs": list(cfg.pattern),
+                       "reps": cfg.pattern_reps})
+    elif cfg.pattern_reps == 1:
+        stages.append({"kind": "unroll", "specs": list(cfg.pattern),
+                       "reps": 1})
+    if cfg.tail:
+        stages.append({"kind": "unroll", "specs": list(cfg.tail), "reps": 1})
+    return stages
+
+
+# ----------------------------------------------------------------------
+# Init
+# ----------------------------------------------------------------------
+def init_block(gen: torch.Generator, spec, cfg) -> dict:
+    p = {
+        "mixer_norm": torch.zeros((cfg.d_model,), device=gen.device),
+        "mixer": MIXERS[spec.mixer][0](gen, cfg),
+    }
+    if spec.ffn == "dense":
+        p["ffn_norm"] = torch.zeros((cfg.d_model,), device=gen.device)
+        p["ffn"] = init_dense_ffn(gen, cfg.d_model, cfg.d_ff)
+    elif spec.ffn == "moe":
+        _moe_ffn()
+    return p
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_params(gen: torch.Generator, cfg) -> dict:
+    """Random params on the generator's device (float32 masters)."""
+    params = {"embed": init_embed(gen, cfg),
+              "final_norm": torch.zeros((cfg.d_model,), device=gen.device)}
+    st_params = {}
+    for si, st in enumerate(plan_stages(cfg)):
+        sp = {}
+        for pi, spec in enumerate(st["specs"]):
+            if st["kind"] == "scan":
+                sp[f"pos{pi}"] = _stack([init_block(gen, spec, cfg)
+                                         for _ in range(st["reps"])])
+            else:
+                sp[f"pos{pi}"] = init_block(gen, spec, cfg)
+        st_params[f"s{si}"] = sp
+    params["stages"] = st_params
+    return params
+
+
+def _rep(tree, i: int):
+    """One repetition's params out of a stage's stacked params."""
+    if isinstance(tree, dict):
+        return {k: _rep(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ----------------------------------------------------------------------
+# Forward (prefill)
+# ----------------------------------------------------------------------
+def _apply_ffn(spec, bp, x, cfg):
+    if spec.ffn == "dense":
+        h = rms_norm(x, bp["ffn_norm"], cfg.norm_eps)
+        return x + dense_ffn(bp["ffn"], h, cfg)
+    if spec.ffn == "moe":
+        _moe_ffn()
+    return x
+
+
+def _apply_block_full(spec, bp, x, cfg, positions, want_cache=False):
+    h = rms_norm(x, bp["mixer_norm"], cfg.norm_eps)
+    cache = None
+    if want_cache:
+        h, cache = MIXERS[spec.mixer][1](bp["mixer"], h, cfg, spec,
+                                         positions, return_cache=True)
+    else:
+        h = MIXERS[spec.mixer][1](bp["mixer"], h, cfg, spec, positions)
+    return _apply_ffn(spec, bp, x + h, cfg), cache
+
+
+def forward_hidden(params, inputs, cfg, return_caches: bool = False):
+    """inputs: (B, S) int tokens or (B, S, d_input) embeddings.
+
+    Returns (hidden (B, S, d_model), aux_loss 0-d tensor) — and, with
+    ``return_caches=True`` (prefill), a decode-ready cache tree whose
+    layout matches ``init_cache`` (seq-sized; the server pads to
+    max_len). The aux loss is the MoE router loss, 0 for the ported
+    FFNs."""
+    x = embed(params["embed"], inputs, cfg)
+    s = x.shape[1]
+    positions = torch.arange(s, dtype=torch.int64, device=x.device)
+    caches = {}
+    for si, st in enumerate(plan_stages(cfg)):
+        sp = params["stages"][f"s{si}"]
+        stage_cache = {}
+        reps = st["reps"] if st["kind"] == "scan" else 1
+        per_rep = []
+        for r in range(reps):
+            rp = _rep(sp, r) if st["kind"] == "scan" else sp
+            cc = {}
+            for pi, spec in enumerate(st["specs"]):
+                x, cc[f"pos{pi}"] = _apply_block_full(
+                    spec, rp[f"pos{pi}"], x, cfg, positions,
+                    want_cache=return_caches)
+            per_rep.append(cc)
+        if return_caches:
+            stage_cache = (_stack(per_rep) if st["kind"] == "scan"
+                           else per_rep[0])
+            caches[f"s{si}"] = stage_cache
+    hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_caches:
+        return hidden, aux, caches
+    return hidden, aux
+
+
+# ----------------------------------------------------------------------
+# Decode
+# ----------------------------------------------------------------------
+def init_cache(cfg, batch: int, max_len: int, dtype=None,
+               device=None) -> dict:
+    """Zero caches for ``batch`` sequences of up to ``max_len`` tokens on
+    ``device`` (``None`` means the card)."""
+    dtype = dtype or cdtype(cfg)
+    device = resolve_device(device)
+    cache = {}
+    for si, st in enumerate(plan_stages(cfg)):
+        sc = {}
+        for pi, spec in enumerate(st["specs"]):
+            c1 = MIXERS[spec.mixer][3](cfg, spec, batch, max_len, dtype,
+                                       device)
+            if st["kind"] == "scan":
+                c1 = {k: torch.zeros((st["reps"],) + tuple(a.shape),
+                                     dtype=a.dtype, device=device)
+                      for k, a in c1.items()}
+            sc[f"pos{pi}"] = c1
+        cache[f"s{si}"] = sc
+    return cache
+
+
+def cache_axes(cfg) -> dict:
+    """Logical axes for cache leaves: where the batch (slot) axis is."""
+    names = {
+        "attn": {"k": ("batch", "kv_seq", "kv_heads", None),
+                 "v": ("batch", "kv_seq", "kv_heads", None)},
+        "mla": {"ckv": ("batch", "kv_seq", None),
+                "k_rope": ("batch", "kv_seq", None)},
+        "mamba": {"conv": ("batch", None, "inner"),
+                  "ssm": ("batch", "inner", "state")},
+        "mlstm": {"conv": ("batch", None, "inner"),
+                  "C": ("batch", "heads", None, None),
+                  "n": ("batch", "heads", None),
+                  "m": ("batch", "heads")},
+        "slstm": {"c": ("batch", "inner"), "n": ("batch", "inner"),
+                  "h": ("batch", "inner"), "m": ("batch", "inner")},
+    }
+    axes = {}
+    for si, st in enumerate(plan_stages(cfg)):
+        sc = {}
+        for pi, spec in enumerate(st["specs"]):
+            ax = names[spec.mixer]
+            if st["kind"] == "scan":
+                ax = {k: ("layers", *t) for k, t in ax.items()}
+            sc[f"pos{pi}"] = ax
+        axes[f"s{si}"] = sc
+    return axes
+
+
+def _apply_block_decode(spec, bp, x, cache, pos, cfg, layer_idx=None,
+                        active=None):
+    h = rms_norm(x, bp["mixer_norm"], cfg.norm_eps)
+    h, new_cache = MIXERS[spec.mixer][2](bp["mixer"], h, cache, pos, cfg,
+                                         spec, layer_idx=layer_idx,
+                                         active=active)
+    return _apply_ffn(spec, bp, x + h, cfg), new_cache
+
+
+def decode_step(params, cache, inputs, pos, cfg, active=None):
+    """One token for every sequence in the batch.
+
+    inputs: (B, 1) tokens or (B, 1, d_input); pos: an int or a (B,)
+    tensor of per-slot positions. The cache is updated in place (rows of
+    slots outside ``active``, a (B,) bool mask, are left as they were).
+    Returns (logits (B, 1, vocab), cache)."""
+    x = embed(params["embed"], inputs, cfg)
+    for si, st in enumerate(plan_stages(cfg)):
+        sp = params["stages"][f"s{si}"]
+        sc = cache[f"s{si}"]
+        if st["kind"] == "scan":
+            for li in range(st["reps"]):
+                rp = _rep(sp, li)
+                for pi, spec in enumerate(st["specs"]):
+                    x, sc[f"pos{pi}"] = _apply_block_decode(
+                        spec, rp[f"pos{pi}"], x, sc[f"pos{pi}"], pos, cfg,
+                        layer_idx=li, active=active)
+        else:
+            for pi, spec in enumerate(st["specs"]):
+                x, sc[f"pos{pi}"] = _apply_block_decode(
+                    spec, sp[f"pos{pi}"], x, sc[f"pos{pi}"], pos, cfg,
+                    active=active)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(params["embed"], x, cfg), cache
+
+
+def prefill(params, inputs, cfg, max_len: int | None = None):
+    """The full-sequence path → last-token logits."""
+    hidden, _ = forward_hidden(params, inputs, cfg)
+    return unembed(params["embed"], hidden[:, -1:], cfg)
+
+
+# ----------------------------------------------------------------------
+# Analytic parameter counts
+# ----------------------------------------------------------------------
+def _mamba_dims(cfg):
+    m = cfg.mamba
+    d_inner = m.expand * cfg.d_model
+    dt_rank = m.dt_rank or int(math.ceil(cfg.d_model / 16))
+    return d_inner, dt_rank
+
+
+def _mlstm_dims(cfg):
+    di = int(cfg.xlstm.proj_factor_m * cfg.d_model)
+    return di, di // cfg.n_heads
+
+
+def _slstm_dims(cfg):
+    di = cfg.d_model                      # no up-projection in the core
+    ff = int(cfg.xlstm.proj_factor_s * cfg.d_model)
+    ff = (ff + 63) // 64 * 64
+    return di, di // cfg.n_heads, ff
+
+
+def count_params(cfg, active_only: bool = False) -> int:
+    d, ff, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    total = v * d if cfg.input_mode == "tokens" else cfg.d_input * d
+    if not cfg.tie_embeddings or cfg.input_mode != "tokens":
+        total += d * v
+
+    def mixer_count(spec):
+        if spec.mixer == "attn":
+            return d * cfg.q_dim * 2 + d * cfg.kv_dim * 2
+        if spec.mixer == "mla":
+            m = cfg.mla
+            qk = m.qk_nope_dim + m.qk_rope_dim
+            return (d * m.q_lora_rank
+                    + m.q_lora_rank * cfg.n_heads * qk
+                    + d * (m.kv_lora_rank + m.qk_rope_dim)
+                    + m.kv_lora_rank * cfg.n_heads
+                    * (m.qk_nope_dim + m.v_head_dim)
+                    + cfg.n_heads * m.v_head_dim * d)
+        if spec.mixer == "mamba":
+            di, dtr = _mamba_dims(cfg)
+            ds = cfg.mamba.d_state
+            return (d * 2 * di + cfg.mamba.d_conv * di
+                    + di * (dtr + 2 * ds) + dtr * di + di * ds
+                    + 3 * di + di * d)  # conv_b, dt_bias, D
+        if spec.mixer == "mlstm":
+            di, _ = _mlstm_dims(cfg)
+            return (d * 2 * di + cfg.xlstm.conv_kernel * di + 3 * di * di
+                    + 2 * di * cfg.n_heads + 2 * cfg.n_heads  # bi, bf
+                    + 2 * di + di * d)
+        if spec.mixer == "slstm":
+            di, dh, ffs = _slstm_dims(cfg)
+            return (d * 4 * di + 4 * cfg.n_heads * dh * dh + 4 * di
+                    + di  # out_norm
+                    + di * 2 * ffs + ffs * d)
+        raise ValueError(spec.mixer)
+
+    def ffn_count(spec):
+        if spec.ffn == "dense":
+            return 3 * d * ff
+        if spec.ffn == "moe":
+            m = cfg.moe
+            routed = m.n_experts * 3 * d * m.d_expert
+            if active_only:
+                routed = m.top_k * 3 * d * m.d_expert
+            shared = m.n_shared * 3 * d * m.d_expert
+            return d * m.n_experts + routed + shared
+        return 0
+
+    for spec in cfg.all_layer_specs():
+        norms = d if spec.ffn == "none" else 2 * d
+        total += mixer_count(spec) + ffn_count(spec) + norms
+    total += d  # final norm
+    return int(total)

@@ -1,0 +1,15 @@
+"""Serving runtime: compressed weight forms, the batch server, the
+continuous-batching engine and the LC-state bridge (port of
+``src/repro/runtime``; the trainer comes with a later slice)."""
+from repro_torch.runtime.compressed import (
+    LowRankWeight, QuantizedWeight, SparseWeight, tree_weight_bytes,
+    weight_form_bytes)
+from repro_torch.runtime.server import (
+    FinishedRequest, Request, Server, ServingEngine, densified_for_serving,
+    load_compressed_for_serving)
+
+__all__ = [
+    "LowRankWeight", "QuantizedWeight", "SparseWeight", "tree_weight_bytes",
+    "weight_form_bytes", "FinishedRequest", "Request", "Server",
+    "ServingEngine", "densified_for_serving", "load_compressed_for_serving",
+]

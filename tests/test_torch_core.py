@@ -63,14 +63,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 @pytest.mark.parametrize("entry", ["LCAlgorithm", "reference_problem",
                                    "run_lc", "direct_compress",
-                                   "quickstart", "gaussian_blobs"])
+                                   "quickstart", "gaussian_blobs", "Server",
+                                   "ServingEngine", "launch.serve.main"])
 def test_entry_points_default_to_the_card(entry):
     """Called without ``device``, every entry point asks for CUDA and
     raises with a clear message when there is none."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
     from repro_torch import quickstart, showcase
+    from repro_torch.configs import get_config, reduced_config
     from repro_torch.data import gaussian_blobs
+    from repro_torch.launch import serve
+    from repro_torch.runtime import Server, ServingEngine
     params = {"l0": {"w": torch.zeros(4, 3), "b": torch.zeros(3)}}
     prob = showcase.Problem(params, torch.zeros(300, 4),
                             torch.zeros(300, dtype=torch.int64),
@@ -78,6 +82,7 @@ def test_entry_points_default_to_the_card(entry):
                             torch.zeros(8, dtype=torch.int64), 0.0, 0.0)
     tasks = [CompressionTask("q", "w$", AsVector(),
                              ts.AdaptiveQuantization(k=2, iters=1))]
+    lm = reduced_config(get_config("phi3-mini-3.8b"))
     calls = {
         "LCAlgorithm": lambda: LCAlgorithm(tasks, [1e-3]),
         "reference_problem": lambda: showcase.reference_problem(steps=1),
@@ -86,6 +91,9 @@ def test_entry_points_default_to_the_card(entry):
         "direct_compress": lambda: showcase.direct_compress(prob, tasks),
         "quickstart": lambda: quickstart.main(),
         "gaussian_blobs": lambda: gaussian_blobs(8, d=4),
+        "Server": lambda: Server(lm, {}),
+        "ServingEngine": lambda: ServingEngine(lm, {}),
+        "launch.serve.main": lambda: serve.main(["--reduced"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -1,0 +1,108 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs an NVIDIA GPU and nvcc and skips elsewhere. The
+file imports only torch and the port, so it runs on a machine without
+JAX (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
+
+    python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+``chip_smoke.py`` runs the same checks at the main paths' shapes.
+Tolerances: assignments and counts equal; K1 sums rtol 1e-5 / atol 1e-3;
+K4/K5 rtol 1e-5 / atol 1e-4; K6 rtol 2e-4 / atol 2e-4 (the reference's
+own, ``tests/test_kernels.py``).
+"""
+import math
+
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention as k6
+from repro_torch.kernels.kmeans import kmeans as k1
+from repro_torch.kernels.prune import prune as k2
+from repro_torch.kernels.quant_matmul import ops as qops
+from repro_torch.kernels.quant_matmul import quant_matmul as k45
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_card(gen):
+    """K1 and K2 against their plain versions."""
+    w = torch.randn((3, 50_001), device="cuda", generator=gen)
+    cb = torch.sort(torch.randn((3, 16), device="cuda", generator=gen),
+                    -1).values
+    cb[1, 5:] = torch.inf
+    got = k1.kmeans_assign_moments_batched(w, cb)
+    want = k1.kmeans_assign_moments_batched_plain(w, cb)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-3)
+    t = w.abs().amax(-1) * 0.3
+    for strict in (True, False):
+        assert torch.equal(k2.count_above_batched(w, t, strict),
+                           k2.count_above_batched_plain(w, t, strict))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,c", [
+    (2, 300, 129, 16), (8, 3072, 256, 16), (17, 64, 33, 8),
+    (130, 96, 200, 4), (5, 33, 24, 16),
+])
+def test_quant_matmul_kernels_match_plain_on_card(gen, m, k, n, c):
+    """K5 (uint8, here also with C = 64) and K4 (4-bit packed, odd K with
+    the zero column)."""
+    x = torch.randn((m, k), device="cuda", generator=gen)
+    for cc in (c, 64):
+        idx = torch.randint(0, cc, (k, n), device="cuda", generator=gen,
+                            dtype=torch.uint8)
+        cb = torch.sort(torch.randn(cc, device="cuda",
+                                    generator=gen)).values / math.sqrt(k)
+        torch.testing.assert_close(k45.quant_matmul(x, idx, cb),
+                                   k45.quant_matmul_plain(x, idx, cb),
+                                   rtol=1e-5, atol=1e-4)
+    idx = torch.randint(0, c, (k, n), device="cuda", generator=gen,
+                        dtype=torch.uint8)
+    cb = torch.sort(torch.randn(c, device="cuda", generator=gen)).values
+    packed = qops.pack4(idx)
+    xp = torch.cat([x, x.new_zeros((m, 1))], 1) if k % 2 else x
+    torch.testing.assert_close(k45.quant_matmul_packed(xp, packed, cb),
+                               k45.quant_matmul_packed_plain(xp, packed, cb),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,kvh,g,d,window", [
+    (2, 97, 3, 2, 16, 7), (1, 130, 2, 4, 96, 0), (1, 64, 1, 1, 8, 0),
+    (1, 200, 2, 3, 32, 50), (1, 65, 1, 2, 128, 0), (2, 128, 2, 1, 64, 0),
+])
+def test_flash_attention_kernel_matches_plain_on_card(gen, b, s, kvh, g, d,
+                                                      window):
+    q = torch.randn((b, kvh, g, s, d), device="cuda", generator=gen)
+    k = torch.randn((b, kvh, s, d), device="cuda", generator=gen)
+    v = torch.randn((b, kvh, s, d), device="cuda", generator=gen)
+    torch.testing.assert_close(k6.flash_attention(q, k, v, window=window),
+                               k6.flash_attention_plain(q, k, v,
+                                                        window=window),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_kernel_reruns_are_bit_identical(gen):
+    """No atomics in K4/K5/K6: a rerun gives the same bits."""
+    x = torch.randn((1024, 512), device="cuda", generator=gen)
+    idx = torch.randint(0, 16, (512, 300), device="cuda", generator=gen,
+                        dtype=torch.uint8)
+    cb = torch.randn(16, device="cuda", generator=gen)
+    packed = qops.pack4(idx)
+    assert torch.equal(k45.quant_matmul(x, idx, cb),
+                       k45.quant_matmul(x, idx, cb))
+    assert torch.equal(k45.quant_matmul_packed(x, packed, cb),
+                       k45.quant_matmul_packed(x, packed, cb))
+    q = torch.randn((1, 2, 2, 100, 64), device="cuda", generator=gen)
+    kv = torch.randn((1, 2, 100, 64), device="cuda", generator=gen)
+    assert torch.equal(k6.flash_attention(q, kv, kv),
+                       k6.flash_attention(q, kv, kv))

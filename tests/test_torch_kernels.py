@@ -3,7 +3,7 @@
 The JAX side runs its Pallas kernels in interpret mode, as its own tests
 do; the port's wrappers run each kernel's plain PyTorch version on CPU
 tensors (the CUDA kernels themselves are held against the same plain
-versions on the card by ``chip_smoke.py`` and the ``cuda`` test below).
+versions on the card by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``).
 Inputs come from numpy with a fixed seed and go to both packages.
 
 Tolerances (ROADMAP queue 3):
@@ -243,24 +243,3 @@ def test_dispatch_rules():
         n = {"kmeans_lloyd": 3, "topk_mask": 2}.get(solver, len(theirs))
         assert ours[:n] == theirs[:n], solver
     assert set(dispatch.registry_entries()) == set(dispatch.solver_table())
-
-
-@pytest.mark.cuda
-def test_kernels_match_plain_versions_on_card():
-    """Build both CUDA kernels and hold them against their plain versions
-    on the card (run on a machine with an NVIDIA GPU and nvcc)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    g = torch.Generator(device="cuda").manual_seed(0)
-    w = torch.randn((3, 50_001), device="cuda", generator=g)
-    cb = torch.sort(torch.randn((3, 16), device="cuda", generator=g),
-                    -1).values
-    cb[1, 5:] = torch.inf
-    got = k1.kmeans_assign_moments_batched(w, cb)
-    want = k1.kmeans_assign_moments_batched_plain(w, cb)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
-    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-3)
-    t = w.abs().amax(-1) * 0.3
-    for strict in (True, False):
-        assert torch.equal(k2.count_above_batched(w, t, strict),
-                           k2.count_above_batched_plain(w, t, strict))

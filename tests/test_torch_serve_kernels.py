@@ -1,0 +1,235 @@
+"""The port's serving kernels (K4, K5, K6), their ``ops`` wrappers and the
+packing helpers against the JAX package.
+
+The JAX side runs its Pallas kernels in interpret mode and its plain
+references, as its own tests do; the port's wrappers run each kernel's
+plain PyTorch version on CPU tensors (the CUDA kernels are held against
+the same plain versions on the card by ``chip_smoke.py`` and
+``tests/test_torch_cuda.py``). Inputs come from numpy with a fixed seed.
+
+Tolerances, those of ``tests/test_kernels.py``: the codebook GEMMs rtol
+1e-5 / atol 1e-4; flash attention rtol 2e-4 / atol 2e-4; packing,
+unpacking, index choice and COO densification bit-identical.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as jfops
+from repro.kernels.flash_attention import ref as jfref
+from repro.kernels.flash_attention.flash_attention import (
+    flash_attention as j_flash)
+from repro.kernels.lowrank import serve as jlowrank
+from repro.kernels.prune import serve as jprune
+from repro.kernels.quant_matmul import ops as jqops
+from repro.kernels.quant_matmul import ref as jqref
+from repro_torch.kernels.flash_attention import flash_attention as k6
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.lowrank import serve as lowrank
+from repro_torch.kernels.prune import serve as prune
+from repro_torch.kernels.quant_matmul import ops as qops
+from repro_torch.kernels.quant_matmul import quant_matmul as k45
+
+GEMM = dict(rtol=1e-5, atol=1e-4)
+ATTN = dict(rtol=2e-4, atol=2e-4)
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def _gemm_inputs(seed, m, k, n, c):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    idx = rng.integers(0, c, (k, n)).astype(np.uint8)
+    cb = np.sort(rng.standard_normal(c).astype(np.float32))
+    return x, idx, cb
+
+
+# ----------------------------------------------------------------------
+# K5: uint8-index GEMM
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("m,k,n,c", [
+    (8, 256, 128, 4), (64, 512, 256, 16), (17, 300, 129, 8),
+    (1, 1024, 512, 2), (128, 128, 128, 16),
+])
+def test_k5_matches_jax_kernel(m, k, n, c):
+    x, idx, cb = _gemm_inputs(m * n + k, m, k, n, c)
+    want = np.asarray(jqops.matmul(jnp.asarray(x), jnp.asarray(idx),
+                                   jnp.asarray(cb), use_pallas=True))
+    np.testing.assert_allclose(
+        _np(k45.quant_matmul(_t(x), _t(idx), _t(cb))), want, **GEMM)
+    np.testing.assert_allclose(_np(qops.matmul(_t(x), _t(idx), _t(cb))),
+                               want, **GEMM)
+    np.testing.assert_allclose(
+        want, np.asarray(jqref.quant_matmul_ref(x, idx, cb)), **GEMM)
+
+
+@pytest.mark.parametrize("c", [64, 256])
+def test_k5_takes_codebooks_past_16(c):
+    """The Pallas K5 asserts C ≤ 16 (compare-select); the port's K5 reads
+    the codebook through a lookup table and takes C ≤ 256."""
+    x, idx, cb = _gemm_inputs(c, 9, 200, 70, c)
+    np.testing.assert_allclose(
+        _np(qops.matmul(_t(x), _t(idx), _t(cb))),
+        np.asarray(jqref.quant_matmul_ref(jnp.asarray(x), jnp.asarray(idx),
+                                          jnp.asarray(cb))), **GEMM)
+
+
+# ----------------------------------------------------------------------
+# K4: 4-bit packed GEMM
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("m,k,n,c", [
+    (5, 32, 24, 16), (5, 33, 24, 16), (17, 300, 129, 4), (2, 257, 64, 16),
+    (64, 512, 256, 16),
+])
+def test_k4_matches_jax_kernel(m, k, n, c):
+    x, idx, cb = _gemm_inputs(m + k + n, m, k, n, c)
+    if k % 2:            # the odd-K zero column meets the pad row
+        x = np.concatenate([x, np.zeros((m, 1), np.float32)], axis=1)
+    packed = np.asarray(jqops.pack4(jnp.asarray(idx)))
+    want = np.asarray(jqops.matmul_packed(
+        jnp.asarray(x), jnp.asarray(packed), jnp.asarray(cb),
+        use_pallas=True))
+    np.testing.assert_allclose(
+        _np(k45.quant_matmul_packed(_t(x), _t(packed), _t(cb))), want,
+        **GEMM)
+    np.testing.assert_allclose(
+        _np(qops.matmul_packed(_t(x), _t(packed), _t(cb))), want, **GEMM)
+    gold = x[:, :k] @ cb[idx.astype(np.int64)]
+    np.testing.assert_allclose(want, gold, **GEMM)
+
+
+def test_matmul_packed_checks_x_width():
+    with pytest.raises(ValueError, match="columns"):
+        qops.matmul_packed(torch.zeros(2, 5), torch.zeros((3, 4),
+                                                          dtype=torch.uint8),
+                           torch.zeros(4))
+
+
+@pytest.mark.parametrize("k", [16, 17])
+def test_pack4_unpack4_bit_identical(k):
+    idx = np.random.default_rng(k).integers(0, 16, (k, 24)).astype(np.uint8)
+    ours = qops.pack4(_t(idx))
+    theirs = np.asarray(jqops.pack4(jnp.asarray(idx)))
+    assert ours.dtype == torch.uint8 and ours.shape == ((k + 1) // 2, 24)
+    np.testing.assert_array_equal(_np(ours), theirs)
+    np.testing.assert_array_equal(_np(qops.unpack4(ours)),
+                                  np.asarray(jqops.unpack4(theirs)))
+    np.testing.assert_array_equal(_np(qops.unpack4(ours))[:k], idx)
+
+
+@pytest.mark.parametrize("k", [16, 17])
+def test_pack_quantized_bit_identical(k):
+    rng = np.random.default_rng(k)
+    cb = np.sort(rng.standard_normal(k).astype(np.float32))
+    w = rng.standard_normal((40, 33)).astype(np.float32)
+    w[0, :k - 1] = (cb[1:] + cb[:-1]) * np.float32(0.5)   # midpoint ties
+    ours = qops.pack_quantized(_t(w), _t(cb))
+    assert ours.dtype == torch.uint8
+    np.testing.assert_array_equal(
+        _np(ours), np.asarray(jqops.pack_quantized(jnp.asarray(w),
+                                                   jnp.asarray(cb))))
+
+
+# ----------------------------------------------------------------------
+# K6: flash attention
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("b,s,h,kvh,d,w,qc,kc", [
+    (2, 64, 4, 2, 16, 0, 16, 16),
+    (1, 128, 8, 8, 32, 24, 32, 16),
+    (2, 96, 6, 3, 16, 7, 32, 32),
+    (1, 32, 2, 1, 8, 0, 8, 8),
+    (1, 64, 4, 2, 96, 0, 32, 32),        # phi3-mini's head_dim
+])
+def test_k6_matches_jax_kernel(b, s, h, kvh, d, w, qc, kc):
+    rng = np.random.default_rng(s + h + d)
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, kvh, d)).astype(np.float32)
+    want = np.asarray(jfops.attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), window=w, q_chunk=qc,
+                                      kv_chunk=kc, use_pallas=True))
+    np.testing.assert_allclose(
+        _np(fops.attention(_t(q), _t(k), _t(v), window=w)), want, **ATTN)
+
+
+@pytest.mark.parametrize("window", [0, 24])
+def test_k6_kernel_layout_matches_jax_kernel(window):
+    """The wrapper in the kernel's own (B, KV, G, S, D) layout against the
+    Pallas kernel (interpret mode) and its jnp oracle."""
+    rng = np.random.default_rng(77)
+    q = rng.standard_normal((2, 2, 3, 64, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 2, 64, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 2, 64, 16)).astype(np.float32)
+    want = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              window=window, q_chunk=16, kv_chunk=16,
+                              interpret=True))
+    ours = k6.flash_attention(_t(q), _t(k), _t(v), window=window)
+    assert ours.dtype == torch.float32 and ours.shape == q.shape
+    np.testing.assert_allclose(_np(ours), want, **ATTN)
+    np.testing.assert_allclose(
+        _np(ours), np.asarray(jfref.flash_attention_ref(q, k, v,
+                                                        window=window)),
+        **ATTN)
+
+
+# ----------------------------------------------------------------------
+# the plain-torch serving ops (no kernel of their own)
+# ----------------------------------------------------------------------
+def test_sparse_and_lowrank_serve_match_jax():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 3, 16)).astype(np.float32)
+    w = rng.standard_normal((16, 12)).astype(np.float32)
+    w[np.abs(w) < 0.8] = 0.0
+    rows, cols = np.nonzero(w)
+    vals = w[rows, cols]
+    r32, c32 = rows.astype(np.int32), cols.astype(np.int32)
+    ours = prune.sparse_matmul(_t(x), _t(vals), _t(r32), _t(c32), 12)
+    theirs = jprune.sparse_matmul(jnp.asarray(x), jnp.asarray(vals),
+                                  jnp.asarray(r32), jnp.asarray(c32), 12)
+    np.testing.assert_allclose(_np(ours), np.asarray(theirs), **GEMM)
+    np.testing.assert_array_equal(
+        _np(prune.densify(_t(vals), _t(r32), _t(c32), w.shape)), w)
+    u = rng.standard_normal((16, 4)).astype(np.float32)
+    vt = rng.standard_normal((4, 12)).astype(np.float32)
+    np.testing.assert_allclose(
+        _np(lowrank.lowrank_matmul(_t(x), _t(u), _t(vt))),
+        np.asarray(jlowrank.lowrank_matmul(jnp.asarray(x), jnp.asarray(u),
+                                           jnp.asarray(vt))), **GEMM)
+    np.testing.assert_allclose(
+        _np(lowrank.materialize_lowrank(_t(u), _t(vt))), u @ vt, **GEMM)
+
+
+# ----------------------------------------------------------------------
+# wrapper rules
+# ----------------------------------------------------------------------
+def test_cpu_calls_run_the_plain_versions_and_count_no_launch():
+    before = (k45.KERNEL_U8.launches, k45.KERNEL_PACKED4.launches,
+              k6.KERNEL.launches)
+    x, idx, cb = _gemm_inputs(0, 3, 8, 5, 4)
+    k45.quant_matmul(_t(x), _t(idx), _t(cb))
+    k45.quant_matmul_packed(_t(x), qops.pack4(_t(idx)), _t(cb))
+    q = torch.zeros(1, 1, 1, 4, 8)
+    k6.flash_attention(q, q[:, :, 0], q[:, :, 0])
+    assert (k45.KERNEL_U8.launches, k45.KERNEL_PACKED4.launches,
+            k6.KERNEL.launches) == before
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    x = torch.zeros(2, 8, device="meta")
+    idx = torch.zeros((8, 4), dtype=torch.uint8, device="meta")
+    cb = torch.zeros(4, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        k45.quant_matmul(x, idx, cb)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        k45.quant_matmul_packed(x, idx[:4], cb)
+    q = torch.zeros(1, 1, 1, 4, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        k6.flash_attention(q, q[:, :, 0], q[:, :, 0])
