@@ -128,12 +128,6 @@ def timed_turns(fns, reps: int) -> list[float]:
     return [statistics.median(t) for t in times]
 
 
-def timed_pair(fn_a, fn_b, reps: int) -> tuple[float, float]:
-    """Median ms of two callables, taken in turns (a, b, b, a, …)."""
-    ms_a, ms_b = timed_turns((fn_a, fn_b), reps)
-    return ms_a, ms_b
-
-
 def kernel_phase(k1, k2, power: str) -> dict:
     """K1 and K2 against their plain versions at the main path's shapes;
     ``power`` (the card's power limit) is printed beside every time."""
@@ -160,9 +154,9 @@ def kernel_phase(k1, k2, power: str) -> dict:
         rel = float(((got[1] - want[1]).abs()
                      / want[1].abs().clamp_min(1.0)).max())
         reps = 5 if i * p > 10_000_000 else 20
-        ms, plain_ms = timed_pair(
-            lambda: k1.kmeans_assign_moments_batched(w, cb),
-            lambda: k1.kmeans_assign_moments_batched_plain(w, cb), reps)
+        ms, plain_ms = timed_turns(
+            (lambda: k1.kmeans_assign_moments_batched(w, cb),
+             lambda: k1.kmeans_assign_moments_batched_plain(w, cb)), reps)
         b_ms, b_by = bound(8.0 * i * p + 12.0 * i * k,
                            3.0 * i * p * k + 2.0 * i * p)
         row = {"shape": [i, p, k], "ms": ms, "plain_ms": plain_ms,
@@ -185,9 +179,9 @@ def kernel_phase(k1, k2, power: str) -> dict:
             torch.cuda.synchronize()
             check(torch.equal(n, k2.count_above_batched_plain(w, t, strict)),
                   f"K2 counts {i}x{p} strict={strict}")
-        ms, plain_ms = timed_pair(
-            lambda: k2.count_above_batched(w, t, False),
-            lambda: k2.count_above_batched_plain(w, t, False),
+        ms, plain_ms = timed_turns(
+            (lambda: k2.count_above_batched(w, t, False),
+             lambda: k2.count_above_batched_plain(w, t, False)),
             5 if i * p > 10_000_000 else 20)
         b_ms, b_by = bound(4.0 * i * p + 8.0 * i, 2.0 * i * p)
         rec["K2"]["rows"].append(

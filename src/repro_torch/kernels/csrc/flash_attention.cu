@@ -226,14 +226,12 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    long long b, long long kvh, long long g, long long s,
                    int window, float scale, cudaStream_t stream) {
   constexpr size_t bytes = sizeof(float) * smem_floats<D>();
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  // The attribute is per device, so set it on every launch (it is cheap):
+  // a once-per-process flag would miss a second card.
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
   const int bq = kRows / (int)g;
   const long long n_q_tiles = (s + bq - 1) / bq;
   if (n_q_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;

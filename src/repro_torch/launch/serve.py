@@ -25,8 +25,7 @@ from repro_torch.interop import resolve_device
 from repro_torch.models.transformer import init_params
 from repro_torch.runtime import compressed as cforms
 from repro_torch.runtime.server import (
-    Request, Server, ServingEngine, load_compressed_for_serving,
-    quantize_params_for_serving, serving_bits)
+    Request, Server, ServingEngine, load_compressed_for_serving)
 
 FORMS = ("dense", "quant4", "quant8", "lowrank", "sparse")
 
@@ -121,9 +120,6 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
-    ap.add_argument("--quantize", action="store_true",
-                    help="legacy: re-k-means quantize then serve the "
-                         "dequantized weights")
     ap.add_argument("--form", default="dense", choices=FORMS,
                     help="serve weights in this compressed form "
                          "(bridged from an LC direct-compression state)")
@@ -149,14 +145,7 @@ def main(argv=None):
         cfg = cfg.with_(pattern_reps=1)
 
     params = init_params(torch.Generator(device=device).manual_seed(0), cfg)
-    if args.quantize:
-        paths = lc_param_paths(params)
-        packed, params = quantize_params_for_serving(params, paths)
-        comp, dense = serving_bits(packed)
-        print(f"quantized {len(paths)} matrices: "
-              f"{dense / 8e6:.1f} MB → {comp / 8e6:.1f} MB "
-              f"({dense / comp:.1f}× smaller)")
-    elif args.form != "dense":
+    if args.form != "dense":
         params = compress_for_form(cfg, params, args.form, device)
 
     if args.engine:

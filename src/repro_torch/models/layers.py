@@ -35,22 +35,18 @@ def register_weight_form(cls, apply_fn, load_fn) -> None:
 
 
 def wload(leaf, dt):
-    """Load a weight for compute: a dense tensor, a registered compressed
-    weight form (materialized), or an LC-quantized pack {"idx": uint8
-    codebook indices, "cb": (K,) f32 codebook}."""
+    """Load a weight for compute: a dense tensor, or a registered
+    compressed weight form (materialized)."""
     form = _WEIGHT_FORMS.get(type(leaf))
     if form is not None:
         return form[1](leaf, dt)
-    if isinstance(leaf, dict) and "idx" in leaf:
-        return leaf["cb"][leaf["idx"].long()].to(dt)
     return leaf.to(dt)
 
 
 def apply_w(x, leaf, dt):
     """x @ W for a param-tree weight leaf, dispatched by form: dense
-    leaves (and legacy quantized dicts) take ``x @ wload(leaf, dt)``;
-    registered compressed forms run their own product without
-    materializing W."""
+    leaves take ``x @ wload(leaf, dt)``; registered compressed forms run
+    their own product without materializing W."""
     form = _WEIGHT_FORMS.get(type(leaf))
     if form is not None:
         return form[0](x, leaf, dt)

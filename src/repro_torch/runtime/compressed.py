@@ -136,8 +136,7 @@ def materialize(leaf, dt=torch.float32):
 # Device-memory accounting (modeled bf16 deployment)
 # ----------------------------------------------------------------------
 def is_weight_form(leaf) -> bool:
-    return isinstance(leaf, WEIGHT_FORMS) or (
-        isinstance(leaf, dict) and "idx" in leaf)
+    return isinstance(leaf, WEIGHT_FORMS)
 
 
 def weight_form_bytes(leaf) -> int:
@@ -151,8 +150,6 @@ def weight_form_bytes(leaf) -> int:
     if isinstance(leaf, SparseWeight):
         return (2 * int(leaf.values.numel())
                 + 4 * (int(leaf.rows.numel()) + int(leaf.cols.numel())))
-    if isinstance(leaf, dict) and "idx" in leaf:  # legacy uint8 pack
-        return int(leaf["idx"].numel()) + 4 * int(leaf["cb"].numel())
     return 2 * int(leaf.numel())
 
 

@@ -345,8 +345,8 @@ def test_quantize_params_for_serving_matches_jax():
     ["--form", "quant4", "--engine", "--requests", "4"],
     ["--form", "quant8", "--batch", "2", "--gen", "4"],
     ["--form", "sparse", "--engine", "--requests", "3", "--slots", "2"],
-    ["--quantize", "--batch", "2", "--gen", "3"],
-], ids=["quant4-engine", "quant8-batch", "sparse-engine", "legacy"])
+    ["--form", "dense", "--batch", "2", "--gen", "3"],
+], ids=["quant4-engine", "quant8-batch", "sparse-engine", "dense-batch"])
 def test_cli_serves_on_the_cpu(argv):
     out = tlaunch.main(["--arch", "phi3-mini-3.8b", "--reduced",
                         "--prompt-len", "16", "--device", "cpu", *argv])
