@@ -35,22 +35,45 @@ CUDA toolkit (nvcc). Phases, each of which fails the run:
    model (cuBLAS, TF32 off), fused attention (K6) against the plain loop;
 9. main path D — ``ServingEngine`` (8 slots) on the same compressed
    model: 24 Poisson requests of mixed lengths;
-10. ``torch.profiler`` over path C's prefill and 8 decode steps: the
+10. K3, K7, K8 and K9 (the threshold masks and the single-vector count
+    and k-means kernels) against their plain versions on the card,
+    timed beside their bounds;
+11. main path E — mixed compression of LeNet300
+    (``repro_torch.mixed_compression.main``): the paper's Table 2 last
+    row (ℓ0 on l0, rank-10 low rank on l1, 1-bit quantization on l2) and
+    row 5 (additive ℓ0 + quantization over all weights), 20 LC steps
+    each; exact κ, rank-10 factors, the §7 monitor and exact K1/K2/K3
+    launches after every C step; LC and DC test errors beside the JAX
+    package's CPU result;
+12. main path G — the kernel API (``repro_torch.kernels.kmeans.kmeans``
+    and ``repro_torch.kernels.prune.topk_mask``, the single-vector K7,
+    K8 and K9 solvers) on path E's trained LeNet300;
+13. main path F — low-rank serving of phi3-mini-3.8b at full width (4 of
+    32 layers): 28 per-matrix tasks (LowRank on wq|wk|wv, w_gate, w_up;
+    RankSelection with two α on wo; additive ℓ0 + quantization on
+    w_down) in four groups, LC init, one C step, a multiplier step, the
+    bridge (24 low-rank and 4 dense forms) and ``Server.generate``;
+    selected ranks against the exact spectrum, distortion against the
+    exact SVD, logits against the densified model, 4 K6 launches;
+14. ``torch.profiler`` over path C's prefill and 8 decode steps: the
     device's busy share and the kernels that took the most time;
-11. one JSON line listing every ported kernel, then the result line.
+15. one JSON line listing every ported kernel, then the result line.
 
-Tolerances: assignments and integer counts must be equal; K1's cluster
-sums may differ from the plain version's by the summation order
+Tolerances: assignments, masks and integer counts must be equal; K1/K7
+cluster sums may differ from the plain version's by the summation order
 (``rtol 1e-5, atol 1e-2``); the §7 monitor allows the reference's float
 slack (``after ≤ before·(1 + 1e-5) + 1e-6``); K4/K5 ``rtol 1e-5, atol
 1e-4`` and K6 ``rtol 2e-4, atol 2e-4`` (as ``tests/test_kernels.py``);
-served logits within ``1e-3·max|logit|`` of the densified model's.
+served logits within ``1e-3·max|logit|`` of the densified model's;
+low-rank Θ distortion within ``1e-4`` relative of the exact SVD's
+(``tests/test_lowrank_dispatch.py``).
 
 Bounds use the H100 SXM's published rates (3.35 TB/s, 67 TFLOP/s f32
 outside the tensor cores), which assume a 700 W power limit.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import statistics
@@ -92,6 +115,26 @@ K4_MAIN, K5_MAIN = (1024, 3072, 8192, 16), (1024, 3072, 3072, 64)
 K6_SHAPES = [(2, 512, 32, 32, 96, 0), (1, 512, 32, 8, 96, 0),
              (1, 512, 8, 2, 64, 128), (2, 97, 6, 3, 16, 7)]
 
+# K3 on the main path: the top-κ solver's last pass over w_down's 4 items
+# (LM phase, path C), kept at a top-1% threshold here; ragged rows too
+K3_SHAPES = [(LM_LAYERS, LM_ITEM), (3, 100_003)]
+LENET_WEIGHTS, LENET_KAPPA = 266_200, 13_310      # path B's ℓ0 task
+# K7 on path G (LeNet300's l0, K=4) and at the LM item width
+K7_SHAPES = [(235_200, 4), (LM_ITEM, 16)]
+# K8/K9 on path G (all LeNet300 weights), and K8 at the LM item width
+K8_CASES = [(LENET_WEIGHTS, LENET_KAPPA), (LM_ITEM, LM_ITEM // 100)]
+
+# path E: the JAX package's CPU result of the same runs
+# (``python examples/mixed_compression.py``, recorded in PERF.md)
+JAX_CPU_MIXED = {"ref": 0.0186, "runs": [(0.2324, 22.5), (0.0332, 21.2)]}
+
+# path F: per-matrix low-rank targets; wo's stepped spectrum puts rank
+# selection's optimum at one of its two steps, one per α
+F_RANKS = {"wq": 128, "wk": 128, "wv": 128, "w_gate": 256, "w_up": 192}
+F_WO_STEPS, F_WO_MAX_RANK = (24, 48), 128
+F_DOWN_KAPPA = LM_ITEM // 100                     # 251,658
+F_MU = 1e-4
+
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
@@ -100,6 +143,21 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def reset(kern: dict) -> None:
+    """Set every kernel's launch count to 0."""
+    for kk in kern.values():
+        kk.launches = 0
+
+
+def launches(kern: dict) -> dict:
+    return {n: kk.launches for n, kk in kern.items()}
+
+
+def only(kern: dict, **want) -> dict:
+    """The exact launch counts a path must show: ``want``, 0 elsewhere."""
+    return {n: want.get(n, 0) for n in kern}
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -201,34 +259,33 @@ def monitor_ok(history) -> bool:
                for before, after in m.c_step_shifted_distortion.values())
 
 
-def main_path_a(k1, k2) -> int:
+def main_path_a(kern) -> dict:
     from repro_torch import quickstart
-    k1.KERNEL.launches = k2.KERNEL.launches = 0
+    reset(kern)
     t0 = time.time()
     out = quickstart.main(device="cuda")        # raises if LC > DC
     torch.cuda.synchronize()
     wall = time.time() - t0
-    n1, n2 = k1.KERNEL.launches, k2.KERNEL.launches
+    n = launches(kern)
     lc, dc = out["lc"], out["dc"]
     check(lc["test_err"] <= dc["test_err"] + 1e-6, "quickstart LC > DC")
-    check(n1 == 20 * 3 * 21, f"quickstart K1 launches {n1} != 1260")
-    check(n2 == 0, f"quickstart K2 launches {n2} != 0")
+    check(n == only(kern, K1=20 * 3 * 21), f"quickstart launches {n}")
     check(monitor_ok(lc["history"]), "quickstart §7 monitor")
     print(f"main path A (quickstart): ref_err={out['ref']:.4f} "
           f"dc_err={dc['test_err']:.4f} lc_err={lc['test_err']:.4f} "
           f"ratio={lc['ratio']:.1f}x lc_wall_s={lc['wall_s']:.2f} "
-          f"total_wall_s={wall:.2f} K1_launches={n1}", flush=True)
-    return n1
+          f"total_wall_s={wall:.2f} K1_launches={n['K1']}", flush=True)
+    return n
 
 
-def main_path_b(k1, k2) -> int:
+def main_path_b(kern) -> dict:
     from repro_torch.core import AsVector, CompressionTask
     from repro_torch.core.schemes import ConstraintL0Pruning
     from repro_torch.showcase import (
         DIMS, direct_compress, reference_problem, run_lc)
     total = sum(DIMS[i] * DIMS[i + 1] for i in range(len(DIMS) - 1))
     kappa = int(total * 0.05)
-    check(kappa == 13_310, f"κ {kappa}")
+    check((total, kappa) == (LENET_WEIGHTS, LENET_KAPPA), f"κ {kappa}")
 
     def tasks():
         return [CompressionTask("p", r"l\d/w$", AsVector(),
@@ -240,7 +297,7 @@ def main_path_b(k1, k2) -> int:
         nnz.append(int(torch.count_nonzero(
             lc["tasks"]["p"]["theta"]["theta"])))
 
-    k1.KERNEL.launches = k2.KERNEL.launches = 0
+    reset(kern)
     t0 = time.time()
     prob = reference_problem(device="cuda")
     dc = direct_compress(prob, tasks(), device="cuda")
@@ -248,19 +305,19 @@ def main_path_b(k1, k2) -> int:
                 callbacks=[count_nnz], device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t0
-    n1, n2 = k1.KERNEL.launches, k2.KERNEL.launches
+    n = launches(kern)
     check(nnz == [kappa] * 20, f"ℓ0 nonzeros per C step {nnz}")
     check(monitor_ok(lc["history"]), "ℓ0 §7 monitor")
-    check(n2 == 20 * 31, f"ℓ0 K2 launches {n2} != 620")
-    check(n1 == 0, f"ℓ0 K1 launches {n1} != 0")
+    # per C step: 30 bisection counts + the ≥ hi count (K2), one mask (K3)
+    check(n == only(kern, K2=20 * 31, K3=20), f"ℓ0 launches {n}")
     print(f"main path B (ℓ0 κ={kappa}): dc_err={dc['test_err']:.4f} "
           f"lc_err={lc['test_err']:.4f} ratio={lc['ratio']:.1f}x "
           f"lc_wall_s={lc['wall_s']:.2f} total_wall_s={wall:.2f} "
-          f"K2_launches={n2}", flush=True)
-    return n2
+          f"K2_launches={n['K2']} K3_launches={n['K3']}", flush=True)
+    return n
 
 
-def lm_phase(k1, k2) -> tuple[int, int]:
+def lm_phase(kern) -> dict:
     from repro_torch.core import AsStacked, CompressionTask, LCAlgorithm
     from repro_torch.core.schemes import (
         AdaptiveQuantization, ConstraintL0Pruning)
@@ -289,23 +346,23 @@ def lm_phase(k1, k2) -> tuple[int, int]:
     state = lc.init(params)
     torch.cuda.synchronize()
     print(f"LM init_s={time.time() - t0:.2f}", flush=True)
-    launches = [0, 0]
+    total = only(kern)
     for step, mu in enumerate(mus):
         for w in params["ffn"].values():           # stand-in for an L step
             w.add_(1e-3 * torch.randn(w.shape, device="cuda", generator=g))
         state = lc.set_mu(state, mu, step)
         pre = {n: float(v) for n, v in lc.shifted_distortion(params,
                                                              state).items()}
-        k1.KERNEL.launches = k2.KERNEL.launches = 0
+        reset(kern)
         torch.cuda.synchronize()
         t0 = time.time()
         state = lc.c_step(params, state)
         torch.cuda.synchronize()
         c_s = time.time() - t0
-        n1, n2 = k1.KERNEL.launches, k2.KERNEL.launches
-        check((n1, n2) == (11, 31), f"LM C-step launches K1={n1} K2={n2}")
-        launches[0] += n1
-        launches[1] += n2
+        step_n = launches(kern)
+        check(step_n == only(kern, K1=11, K2=31, K3=1),
+              f"LM C-step launches {step_n}")
+        total = {k: total[k] + step_n[k] for k in total}
         post = lc.shifted_distortion(params, state)
         for n, before in pre.items():
             check(float(post[n]) <= before * (1 + 1e-5) + 1e-6,
@@ -319,7 +376,8 @@ def lm_phase(k1, k2) -> tuple[int, int]:
                   f"LM codebooks {name}")
         state = lc.multiplier_step(params, state)
         print(f"LM C step {step} (mu={mu:g}): c_step_s={c_s:.3f} "
-              f"K1={n1} K2={n2} shifted_distortion="
+              f"K1={step_n['K1']} K2={step_n['K2']} K3={step_n['K3']} "
+              f"shifted_distortion="
               f"{ {n: (round(pre[n], 3), round(float(post[n]), 3)) for n in pre} }",
               flush=True)
     torch.cuda.synchronize()
@@ -327,7 +385,7 @@ def lm_phase(k1, k2) -> tuple[int, int]:
     print(f"LM peak_memory_gib={peak:.2f}", flush=True)
     del params, state
     torch.cuda.empty_cache()
-    return launches[0], launches[1]
+    return total
 
 
 def serve_kernel_phase(k45, k6, power: str) -> dict:
@@ -458,16 +516,71 @@ def serving_config():
     return cfg
 
 
+@torch.inference_mode()
+def teacher_logits(params, cfg, prompts_t, toks_t):
+    """Logits of ``params`` at every generation step, teacher-forced with
+    the generated tokens ``toks_t``; with prefill ms and decode ms per
+    step."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import unembed
+    from repro_torch.runtime import server as srv
+    torch.cuda.synchronize()
+    t0 = time.time()
+    hidden, _, caches = tf.forward_hidden(params, prompts_t, cfg,
+                                          return_caches=True)
+    out = [unembed(params["embed"], hidden[:, -1:], cfg)[:, 0]]
+    torch.cuda.synchronize()
+    t_pre = time.time() - t0
+    caches = srv.pad_caches_to(caches, cfg, SERVE_PROMPT, SERVE_MAX_LEN)
+    t0 = time.time()
+    for i in range(SERVE_GEN - 1):
+        logits, caches = tf.decode_step(params, caches, toks_t[:, i:i + 1],
+                                        SERVE_PROMPT + i, cfg)
+        out.append(logits[:, 0])
+    torch.cuda.synchronize()
+    t_dec = (time.time() - t0) / (SERVE_GEN - 1)
+    return torch.stack(out, dim=1), t_pre, t_dec
+
+
+def against_densified(label, cfg, serving, dense, prompts_t, toks_t,
+                      power: str) -> float:
+    """The served model's logits within 1e-3·max|logit| of the densified
+    model's at every step (both teacher-forced with the served tokens),
+    and every served token a maximum of both; returns the greedy token
+    agreement."""
+    lc_logits, pre_c, dec_c = teacher_logits(serving, cfg, prompts_t,
+                                             toks_t)
+    ld_logits, pre_d, dec_d = teacher_logits(dense, cfg, prompts_t, toks_t)
+    tol = 1e-3 * float(ld_logits.abs().max())
+    diff = (lc_logits - ld_logits).abs().amax(dim=(0, 2))     # per step
+    check(bool((diff <= tol).all()),
+          f"{label} compressed vs densified logits: max per step "
+          f"{diff.tolist()} > {tol:.3g}")
+    chosen_c = torch.gather(lc_logits, 2, toks_t.long()[..., None])[..., 0]
+    chosen_d = torch.gather(ld_logits, 2, toks_t.long()[..., None])[..., 0]
+    check(bool((chosen_c >= lc_logits.amax(-1) - tol).all()),
+          f"{label}: generated tokens are not the compressed model's maxima")
+    check(bool((chosen_d >= ld_logits.amax(-1) - tol).all()),
+          f"{label}: a generated token is off the densified model's maximum")
+    agree = float((ld_logits.argmax(-1) == toks_t.long()).float().mean())
+    print(f"{label} vs densified: max|Δlogit|={float(diff.max()):.3g} "
+          f"(tol {tol:.3g} = 1e-3·max|logit|) token_agreement={agree:.4f} "
+          f"prefill_ms compressed={pre_c * 1e3:.1f} densified="
+          f"{pre_d * 1e3:.1f} decode_ms_per_step compressed="
+          f"{dec_c * 1e3:.2f} densified={dec_d * 1e3:.2f} [{power}]",
+          flush=True)
+    return agree
+
+
 def main_path_c(kern, power: str) -> dict:
     """LC init + one C step → bridge → ``Server.generate`` on phi3-mini at
-    full width; ``kern`` maps K1, K2, K4, K5, K6 to their ``CudaKernel``s.
-    Returns the path's launches and what path D needs."""
+    full width; ``kern`` maps K1–K9 to their launch counters. Returns the
+    path's launches and what path D needs."""
     from repro_torch.core import (
         AsVector, CompressionTask, LCAlgorithm, flatten_params)
     from repro_torch.core.schemes import (
         AdaptiveQuantization, ConstraintL0Pruning)
     from repro_torch.models import transformer as tf
-    from repro_torch.models.layers import unembed
     from repro_torch.runtime import server as srv
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -491,8 +604,7 @@ def main_path_c(kern, power: str) -> dict:
     prompts = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
                            dtype=np.int64).astype(np.int32)
 
-    for kk in kern.values():
-        kk.launches = 0
+    reset(kern)
     torch.cuda.synchronize()
     t0 = time.time()
     lc = LCAlgorithm(tasks, [1e-4], device="cuda")
@@ -523,8 +635,8 @@ def main_path_c(kern, power: str) -> dict:
     # k-means groups × (10 Lloyd steps + 1) and 30 bisection steps + 1;
     # generate runs every quantized matrix once per token (prefill + 31
     # decode steps) and K6 once per layer at prefill
-    want = {"K1": 22, "K2": 31, "K4": LM_LAYERS * 2 * SERVE_GEN,
-            "K5": LM_LAYERS * 4 * SERVE_GEN, "K6": LM_LAYERS}
+    want = only(kern, K1=22, K2=31, K3=1, K4=LM_LAYERS * 2 * SERVE_GEN,
+                K5=LM_LAYERS * 4 * SERVE_GEN, K6=LM_LAYERS)
     check(launches == want, f"path C launches {launches} != {want}")
     toks = res.tokens
     check(toks.shape == (SERVE_BATCH, SERVE_GEN) and toks.min() >= 0
@@ -542,47 +654,9 @@ def main_path_c(kern, power: str) -> dict:
     del state, lc
     prompts_t = torch.as_tensor(prompts, device="cuda")
     toks_t = torch.as_tensor(toks, device="cuda")
-
-    @torch.inference_mode()
-    def teacher(p):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        hidden, _, caches = tf.forward_hidden(p, prompts_t, cfg,
-                                              return_caches=True)
-        out = [unembed(p["embed"], hidden[:, -1:], cfg)[:, 0]]
-        torch.cuda.synchronize()
-        t_pre = time.time() - t0
-        caches = srv.pad_caches_to(caches, cfg, SERVE_PROMPT, SERVE_MAX_LEN)
-        t0 = time.time()
-        for i in range(SERVE_GEN - 1):
-            logits, caches = tf.decode_step(p, caches, toks_t[:, i:i + 1],
-                                            SERVE_PROMPT + i, cfg)
-            out.append(logits[:, 0])
-        torch.cuda.synchronize()
-        t_dec = (time.time() - t0) / (SERVE_GEN - 1)
-        return torch.stack(out, dim=1), t_pre, t_dec
-
-    lc_logits, pre_c, dec_c = teacher(serving)
-    ld_logits, pre_d, dec_d = teacher(dense)
-    tol = 1e-3 * float(ld_logits.abs().max())
-    diff = (lc_logits - ld_logits).abs().amax(dim=(0, 2))     # per step
-    check(bool((diff <= tol).all()),
-          f"compressed vs densified logits: max per step {diff.tolist()} "
-          f"> {tol:.3g}")
-    chosen_c = torch.gather(lc_logits, 2, toks_t.long()[..., None])[..., 0]
-    chosen_d = torch.gather(ld_logits, 2, toks_t.long()[..., None])[..., 0]
-    check(bool((chosen_c >= lc_logits.amax(-1) - tol).all()),
-          "generated tokens are not the compressed model's maxima")
-    check(bool((chosen_d >= ld_logits.amax(-1) - tol).all()),
-          "a generated token is off the densified model's maximum")
-    agree = float((ld_logits.argmax(-1) == toks_t.long()).float().mean())
-    print(f"path C vs densified: max|Δlogit|={float(diff.max()):.3g} "
-          f"(tol {tol:.3g} = 1e-3·max|logit|) token_agreement={agree:.4f} "
-          f"prefill_ms compressed={pre_c * 1e3:.1f} densified="
-          f"{pre_d * 1e3:.1f} decode_ms_per_step compressed="
-          f"{dec_c * 1e3:.2f} densified={dec_d * 1e3:.2f} [{power}]",
-          flush=True)
-    del dense, ld_logits, lc_logits
+    against_densified("path C", cfg, serving, dense, prompts_t, toks_t,
+                      power)
+    del dense
 
     # K6 inside the model: fused (the kernel) against the plain loop
     with torch.inference_mode():
@@ -611,8 +685,7 @@ def main_path_d(kern, cfg, serving, power: str) -> dict:
             id=i, prompt=rng.integers(1, cfg.vocab_size, size=n)
             .astype(np.int32), max_new=int(rng.integers(16, 65)),
             arrival=t))
-    for kk in kern.values():
-        kk.launches = 0
+    reset(kern)
     torch.cuda.synchronize()
     t0 = time.time()
     eng = srv.ServingEngine(cfg, serving, slots=8, max_len=448,
@@ -626,7 +699,8 @@ def main_path_d(kern, cfg, serving, power: str) -> dict:
     check(sorted(fin) == list(range(24)), "unfinished requests")
     check(all(len(fin[r.id].tokens) == r.max_new for r in reqs),
           "a request got another number of tokens than max_new")
-    check(launches["K4"] > 0 and launches["K5"] > 0,
+    check(launches["K4"] > 0 and launches["K5"] > 0
+          and launches == only(kern, K4=launches["K4"], K5=launches["K5"]),
           f"path D launches {launches}")
     check(eng.trace_counts == {"decode": 1, "prefill": 1, "reset": 1},
           f"program signatures {eng.trace_counts}")
@@ -640,6 +714,442 @@ def main_path_d(kern, cfg, serving, power: str) -> dict:
           f"wall_s={wall:.2f} signatures={eng.trace_counts} "
           f"launches={launches} [{power}]", flush=True)
     return launches
+
+
+def mask_count_phase(k1, k2, power: str) -> dict:
+    """K3, K7, K8 and K9 against their plain versions at the main paths'
+    shapes; ``power`` (the card's power limit) is printed beside every
+    time."""
+    from repro_torch.core.schemes.prune import topk_magnitude_mask
+    from repro_torch.kernels.prune import ops as pops
+    g = torch.Generator(device="cuda").manual_seed(6)
+    rec = {"K3": [], "K7": [], "K8": [], "K9": []}
+
+    def row(name, shape, fns, n_bytes, n_ops, err=0.0):
+        ms, plain_ms = timed_turns(
+            fns, 5 if math.prod(shape) > 10_000_000 else 20)
+        b_ms, b_by = bound(n_bytes, n_ops)
+        rec[name].append({"shape": list(shape), "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": b_ms,
+                          "bound_by": b_by, "max_abs_err": err})
+        print(f"{name} shape={list(shape)}: ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} bound_ms={b_ms:.3g} ({b_by}) "
+              f"max|Δ|={err:.3g} [{power}]", flush=True)
+
+    for i, p in K3_SHAPES:
+        w = torch.randn((i, p), device="cuda", generator=g)
+        w[:, ::97] = 0.5 * torch.sign(w[:, ::97])          # magnitude ties
+        t = torch.topk(w.abs(), max(p // 100, 1),
+                       dim=-1).values[:, -1].contiguous()
+        for strict in (True, False):
+            got = k2.mask_apply_batched(w, t, strict)
+            torch.cuda.synchronize()
+            check(torch.equal(got, k2.mask_apply_batched_plain(w, t, strict)),
+                  f"K3 masks {i}x{p} strict={strict}")
+        row("K3", (i, p), (lambda: k2.mask_apply_batched(w, t, False),
+                           lambda: k2.mask_apply_batched_plain(w, t, False)),
+            8.0 * i * p + 4.0 * i, 2.0 * i * p)
+        del w, t, got
+
+    for p, k in K7_SHAPES:
+        w = torch.randn(p, device="cuda", generator=g)
+        cb = torch.sort(torch.randn(k, device="cuda", generator=g)).values
+        got = k1.kmeans_assign_moments(w, cb)
+        torch.cuda.synchronize()
+        want = k1.kmeans_assign_moments_plain(w, cb)
+        check(torch.equal(got[0], want[0]), f"K7 assignments {p}x{k}")
+        check(torch.equal(got[2], want[2]), f"K7 counts {p}x{k}")
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-2)
+        row("K7", (p, k), (lambda: k1.kmeans_assign_moments(w, cb),
+                           lambda: k1.kmeans_assign_moments_plain(w, cb)),
+            8.0 * p + 12.0 * k, 3.0 * p * k + 2.0 * p,
+            err=float((got[1] - want[1]).abs().max()))
+        del w, cb, got, want
+
+    for p, kappa in K8_CASES:
+        w = torch.randn(p, device="cuda", generator=g)
+        w[::97] = 0.5 * torch.sign(w[::97])
+        n8, n9 = k2.KERNEL_SINGLE.launches, k2.MASK_KERNEL_SINGLE.launches
+        theta = pops.topk_mask(w, kappa)
+        torch.cuda.synchronize()
+        check((k2.KERNEL_SINGLE.launches - n8,
+               k2.MASK_KERNEL_SINGLE.launches - n9) == (31, 1),
+              f"K8 top-κ at P={p}: K8/K9 launches per call")
+        check(torch.equal(theta, torch.where(topk_magnitude_mask(w, kappa),
+                                             w, 0.0)),
+              f"K8 top-κ at P={p}: mask differs from the exact top-κ")
+        t = w.abs().kthvalue(p - kappa).values
+        for tt in (t, torch.zeros_like(t), w.abs().amax()):
+            check(torch.equal(k2.count_above(w, tt),
+                              k2.count_above_plain(w, tt)),
+                  f"K8 counts at P={p}")
+        row("K8", (p,), (lambda: k2.count_above(w, t),
+                         lambda: k2.count_above_plain(w, t)),
+            4.0 * p + 8.0, 2.0 * p)
+        if p == LENET_WEIGHTS:
+            check(torch.equal(k2.mask_apply(w, t), k2.mask_apply_plain(w, t)),
+                  "K9 mask")
+            row("K9", (p,), (lambda: k2.mask_apply(w, t),
+                             lambda: k2.mask_apply_plain(w, t)),
+                8.0 * p + 4.0, 2.0 * p)
+        del w, theta
+    torch.cuda.empty_cache()
+    return rec
+
+
+def main_path_e(kern, power: str) -> dict:
+    """``repro_torch.mixed_compression.main`` on the card: both runs, 20
+    LC steps each, checked after every C step."""
+    from repro_torch import mixed_compression
+    seen = []
+
+    def after_c_step(model, lc, m):
+        now = launches(kern)
+        step = {n: now[n] - last[n] for n in now}
+        last.update(now)
+        tasks = lc["tasks"]
+        if "p1" in tasks:             # Table 2 last row
+            nnz = int(torch.count_nonzero(tasks["p1"]["theta"]["theta"]))
+            th = tasks["lr2"]["theta"]
+            rank = int(torch.linalg.matrix_rank(th["u"] @ th["v"].T))
+            ok = (nnz == 5000 and rank == 10
+                  and th["u"].shape == (300, 10)
+                  and th["v"].shape == (100, 10)
+                  # K2: 30 bisection counts + 1, K3: 1; K1: 25 Lloyd + 1
+                  and step == only(kern, K1=26, K2=31, K3=1))
+            seen.append(("mixed", nnz, rank, step))
+        else:                         # row 5: the additive combination
+            nnz = int(torch.count_nonzero(
+                tasks["pq"]["theta"]["parts"][0]["theta"]))
+            ok = nnz == 2662 and step == only(kern)
+            seen.append(("additive", nnz, None, step))
+        check(ok, f"path E after C step {m.step}: {seen[-1]}")
+
+    reset(kern)
+    last = launches(kern)
+    t0 = time.time()
+    out = mixed_compression.main(device="cuda", callbacks=[after_c_step])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    check([s[0] for s in seen] == ["mixed"] * 20 + ["additive"] * 20,
+          f"path E C steps {[s[0] for s in seen]}")
+    total = launches(kern)
+    check(total == only(kern, K1=20 * 26, K2=20 * 31, K3=20),
+          f"path E launches {total}")
+    for run, (j_err, j_ratio) in zip(out["runs"], JAX_CPU_MIXED["runs"]):
+        lc, dc = run["lc"], run["dc"]
+        check(monitor_ok(lc["history"]), f"path E §7 monitor {run['name']}")
+        check(lc["test_err"] <= dc["test_err"] + 1e-6,
+              f"path E LC > DC {run['name']}")
+        check(abs(lc["ratio"] - j_ratio) < 0.05,
+              f"path E ratio {lc['ratio']} against JAX's {j_ratio}")
+        print(f"main path E {run['name']}: dc_err={dc['test_err']:.4f} "
+              f"lc_err={lc['test_err']:.4f} ratio={lc['ratio']:.1f}x "
+              f"lc_wall_s={lc['wall_s']:.2f} (JAX package on the CPU: "
+              f"lc_err={j_err:.4f} ratio={j_ratio}x, ref_err="
+              f"{JAX_CPU_MIXED['ref']:.4f}) [{power}]", flush=True)
+    print(f"main path E: ref_err={out['ref']:.4f} total_wall_s={wall:.2f} "
+          f"launches={total} [{power}]", flush=True)
+    return {"launches": total, "problem": out["problem"]}
+
+
+def main_path_g(kern, k1, prob, power: str) -> dict:
+    """The single-vector kernel API on the trained LeNet300: the Lloyd
+    loop (K7) on l0 at K=4, and top-κ (K8, K9) over all weights at
+    κ = 5%."""
+    from repro_torch.core.schemes.prune import topk_magnitude_mask
+    from repro_torch.core.schemes.quantize import quantile_init
+    from repro_torch.kernels.kmeans import kmeans
+    from repro_torch.kernels.kmeans import ops as kops
+    from repro_torch.kernels.prune import topk_mask
+    w0 = prob.params["l0"]["w"].reshape(-1)
+    w_all = torch.cat([prob.params[f"l{i}"]["w"].reshape(-1)
+                       for i in range(3)])
+    check((w0.numel(), w_all.numel()) == (K7_SHAPES[0][0], LENET_WEIGHTS),
+          "LeNet300 sizes")
+    cb0 = quantile_init(w0, 4)
+    reset(kern)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cb, assign = kmeans(w0, cb0, iters=20)
+    theta = topk_mask(w_all, LENET_KAPPA)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n = launches(kern)
+    check(n == only(kern, K7=21, K8=31, K9=1), f"path G launches {n}")
+    # the batched solvers on the same inputs (K1, and the exact top-κ)
+    cb_b, assign_b = kops.kmeans_batched(w0[None], cb0[None], iters=20,
+                                         impl="kernel")
+    check(torch.equal(cb, cb_b[0]) and torch.equal(assign, assign_b[0]),
+          "path G: K7 Lloyd loop differs from K1's")
+    check(int(torch.count_nonzero(theta)) == LENET_KAPPA
+          and torch.equal(theta, torch.where(
+              topk_magnitude_mask(w_all, LENET_KAPPA), w_all, 0.0)),
+          "path G: top-κ differs from the exact top-κ")
+    check(bool(torch.isfinite(cb).all()) and bool((cb[1:] > cb[:-1]).all()),
+          f"path G codebook {cb.tolist()}")
+    print(f"main path G (kernel API on LeNet300): kmeans K=4 on l0 "
+          f"codebook={[round(x, 5) for x in cb.tolist()]}, top-κ "
+          f"κ={LENET_KAPPA} of {LENET_WEIGHTS}: wall_s={wall:.3f} "
+          f"launches={n} [{power}]", flush=True)
+    return n
+
+
+def stepped_spectrum(k: int, steps, rho: float, drop: float):
+    """σ_j = ρ^j up to the last step, times ``drop`` at every step, flat
+    after the last: geometric decay with clean gaps at ``steps``."""
+    j = torch.arange(k, dtype=torch.float32, device="cuda")
+    s = rho ** torch.clamp(j, max=steps[-1])
+    for st in steps:
+        s = torch.where(j >= st, s * drop, s)
+    return s
+
+
+def lowrank_model(cfg, seed: int):
+    """phi3-mini weights from ``seed`` whose low-rank targets have stepped
+    geometric spectra (a random Gaussian matrix's spectrum is flat, and
+    rank selection then picks 0 or its maximum): LowRank targets decay
+    from 1 to 0.7 over their target rank and drop ×0.15 after it; wo
+    decays as 0.994^j with ×0.3 drops at the two ranks its α values
+    select. The drops separate the top-r subspace from the rest, and each
+    spectrum spans a dynamic range of at most 15 over its sketch: beyond
+    that the reference's Jacobi sweep counts (6 and 12) stop converging
+    at sketch widths of 144–272 and the ≤ 1e-4 distortion budget fails
+    in both packages. Scaled so that ‖W‖_F² = n, as for weights of std
+    1/√fan_in. Returns ``(params, {path: σ})``."""
+    from repro_torch.core import get_path
+    from repro_torch.models import transformer as tf
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = tf.init_params(gen, cfg)
+    spectra = {}
+    with torch.no_grad():
+        for i in range(LM_LAYERS):
+            for name in ("mixer/wq", "mixer/wk", "mixer/wv", "mixer/wo",
+                         "ffn/w_gate", "ffn/w_up"):
+                path = f"stages/s0/pos{i}/{name}"
+                w = get_path(params, path)
+                m, n = w.shape
+                k = min(m, n)
+                leaf = name.split("/")[1]
+                if leaf == "wo":
+                    s = stepped_spectrum(k, F_WO_STEPS, 0.994, 0.3)
+                else:
+                    r = F_RANKS[leaf]
+                    s = stepped_spectrum(k, (r,), 0.7 ** (1.0 / r), 0.15)
+                s = s * (math.sqrt(n) / float(s.norm()))
+                u = torch.linalg.qr(torch.randn((m, k), device="cuda",
+                                                generator=gen))[0]
+                v = torch.linalg.qr(torch.randn((n, k), device="cuda",
+                                                generator=gen))[0]
+                w.copy_((u * s) @ v.T)
+                spectra[path] = s
+    return params, spectra
+
+
+def jacobi_kernels_per_round() -> float:
+    """CUDA kernels one Jacobi round launches, from ``torch.profiler``
+    over one and two sweeps at the sketch width 144 (run after the timed
+    paths: the profiler slows every later launch of the process)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.lowrank.lowrank import jacobi_eigh_batched
+    a = torch.randn((12, 144, 144), device="cuda")
+    a = a @ a.transpose(1, 2)
+    counts = []
+    for sweeps in (1, 2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            jacobi_eigh_batched(a, sweeps=sweeps)
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA))
+    return (counts[1] - counts[0]) / 143
+
+
+def main_path_f(kern, power: str) -> dict:
+    """Low-rank serving of phi3-mini at full width: LC init, one C step
+    and a multiplier step over 28 per-matrix tasks in four groups, the
+    bridge, ``Server.generate``; then the checks against the exact SVD
+    and the densified model."""
+    from repro_torch.core import (
+        AsIs, AsVector, CompressionTask, LCAlgorithm, flatten_params,
+        get_path)
+    from repro_torch.core.grouping import build_groups, grouped_compress
+    from repro_torch.core.schemes import (
+        AdaptiveQuantization, AdditiveCombination, ConstraintL0Pruning,
+        LowRank, RankSelection)
+    from repro_torch.kernels.lowrank.ops import OVERSAMPLE, POWER_ITERS
+    from repro_torch.runtime import server as srv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = serving_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params, spectra = lowrank_model(cfg, seed=7)
+    torch.cuda.synchronize()
+    t_weights = time.time() - t0
+    n_params = sum(t.numel() for t in flatten_params(params).values())
+
+    # α per layer: rank selection's optimum at step F_WO_STEPS[i % 2],
+    # α·(m+n) = μ/2·σ_{r-1}·σ_r between the two squared singular values
+    alphas = []
+    tasks = []
+    for i in range(LM_LAYERS):
+        pre = rf"^stages/s0/pos{i}/"
+        s = spectra[f"stages/s0/pos{i}/mixer/wo"]
+        r = F_WO_STEPS[i % 2]
+        alphas.append(F_MU / 2 * float(s[r - 1] * s[r])
+                      / (2 * LM_D_MODEL))
+        tasks += [CompressionTask(f"{leaf}{i}", pre + f"mixer/{leaf}$",
+                                  AsIs(), LowRank(F_RANKS[leaf]))
+                  for leaf in ("wq", "wk", "wv")]
+        tasks += [
+            CompressionTask(f"wo{i}", pre + "mixer/wo$", AsIs(),
+                            RankSelection(alpha=alphas[i],
+                                          max_rank=F_WO_MAX_RANK)),
+            CompressionTask(f"gate{i}", pre + "ffn/w_gate$", AsIs(),
+                            LowRank(F_RANKS["w_gate"])),
+            CompressionTask(f"up{i}", pre + "ffn/w_up$", AsIs(),
+                            LowRank(F_RANKS["w_up"])),
+            CompressionTask(f"down{i}", pre + "ffn/w_down$", AsVector(),
+                            AdditiveCombination(
+                                [ConstraintL0Pruning(F_DOWN_KAPPA),
+                                 AdaptiveQuantization(k=16)], iters=2))]
+    check(len(tasks) == 7 * LM_LAYERS, "path F tasks")
+    rng = np.random.default_rng(8)
+    prompts = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                           dtype=np.int64).astype(np.int32)
+
+    lc = LCAlgorithm(tasks, [F_MU], device="cuda")
+    groups = lc.group_summary(params)
+    summary = [(g["solver"], g["items"], tuple(g["item_shape"]))
+               for g in groups]
+    want = [("lowrank_rsvd", 12, (LM_D_MODEL, LM_D_MODEL)),
+            ("rank_select", 4, (LM_D_MODEL, LM_D_MODEL)),
+            ("lowrank_rsvd", 8, (LM_D_MODEL, LM_D_FF)),
+            (None, 4, (LM_D_FF * LM_D_MODEL,))]
+    check(summary == want and all(g["grouped"] for g in groups),
+          f"path F groups {summary}")
+    print("path F groups:", [(g["scheme"], g["solver"], g["backend"],
+                              g["items"], g["item_shape"]) for g in groups],
+          flush=True)
+
+    reset(kern)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state = lc.init(params)
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    t0 = time.time()
+    state = lc.c_step(params, state)
+    torch.cuda.synchronize()
+    t_cstep = time.time() - t0
+    state = lc.multiplier_step(params, state)
+    t0 = time.time()
+    serving, report = srv.load_compressed_for_serving(params, state,
+                                                      lc.tasks)
+    torch.cuda.synchronize()
+    t_bridge = time.time() - t0
+    server = srv.Server(cfg, serving, max_len=SERVE_MAX_LEN, device="cuda")
+    t0 = time.time()
+    res = server.generate(prompts, SERVE_GEN)
+    torch.cuda.synchronize()
+    t_gen = time.time() - t0
+    n = launches(kern)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    kinds = sorted(f.split("(")[0] for fs in report.values()
+                   for f in fs.values())
+    check(kinds == ["dense"] * LM_LAYERS + ["lowrank"] * 6 * LM_LAYERS,
+          f"path F bridged forms {kinds}")
+    # the prefill's 4 fused attention launches; the C step's solvers
+    # are matmul programs, the additive parts run item by item
+    check(n == only(kern, K6=LM_LAYERS), f"path F launches {n}")
+    toks = res.tokens
+    check(toks.shape == (SERVE_BATCH, SERVE_GEN) and toks.min() >= 0
+          and toks.max() < cfg.vocab_size, f"path F tokens {toks.shape}")
+    # per solver call (warm start): 1 + (POWER_ITERS − 1) range-finder
+    # orthonormalizations of 6 sweeps and a finisher of 12, each sweep
+    # k − 1 rounds at the sketch width k = r_max + OVERSAMPLE
+    sweeps = POWER_ITERS * 6 + 12
+    rounds = sum(sweeps * (min(r_max + OVERSAMPLE, LM_D_MODEL) - 1)
+                 for r_max in (F_RANKS["wq"], F_WO_MAX_RANK,
+                               F_RANKS["w_gate"]))
+    print(f"main path F (phi3-mini-3.8b full width, {LM_LAYERS} layers, "
+          f"{n_params:,} params, low rank): weights_s={t_weights:.2f} "
+          f"init_s={t_init:.2f} c_step_s={t_cstep:.2f} "
+          f"bridge_s={t_bridge:.3f} generate_s={t_gen:.3f} "
+          f"({SERVE_BATCH}x{SERVE_PROMPT} prompt, {SERVE_GEN} new tokens) "
+          f"peak_memory_gib={peak:.2f} launches={n} jacobi_rounds_per_c_step="
+          f"{rounds} (warm start: {POWER_ITERS - 1} power iterations) "
+          f"[{power}]", flush=True)
+
+    # checks, outside the counted run: ranks and distortion against the
+    # exact SVD (on the card, as a check only), logits against the
+    # densified model
+    worst, ranks = 0.0, []
+    for t in lc.tasks:
+        if t.name.startswith("down"):
+            continue
+        (path,) = t.paths
+        w = get_path(params, path).float()     # λ = 0: the C step's input
+        th = state["tasks"][t.name]["theta"]
+        s = torch.linalg.svdvals(w)
+        if t.name.startswith("wo"):
+            r = int(th["rank"])
+            m, nn = w.shape
+            tail = torch.cat([torch.flip(torch.cumsum(torch.flip(
+                s * s, (0,)), 0), (0,)), s.new_zeros(1)])[:F_WO_MAX_RANK + 1]
+            obj = (t.scheme.alpha * (m + nn)
+                   * torch.arange(F_WO_MAX_RANK + 1, device="cuda")
+                   + 0.5 * F_MU * tail)
+            r_exact = int(torch.argmin(obj))
+            check(0 < r < F_WO_MAX_RANK and r == r_exact,
+                  f"path F {t.name}: selected rank {r}, exact spectrum "
+                  f"{r_exact}")
+            ranks.append(r)
+        else:
+            r = t.scheme.rank
+        d = float(torch.sum((w - th["u"] @ th["v"].T) ** 2))
+        d_opt = float(torch.sum(s[r:] ** 2))
+        excess = (d - d_opt) / d_opt
+        check(excess <= 1e-4, f"path F {t.name}: distortion {d} against "
+              f"the exact rank-{r} {d_opt} (excess {excess:.3g})")
+        worst = max(worst, excess)
+    check(ranks == [F_WO_STEPS[i % 2] for i in range(LM_LAYERS)],
+          f"path F wo ranks {ranks}")
+    print(f"path F vs exact SVD: wo ranks={ranks} (exact-spectrum optimum "
+          f"each) worst distortion excess={worst:.3g} (tol 1e-4)",
+          flush=True)
+
+    dense = srv.densified_for_serving(params, state, lc.tasks)
+    prompts_t = torch.as_tensor(prompts, device="cuda")
+    toks_t = torch.as_tensor(toks, device="cuda")
+    agree = against_densified("path F", cfg, serving, dense, prompts_t,
+                              toks_t, power)
+    check(agree == 1.0, f"path F token agreement {agree}")
+    del dense, serving, server
+
+    # per-group solver seconds, each group re-run alone from the same
+    # state (its C-step input and warm start)
+    xs = {t.name: t.shifted_compressible(params, state["tasks"][t.name],
+                                         state["mu"]) for t in lc.tasks}
+    thetas = {t.name: state["tasks"][t.name]["theta"] for t in lc.tasks}
+    times = []
+    for group in build_groups(lc.tasks, xs, backend="auto", device="cuda"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        grouped_compress(group, xs, thetas, state["mu"], backend="auto",
+                         device="cuda")
+        torch.cuda.synchronize()
+        times.append((group[0].scheme.name, len(group),
+                      round(time.time() - t0, 3)))
+    print(f"path F solver seconds per group (re-run alone): {times} "
+          f"[{power}]", flush=True)
+    del params, state, xs, thetas
+    torch.cuda.empty_cache()
+    return n
 
 
 def profile_phase(path_c: dict, power: str) -> None:
@@ -694,9 +1204,11 @@ def main() -> int:
 
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention as k6
-    from repro_torch.kernels.kmeans import kmeans as k1
     from repro_torch.kernels.prune import prune as k2
     from repro_torch.kernels.quant_matmul import quant_matmul as k45
+    # the package exports the Lloyd loop ``kmeans``, which shadows the
+    # kernel module of the same name
+    k1 = importlib.import_module("repro_torch.kernels.kmeans.kmeans")
     t0 = time.time()
     logs = build.build(build.SOURCES)
     print(f"build_s={time.time() - t0:.2f} sources={sorted(logs)}")
@@ -705,25 +1217,38 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {src_name}: {line.strip()}")
 
+    # every kernel's launch counter (K7–K9 are the single-vector wrappers
+    # of the K1–K3 sources)
+    kern = {"K1": k1.KERNEL, "K2": k2.KERNEL, "K3": k2.MASK_KERNEL,
+            "K4": k45.KERNEL_PACKED4, "K5": k45.KERNEL_U8, "K6": k6.KERNEL,
+            "K7": k1.KERNEL_SINGLE, "K8": k2.KERNEL_SINGLE,
+            "K9": k2.MASK_KERNEL_SINGLE}
     power = card.split(",")[-1].strip()
+    t_start = time.time()
     rec = kernel_phase(k1, k2, power)
-    n_a = main_path_a(k1, k2)
-    n_b = main_path_b(k1, k2)
-    n_lm1, n_lm2 = lm_phase(k1, k2)
+    paths = {"A": main_path_a(kern), "B": main_path_b(kern),
+             "LM": lm_phase(kern)}
     srec = serve_kernel_phase(k45, k6, power)
-    kern = {"K1": k1.KERNEL, "K2": k2.KERNEL, "K4": k45.KERNEL_PACKED4,
-            "K5": k45.KERNEL_U8, "K6": k6.KERNEL}
     path_c = main_path_c(kern, power)
-    n_d = main_path_d(kern, path_c["cfg"], path_c["serving"], power)
+    paths["C"] = path_c["launches"]
+    paths["D"] = main_path_d(kern, path_c["cfg"], path_c["serving"], power)
+    mrec = mask_count_phase(k1, k2, power)
+    path_e = main_path_e(kern, power)
+    paths["E"] = path_e["launches"]
+    paths["G"] = main_path_g(kern, k1, path_e["problem"], power)
+    paths["F"] = main_path_f(kern, power)
     profile_phase(path_c, power)
-    n_c = path_c["launches"]
+    print(f"jacobi kernels per round (profiler, sketch width 144): "
+          f"{jacobi_kernels_per_round():.1f}", flush=True)
+    total = {n: sum(p[n] for p in paths.values()) for n in kern}
+    print(f"launches per path: {paths}", flush=True)
+    print(f"phases_s={time.time() - t_start:.1f}", flush=True)
 
-    def entry(name, source, replaces, launches, rows, main_shape,
-              library_ms=None):
+    def entry(name, source, replaces, key, rows, main_shape):
         row = next(r for r in rows
                    if r["shape"][:len(main_shape)] == list(main_shape))
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
+                "replaces": replaces, "launches": total[key],
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -733,20 +1258,32 @@ def main() -> int:
     kernels = [
         entry("kmeans_assign_moments_batched",
               csrc + "kmeans_assign_moments.cu",
-              "src/repro/kernels/kmeans/kmeans.py:127",
-              n_a + n_lm1 + n_c["K1"], rec["K1"]["rows"], LM_K1_SHAPE[:2]),
+              "src/repro/kernels/kmeans/kmeans.py:127", "K1",
+              rec["K1"]["rows"], LM_K1_SHAPE[:2]),
         entry("count_above_batched", csrc + "count_above.cu",
-              "src/repro/kernels/prune/prune.py:138",
-              n_b + n_lm2 + n_c["K2"], rec["K2"]["rows"], K2_SHAPES[-1]),
+              "src/repro/kernels/prune/prune.py:138", "K2",
+              rec["K2"]["rows"], K2_SHAPES[-1]),
+        entry("mask_apply_batched", csrc + "mask_apply.cu",
+              "src/repro/kernels/prune/prune.py:161", "K3", mrec["K3"],
+              K3_SHAPES[0]),
         entry("quant_matmul_packed", csrc + "quant_matmul.cu",
-              "src/repro/kernels/quant_matmul/quant_matmul.py:105",
-              n_c["K4"] + n_d["K4"], srec["K4"], K4_MAIN),
+              "src/repro/kernels/quant_matmul/quant_matmul.py:105", "K4",
+              srec["K4"], K4_MAIN),
         entry("quant_matmul", csrc + "quant_matmul.cu",
-              "src/repro/kernels/quant_matmul/quant_matmul.py:46",
-              n_c["K5"] + n_d["K5"], srec["K5"], K5_MAIN),
+              "src/repro/kernels/quant_matmul/quant_matmul.py:46", "K5",
+              srec["K5"], K5_MAIN),
         entry("flash_attention", csrc + "flash_attention.cu",
               "src/repro/kernels/flash_attention/flash_attention.py:81",
-              n_c["K6"] + n_d["K6"], srec["K6"], K6_SHAPES[0]),
+              "K6", srec["K6"], K6_SHAPES[0]),
+        entry("kmeans_assign_moments", csrc + "kmeans_assign_moments.cu",
+              "src/repro/kernels/kmeans/kmeans.py:65", "K7", mrec["K7"],
+              K7_SHAPES[0]),
+        entry("count_above", csrc + "count_above.cu",
+              "src/repro/kernels/prune/prune.py:54", "K8", mrec["K8"],
+              (LENET_WEIGHTS,)),
+        entry("mask_apply", csrc + "mask_apply.cu",
+              "src/repro/kernels/prune/prune.py:76", "K9", mrec["K9"],
+              (LENET_WEIGHTS,)),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel never launched")
     check(all(math.isfinite(k["ms"]) for k in kernels), "timings")

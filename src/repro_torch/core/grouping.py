@@ -15,10 +15,16 @@ dispatch:
 5. slices Θ and Δ(Θ) back out per task.
 
 Under the batched signature, schemes that move a hyperparameter into a
-per-item operand (ℓ0 pruning's κ, k-means' live-K count) group across
-values of it: mixed-κ and mixed-K tasks share one launch. Θ leaves whose
-shapes differ across members (mixed-K codebooks) pack with trailing-dim
-padding and slice back to each task's own shapes after the solve.
+per-item operand (ℓ0 pruning's κ, k-means' live-K count, low-rank's
+target rank, rank selection's α) group across values of it: mixed-κ,
+mixed-K, mixed-rank and mixed-α tasks share one launch. Θ leaves whose
+shapes differ across members (mixed-K codebooks, mixed-rank factors)
+pack with trailing-dim padding up to the group maximum and slice back to
+each task's own shapes after the solve. Stochastic solvers
+(``scheme.wants_key``) get per-item sketch seeds, by task name and
+within-task index (``CompressionTask.item_keys``, the same on the grouped
+and per-task paths), appended as the last operand, or passed as the
+``key=`` argument on the item-by-item path.
 
 The JAX package's mesh sharding and roofline planner (with the group
 chunking it decides) are not ported; its planner is bit-neutral off the
@@ -100,13 +106,26 @@ def describe_groups(tasks: Sequence[CompressionTask], xs: dict,
     return out
 
 
+def _packed_keys(group: Sequence[CompressionTask],
+                 counts: list[int]) -> torch.Tensor:
+    """One (Σ items,) int64 seed tensor (CPU) for a ``wants_key`` group:
+    the single source of seed packing for every grouped path (solver
+    operands, the item-by-item path, grouped init)."""
+    return torch.cat([t.item_keys(n) for t, n in zip(group, counts)])
+
+
 def _group_operands(group: Sequence[CompressionTask], counts: list[int],
                     device):
     """Concatenate each task's per-item solver operands into the packed
-    form ``compress_batched`` consumes (mixed-κ: one (Σ items,) tensor)."""
+    form ``compress_batched`` consumes (mixed-κ: one (Σ items,) tensor).
+    Schemes with ``wants_key`` get their packed seeds as the LAST
+    operand."""
     per_task = [t.scheme.batch_operands(n, device)
                 for t, n in zip(group, counts)]
-    return tuple(torch.cat(parts, dim=0) for parts in zip(*per_task))
+    operands = tuple(torch.cat(parts, dim=0) for parts in zip(*per_task))
+    if group[0].scheme.wants_key:
+        operands = operands + (_packed_keys(group, counts),)
+    return operands
 
 
 def _group_solve(scheme, solver_fn, mu):
@@ -115,6 +134,11 @@ def _group_solve(scheme, solver_fn, mu):
     def _solve(xi, ti, *ops):
         if solver_fn is not None:
             nt = scheme.compress_batched(solver_fn, xi, ti, ops, mu=mu)
+        elif scheme.wants_key:
+            (keys,) = ops
+            nt = map_items(
+                lambda x, th, k: scheme.compress(x, th, mu=mu, key=k),
+                xi, ti, keys)
         else:
             nt = map_items(lambda x, th: scheme.compress(x, th, mu=mu),
                            xi, ti)
@@ -134,12 +158,13 @@ def _pack_group(group: Sequence[CompressionTask], xs: dict, thetas: dict,
                    for t in group]
     if solver_fn is not None:
         # batched solvers take Θ leaves padded to the group max trailing
-        # shape (mixed-K codebooks → K_max)
+        # shape (mixed-K codebooks → K_max, mixed-rank factors → R_max)
         packed = pack_thetas_padded(thetas_lead)
         operands = _group_operands(group, counts, device)
     else:
         packed = pack_thetas(thetas_lead)
-        operands = ()
+        operands = ((_packed_keys(group, counts),)
+                    if group[0].scheme.wants_key else ())
     return (items, packed) + operands, thetas_lead
 
 
@@ -153,8 +178,10 @@ def solve_task(task: CompressionTask, x, theta, mu,
         return task.scheme_compress(x, theta, mu)
     items = task.view.to_items(x)
     ti = theta if task.view.stacked else add_leading_axis(theta)
-    operands = task.scheme.batch_operands(task.view.item_count(x),
-                                          items.device)
+    n_items = task.view.item_count(x)
+    operands = task.scheme.batch_operands(n_items, items.device)
+    if task.scheme.wants_key:
+        operands = operands + (task.item_keys(n_items),)
     nt = task.scheme.compress_batched(solver_fn, items, ti, operands, mu=mu)
     return nt if task.view.stacked else drop_leading_axis(nt)
 
@@ -218,7 +245,12 @@ def grouped_init(tasks: Sequence[CompressionTask], xs: dict) -> dict:
         items = torch.cat([t.view.to_items(xs[t.name]) for t in group],
                           dim=0)
         counts = [t.view.item_count(xs[t.name]) for t in group]
-        theta_packed = map_items(scheme.init, items)
+        if scheme.wants_key:
+            theta_packed = map_items(
+                lambda x, k: scheme.init(x, key=k), items,
+                _packed_keys(group, counts))
+        else:
+            theta_packed = map_items(scheme.init, items)
         a_packed = map_items(scheme.decompress, theta_packed)
 
         off = 0

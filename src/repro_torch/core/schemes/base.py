@@ -33,8 +33,9 @@ class CompressionScheme:
     #: item of a packed stack.
     solver: str | None = None
 
-    #: whether the engine threads a per-item random key into the solves
-    #: (stochastic C steps). No scheme of this slice sets it.
+    #: whether the engine threads a per-item sketch seed into the solves
+    #: (stochastic C steps; ``CompressionTask.item_keys``): as the last
+    #: solver operand, or as the ``key=`` argument of init/compress.
     wants_key: bool = False
 
     #: whether the batched solver partitions under plain sharding

@@ -3,15 +3,15 @@
 Port of ``src/repro/core/tasks.py``. Parameters live in a nested dict of
 tensors, so the selector is a regex over slash-joined paths (``l0/w``),
 matching the same paths as the JAX package.
-
-``item_keys`` (per-item random keys for stochastic C steps) comes with
-the low-rank slice: no scheme of this slice sets ``wants_key``.
 """
 from __future__ import annotations
 
 import re
+import zlib
 from dataclasses import dataclass, field
 from typing import Any
+
+import torch
 
 from repro_torch.core.schemes.base import CompressionScheme, map_items
 from repro_torch.core.views import View
@@ -115,13 +115,42 @@ class CompressionTask:
         return (type(self.scheme).__qualname__, key,
                 self.view.item_shape(x), str(x.dtype))
 
+    # ---- per-item sketch seeds (stochastic C steps) -------------------
+    def item_keys(self, n_items: int) -> torch.Tensor:
+        """(n_items,) int64 seeds for schemes with ``wants_key``, on the
+        CPU.
+
+        Derived from the *task name* (``crc32 & 0x7FFFFFFF``, as the JAX
+        package derives its base key) and the within-task item index, so
+        the seeds are the same on the grouped and per-task paths,
+        deterministic across reruns, and distinct for every item: no two
+        items share a randomized-SVD sketch. A torch generator cannot
+        reproduce JAX's ``fold_in`` keys, so the sketches themselves
+        differ between the packages; each item draws its sketch from a
+        ``torch.Generator`` seeded with its seed."""
+        base = zlib.crc32(self.name.encode("utf-8")) & 0x7FFFFFFF
+        return base * (1 << 32) + torch.arange(n_items, dtype=torch.int64)
+
     # ---- scheme application, item by item when the view is stacked ----
     def scheme_init(self, x):
+        if self.scheme.wants_key:
+            keys = self.item_keys(self.view.item_count(x))
+            if self.view.stacked:
+                return map_items(
+                    lambda xi, ki: self.scheme.init(xi, key=ki), x, keys)
+            return self.scheme.init(x, key=keys[0])
         if self.view.stacked:
             return map_items(self.scheme.init, x)
         return self.scheme.init(x)
 
     def scheme_compress(self, x, theta, mu):
+        if self.scheme.wants_key:
+            keys = self.item_keys(self.view.item_count(x))
+            if self.view.stacked:
+                return map_items(
+                    lambda xi, ti, ki: self.scheme.compress(
+                        xi, ti, mu=mu, key=ki), x, theta, keys)
+            return self.scheme.compress(x, theta, mu=mu, key=keys[0])
         if self.view.stacked:
             return map_items(
                 lambda xi, ti: self.scheme.compress(xi, ti, mu=mu), x, theta)

@@ -45,11 +45,19 @@ def to_numpy(tree):
 
 
 def _theta_from_numpy(theta, device):
+    """A Θ tree as numpy → the port's Θ on ``device``: quantization
+    ``QuantTheta`` (also nested, as in an additive ``{"parts": [...]}``),
+    pruning ``{"theta"}``, low-rank ``{"u", "v"[, "rank"]}`` (the rank a
+    0-d integer)."""
     from repro_torch.core.schemes.quantize import QuantTheta
     if isinstance(theta, tuple) and getattr(theta, "_fields", None) == \
             QuantTheta._fields:
         return QuantTheta(*(_to_tensor(x, device) for x in theta))
-    return params_from_numpy(theta, device)
+    if isinstance(theta, dict):
+        return {k: _theta_from_numpy(v, device) for k, v in theta.items()}
+    if isinstance(theta, (list, tuple)):
+        return type(theta)(_theta_from_numpy(v, device) for v in theta)
+    return _to_tensor(theta, device)
 
 
 _FORM_FIELDS = {

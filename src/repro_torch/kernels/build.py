@@ -22,8 +22,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("kmeans_assign_moments.cu", "count_above.cu", "quant_matmul.cu",
-           "flash_attention.cu")
+SOURCES = ("kmeans_assign_moments.cu", "count_above.cu", "mask_apply.cu",
+           "quant_matmul.cu", "flash_attention.cu")
 
 
 def _nvcc() -> str:

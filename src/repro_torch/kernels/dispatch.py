@@ -28,9 +28,13 @@ Solver calling conventions (packed leading item axis ``I``):
 * ``topk_mask(w (I,P) f32, kappa (I,) i32) -> theta (I,P) f32``
 * ``project_l1_ball(w (I,P) f32, radius (I,) f32) -> theta (I,P) f32``
 * ``soft_threshold(w (I,P) f32, alpha (I,) f32, mu) -> theta (I,P) f32``
+* ``lowrank_rsvd(w (I,m,n) f32, rank (I,) i32, keys (I,) i64, *, r_max,
+  u0=None) -> (u (I,m,r_max), v (I,n,r_max))``
+* ``rank_select(w (I,m,n) f32, alpha (I,) f32, keys (I,) i64, mu, *,
+  r_max, cost, u0=None) -> (u, v, rank (I,) i32)``
 
-The low-rank solvers (``lowrank_rsvd``, ``rank_select``) come with the
-low-rank slice.
+``keys`` are the per-item sketch seeds (``CompressionTask.item_keys``),
+a CPU tensor whatever device the items are on.
 """
 from __future__ import annotations
 
@@ -118,6 +122,7 @@ def solver_signature(solver: str,
 # built-in solvers
 # ----------------------------------------------------------------------
 from repro_torch.kernels.kmeans import ops as _kops    # noqa: E402
+from repro_torch.kernels.lowrank import ops as _lops   # noqa: E402
 from repro_torch.kernels.prune import ops as _pops     # noqa: E402
 
 register("kmeans_lloyd", "torch", partial(_kops.kmeans_batched, impl="torch"))
@@ -127,3 +132,5 @@ register("topk_mask", "cuda", partial(_pops.topk_mask_batched, impl="kernel"))
 # plain tensor programs only: the backend-gap rule serves `cuda` requests
 register("project_l1_ball", "torch", _pops.project_l1_ball_batched)
 register("soft_threshold", "torch", _pops.soft_threshold_batched)
+register("lowrank_rsvd", "torch", _lops.lowrank_rsvd_batched)
+register("rank_select", "torch", _lops.rank_select_batched)

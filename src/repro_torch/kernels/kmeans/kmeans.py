@@ -1,10 +1,13 @@
-"""K1: batched k-means assignment + cluster moments, a CUDA kernel.
+"""K1 and K7: k-means assignment + cluster moments, a CUDA kernel.
 
-The port of ``src/repro/kernels/kmeans/kmeans.py:
-kmeans_assign_moments_batched`` (Pallas, TPU). The kernel source is
+The ports of ``src/repro/kernels/kmeans/kmeans.py:
+kmeans_assign_moments_batched`` (K1) and its single-vector form
+``kmeans_assign_moments`` (K7, here the I = 1 launch of K1), Pallas
+kernels for the TPU. The kernel source is
 ``../csrc/kmeans_assign_moments.cu``; its note gives the design and the
-bound. :func:`kmeans_assign_moments_batched` launches it for a CUDA tensor
-and runs :func:`kmeans_assign_moments_batched_plain` for a CPU tensor.
+bound. Each wrapper launches the kernel for a CUDA tensor and runs its
+plain version for a CPU tensor, and counts its own launches (``KERNEL``
+for K1, ``KERNEL_SINGLE`` for K7).
 """
 from __future__ import annotations
 
@@ -13,18 +16,20 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import CudaKernel
-from repro_torch.kernels.kmeans.ref import (  # noqa: F401  (the plain version)
-    kmeans_assign_moments_batched_plain)
+from repro_torch.kernels.kmeans.ref import (  # noqa: F401  (the plain versions)
+    kmeans_assign_moments_batched_plain, kmeans_assign_moments_plain)
 
 #: elements per block (kTile in the .cu source)
 TILE = 4096
 MAX_K = 256
 
 _p = ctypes.c_void_p
-KERNEL = CudaKernel(
-    "kmeans_assign_moments.cu", "kmeans_assign_moments_batched",
-    [_p, _p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-     ctypes.c_longlong, _p, _p, _p, _p, _p, _p])
+_ARGS = [_p, _p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_longlong, _p, _p, _p, _p, _p, _p]
+KERNEL = CudaKernel("kmeans_assign_moments.cu",
+                    "kmeans_assign_moments_batched", _ARGS)
+KERNEL_SINGLE = CudaKernel("kmeans_assign_moments.cu",
+                           "kmeans_assign_moments_batched", _ARGS)
 
 
 def kmeans_assign_moments_batched(w: torch.Tensor, codebooks: torch.Tensor):
@@ -35,9 +40,23 @@ def kmeans_assign_moments_batched(w: torch.Tensor, codebooks: torch.Tensor):
     without synchronising; on a CPU tensor it runs the plain version."""
     if w.device.type == "cpu":
         return kmeans_assign_moments_batched_plain(w, codebooks)
+    return _launch(KERNEL, w, codebooks)
+
+
+def kmeans_assign_moments(w: torch.Tensor, codebook: torch.Tensor):
+    """K7: w (P,) f32, codebook (K,) f32 → (assign (P,) i32, sums (K,)
+    f32, counts (K,) i32): the K1 kernel's I = 1 launch (the TPU kernel
+    counts in f32 and pads the tail with ``codebook[0]``)."""
+    if w.device.type == "cpu":
+        return kmeans_assign_moments_plain(w, codebook)
+    assign, sums, counts = _launch(KERNEL_SINGLE, w[None], codebook[None])
+    return assign[0], sums[0], counts[0]
+
+
+def _launch(kernel: CudaKernel, w: torch.Tensor, codebooks: torch.Tensor):
     if w.device.type != "cuda":
-        raise ValueError(f"kmeans_assign_moments_batched: no kernel for "
-                         f"device {w.device}")
+        raise ValueError(f"kmeans_assign_moments: no kernel for device "
+                         f"{w.device}")
     if w.dtype != torch.float32 or codebooks.dtype != torch.float32:
         raise TypeError("kmeans_assign_moments_batched needs float32 "
                         f"operands, got {w.dtype} and {codebooks.dtype}")
@@ -64,7 +83,7 @@ def kmeans_assign_moments_batched(w: torch.Tensor, codebooks: torch.Tensor):
     sums = torch.empty((n_items, k), dtype=torch.float32, device=dev)
     counts = torch.empty((n_items, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        KERNEL(w.data_ptr(), codebooks.data_ptr(), n_items, p, k, n_tiles,
+        kernel(w.data_ptr(), codebooks.data_ptr(), n_items, p, k, n_tiles,
                assign.data_ptr(), part_sums.data_ptr(),
                part_counts.data_ptr(), sums.data_ptr(), counts.data_ptr(),
                torch.cuda.current_stream(dev).cuda_stream)

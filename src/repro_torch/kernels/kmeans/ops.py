@@ -1,16 +1,43 @@
-"""The batched k-means solver: the ``kmeans_lloyd`` entry of the dispatch
-registry.
+"""k-means solvers: the single-vector Lloyd loop on K7, and the batched
+one on K1 — the ``kmeans_lloyd`` entry of the dispatch registry.
 
-Port of ``src/repro/kernels/kmeans/ops.py`` (``assign_moments_batched``,
-``kmeans_batched``). The kernel path runs one K1 launch per Lloyd step
-for the whole packed group, plus one for the final assignment: ``iters
-+ 1`` launches per group per C step.
+Port of ``src/repro/kernels/kmeans/ops.py``. Each runs one kernel launch
+per Lloyd step (for the whole packed group, in the batched solver) plus
+one for the final assignment: ``iters + 1`` launches per call. On a CPU
+tensor the kernels' plain versions run instead.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.kmeans.kmeans import kmeans_assign_moments_batched
+from repro_torch.kernels.kmeans.kmeans import (
+    kmeans_assign_moments, kmeans_assign_moments_batched)
+
+
+def assign_moments(w: torch.Tensor, codebook: torch.Tensor):
+    """Nearest-centroid assignment + cluster moments of one vector (K7)
+    → (assign (P,) i32, sums (K,) f32, counts (K,) i32). The JAX package
+    pads the tail with ``codebook[0]`` and subtracts it afterwards; the
+    kernel masks the tail, so nothing is padded here."""
+    return kmeans_assign_moments(w.reshape(-1).float().contiguous(),
+                                 codebook.float().contiguous())
+
+
+def lloyd_step(w: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """One Lloyd update of a sorted codebook; empty clusters keep their
+    entry."""
+    _, sums, counts = assign_moments(w, codebook)
+    new = torch.where(counts > 0, sums / counts.clamp_min(1), codebook)
+    return torch.sort(new).values
+
+
+def kmeans(w: torch.Tensor, codebook0: torch.Tensor, iters: int = 25):
+    """Full Lloyd loop on the kernel → (codebook (K,), assign (P,) i32)."""
+    cb = torch.sort(codebook0.float()).values
+    for _ in range(iters):
+        cb = lloyd_step(w, cb)
+    assign, _, _ = assign_moments(w, cb)
+    return cb, assign
 
 
 def assign_moments_batched(w: torch.Tensor, codebooks: torch.Tensor):

@@ -36,3 +36,11 @@ def kmeans_assign_moments_batched_plain(w: torch.Tensor,
         sums += torch.where(onehot, wc[:, None, :], 0.0).sum(-1)
         counts += onehot.sum(-1, dtype=torch.int32)
     return assign, sums, counts
+
+
+def kmeans_assign_moments_plain(w: torch.Tensor, codebook: torch.Tensor):
+    """w (P,) f32, codebook (K,) f32 → (assign (P,) i32, sums (K,) f32,
+    counts (K,) i32): the single-vector form."""
+    assign, sums, counts = kmeans_assign_moments_batched_plain(
+        w[None], codebook[None])
+    return assign[0], sums[0], counts[0]

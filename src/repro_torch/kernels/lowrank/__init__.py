@@ -1,2 +1,2 @@
-"""Low-rank serving op (the C-step solvers come with the low-rank
-slice)."""
+"""Low-rank C-step solvers (matmul-only randomized SVD) and the low-rank
+serving op."""

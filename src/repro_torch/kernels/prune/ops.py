@@ -1,16 +1,51 @@
-"""Batched pruning solvers: the ``topk_mask``, ``project_l1_ball`` and
-``soft_threshold`` entries of the dispatch registry.
+"""Pruning solvers: the single-vector top-κ loop, and the batched
+``topk_mask``, ``project_l1_ball`` and ``soft_threshold`` entries of the
+dispatch registry.
 
-Port of ``src/repro/kernels/prune/ops.py``. Only the top-κ bisection
-launches a kernel (K2, ``count_above_batched``); the ℓ1 solvers are plain
-tensor programs, as in the JAX package.
+Port of ``src/repro/kernels/prune/ops.py``. Only the top-κ bisections
+launch kernels: the batched one K2 (``count_above_batched``) and K3
+(``mask_apply_batched``), the single-vector one K8 (``count_above``) and
+K9 (``mask_apply``). The ℓ1 solvers are plain tensor programs, as in the
+JAX package.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.prune import ref
-from repro_torch.kernels.prune.prune import count_above_batched
+from repro_torch.kernels.prune.prune import (
+    count_above, count_above_batched, mask_apply, mask_apply_batched)
+
+
+def topk_mask(w: torch.Tensor, kappa: int, iters: int = 30) -> torch.Tensor:
+    """θ = w · 1[top-κ support] for one tensor of any shape, by threshold
+    bisection over the K8 count (``iters`` launches, then one more for
+    the ``> hi`` class) and the K9 mask.
+
+    The single-vector loop of the JAX package, whose semantics differ
+    from the batched one's: strict ``>`` counts; ``lo = 0``, ``hi =
+    max|w|``, and a count above κ moves ``lo``; then the ``> hi`` class
+    is kept whole and the remaining ``κ − n_hi`` slots are filled from the
+    boundary class ``(lo, hi]`` in index order, so exactly min(κ, nnz)
+    weights are kept, lower index first on ties. The thresholds are
+    computed in float32 as the JAX loop computes them, so the mask is
+    bit-identical to its kernel path (``use_pallas=True``). On a CUDA
+    tensor the counts and the mask are the kernels; on a CPU tensor their
+    plain versions."""
+    flat = w.reshape(-1).float().contiguous()
+    hi = flat.abs().amax()
+    lo = torch.zeros_like(hi)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        too_many = count_above(flat, mid) > kappa   # raise the threshold
+        lo = torch.where(too_many, mid, lo)
+        hi = torch.where(too_many, hi, mid)
+    a = flat.abs()
+    n_hi = count_above(flat, hi)
+    boundary = (a > lo) & (a <= hi)
+    fill = torch.cumsum(boundary, dim=0, dtype=torch.int32) <= (kappa - n_hi)
+    out = torch.where(boundary & fill, flat, mask_apply(flat, hi))
+    return out.reshape(w.shape)
 
 
 def topk_mask_batched(w: torch.Tensor, kappa: torch.Tensor, iters: int = 30,
@@ -21,8 +56,9 @@ def topk_mask_batched(w: torch.Tensor, kappa: torch.Tensor, iters: int = 30,
     ``impl``: ``"torch"`` (stable argsort, :func:`ref.
     topk_mask_batched_ref`) or ``"kernel"``: per-item threshold bisection
     on the feasibility predicate ``count(|w| ≥ t) ≥ κ`` over K2 (``iters``
-    launches), one more launch to count the ``|w| ≥ hi`` class, then the
-    boundary class ``[lo, hi)`` filled in index order. Both keep exactly
+    launches), one more launch to count the ``|w| ≥ hi`` class, then K3
+    keeps that class and the boundary class ``[lo, hi)`` is filled in
+    index order. Both keep exactly
     min(κ_i, P) weights per item with the ``lax.top_k`` tie-break (lower
     index wins); near-ties inside the final unconverged interval are
     filled by index, not magnitude.
@@ -57,8 +93,8 @@ def topk_mask_batched(w: torch.Tensor, kappa: torch.Tensor, iters: int = 30,
     boundary = (a >= lo[:, None]) & (a < hi[:, None])
     fill = (torch.cumsum(boundary, dim=-1, dtype=torch.int32)
             <= (kappa - n_hi)[:, None])
-    keep = (a >= hi[:, None]) | (boundary & fill)
-    return torch.where(keep, w, 0.0)
+    return torch.where(boundary & fill, w,
+                       mask_apply_batched(w, hi, strict=False))
 
 
 def project_l1_ball_batched(w: torch.Tensor,

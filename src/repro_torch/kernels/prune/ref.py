@@ -1,6 +1,7 @@
-"""Plain PyTorch versions for the ℓ0-pruning solvers: the threshold
-count of kernel K2 and the sort-based top-κ mask (the ``torch`` backend
-of the ``topk_mask`` solver)."""
+"""Plain PyTorch versions for the ℓ0-pruning kernels and solvers: the
+threshold counts (K2, K8), the threshold masks (K3, K9) and the
+sort-based top-κ mask (the ``torch`` backend of the ``topk_mask``
+solver)."""
 from __future__ import annotations
 
 import torch
@@ -13,6 +14,25 @@ def count_above_batched_plain(w: torch.Tensor, t: torch.Tensor,
     a = w.abs()
     keep = a > t[:, None] if strict else a >= t[:, None]
     return keep.sum(-1, dtype=torch.int32)
+
+
+def count_above_plain(w: torch.Tensor, t) -> torch.Tensor:
+    """w (P,) f32, t 0-d → 0-d i32 count of |w| > t."""
+    return (w.abs() > t).sum(dtype=torch.int32)
+
+
+def mask_apply_batched_plain(w: torch.Tensor, t: torch.Tensor,
+                             strict: bool = True) -> torch.Tensor:
+    """w (I, P) f32, t (I,) f32 → w·1[|w| > t_i] (``strict=False``:
+    |w| ≥ t_i)."""
+    a = w.abs()
+    keep = a > t[:, None] if strict else a >= t[:, None]
+    return torch.where(keep, w, 0.0)
+
+
+def mask_apply_plain(w: torch.Tensor, t) -> torch.Tensor:
+    """w (P,) f32, t 0-d → w·1[|w| > t]."""
+    return torch.where(w.abs() > t, w, 0.0)
 
 
 def topk_mask_batched_ref(w: torch.Tensor,

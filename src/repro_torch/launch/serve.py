@@ -7,8 +7,7 @@ Port of ``src/repro/launch/serve.py`` (no mesh). Runs on the card unless
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \
         --reduced --engine --form quant4 --slots 4 --requests 12 --device cpu
 
-Only GQA-attention models with dense FFNs are ported so far, and
-``--form lowrank`` needs the LowRank scheme (ROADMAP item 9).
+Only GQA-attention models with dense FFNs are ported so far.
 """
 from __future__ import annotations
 
@@ -40,9 +39,9 @@ def lc_param_paths(params) -> list[str]:
 def compress_for_form(cfg, params, form: str, device):
     """Bridge the model's matrices into one serving form through a real
     LC state (direct compression init)."""
-    from repro_torch.core import AsVector, CompressionTask, LCAlgorithm
+    from repro_torch.core import AsIs, AsVector, CompressionTask, LCAlgorithm
     from repro_torch.core.schemes import (
-        AdaptiveQuantization, ConstraintL0Pruning)
+        AdaptiveQuantization, ConstraintL0Pruning, LowRank)
 
     paths = [p for p in lc_param_paths(params)
              if get_path(params, p).ndim == 2]
@@ -56,8 +55,8 @@ def compress_for_form(cfg, params, form: str, device):
         task = CompressionTask("q", pattern, AsVector(),
                                AdaptiveQuantization(k=64))
     elif form == "lowrank":
-        raise NotImplementedError(
-            "--form lowrank needs the LowRank scheme (ROADMAP item 9)")
+        task = CompressionTask("lr", pattern, AsIs(),
+                               LowRank(max(cfg.d_model // 8, 2)))
     else:  # sparse
         total = sum(get_path(params, p).numel() for p in paths)
         task = CompressionTask("pr", pattern, AsVector(),

@@ -7,20 +7,27 @@ JAX (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 ``chip_smoke.py`` runs the same checks at the main paths' shapes.
-Tolerances: assignments and counts equal; K1 sums rtol 1e-5 / atol 1e-3;
+Tolerances: assignments, counts and masks equal; K1/K7 sums rtol 1e-5 /
+atol 1e-3;
 K4/K5 rtol 1e-5 / atol 1e-4; K6 rtol 2e-4 / atol 2e-4 (the reference's
 own, ``tests/test_kernels.py``).
 """
+import importlib
 import math
 
 import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention as k6
-from repro_torch.kernels.kmeans import kmeans as k1
+from repro_torch.kernels.kmeans import ops as kops
+from repro_torch.kernels.prune import ops as pops
 from repro_torch.kernels.prune import prune as k2
 from repro_torch.kernels.quant_matmul import ops as qops
 from repro_torch.kernels.quant_matmul import quant_matmul as k45
+
+# the package exports the Lloyd loop ``kmeans`` (as the JAX package does),
+# which shadows the kernel module of the same name
+k1 = importlib.import_module("repro_torch.kernels.kmeans.kmeans")
 
 
 @pytest.fixture
@@ -106,3 +113,53 @@ def test_kernel_reruns_are_bit_identical(gen):
     kv = torch.randn((1, 2, 100, 64), device="cuda", generator=gen)
     assert torch.equal(k6.flash_attention(q, kv, kv),
                        k6.flash_attention(q, kv, kv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i,p", [(3, 100_003), (2, 4096), (1, 5), (1, 1)])
+def test_mask_kernels_match_plain_on_card(gen, i, p):
+    """K3 (strict and not) and K9, on aligned rows, rows that start off a
+    16-byte boundary (P not a multiple of 4) and a misaligned view."""
+    w = torch.randn((i, p), device="cuda", generator=gen)
+    w[:, ::7] = 0.5 * torch.sign(w[:, ::7])             # magnitude ties
+    t = w.abs().amax(-1) * 0.3
+    t[0] = 0.5                                          # exactly the ties
+    for strict in (True, False):
+        assert torch.equal(k2.mask_apply_batched(w, t, strict),
+                           k2.mask_apply_batched_plain(w, t, strict))
+    shifted = torch.randn(i * p + 1, device="cuda", generator=gen)[1:]
+    shifted = shifted.view(i, p)                        # 4 bytes off
+    assert torch.equal(k2.mask_apply_batched(shifted, t, False),
+                       k2.mask_apply_batched_plain(shifted, t, False))
+    n = k2.MASK_KERNEL_SINGLE.launches
+    assert torch.equal(k2.mask_apply(w[0], t[0]),
+                       k2.mask_apply_plain(w[0], t[0]))
+    assert k2.MASK_KERNEL_SINGLE.launches == n + 1
+
+
+@pytest.mark.cuda
+def test_single_vector_solvers_match_cpu_on_card(gen):
+    """K8's top-κ (31 K2 launches, one K9) is bit-identical to the same
+    loop on CPU copies (the plain versions); K7's Lloyd loop lands on
+    the same assignments."""
+    w = torch.randn(50_001, device="cuda", generator=gen)
+    w[::11] = 0.25 * torch.sign(w[::11])
+    n8, n9 = k2.KERNEL_SINGLE.launches, k2.MASK_KERNEL_SINGLE.launches
+    got = pops.topk_mask(w, 2_500)
+    assert (k2.KERNEL_SINGLE.launches - n8,
+            k2.MASK_KERNEL_SINGLE.launches - n9) == (31, 1)
+    assert torch.equal(got.cpu(), pops.topk_mask(w.cpu(), 2_500))
+    assert int(torch.count_nonzero(got)) == 2_500
+    assert torch.equal(k2.count_above(w, torch.tensor(0.5, device="cuda")),
+                       k2.count_above_plain(w, 0.5).cuda())
+    cb0 = torch.sort(torch.randn(8, device="cuda", generator=gen)).values
+    a, s, c = kops.assign_moments(w, cb0)
+    pa, ps, pc = k1.kmeans_assign_moments_plain(w, cb0)
+    assert torch.equal(a, pa) and torch.equal(c, pc)
+    torch.testing.assert_close(s, ps, rtol=1e-5, atol=1e-3)
+    n7 = k1.KERNEL_SINGLE.launches
+    cb, assign = kops.kmeans(w, cb0, iters=6)
+    assert k1.KERNEL_SINGLE.launches == n7 + 7
+    cb_cpu, _ = kops.kmeans(w.cpu(), cb0.cpu(), iters=6)
+    torch.testing.assert_close(cb.cpu(), cb_cpu, rtol=1e-5, atol=1e-5)
+    assert assign.shape == w.shape and assign.dtype == torch.int32

@@ -15,6 +15,8 @@ Tolerances (ROADMAP queue 3):
   a Lloyd loop atol 1e-3 (``KMEANS_CB_ATOL``);
 * other float reductions: rtol 1e-6 (atol 1e-5 where sums cancel).
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,10 +28,13 @@ from repro.kernels.kmeans import ref as jkref
 from repro.kernels.prune import ops as jpops
 from repro.kernels.prune.prune import count_above_batched as j_count
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.kmeans import kmeans as k1
 from repro_torch.kernels.kmeans import ops as kops
 from repro_torch.kernels.prune import ops as pops
 from repro_torch.kernels.prune import prune as k2
+
+# the package exports the Lloyd loop ``kmeans`` (as the JAX package does),
+# which shadows the kernel module of the same name
+k1 = importlib.import_module("repro_torch.kernels.kmeans.kmeans")
 
 KMEANS_CB_ATOL = 1e-3
 
@@ -230,16 +235,198 @@ def test_dispatch_rules():
     # backend gap: plain-only solvers serve a cuda request
     assert dispatch.lookup("project_l1_ball", "cuda", cpu)[1] == "torch"
     assert dispatch.lookup("soft_threshold", "auto", cuda)[1] == "torch"
-    assert dispatch.lookup("lowrank_rsvd", "auto", cpu) == (None, None)
+    # the matmul-only low-rank solvers: the torch program serves auto and
+    # cuda requests on either device (backend-gap rule)
+    for solver in ("lowrank_rsvd", "rank_select"):
+        for req in ("auto", "cuda", "torch"):
+            for dev in (cpu, cuda):
+                fn, backend = dispatch.lookup(solver, req, dev)
+                assert backend == "torch", (solver, req, dev)
+                assert fn is dispatch.registry_entries()[solver]["torch"]
     assert dispatch.lookup("topk_mask", "off", cpu) == (None, None)
+    assert dispatch.lookup("no_such_solver", "auto", cpu) == (None, None)
     assert dispatch.solver_table() == {
-        "kmeans_lloyd": ("cuda", "torch"), "project_l1_ball": ("torch",),
+        "kmeans_lloyd": ("cuda", "torch"), "lowrank_rsvd": ("torch",),
+        "project_l1_ball": ("torch",), "rank_select": ("torch",),
         "soft_threshold": ("torch",), "topk_mask": ("cuda", "torch")}
     # the scheme operands bind to the same solver parameters as in JAX
     for solver in ("kmeans_lloyd", "topk_mask", "project_l1_ball",
-                   "soft_threshold"):
+                   "soft_threshold", "lowrank_rsvd", "rank_select"):
         ours = dispatch.solver_signature(solver)
         theirs = jdispatch.solver_signature(solver)
         n = {"kmeans_lloyd": 3, "topk_mask": 2}.get(solver, len(theirs))
         assert ours[:n] == theirs[:n], solver
     assert set(dispatch.registry_entries()) == set(dispatch.solver_table())
+
+
+# ----------------------------------------------------------------------
+# K3/K9: threshold masks; K8: the single-vector count; K7: single-vector
+# k-means — plain versions against the JAX kernels in interpret mode
+# ----------------------------------------------------------------------
+def _jax_normal(shape, seed=11):
+    import jax
+    return np.asarray(jax.random.normal(
+        jax.random.fold_in(jax.random.PRNGKey(0), seed), shape))
+
+
+@pytest.mark.parametrize("t_vals", [(0.1, 0.7), (0.0, 2.5), (1.0, 1.0)])
+def test_batched_count_mask_kernels_vs_jax(t_vals):
+    """The cases of the reference's test_batched_count_mask_kernels_vs_ref,
+    plus the non-strict comparison."""
+    from repro.kernels.prune.prune import mask_apply_batched as j_mask
+    w = _jax_normal((2, 4 * 8 * 128))
+    t = np.asarray(t_vals, np.float32)
+    for strict in (True, False):
+        c = k2.count_above_batched(_t(w), _t(t), strict=strict)
+        jc = j_count(jnp.asarray(w), jnp.asarray(t), interpret=True,
+                     strict=strict)
+        np.testing.assert_array_equal(_np(c), np.asarray(jc).astype(np.int32))
+        m = k2.mask_apply_batched(_t(w), _t(t), strict=strict)
+        jm = j_mask(jnp.asarray(w), jnp.asarray(t), interpret=True,
+                    strict=strict)
+        np.testing.assert_array_equal(_np(m), np.asarray(jm))
+
+
+@pytest.mark.parametrize("i,p", [(3, 100_003), (1, 1023), (2, 5)])
+def test_mask_apply_batched_ragged_vs_jax(i, p):
+    """Ragged rows: the port masks the tail, JAX pads with zeros."""
+    from repro.kernels.prune.prune import mask_apply_batched as j_mask
+    w = _weights(p, i, p, tie_every=3)
+    t = np.abs(w).max(-1) * np.float32(0.4)
+    t[0] = np.float32(0.5)                     # exactly the tied class
+    pad = (-p) % 1024
+    for strict in (True, False):
+        m = k2.mask_apply_batched(_t(w), _t(t), strict=strict)
+        jm = j_mask(jnp.asarray(np.pad(w, ((0, 0), (0, pad)))),
+                    jnp.asarray(t), interpret=True, strict=strict)
+        np.testing.assert_array_equal(_np(m), np.asarray(jm)[:, :p])
+
+
+@pytest.mark.parametrize("t", [0.1, 0.7, 2.5])
+def test_prune_count_mask_kernels_vs_jax(t):
+    """The cases of the reference's test_prune_count_mask_kernels_vs_ref
+    (K8 and K9, single vectors)."""
+    from repro.kernels.prune.prune import count_above as j_count1
+    from repro.kernels.prune.prune import mask_apply as j_mask1
+    w = _jax_normal((4 * 8 * 128,))
+    tj = jnp.float32(t)
+    c = k2.count_above(_t(w), torch.tensor(t, dtype=torch.float32))
+    assert c.dtype == torch.int32 and c.ndim == 0
+    assert int(c) == int(j_count1(jnp.asarray(w), tj, interpret=True))
+    np.testing.assert_array_equal(
+        _np(k2.mask_apply(_t(w), torch.tensor(t, dtype=torch.float32))),
+        np.asarray(j_mask1(jnp.asarray(w), tj, interpret=True)))
+
+
+@pytest.mark.parametrize("p,kappa,tie_every,shape", [
+    (8192, 100, 0, None), (3000, 1000, 5, None), (1023, 1, 3, None),
+    (4096, 4096, 0, None), (2400, 77, 7, (40, 60)),
+])
+def test_topk_mask_single_vector_bit_identical(p, kappa, tie_every, shape):
+    """K8's top-κ loop: strict counts, (lo, hi] boundary filled in index
+    order — bit-identical to JAX's kernel path, 31 count calls and one
+    mask call."""
+    w = _weights(p + kappa, 1, p, tie_every=tie_every)[0]
+    if shape is not None:
+        w = w.reshape(shape)
+    calls = {"count": 0, "mask": 0}
+    real_count, real_mask = pops.count_above, pops.mask_apply
+
+    def count_spy(w_, t_):
+        calls["count"] += 1
+        return real_count(w_, t_)
+
+    def mask_spy(w_, t_):
+        calls["mask"] += 1
+        return real_mask(w_, t_)
+
+    pops.count_above, pops.mask_apply = count_spy, mask_spy
+    try:
+        out = pops.topk_mask(_t(w), kappa)
+    finally:
+        pops.count_above, pops.mask_apply = real_count, real_mask
+    ref = jpops.topk_mask(jnp.asarray(w), kappa, use_pallas=True)
+    assert out.shape == w.shape
+    np.testing.assert_array_equal(_np(out), np.asarray(ref))
+    assert int((out != 0).sum()) == min(kappa, int((w != 0).sum()))
+    assert calls == {"count": 31, "mask": 1}
+
+
+def test_topk_mask_batched_keeps_the_hi_class_with_k3():
+    """The batched top-κ loop ends with one K3 call (non-strict, at hi)."""
+    calls = []
+    real = pops.mask_apply_batched
+
+    def spy(w, t, strict=True):
+        calls.append((tuple(w.shape), strict))
+        return real(w, t, strict)
+
+    w = _weights(2, 3, 700, tie_every=4)
+    pops.mask_apply_batched = spy
+    try:
+        out = pops.topk_mask_batched(_t(w), torch.tensor([5, 70, 700]),
+                                     impl="kernel")
+    finally:
+        pops.mask_apply_batched = real
+    assert calls == [((3, 700), False)]
+    np.testing.assert_array_equal((_np(out) != 0).sum(-1), [5, 70, 700])
+
+
+@pytest.mark.parametrize("p,k", [(4096, 4), (3 * 1024, 16), (1000, 8)])
+def test_k7_plain_matches_jax_kernel(p, k):
+    """K7 (single-vector assignment + moments) against the JAX kernel
+    path: equal assignments and counts, sums within the reference's own
+    bound (tests/test_kernels.py)."""
+    from repro.kernels.kmeans import ops as jk
+    w = _jax_normal((p,), seed=p * k)
+    cb = np.sort(_jax_normal((k,), seed=p * k + 1))
+    a, s, c = kops.assign_moments(_t(w), _t(cb))
+    ja, js_, jc = jk.assign_moments(jnp.asarray(w), jnp.asarray(cb),
+                                    use_pallas=True)
+    np.testing.assert_array_equal(_np(a), np.asarray(ja))
+    np.testing.assert_array_equal(_np(c), np.asarray(jc).astype(np.int32))
+    np.testing.assert_allclose(_np(s), np.asarray(js_), rtol=3e-4, atol=1e-2)
+    assert a.dtype == c.dtype == torch.int32
+
+
+def test_k7_lloyd_loop_matches_jax():
+    from repro.kernels.kmeans import ops as jk
+    w = _jax_normal((8192,), seed=2)
+    cb0 = np.sort(_jax_normal((8,), seed=3))
+    step = kops.lloyd_step(_t(w), _t(cb0))
+    np.testing.assert_allclose(
+        _np(step), np.asarray(jk.lloyd_step(jnp.asarray(w), jnp.asarray(cb0),
+                                            use_pallas=True)),
+        rtol=3e-4, atol=1e-5)
+    cb, a = kops.kmeans(_t(w), _t(cb0), iters=20)
+    jcb, ja = jk.kmeans(jnp.asarray(w), jnp.asarray(cb0), iters=20,
+                        use_pallas=True)
+    np.testing.assert_allclose(_np(cb), np.asarray(jcb), atol=KMEANS_CB_ATOL)
+    np.testing.assert_array_equal(_np(a), np.asarray(ja))
+    # the package exports the single-vector API as the JAX package does
+    from repro_torch.kernels import kmeans as kpkg, prune as ppkg
+    assert kpkg.kmeans is kops.kmeans and ppkg.topk_mask is pops.topk_mask
+
+
+def test_single_vector_wrappers_use_plain_version_only_on_cpu():
+    w, cb = _t(_weights(5, 1, 3000)[0]), _t(_codebooks(5, 1, 4)[0])
+    t = torch.tensor(0.5)
+    before = (k1.KERNEL_SINGLE.launches, k2.KERNEL_SINGLE.launches,
+              k2.MASK_KERNEL.launches, k2.MASK_KERNEL_SINGLE.launches)
+    for got, want in zip(k1.kmeans_assign_moments(w, cb),
+                         k1.kmeans_assign_moments_plain(w, cb)):
+        assert torch.equal(got, want)
+    assert torch.equal(k2.count_above(w, t), k2.count_above_plain(w, t))
+    assert torch.equal(k2.mask_apply(w, t), k2.mask_apply_plain(w, t))
+    assert torch.equal(k2.mask_apply_batched(w[None], t[None], False),
+                       k2.mask_apply_batched_plain(w[None], t[None], False))
+    assert before == (k1.KERNEL_SINGLE.launches, k2.KERNEL_SINGLE.launches,
+                      k2.MASK_KERNEL.launches, k2.MASK_KERNEL_SINGLE.launches)
+    for call in (lambda: k1.kmeans_assign_moments(w.to("meta"),
+                                                  cb.to("meta")),
+                 lambda: k2.count_above(w.to("meta"), t.to("meta")),
+                 lambda: k2.mask_apply(w.to("meta"), t.to("meta")),
+                 lambda: k2.mask_apply_batched(w[None].to("meta"),
+                                               t[None].to("meta"))):
+        with pytest.raises(ValueError):
+            call()

@@ -12,6 +12,7 @@
   codebooks agree to atol 1e-4, distortions to rtol 1e-3. At full
   LeNet300 width, a shortened run in each package keeps LC ≤ DC.
 """
+import importlib
 import sys
 from pathlib import Path
 
@@ -36,8 +37,11 @@ from repro_torch import interop, showcase
 from repro_torch.core import (
     AsStacked, AsVector, CompressionTask, LCAlgorithm)
 from repro_torch.core import schemes as ts
-from repro_torch.kernels.kmeans import kmeans as k1
 from repro_torch.kernels.prune import prune as k2
+
+# the package exports the Lloyd loop ``kmeans`` (as the JAX package does),
+# which shadows the kernel module of the same name
+k1 = importlib.import_module("repro_torch.kernels.kmeans.kmeans")
 
 KMEANS_CB_ATOL = 1e-3
 

@@ -29,9 +29,8 @@ from repro.runtime import compressed as jforms
 from repro.runtime import server as jserver
 from repro_torch import configs as tconfigs
 from repro_torch import interop
-from repro_torch.core import AsIs, AsVector, CompressionTask
+from repro_torch.core import AsIs, AsVector, CompressionTask, LCAlgorithm
 from repro_torch.core import schemes as ts
-from repro_torch.core.schemes.base import CompressionScheme
 from repro_torch.launch import serve as tlaunch
 from repro_torch.models import transformer as ttf
 from repro_torch.runtime import compressed as tforms
@@ -41,11 +40,6 @@ from repro_torch.runtime import server as tserver
 def _np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
-
-
-class _Factors(CompressionScheme):
-    """Stand-in for the port's LowRank scheme (ROADMAP item 9): the
-    bridge reads only the Θ structure, never the scheme."""
 
 
 def _cfgs(**kw):
@@ -66,7 +60,8 @@ def _port_task(jt):
                   k=s.k, iters=s.iters),
               "ConstraintL0Pruning": lambda s: ts.ConstraintL0Pruning(
                   s.kappa),
-              "LowRank": lambda s: _Factors()}[type(jt.scheme).__name__]
+              "LowRank": lambda s: ts.LowRank(s.rank, s.randomized)}[
+                  type(jt.scheme).__name__]
     return CompressionTask(jt.name, jt.pattern, view, scheme(jt.scheme),
                            list(jt.paths))
 
@@ -143,6 +138,30 @@ def test_bridge_forms_and_arrays_bit_identical(bridged):
     assert kinds == ["lowrank"] * 2 + ["quant4"] * 2 + ["quant8"] * 8 + \
         ["sparse"] * 2
     _assert_same_forms(bridged["t_serving"], bridged["j_serving"])
+
+
+def test_bridge_of_a_port_lowrank_theta_matches_jax(bridged):
+    """The port's own LowRank Θ (direct compression of the same weights)
+    bridges to low-rank forms whose products equal the JAX package's (the
+    factors themselves may differ in sign)."""
+    lr_tasks = [t for t in bridged["ttasks"] if t.name.startswith("lr")]
+    lc = LCAlgorithm([CompressionTask("lr", r"ffn/w_up$", AsIs(),
+                                      ts.LowRank(4))], [1e-4], device="cpu")
+    state = lc.init(bridged["tp"])
+    assert [t.name for t in lc.tasks] == [t.name for t in lr_tasks]
+    serving, report = tserver.load_compressed_for_serving(
+        bridged["tp"], state, lc.tasks)
+    jflat = dict(_walk(bridged["j_serving"]))
+    for t in lr_tasks:
+        assert report[t.name] == bridged["j_report"][t.name]
+        (p,) = t.paths
+        ours = dict(_walk(serving))[p]
+        assert isinstance(ours, tforms.LowRankWeight)
+        theirs = np.asarray(jflat[p].u) @ np.asarray(jflat[p].vt)
+        # two LAPACK SVDs: products agree to float rounding of the scale
+        np.testing.assert_allclose(_np(ours.u @ ours.vt), theirs, rtol=1e-5,
+                                   atol=1e-5 * np.abs(theirs).max(),
+                                   err_msg=p)
 
 
 def test_serving_params_from_numpy_carries_jax_forms(bridged):
@@ -346,7 +365,9 @@ def test_quantize_params_for_serving_matches_jax():
     ["--form", "quant8", "--batch", "2", "--gen", "4"],
     ["--form", "sparse", "--engine", "--requests", "3", "--slots", "2"],
     ["--form", "dense", "--batch", "2", "--gen", "3"],
-], ids=["quant4-engine", "quant8-batch", "sparse-engine", "dense-batch"])
+    ["--form", "lowrank", "--batch", "2", "--gen", "3"],
+], ids=["quant4-engine", "quant8-batch", "sparse-engine", "dense-batch",
+        "lowrank-batch"])
 def test_cli_serves_on_the_cpu(argv):
     out = tlaunch.main(["--arch", "phi3-mini-3.8b", "--reduced",
                         "--prompt-len", "16", "--device", "cpu", *argv])
@@ -358,6 +379,15 @@ def test_cli_serves_on_the_cpu(argv):
         assert out.tokens.shape == (2, int(argv[argv.index("--gen") + 1]))
 
 
-def test_cli_lowrank_waits_for_its_scheme():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        tlaunch.main(["--reduced", "--form", "lowrank", "--device", "cpu"])
+def test_serve_compressed_twin_runs_on_the_cpu():
+    """``python -m repro_torch.serve_compressed`` at the reduced config:
+    one form per scheme family, and the engine's greedy tokens equal the
+    densified model's (the twin raises otherwise)."""
+    from repro_torch import serve_compressed
+    out = serve_compressed.main(device="cpu")
+    kinds = {t: sorted(v.split("(")[0] for v in forms.values())
+             for t, forms in out["report"].items()}
+    assert kinds == {"quant": ["quant4"], "prune": ["sparse"],
+                     "lowrank": ["lowrank"]}
+    assert out["out"]["stats"]["requests"] == 12
+    assert not out["out"]["rejected"]
