@@ -44,7 +44,9 @@ CUDA toolkit (nvcc). Phases, each of which fails the run:
     row 5 (additive ℓ0 + quantization over all weights), 20 LC steps
     each; exact κ, rank-10 factors, the §7 monitor and exact K1/K2/K3
     launches after every C step; LC and DC test errors beside the JAX
-    package's CPU result;
+    package's CPU result on its own problem (its data and reference
+    weights come from JAX's generator; both packages on one problem are
+    compared in ``tests/test_torch_mixed.py``);
 12. main path G — the kernel API (``repro_torch.kernels.kmeans.kmeans``
     and ``repro_torch.kernels.prune.topk_mask``, the single-vector K7,
     K8 and K9 solvers) on path E's trained LeNet300;
@@ -84,6 +86,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
@@ -124,8 +127,10 @@ K7_SHAPES = [(235_200, 4), (LM_ITEM, 16)]
 # K8/K9 on path G (all LeNet300 weights), and K8 at the LM item width
 K8_CASES = [(LENET_WEIGHTS, LENET_KAPPA), (LM_ITEM, LM_ITEM // 100)]
 
-# path E: the JAX package's CPU result of the same runs
-# (``python examples/mixed_compression.py``, recorded in PERF.md)
+# path E: the JAX package's CPU result of the same tasks on its own
+# problem, whose data and reference weights come from JAX's generator
+# and so differ from the port's (``python examples/mixed_compression.py``,
+# recorded in PERF.md)
 JAX_CPU_MIXED = {"ref": 0.0186, "runs": [(0.2324, 22.5), (0.0332, 21.2)]}
 
 # path F: per-matrix low-rank targets; wo's stepped spectrum puts rank
@@ -726,15 +731,21 @@ def mask_count_phase(k1, k2, power: str) -> dict:
     rec = {"K3": [], "K7": [], "K8": [], "K9": []}
 
     def row(name, shape, fns, n_bytes, n_ops, err=0.0):
-        ms, plain_ms = timed_turns(
+        """``fns``: the kernel, its plain version and, where one PyTorch
+        call computes the same function, that call."""
+        ms, plain_ms, *lib = timed_turns(
             fns, 5 if math.prod(shape) > 10_000_000 else 20)
+        lib_ms = lib[0] if lib else None
         b_ms, b_by = bound(n_bytes, n_ops)
         rec[name].append({"shape": list(shape), "ms": ms,
                           "plain_ms": plain_ms, "bound_ms": b_ms,
-                          "bound_by": b_by, "max_abs_err": err})
+                          "bound_by": b_by, "max_abs_err": err,
+                          "library_ms": lib_ms})
         print(f"{name} shape={list(shape)}: ms={ms:.4f} plain_ms="
-              f"{plain_ms:.4f} bound_ms={b_ms:.3g} ({b_by}) "
-              f"max|Δ|={err:.3g} [{power}]", flush=True)
+              f"{plain_ms:.4f} library_ms="
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f}'} "
+              f"bound_ms={b_ms:.3g} ({b_by}) max|Δ|={err:.3g} [{power}]",
+              flush=True)
 
     for i, p in K3_SHAPES:
         w = torch.randn((i, p), device="cuda", generator=g)
@@ -769,11 +780,11 @@ def mask_count_phase(k1, k2, power: str) -> dict:
     for p, kappa in K8_CASES:
         w = torch.randn(p, device="cuda", generator=g)
         w[::97] = 0.5 * torch.sign(w[::97])
-        n8, n9 = k2.KERNEL_SINGLE.launches, k2.MASK_KERNEL_SINGLE.launches
+        n8, n9 = k2.COUNT_SINGLE.launches, k2.MASK_SINGLE.launches
         theta = pops.topk_mask(w, kappa)
         torch.cuda.synchronize()
-        check((k2.KERNEL_SINGLE.launches - n8,
-               k2.MASK_KERNEL_SINGLE.launches - n9) == (31, 1),
+        check((k2.COUNT_SINGLE.launches - n8,
+               k2.MASK_SINGLE.launches - n9) == (31, 1),
               f"K8 top-κ at P={p}: K8/K9 launches per call")
         check(torch.equal(theta, torch.where(topk_magnitude_mask(w, kappa),
                                              w, 0.0)),
@@ -787,10 +798,15 @@ def mask_count_phase(k1, k2, power: str) -> dict:
                          lambda: k2.count_above_plain(w, t)),
             4.0 * p + 8.0, 2.0 * p)
         if p == LENET_WEIGHTS:
-            check(torch.equal(k2.mask_apply(w, t), k2.mask_apply_plain(w, t)),
-                  "K9 mask")
+            # the library yardstick: hardshrink(w, t) = w·1[|w| > t]
+            t_f = float(t)
+            got = k2.mask_apply(w, t)
+            check(torch.equal(got, k2.mask_apply_plain(w, t)), "K9 mask")
+            check(torch.equal(got, F.hardshrink(w, t_f)),
+                  "K9 against hardshrink")
             row("K9", (p,), (lambda: k2.mask_apply(w, t),
-                             lambda: k2.mask_apply_plain(w, t)),
+                             lambda: k2.mask_apply_plain(w, t),
+                             lambda: F.hardshrink(w, t_f)),
                 8.0 * p + 4.0, 2.0 * p)
         del w, theta
     torch.cuda.empty_cache()
@@ -845,9 +861,10 @@ def main_path_e(kern, power: str) -> dict:
               f"path E ratio {lc['ratio']} against JAX's {j_ratio}")
         print(f"main path E {run['name']}: dc_err={dc['test_err']:.4f} "
               f"lc_err={lc['test_err']:.4f} ratio={lc['ratio']:.1f}x "
-              f"lc_wall_s={lc['wall_s']:.2f} (JAX package on the CPU: "
-              f"lc_err={j_err:.4f} ratio={j_ratio}x, ref_err="
-              f"{JAX_CPU_MIXED['ref']:.4f}) [{power}]", flush=True)
+              f"lc_wall_s={lc['wall_s']:.2f} ref_err={out['ref']:.4f} "
+              f"(JAX package on the CPU, on its own problem: ref_err="
+              f"{JAX_CPU_MIXED['ref']:.4f} lc_err={j_err:.4f} "
+              f"ratio={j_ratio}x) [{power}]", flush=True)
     print(f"main path E: ref_err={out['ref']:.4f} total_wall_s={wall:.2f} "
           f"launches={total} [{power}]", flush=True)
     return {"launches": total, "problem": out["problem"]}
@@ -1221,8 +1238,8 @@ def main() -> int:
     # of the K1–K3 sources)
     kern = {"K1": k1.KERNEL, "K2": k2.KERNEL, "K3": k2.MASK_KERNEL,
             "K4": k45.KERNEL_PACKED4, "K5": k45.KERNEL_U8, "K6": k6.KERNEL,
-            "K7": k1.KERNEL_SINGLE, "K8": k2.KERNEL_SINGLE,
-            "K9": k2.MASK_KERNEL_SINGLE}
+            "K7": k1.SINGLE, "K8": k2.COUNT_SINGLE,
+            "K9": k2.MASK_SINGLE}
     power = card.split(",")[-1].strip()
     t_start = time.time()
     rec = kernel_phase(k1, k2, power)

@@ -78,16 +78,26 @@ def build(sources=SOURCES) -> dict[str, str]:
             tmp.unlink(missing_ok=True)
 
 
-class CudaKernel:
+class LaunchCounter:
+    """The launch count of one wrapper. A kernel is its own counter; a
+    wrapper that shares another's kernel (K7–K9 launch the K1–K3 entry
+    points at I = 1) passes its own to :meth:`CudaKernel.__call__`."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+class CudaKernel(LaunchCounter):
     """One C entry point of a ``csrc/`` source, built and loaded at its
     first launch. The entry point returns a ``cudaError_t``; a nonzero
-    one raises. ``launches`` counts the successful launches."""
+    one raises. Each successful launch adds one to ``counter`` (default:
+    the kernel's own ``launches``)."""
 
     def __init__(self, source: str, symbol: str, argtypes: list):
+        super().__init__()
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
-        self.launches = 0
         self._fn = None
         self._lock = threading.Lock()
 
@@ -102,10 +112,10 @@ class CudaKernel:
                 self._lib, self._fn = lib, fn
         return self._fn
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, counter: LaunchCounter | None = None) -> None:
         err = self._load()(*args)
         if err:
             raise RuntimeError(
                 f"{self.symbol} ({self.source}): CUDA launch failed with "
                 f"cudaError_t {err}")
-        self.launches += 1
+        (counter or self).launches += 1

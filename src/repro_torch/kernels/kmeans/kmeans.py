@@ -7,7 +7,7 @@ kernels for the TPU. The kernel source is
 ``../csrc/kmeans_assign_moments.cu``; its note gives the design and the
 bound. Each wrapper launches the kernel for a CUDA tensor and runs its
 plain version for a CPU tensor, and counts its own launches (``KERNEL``
-for K1, ``KERNEL_SINGLE`` for K7).
+for K1, ``SINGLE`` for K7).
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, LaunchCounter
 from repro_torch.kernels.kmeans.ref import (  # noqa: F401  (the plain versions)
     kmeans_assign_moments_batched_plain, kmeans_assign_moments_plain)
 
@@ -28,8 +28,7 @@ _ARGS = [_p, _p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
          ctypes.c_longlong, _p, _p, _p, _p, _p, _p]
 KERNEL = CudaKernel("kmeans_assign_moments.cu",
                     "kmeans_assign_moments_batched", _ARGS)
-KERNEL_SINGLE = CudaKernel("kmeans_assign_moments.cu",
-                           "kmeans_assign_moments_batched", _ARGS)
+SINGLE = LaunchCounter()
 
 
 def kmeans_assign_moments_batched(w: torch.Tensor, codebooks: torch.Tensor):
@@ -40,7 +39,7 @@ def kmeans_assign_moments_batched(w: torch.Tensor, codebooks: torch.Tensor):
     without synchronising; on a CPU tensor it runs the plain version."""
     if w.device.type == "cpu":
         return kmeans_assign_moments_batched_plain(w, codebooks)
-    return _launch(KERNEL, w, codebooks)
+    return _launch(w, codebooks, KERNEL)
 
 
 def kmeans_assign_moments(w: torch.Tensor, codebook: torch.Tensor):
@@ -49,11 +48,12 @@ def kmeans_assign_moments(w: torch.Tensor, codebook: torch.Tensor):
     counts in f32 and pads the tail with ``codebook[0]``)."""
     if w.device.type == "cpu":
         return kmeans_assign_moments_plain(w, codebook)
-    assign, sums, counts = _launch(KERNEL_SINGLE, w[None], codebook[None])
+    assign, sums, counts = _launch(w[None], codebook[None], SINGLE)
     return assign[0], sums[0], counts[0]
 
 
-def _launch(kernel: CudaKernel, w: torch.Tensor, codebooks: torch.Tensor):
+def _launch(w: torch.Tensor, codebooks: torch.Tensor,
+            counter: LaunchCounter):
     if w.device.type != "cuda":
         raise ValueError(f"kmeans_assign_moments: no kernel for device "
                          f"{w.device}")
@@ -83,8 +83,8 @@ def _launch(kernel: CudaKernel, w: torch.Tensor, codebooks: torch.Tensor):
     sums = torch.empty((n_items, k), dtype=torch.float32, device=dev)
     counts = torch.empty((n_items, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        kernel(w.data_ptr(), codebooks.data_ptr(), n_items, p, k, n_tiles,
+        KERNEL(w.data_ptr(), codebooks.data_ptr(), n_items, p, k, n_tiles,
                assign.data_ptr(), part_sums.data_ptr(),
                part_counts.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-               torch.cuda.current_stream(dev).cuda_stream)
+               torch.cuda.current_stream(dev).cuda_stream, counter=counter)
     return assign, sums, counts

@@ -12,8 +12,8 @@ The ports of ``src/repro/kernels/prune/prune.py`` (Pallas, TPU):
 
 The sources' notes give the designs and the bounds. Each wrapper launches
 its kernel for a CUDA tensor and runs its plain version (``ref.py``) for
-a CPU tensor; each counts its own launches (``KERNEL``, ``KERNEL_SINGLE``,
-``MASK_KERNEL``, ``MASK_KERNEL_SINGLE``).
+a CPU tensor; each counts its own launches (``KERNEL`` for K2,
+``COUNT_SINGLE`` for K8, ``MASK_KERNEL`` for K3, ``MASK_SINGLE`` for K9).
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, LaunchCounter
 from repro_torch.kernels.prune.ref import (  # noqa: F401  (the plain versions)
     count_above_batched_plain, count_above_plain, mask_apply_batched_plain,
     mask_apply_plain)
@@ -29,9 +29,8 @@ from repro_torch.kernels.prune.ref import (  # noqa: F401  (the plain versions)
 _p = ctypes.c_void_p
 _ARGS = [_p, _p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _p, _p]
 KERNEL = CudaKernel("count_above.cu", "count_above_batched", _ARGS)
-KERNEL_SINGLE = CudaKernel("count_above.cu", "count_above_batched", _ARGS)
 MASK_KERNEL = CudaKernel("mask_apply.cu", "mask_apply_batched", _ARGS)
-MASK_KERNEL_SINGLE = CudaKernel("mask_apply.cu", "mask_apply_batched", _ARGS)
+COUNT_SINGLE, MASK_SINGLE = LaunchCounter(), LaunchCounter()
 
 
 def _checked(name: str, w: torch.Tensor, t: torch.Tensor) -> None:
@@ -53,23 +52,25 @@ def _checked(name: str, w: torch.Tensor, t: torch.Tensor) -> None:
         raise ValueError(f"{name} needs contiguous operands")
 
 
-def _count(kernel: CudaKernel, w, t, strict: bool) -> torch.Tensor:
+def _count(w, t, strict: bool, counter: LaunchCounter) -> torch.Tensor:
     counts = torch.zeros((w.shape[0],), dtype=torch.int32, device=w.device)
     with torch.cuda.device(w.device):
-        kernel(w.data_ptr(), t.data_ptr(), w.shape[0], w.shape[1],
+        KERNEL(w.data_ptr(), t.data_ptr(), w.shape[0], w.shape[1],
                int(bool(strict)), counts.data_ptr(),
-               torch.cuda.current_stream(w.device).cuda_stream)
+               torch.cuda.current_stream(w.device).cuda_stream,
+               counter=counter)
     return counts
 
 
-def _mask(kernel: CudaKernel, w, t, strict: bool) -> torch.Tensor:
+def _mask(w, t, strict: bool, counter: LaunchCounter) -> torch.Tensor:
     out = torch.empty_like(w)
     if w.data_ptr() % 16 != out.data_ptr() % 16:
         w = w.clone()                    # a fresh allocation: 16-B aligned
     with torch.cuda.device(w.device):
-        kernel(w.data_ptr(), t.data_ptr(), w.shape[0], w.shape[1],
-               int(bool(strict)), out.data_ptr(),
-               torch.cuda.current_stream(w.device).cuda_stream)
+        MASK_KERNEL(w.data_ptr(), t.data_ptr(), w.shape[0], w.shape[1],
+                    int(bool(strict)), out.data_ptr(),
+                    torch.cuda.current_stream(w.device).cuda_stream,
+                    counter=counter)
     return out
 
 
@@ -88,7 +89,7 @@ def count_above_batched(w: torch.Tensor, t: torch.Tensor,
     if w.device.type == "cpu":
         return count_above_batched_plain(w, t, strict)
     _checked("count_above_batched", w, t)
-    return _count(KERNEL, w, t, strict)
+    return _count(w, t, strict, KERNEL)
 
 
 def count_above(w: torch.Tensor, t) -> torch.Tensor:
@@ -98,7 +99,7 @@ def count_above(w: torch.Tensor, t) -> torch.Tensor:
         return count_above_plain(w, t)
     t = _scalar_threshold(t, w)
     _checked("count_above", w[None], t)
-    return _count(KERNEL_SINGLE, w[None], t, True)[0]
+    return _count(w[None], t, True, COUNT_SINGLE)[0]
 
 
 def mask_apply_batched(w: torch.Tensor, t: torch.Tensor,
@@ -111,7 +112,7 @@ def mask_apply_batched(w: torch.Tensor, t: torch.Tensor,
     if w.device.type == "cpu":
         return mask_apply_batched_plain(w, t, strict)
     _checked("mask_apply_batched", w, t)
-    return _mask(MASK_KERNEL, w, t, strict)
+    return _mask(w, t, strict, MASK_KERNEL)
 
 
 def mask_apply(w: torch.Tensor, t) -> torch.Tensor:
@@ -121,4 +122,4 @@ def mask_apply(w: torch.Tensor, t) -> torch.Tensor:
         return mask_apply_plain(w, t)
     t = _scalar_threshold(t, w)
     _checked("mask_apply", w[None], t)
-    return _mask(MASK_KERNEL_SINGLE, w[None], t, True)[0]
+    return _mask(w[None], t, True, MASK_SINGLE)[0]

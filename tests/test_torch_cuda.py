@@ -131,10 +131,10 @@ def test_mask_kernels_match_plain_on_card(gen, i, p):
     shifted = shifted.view(i, p)                        # 4 bytes off
     assert torch.equal(k2.mask_apply_batched(shifted, t, False),
                        k2.mask_apply_batched_plain(shifted, t, False))
-    n = k2.MASK_KERNEL_SINGLE.launches
+    n = k2.MASK_SINGLE.launches
     assert torch.equal(k2.mask_apply(w[0], t[0]),
                        k2.mask_apply_plain(w[0], t[0]))
-    assert k2.MASK_KERNEL_SINGLE.launches == n + 1
+    assert k2.MASK_SINGLE.launches == n + 1
 
 
 @pytest.mark.cuda
@@ -144,10 +144,10 @@ def test_single_vector_solvers_match_cpu_on_card(gen):
     the same assignments."""
     w = torch.randn(50_001, device="cuda", generator=gen)
     w[::11] = 0.25 * torch.sign(w[::11])
-    n8, n9 = k2.KERNEL_SINGLE.launches, k2.MASK_KERNEL_SINGLE.launches
+    n8, n9 = k2.COUNT_SINGLE.launches, k2.MASK_SINGLE.launches
     got = pops.topk_mask(w, 2_500)
-    assert (k2.KERNEL_SINGLE.launches - n8,
-            k2.MASK_KERNEL_SINGLE.launches - n9) == (31, 1)
+    assert (k2.COUNT_SINGLE.launches - n8,
+            k2.MASK_SINGLE.launches - n9) == (31, 1)
     assert torch.equal(got.cpu(), pops.topk_mask(w.cpu(), 2_500))
     assert int(torch.count_nonzero(got)) == 2_500
     assert torch.equal(k2.count_above(w, torch.tensor(0.5, device="cuda")),
@@ -157,9 +157,9 @@ def test_single_vector_solvers_match_cpu_on_card(gen):
     pa, ps, pc = k1.kmeans_assign_moments_plain(w, cb0)
     assert torch.equal(a, pa) and torch.equal(c, pc)
     torch.testing.assert_close(s, ps, rtol=1e-5, atol=1e-3)
-    n7 = k1.KERNEL_SINGLE.launches
+    n7 = k1.SINGLE.launches
     cb, assign = kops.kmeans(w, cb0, iters=6)
-    assert k1.KERNEL_SINGLE.launches == n7 + 7
+    assert k1.SINGLE.launches == n7 + 7
     cb_cpu, _ = kops.kmeans(w.cpu(), cb0.cpu(), iters=6)
     torch.testing.assert_close(cb.cpu(), cb_cpu, rtol=1e-5, atol=1e-5)
     assert assign.shape == w.shape and assign.dtype == torch.int32

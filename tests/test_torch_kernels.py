@@ -411,8 +411,8 @@ def test_k7_lloyd_loop_matches_jax():
 def test_single_vector_wrappers_use_plain_version_only_on_cpu():
     w, cb = _t(_weights(5, 1, 3000)[0]), _t(_codebooks(5, 1, 4)[0])
     t = torch.tensor(0.5)
-    before = (k1.KERNEL_SINGLE.launches, k2.KERNEL_SINGLE.launches,
-              k2.MASK_KERNEL.launches, k2.MASK_KERNEL_SINGLE.launches)
+    before = (k1.SINGLE.launches, k2.COUNT_SINGLE.launches,
+              k2.MASK_KERNEL.launches, k2.MASK_SINGLE.launches)
     for got, want in zip(k1.kmeans_assign_moments(w, cb),
                          k1.kmeans_assign_moments_plain(w, cb)):
         assert torch.equal(got, want)
@@ -420,8 +420,8 @@ def test_single_vector_wrappers_use_plain_version_only_on_cpu():
     assert torch.equal(k2.mask_apply(w, t), k2.mask_apply_plain(w, t))
     assert torch.equal(k2.mask_apply_batched(w[None], t[None], False),
                        k2.mask_apply_batched_plain(w[None], t[None], False))
-    assert before == (k1.KERNEL_SINGLE.launches, k2.KERNEL_SINGLE.launches,
-                      k2.MASK_KERNEL.launches, k2.MASK_KERNEL_SINGLE.launches)
+    assert before == (k1.SINGLE.launches, k2.COUNT_SINGLE.launches,
+                      k2.MASK_KERNEL.launches, k2.MASK_SINGLE.launches)
     for call in (lambda: k1.kmeans_assign_moments(w.to("meta"),
                                                   cb.to("meta")),
                  lambda: k2.count_above(w.to("meta"), t.to("meta")),

@@ -51,6 +51,11 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
 def _jax_tasks():
     """``examples/mixed_compression.py``'s two task lists."""
     mixed = [
@@ -105,15 +110,20 @@ def jax_problem():
     return jcommon.reference_problem()
 
 
-@pytest.mark.parametrize("run", ["mixed", "additive"])
-def test_mixed_tasks_match_jax_on_the_same_problem(jax_problem, run):
-    jprob = jax_problem
-    tprob = showcase.Problem(
+def _port_problem(jprob):
+    """The JAX package's problem (weights and data) as the port's."""
+    return showcase.Problem(
         interop.params_from_numpy(
             jax.tree_util.tree_map(np.asarray, jprob.params), "cpu"),
         *(torch.from_numpy(np.array(a)) for a in (
             jprob.x_train, jprob.y_train, jprob.x_test, jprob.y_test)),
         jprob.ref_test_err, jprob.ref_train_err)
+
+
+@pytest.mark.parametrize("run", ["mixed", "additive"])
+def test_mixed_tasks_match_jax_on_the_same_problem(jax_problem, run):
+    jprob = jax_problem
+    tprob = _port_problem(jprob)
     ttasks = {"mixed": mixed_compression.mixed_tasks,
               "additive": mixed_compression.additive_tasks}[run]()
     seen = []
@@ -148,3 +158,57 @@ def test_mixed_tasks_match_jax_on_the_same_problem(jax_problem, run):
         cb = tout["lc_state"]["tasks"]["pq"]["theta"]["parts"][1].codebook
         np.testing.assert_allclose(cb.numpy(), np.asarray(parts[1].codebook),
                                    atol=1e-3)
+
+
+@pytest.mark.parametrize("run", ["mixed", "additive"])
+def test_full_lc_runs_on_one_problem(jax_problem, run):
+    """Both runs at their full length (20 LC steps of 40 SGD iterations,
+    as ``mixed_compression.main`` and the example run them), both
+    packages on the JAX package's problem; ``pytest -s`` prints the DC
+    and LC test errors of both. The direct compressions agree to 0.01
+    and LC beats DC in both packages. The additive run, which draws no
+    sketch, ends at the same LC test error to 0.01; in the mixed run the
+    packages' sketches pick different rank-10 factors of the nearly flat
+    l1 spectrum, so it holds each package's last low-rank C step against
+    the exact SVD of its own input. On this spectrum (σ_10/σ_11 ≈ 1.02–1.04)
+    the warm-started sketch misses queue 3's 1e-4 budget in both
+    packages (ROADMAP queue 3 logs the excesses), so the port's excess
+    is held to within twice the reference's."""
+    jprob = jax_problem
+    tprob = _port_problem(jprob)
+    make = {"mixed": mixed_compression.mixed_tasks,
+            "additive": mixed_compression.additive_tasks}[run]
+    tdc = showcase.direct_compress(tprob, make(), device="cpu")
+    tout = showcase.run_lc(tprob, make(), device="cpu")
+    jdc = jcommon.direct_compress(jprob, _jax_tasks()[run])
+    jout = jcommon.run_lc(jprob, _jax_tasks()[run])
+    print(f"\n{run} on the JAX problem (ref {jprob.ref_test_err:.4f}): "
+          f"port DC {tdc['test_err']:.4f} LC {tout['test_err']:.4f}; "
+          f"JAX DC {jdc['test_err']:.4f} LC {jout['test_err']:.4f}; "
+          f"ratio {tout['ratio']:.1f}x")
+
+    assert tout["ratio"] == pytest.approx(jout["ratio"], rel=1e-6)
+    assert _monitor_ok(tout["history"])
+    assert abs(tdc["test_err"] - jdc["test_err"]) <= 0.01
+    assert tout["test_err"] <= tdc["test_err"]
+    assert jout["test_err"] <= jdc["test_err"]
+    if run == "mixed":
+        # each package's last low-rank C step against the exact rank-10
+        # SVD of its own input x = w − λ_old/μ = a − λ/μ (λ after the
+        # multiplier step), whose distortion is ‖x − a‖² = ‖λ/μ‖²
+        excess = {}
+        for name, st in (("port", tout["lc_state"]),
+                         ("JAX", jout["lc_state"])):
+            ts = st["tasks"]["lr2"]
+            a, lam = (np.array(_np(ts[k]["l1/w"]), np.float64)
+                      for k in ("a", "lam"))
+            x = a - lam / float(st["mu"])
+            d = float(np.sum((x - a) ** 2))
+            exact = float(np.sum(np.linalg.svd(x, compute_uv=False)[10:]
+                                 ** 2))
+            excess[name] = (d - exact) / exact
+        print(f"last low-rank C step, distortion excess over the exact "
+              f"SVD: port {excess['port']:.3g}, JAX {excess['JAX']:.3g}")
+        assert excess["port"] <= max(1e-4, 2.0 * excess["JAX"]), excess
+    else:
+        assert abs(tout["test_err"] - jout["test_err"]) <= 0.01
