@@ -58,7 +58,10 @@ CUDA toolkit (nvcc). Phases, each of which fails the run:
     selected ranks against the exact spectrum, distortion against the
     exact SVD, logits against the densified model, 4 K6 launches;
 14. ``torch.profiler`` over path C's prefill and 8 decode steps: the
-    device's busy share and the kernels that took the most time;
+    device's busy share and the kernels that took the most time; and the
+    device time of K9 and ``F.hardshrink`` at P = 266,200, and of K6 and
+    SDPA at K6's main row, summed over 50 calls each, beside their event
+    times from phases 7 and 10;
 15. one JSON line listing every ported kernel, then the result line.
 
 Tolerances: assignments, masks and integer counts must be equal; K1/K7
@@ -70,8 +73,11 @@ served logits within ``1e-3·max|logit|`` of the densified model's;
 low-rank Θ distortion within ``1e-4`` relative of the exact SVD's
 (``tests/test_lowrank_dispatch.py``).
 
-Bounds use the H100 SXM's published rates (3.35 TB/s, 67 TFLOP/s f32
-outside the tensor cores), which assume a 700 W power limit.
+Bounds use the H100 SXM's published rates, which assume a 700 W power
+limit: 3.35 TB/s of device memory; 67 TFLOP/s f32 outside the tensor
+cores for every kernel but K6; for K6, which runs both products on the
+tensor cores as TF32 with a 3-pass split, 3 · 4·D operations per (query,
+key) pair kept at 495 TFLOP/s (TF32 dense).
 """
 from __future__ import annotations
 
@@ -91,6 +97,7 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 
 QUICKSTART_SHAPES = [(1, 235_200, 4), (1, 30_000, 4), (1, 1_000, 4)]
 LM_D_MODEL, LM_D_FF, LM_LAYERS = 3072, 8192, 4
@@ -165,9 +172,10 @@ def only(kern: dict, **want) -> dict:
     return {n: want.get(n, 0) for n in kern}
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float,
+          ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -463,12 +471,13 @@ def serve_kernel_phase(k45, k6, power: str) -> dict:
             qh = q.reshape(b, h, s, d)
             fns.append(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qh, k, v, is_causal=True, enable_gqa=True))
-        times = timed_turns(fns, 20)
+        times = timed_turns(fns, 50)
         ms, plain_ms = times[:2]
         lib_ms = times[2] if window == 0 else None
         pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
+        # three TF32 passes of 4·D operations per pair (the f32 split)
         b_ms, b_by = bound(4.0 * (2 * b * h * s * d + 2 * b * kvh * s * d),
-                           4.0 * d * b * h * pairs)
+                           3 * 4.0 * d * b * h * pairs, TF32_OPS_PER_S)
         rec["K6"].append({"shape": [b, s, h, kvh, d, window], "ms": ms,
                           "plain_ms": plain_ms, "bound_ms": b_ms,
                           "bound_by": b_by, "max_abs_err": err,
@@ -733,8 +742,9 @@ def mask_count_phase(k1, k2, power: str) -> dict:
     def row(name, shape, fns, n_bytes, n_ops, err=0.0):
         """``fns``: the kernel, its plain version and, where one PyTorch
         call computes the same function, that call."""
+        # short launches: event times spread with the host, so more turns
         ms, plain_ms, *lib = timed_turns(
-            fns, 5 if math.prod(shape) > 10_000_000 else 20)
+            fns, 5 if math.prod(shape) > 10_000_000 else 100)
         lib_ms = lib[0] if lib else None
         b_ms, b_by = bound(n_bytes, n_ops)
         rec[name].append({"shape": list(shape), "ms": ms,
@@ -1199,6 +1209,52 @@ def profile_phase(path_c: dict, power: str) -> None:
                    "compressed)", power)
 
 
+def device_times(k2, k6, k9_row: dict, k6_row: dict, card: str) -> None:
+    """K9 and ``F.hardshrink`` at P = 266,200, and K6 and SDPA at K6's main
+    row, under ``torch.profiler``: the summed device time of 50 calls
+    each, beside their CUDA-event times from the timed phases (``k9_row``,
+    ``k6_row``), which hold the host's share of a call too. Runs after the
+    timed phases (a profiler session slows every later launch)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device="cuda").manual_seed(6)
+    w = torch.randn(LENET_WEIGHTS, device="cuda", generator=g)
+    t = w.abs().kthvalue(LENET_WEIGHTS - LENET_KAPPA).values
+    t_f = float(t)
+    check(torch.equal(k2.mask_apply(w, t), F.hardshrink(w, t_f)),
+          "K9 against hardshrink (profiled)")
+    b, s, h, kvh, d, _ = K6_SHAPES[0]
+    q = torch.randn((b, kvh, h // kvh, s, d), device="cuda", generator=g)
+    k = torch.randn((b, kvh, s, d), device="cuda", generator=g)
+    v = torch.randn((b, kvh, s, d), device="cuda", generator=g)
+    qh = q.reshape(b, h, s, d)
+    dev_ms = {}
+    for name, fn in (
+            ("K9", lambda: k2.mask_apply(w, t)),
+            ("hardshrink", lambda: F.hardshrink(w, t_f)),
+            ("K6", lambda: k6.flash_attention(q, k, v)),
+            ("SDPA", lambda: F.scaled_dot_product_attention(
+                qh, k, v, is_causal=True, enable_gqa=True))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        check(bool(dev), f"{name}: the profiler saw no device time")
+        dev_ms[name] = sum(e.self_device_time_total for e in dev) / 1e3 / 50
+    print(f"K9 P={LENET_WEIGHTS} device_ms={dev_ms['K9']:.5f} "
+          f"hardshrink device_ms={dev_ms['hardshrink']:.5f} (profiler, 50 "
+          f"calls each); event ms K9={k9_row['ms']:.4f} "
+          f"hardshrink={k9_row['library_ms']:.4f} [{card}]", flush=True)
+    print(f"K6 {list(K6_SHAPES[0])} device_ms={dev_ms['K6']:.4f} SDPA "
+          f"device_ms={dev_ms['SDPA']:.4f} (profiler, 50 calls each); "
+          f"event ms K6={k6_row['ms']:.4f} SDPA={k6_row['library_ms']:.4f} "
+          f"[{card}]", flush=True)
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1255,6 +1311,7 @@ def main() -> int:
     paths["G"] = main_path_g(kern, k1, path_e["problem"], power)
     paths["F"] = main_path_f(kern, power)
     profile_phase(path_c, power)
+    device_times(k2, k6, mrec["K9"][0], srec["K6"][0], card)
     print(f"jacobi kernels per round (profiler, sketch width 144): "
           f"{jacobi_kernels_per_round():.1f}", flush=True)
     total = {n: sum(p[n] for p in paths.values()) for n in kern}

@@ -7,6 +7,11 @@ source and the flags, so an edited source rebuilds) and loaded with
 ``ctypes``. :func:`build` compiles several sources at once, one ``nvcc``
 process each. A failed build or a failed launch raises; nothing falls
 back to another implementation.
+
+:func:`on_card` and :func:`raw_stream` keep a launch's host work small:
+the device switch only when the card is not the current one, and
+PyTorch's current stream as a plain handle, without building a
+``torch.cuda.Stream``.
 """
 from __future__ import annotations
 
@@ -16,7 +21,10 @@ import os
 import shutil
 import subprocess
 import threading
+from contextlib import nullcontext
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -78,10 +86,23 @@ def build(sources=SOURCES) -> dict[str, str]:
             tmp.unlink(missing_ok=True)
 
 
+def on_card(device_index: int):
+    """A context in which card ``device_index`` is the current one: a
+    no-op when it already is."""
+    if device_index == torch._C._cuda_getDevice():
+        return nullcontext()
+    return torch.cuda.device(device_index)
+
+
+def raw_stream(device_index: int) -> int:
+    """The handle of PyTorch's current stream on card ``device_index``."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
 class LaunchCounter:
     """The launch count of one wrapper. A kernel is its own counter; a
-    wrapper that shares another's kernel (K7–K9 launch the K1–K3 entry
-    points at I = 1) passes its own to :meth:`CudaKernel.__call__`."""
+    wrapper that shares another's kernel (K7 and K8 launch the K1 and K2
+    entry points at I = 1) passes its own to :meth:`CudaKernel.__call__`."""
 
     def __init__(self):
         self.launches = 0
@@ -89,9 +110,10 @@ class LaunchCounter:
 
 class CudaKernel(LaunchCounter):
     """One C entry point of a ``csrc/`` source, built and loaded at its
-    first launch. The entry point returns a ``cudaError_t``; a nonzero
-    one raises. Each successful launch adds one to ``counter`` (default:
-    the kernel's own ``launches``)."""
+    first launch (under a lock; later calls take none). The entry point
+    returns a ``cudaError_t``; a nonzero one raises. Each successful
+    launch adds one to ``counter`` (default: the kernel's own
+    ``launches``)."""
 
     def __init__(self, source: str, symbol: str, argtypes: list):
         super().__init__()
@@ -113,7 +135,8 @@ class CudaKernel(LaunchCounter):
         return self._fn
 
     def __call__(self, *args, counter: LaunchCounter | None = None) -> None:
-        err = self._load()(*args)
+        fn = self._fn
+        err = (self._load() if fn is None else fn)(*args)
         if err:
             raise RuntimeError(
                 f"{self.symbol} ({self.source}): CUDA launch failed with "

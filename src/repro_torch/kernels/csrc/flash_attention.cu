@@ -1,4 +1,5 @@
-// Fused flash-attention forward: causal (+ sliding window), GQA-native.
+// Fused flash-attention forward: causal (+ sliding window), GQA-native, on
+// the tensor cores at f32 accuracy.
 //
 // Replaces the TPU kernel
 //   src/repro/kernels/flash_attention/flash_attention.py:flash_attention
@@ -10,214 +11,316 @@
 // The (S, S) score matrix never reaches device memory.
 //
 // Bound on the H100: the kernel reads q, k, v and writes o once, and does
-// about 4·D f32 operations per (query, key) pair it keeps (2·B·H·S²·D for
-// a causal S); at the main path's S = 512, D = 96 that is ~64 operations
-// per byte moved, so it is bound by f32 operations (67 TFLOP/s without the
-// tensor cores), not by the 3.35 TB/s of device memory. The design keeps
-// every operand in shared memory and registers and spends device memory
-// only on the boundary I/O:
+// 4·D operations per (query, key) pair it keeps. Both products run on the
+// tensor cores as TF32 mma.sync.m16n8k8 with the 3-pass split (below), so
+// the operations bound is 3 · 4·D·pairs at 495 TFLOP/s (TF32 dense); at
+// the main path's S = 512, D = 96 that is above the bytes bound at
+// 3.35 TB/s. What the design does about it:
+//   * f32 accuracy from TF32 products: each operand x = hi + lo with
+//     hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest as
+//     cvt.rna does; every product accumulates lo·hi + hi·lo, then hi·hi,
+//     in f32 (lo·lo is below f32's rounding). One TF32 pass keeps ~3
+//     decimal digits, too few for the reference's rtol/atol 2e-4. The
+//     split, not the tensor cores, sets the pace: each warp splits every
+//     K and V element it reads (2 + 3 integer and float instructions
+//     beside 1.5 mma per element); splitting once per block into shared
+//     memory measured slower, bound by the doubled shared-memory reads;
+//   * the softmax runs in registers: each warp owns 16 query rows, the
+//     score fragment never leaves registers, row max and sum take quad
+//     shuffles, exp2f with scale·log2(e) folded in. The score accumulator
+//     feeds P·V as its A operand without any data movement: within each
+//     8-key step the keys are taken in the order (0,2,4,6 | 1,3,5,7), which
+//     is where the m16n8k8 accumulator layout already holds them, and the
+//     V fragments are read in the same order;
+//   * K/V tiles of 64 keys come in with cp.async (16 B per thread) into two
+//     shared-memory stages, so the next tile loads while this one
+//     computes; rows are padded to D + 4 floats so that every fragment
+//     read of Q, K and V falls in 32 distinct banks;
 //   * one block per (q tile, kv head, batch) holds all G query heads of
 //     its kv head (64 query rows = G heads × 64/G positions), so each K/V
 //     tile is read once per group (the GQA sharing of the Pallas
-//     BlockSpecs that ignore g);
-//   * the Pallas kernel walks kv tiles on a sequential grid axis and
-//     carries the running max m and sum l in scratch across grid steps;
-//     here a loop over kv tiles runs inside the block, with m and l in
-//     shared memory and the output accumulator in registers;
-//   * kv tiles wholly above the diagonal, or wholly outside the window,
-//     are skipped (their weights are exactly zero);
-//   * any S: the ragged tail of queries and keys is masked in the kernel.
-// Numerics follow the Pallas kernel: NEG_INF = -1e30, l clamped at 1e-30.
-// Shared-memory rows are padded to D + 1 floats so that the column reads
-// of the score product fall in distinct banks. The products run on the
-// f32 CUDA cores; tensor cores (wgmma, TMA) are later work.
+//     BlockSpecs that ignore g); the Pallas kernel's sequential kv grid
+//     axis becomes a loop inside the block;
+//   * the grid is 1-D with the q tiles in reverse order, so the longest
+//     causal rows start first and the short ones fill the tail; kv tiles
+//     wholly above the diagonal or outside the window are skipped, and
+//     only tiles that cross the diagonal or the window edge are masked;
+//   * at D = 96 a block takes 100 KB of shared memory, so two fit on an SM.
+// Numerics follow the Pallas kernel: masked scores are NEG_INF = -1e30
+// (here in units of log2), l is clamped at 1e-30; any S, the ragged tail
+// of queries and keys is zero-filled and masked in the kernel. No atomics:
+// a rerun gives the same bits.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;  // 4 warps × 16 query rows
 constexpr int kRows = 64;      // query rows per block
 constexpr int kKv = 64;        // keys per kv tile
-constexpr int kPStride = kKv + 1;
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
+// floats of one padded K or V tile; stage st holds K then V
 template <int D>
-constexpr int smem_floats() {
-  return kRows * (D + 1) + kKv * (D + 1) + kKv * D + kRows * kPStride +
-         3 * kRows;
+__host__ __device__ constexpr int tile_floats() { return kKv * (D + 4); }
+
+// x rounded to TF32, to nearest with ties away from zero: the result of
+// cvt.rna.tf32.f32, which sm_90a emulates in ~6 instructions; an add and a
+// mask on the bits take 2
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// grid (n_q_tiles, KV, B); bq = query positions per tile (kRows / G)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a·b at f32 accuracy: the small terms first, then hi·hi
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma(c, al, bh0, bh1);
+  mma(c, ah, bl0, bl1);
+  mma(c, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool live) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(live ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// rows [0, 64) of a padded tile from `base` rows first_row + r (zero past s)
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void load_kv(float* dst, const float* base,
+                                        int first_row, int s) {
+  constexpr int C4 = D / 4;
+  for (int e = threadIdx.x; e < kKv * C4; e += kThreads) {
+    const int r = e / C4, c = (e % C4) * 4;
+    const int pos = first_row + r;
+    const bool live = pos < s;
+    cp_async16(dst + r * (D + 4) + c,
+               live ? base + (int64_t)pos * D + c : base, live);
+  }
+}
+
+// 1-D grid over n_q_tiles × n_heads blocks (n_heads = B·KV), q tiles in
+// reverse; bq = query positions per tile (kRows / G)
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       int s, int g, int bq, int window, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int DPT = (D + 15) / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* s_q = smem;                       // [kRows][DP]
-  float* s_k = s_q + kRows * DP;           // [kKv][DP]
-  float* s_v = s_k + kKv * DP;             // [kKv][D]
-  float* s_p = s_v + kKv * D;              // [kRows][kPStride]
-  float* s_m = s_p + kRows * kPStride;     // [kRows] running max
-  float* s_l = s_m + kRows;                // [kRows] running sum
-  float* s_alpha = s_l + kRows;            // [kRows] rescale of this tile
+                       int s, int g, int bq, int window, float scale_log2,
+                       int n_q_tiles, int64_t n_heads) {
+  constexpr int SK = D + 4;
+  constexpr int KS = D / 8;  // k-steps of Q·Kᵀ = n-tiles of P·V
+  constexpr int TILE = tile_floats<D>();
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int q0 = blockIdx.x * bq;
-  const int rows = g * bq;                 // live rows of this block
-  const int64_t n_kv = gridDim.y;
-  const int64_t head0 = ((int64_t)blockIdx.z * n_kv + blockIdx.y) * g;
-  const int64_t kv_base = ((int64_t)blockIdx.z * n_kv + blockIdx.y) * s;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int64_t blk = blockIdx.x;
+  const int qt = n_q_tiles - 1 - (int)(blk / n_heads);
+  const int64_t hk = blk % n_heads;           // b·KV + kv head
+  const int q0 = qt * bq;
+  const int rows = g * bq;                    // live rows of this block
+  const int64_t head0 = hk * g;
+  const float* kb = k + hk * (int64_t)s * D;
+  const float* vb = v + hk * (int64_t)s * D;
 
-  // row r is query head head0 + r / bq at position q0 + r % bq
-  for (int e = tid; e < kRows * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    float val = 0.f;
-    if (r < rows) {
-      const int pos = q0 + r % bq;
-      if (pos < s) val = q[((head0 + r / bq) * s + pos) * D + d];
-    }
-    s_q[r * DP + d] = val;
-  }
-  if (tid < kRows) {
-    s_m[tid] = kNegInf;
-    s_l[tid] = 0.f;
-  }
-
-  float acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
-
-  // kv tiles that hold a key some live query of this block attends to
   const int q_last = min(q0 + bq, s) - 1;
   int kt_begin = 0;
   if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / kKv;
   const int kt_end = q_last / kKv;
+
+  // the Q tile goes through stage 1's K buffer; row r is query head
+  // head0 + r / bq at position q0 + r % bq
+  {
+    constexpr int C4 = D / 4;
+    float* qs = smem + 2 * TILE;
+    for (int e = threadIdx.x; e < kRows * C4; e += kThreads) {
+      const int r = e / C4, c = (e % C4) * 4;
+      const int pos = q0 + r % bq;
+      const bool live = r < rows && pos < s;
+      cp_async16(qs + r * SK + c,
+                 live ? q + ((head0 + r / bq) * s + pos) * D + c : q, live);
+    }
+    cp_async_commit();
+  }
+  load_kv<D>(smem, kb, kt_begin * kKv, s);
+  load_kv<D>(smem + TILE, vb, kt_begin * kKv, s);
+  cp_async_commit();
+  cp_async_wait_one();                        // the Q tile has landed
   __syncthreads();
 
-  for (int kt = kt_begin; kt <= kt_end; ++kt) {
+  // this warp's 16 rows of Q as A fragments (raw f32, split per use)
+  const int r0 = warp * 16 + gid, r1 = r0 + 8;
+  float qf[KS][4];
+  {
+    const float* qs = smem + 2 * TILE + r0 * SK + tig;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      qf[kk][0] = qs[8 * kk];
+      qf[kk][1] = qs[8 * SK + 8 * kk];
+      qf[kk][2] = qs[8 * kk + 4];
+      qf[kk][3] = qs[8 * SK + 8 * kk + 4];
+    }
+  }
+  __syncthreads();                            // stage 1 is free
+
+  const int qpos0 = q0 + r0 % bq, qpos1 = q0 + r1 % bq;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  float acc[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  for (int kt = kt_begin, st = 0; kt <= kt_end; ++kt, st ^= 1) {
+    if (kt < kt_end) {
+      float* nxt = smem + (st ^ 1) * 2 * TILE;
+      load_kv<D>(nxt, kb, (kt + 1) * kKv, s);
+      load_kv<D>(nxt + TILE, vb, (kt + 1) * kKv, s);
+    }
+    cp_async_commit();
+    cp_async_wait_one();                      // tile kt has landed
+    __syncthreads();
+    const float* ks = smem + st * 2 * TILE;
+    const float* vs = ks + TILE;
+
+    // scores: sc[n] holds rows (gid, gid + 8) × keys 8n + 2tig + {0, 1}
+    float sc[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // split Q per tile: hoisted out of the kv loop, the split halves
+        // would take D more registers and spill
+        asm volatile("" : "+f"(qf[kk][i]));
+        split(qf[kk][i], ah[i], al[i]);
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float* kp = ks + (8 * n + gid) * SK + 8 * kk + tig;
+        mma3(sc[n], ah, al, kp[0], kp[4]);
+      }
+    }
+
     const int k0 = kt * kKv;
-    for (int e = tid; e < kKv * D; e += kThreads) {
-      const int c = e / D, d = e % D;
-      const int pos = k0 + c;
-      float kval = 0.f, vval = 0.f;
-      if (pos < s) {
-        const int64_t off = (kv_base + pos) * D + d;
-        kval = k[off];
-        vval = v[off];
-      }
-      s_k[c * DP + d] = kval;
-      s_v[c * D + d] = vval;
-    }
-    __syncthreads();
-
-    // scores: thread (ty, tx) owns rows ty + 16i and keys tx + 16j
-    float sc[4][4];
+    const bool masked = k0 + kKv - 1 > q0 ||
+                        (window > 0 && k0 <= q_last - window);
+    float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < 8; ++n) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = s_q[(ty + 16 * i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = s_k[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], bk[j], sc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int qpos = q0 + r % bq;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int kpos = k0 + c;
-        const bool ok = r < rows && kpos < s && kpos <= qpos &&
-                        (window <= 0 || kpos > qpos - window);
-        s_p[r * kPStride + c] = ok ? sc[i][j] * scale : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: four neighbouring lanes of one warp share a row
-    {
-      const int r = tid / 4, part = tid % 4;
-      float* row = s_p + r * kPStride;
-      float mx = kNegInf;
-      for (int c = part; c < kKv; c += 4) mx = fmaxf(mx, row[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_old = s_m[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int c = part; c < kKv; c += 4) {
-        const float p = expf(row[c] - m_new);
-        row[c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) {
-        const float alpha = expf(m_old - m_new);
-        s_alpha[r] = alpha;
-        s_l[r] = s_l[r] * alpha + sum;
-        s_m[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc·alpha + P V: thread owns rows ty + 16i, columns tx + 16j
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float al = s_alpha[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] *= al;
-    }
-#pragma unroll 4
-    for (int c = 0; c < kKv; ++c) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = s_p[(ty + 16 * i) * kPStride + c];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        const int d = tx + 16 * j;
-        if (D % 16 == 0 || d < D) {
-          const float vv = s_v[c * D + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
+      for (int i = 0; i < 4; ++i) {
+        float x = sc[n][i] * scale_log2;
+        if (masked) {
+          const int kpos = k0 + 8 * n + 2 * tig + (i & 1);
+          const int qpos = i < 2 ? qpos0 : qpos1;
+          const bool ok = kpos <= qpos && (window <= 0 || kpos > qpos - window);
+          x = ok ? x : kNegInf;
         }
+        sc[n][i] = x;
       }
+      mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
     }
-    __syncthreads();  // the next tile overwrites s_k, s_v and s_p
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      sc[n][0] = exp2f(sc[n][0] - mn0);
+      sc[n][1] = exp2f(sc[n][1] - mn0);
+      sc[n][2] = exp2f(sc[n][2] - mn1);
+      sc[n][3] = exp2f(sc[n][3] - mn1);
+      sum0 += sc[n][0] + sc[n][1];
+      sum1 += sc[n][2] + sc[n][3];
+    }
+    l0 = l0 * alpha0 + sum0;                  // this thread's columns only
+    l1 = l1 * alpha1 + sum1;
+#pragma unroll
+    for (int n = 0; n < KS; ++n) {
+      acc[n][0] *= alpha0;
+      acc[n][1] *= alpha0;
+      acc[n][2] *= alpha1;
+      acc[n][3] *= alpha1;
+    }
+
+    // acc += P V over the 8-key steps j; A's k index tig ↔ key 2·tig and
+    // tig + 4 ↔ key 2·tig + 1, so sc[j] is the A fragment as it stands
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t ah[4], al[4];
+      split(sc[j][0], ah[0], al[0]);
+      split(sc[j][2], ah[1], al[1]);
+      split(sc[j][1], ah[2], al[2]);
+      split(sc[j][3], ah[3], al[3]);
+      const float* vp = vs + (8 * j + 2 * tig) * SK + gid;
+#pragma unroll
+      for (int n = 0; n < KS; ++n)
+        mma3(acc[n], ah, al, vp[8 * n], vp[SK + 8 * n]);
+    }
+    __syncthreads();                          // the next loads reuse stage st
   }
 
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  if (r0 < rows && qpos0 < s) {
+    const float inv = 1.f / fmaxf(l0, 1e-30f);
+    float* out = o + ((head0 + r0 / bq) * s + qpos0) * D + 2 * tig;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int pos = q0 + r % bq;
-    if (r < rows && pos < s) {
-      const float inv_l = 1.f / fmaxf(s_l[r], 1e-30f);
-      float* out = o + ((head0 + r / bq) * s + pos) * D;
+    for (int n = 0; n < KS; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(acc[n][0] * inv, acc[n][1] * inv);
+  }
+  if (r1 < rows && qpos1 < s) {
+    const float inv = 1.f / fmaxf(l1, 1e-30f);
+    float* out = o + ((head0 + r1 / bq) * s + qpos1) * D + 2 * tig;
 #pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        const int d = tx + 16 * j;
-        if (D % 16 == 0 || d < D) out[d] = acc[i][j] * inv_l;
-      }
-    }
+    for (int n = 0; n < KS; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(acc[n][2] * inv, acc[n][3] * inv);
   }
 }
 
@@ -225,7 +328,7 @@ template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    long long b, long long kvh, long long g, long long s,
                    int window, float scale, cudaStream_t stream) {
-  constexpr size_t bytes = sizeof(float) * smem_floats<D>();
+  constexpr size_t bytes = sizeof(float) * 4 * tile_floats<D>();
   // The attribute is per device, so set it on every launch (it is cheap):
   // a once-per-process flag would miss a second card.
   cudaError_t err = cudaFuncSetAttribute(
@@ -234,10 +337,12 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
   if (err != cudaSuccess) return err;
   const int bq = kRows / (int)g;
   const long long n_q_tiles = (s + bq - 1) / bq;
-  if (n_q_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const long long n_heads = b * kvh;
+  if (n_q_tiles * n_heads > 0x7fffffffLL) return cudaErrorInvalidValue;
   flash_attention_kernel<D>
-      <<<dim3((unsigned)n_q_tiles, (unsigned)kvh, (unsigned)b), kThreads,
-         bytes, stream>>>(q, k, v, o, (int)s, (int)g, bq, window, scale);
+      <<<(unsigned)(n_q_tiles * n_heads), kThreads, bytes, stream>>>(
+          q, k, v, o, (int)s, (int)g, bq, window, scale * kLog2e,
+          (int)n_q_tiles, n_heads);
   return cudaGetLastError();
 }
 
@@ -245,10 +350,10 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 
 extern "C" {
 
-// q (B, KV, G, S, D), k/v (B, KV, S, D), o like q; all f32, contiguous.
-// D in {8, 16, 32, 64, 96, 128}, 1 <= G <= 64, B and KV <= 65535.
-// Launches on `stream` and returns the cudaError_t of the launch (0 on
-// success). Does not synchronise.
+// q (B, KV, G, S, D), k/v (B, KV, S, D), o like q; all f32, contiguous and
+// 16-byte aligned. D in {8, 16, 32, 64, 96, 128}, 1 <= G <= 64, B and
+// KV <= 65535. Launches on `stream` and returns the cudaError_t of the
+// launch (0 on success). Does not synchronise.
 int flash_attention_fwd(const float* q, const float* k, const float* v,
                         float* o, long long b, long long kvh, long long g,
                         long long s, int d, int window, float scale,
@@ -256,6 +361,9 @@ int flash_attention_fwd(const float* q, const float* k, const float* v,
   if (b < 1 || b > 65535 || kvh < 1 || kvh > 65535 || g < 1 || g > kRows ||
       s < 1 || s > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  if ((((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15u) !=
+      0)
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 8: return (int)launch<8>(q, k, v, o, b, kvh, g, s, window, scale, st);

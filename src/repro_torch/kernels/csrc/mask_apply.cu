@@ -4,7 +4,8 @@
 // Replaces the TPU kernels
 //   src/repro/kernels/prune/prune.py:mask_apply_batched (K3, body
 //   _mask_batched_kernel) and prune.py:mask_apply (K9, body _mask_kernel;
-//   its single-vector strict form is this kernel's I = 1 launch).
+//   its single-vector strict form is this kernel's I = 1 launch through
+//   the entry point mask_apply_single).
 //
 // For a packed group w (I, P) f32 and per-item thresholds t (I,) f32:
 //   out[i, p] = |w[i, p]| >  t[i] ? w[i, p] : 0   (strict)
@@ -20,6 +21,12 @@
 // before its first 16-byte boundary, a float4 body, and a tail of up to
 // 3 elements; block 0 of each row does the head and the tail with scalar
 // accesses. Nothing is padded.
+//
+// K9 at the single-vector size of its path (P = 266,200: ~2 MB, well under
+// a microsecond of memory traffic) is bound by its launch, not by bytes:
+// mask_apply_single takes the vector and a device pointer to its 0-d
+// threshold (or the threshold by value), so the wrapper adds no view, no
+// threshold tensor and no batch checks before the launch.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,9 +41,10 @@ __device__ __forceinline__ float keep(float x, float t, int strict) {
 
 __global__ void __launch_bounds__(kThreads)
 mask_apply_kernel(const float* __restrict__ w, const float* __restrict__ t,
-                  int64_t p, int strict, float* __restrict__ out) {
+                  float t_value, int64_t p, int strict,
+                  float* __restrict__ out) {
   const int64_t item = blockIdx.y;
-  const float ti = t[item];
+  const float ti = t != nullptr ? t[item] : t_value;
   const float* wi = w + item * p;
   float* oi = out + item * p;
   // w and out share their alignment (checked by the wrapper), so one head
@@ -63,15 +71,8 @@ mask_apply_kernel(const float* __restrict__ w, const float* __restrict__ t,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches on `stream` and returns the cudaError_t of the launch (0 on
-// success); does not synchronise. `w` and `out` must have the same
-// address modulo 16 bytes.
-int mask_apply_batched(const float* w, const float* t, long long n_items,
-                       long long p, int strict, float* out, void* stream) {
+int launch(const float* w, const float* t, float t_value, long long n_items,
+           long long p, int strict, float* out, void* stream) {
   if (n_items < 1 || n_items > 65535 || p < 1)
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)w & 15u) != ((uintptr_t)out & 15u) ||
@@ -83,8 +84,30 @@ int mask_apply_batched(const float* w, const float* t, long long n_items,
   if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   mask_apply_kernel<<<dim3((unsigned)n_blocks, (unsigned)n_items), kThreads,
                       0, static_cast<cudaStream_t>(stream)>>>(
-      w, t, p, strict, out);
+      w, t, t_value, p, strict, out);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Both entry points launch on `stream` and return the cudaError_t of the
+// launch (0 on success); neither synchronises. `w` and `out` must have the
+// same address modulo 16 bytes.
+
+// K3: w (I, P), per-item thresholds t (I,).
+int mask_apply_batched(const float* w, const float* t, long long n_items,
+                       long long p, int strict, float* out, void* stream) {
+  if (t == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(w, t, 0.0f, n_items, p, strict, out, stream);
+}
+
+// K9: w (P,), strict, the threshold at device address `t`, or `t_value`
+// when `t` is null.
+int mask_apply_single(const float* w, const float* t, float t_value,
+                      long long p, float* out, void* stream) {
+  return launch(w, t, t_value, 1, p, 1, out, stream);
 }
 
 }  // extern "C"

@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, on_card, raw_stream
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_ref as flash_attention_plain)
 
@@ -23,6 +23,7 @@ HEAD_DIMS = (8, 16, 32, 64, 96, 128)
 #: query rows per block (all G grouped heads × the positions of a q tile)
 ROWS = 64
 MAX_GRID = 65535
+_F32 = torch.float32
 
 _p = ctypes.c_void_p
 KERNEL = CudaKernel(
@@ -32,18 +33,8 @@ KERNEL = CudaKernel(
      ctypes.c_float, _p])
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0) -> torch.Tensor:
-    """q: (B, KV, G, S, D); k, v: (B, KV, S, D) → (B, KV, G, S, D) f32.
-
-    Causal over positions 0..S-1 (+ sliding window when ``window > 0``),
-    scale 1/√D. On a CUDA tensor this launches the kernel on the current
-    stream without synchronising; on a CPU tensor it runs the plain
-    version."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+def _refuse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise the reason the kernel does not take these operands."""
     if any(t.dtype != torch.float32 for t in (q, k, v)):
         raise TypeError("flash_attention kernel needs float32 operands, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -52,7 +43,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, kvh, g, s, d = q.shape
-    if (k.shape[0], k.shape[1], k.shape[2], k.shape[3]) != (b, kvh, s, d):
+    if tuple(k.shape) != (b, kvh, s, d):
         raise ValueError(f"k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)}")
     if d not in HEAD_DIMS:
@@ -65,11 +56,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"KV={kvh}, G={g}, S={s}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on the same device")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention kernel needs contiguous operands")
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-               b, kvh, g, s, d, int(window), 1.0 / math.sqrt(d),
-               torch.cuda.current_stream(q.device).cuda_stream)
+    raise ValueError("flash_attention kernel needs contiguous operands")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0) -> torch.Tensor:
+    """q: (B, KV, G, S, D); k, v: (B, KV, S, D) → (B, KV, G, S, D) f32.
+
+    Causal over positions 0..S-1 (+ sliding window when ``window > 0``),
+    scale 1/√D. On a CUDA tensor this launches the kernel on the current
+    stream without synchronising; on a CPU tensor it runs the plain
+    version. The checks take one pass (:func:`_refuse` explains a
+    refusal) and the stream is taken as a raw handle, so that the host
+    adds little to a call."""
+    if not q.is_cuda:
+        if q.is_cpu:
+            return flash_attention_plain(q, k, v, window=window)
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    dev = q.get_device()
+    if q.dim() != 5:
+        _refuse(q, k, v)
+    b, kvh, g, s, d = q.shape
+    if not (q.dtype is _F32 and k.dtype is _F32 and v.dtype is _F32
+            and k.shape == (b, kvh, s, d) and v.shape == k.shape
+            and d in HEAD_DIMS and 1 <= g <= ROWS and 1 <= b <= MAX_GRID
+            and 1 <= kvh <= MAX_GRID and s >= 1
+            and k.get_device() == dev and v.get_device() == dev
+            and q.is_contiguous() and k.is_contiguous()
+            and v.is_contiguous()):
+        _refuse(q, k, v)
+    # the kernel copies 16-byte chunks; a fresh allocation is aligned
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
+    out = torch.empty_like(q)
+    with on_card(dev):
+        KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+               kvh, g, s, d, int(window), 1.0 / math.sqrt(d),
+               raw_stream(dev))
     return out

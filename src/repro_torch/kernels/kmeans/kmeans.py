@@ -15,7 +15,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel, LaunchCounter
+from repro_torch.kernels.build import (
+    CudaKernel, LaunchCounter, on_card, raw_stream)
 from repro_torch.kernels.kmeans.ref import (  # noqa: F401  (the plain versions)
     kmeans_assign_moments_batched_plain, kmeans_assign_moments_plain)
 
@@ -82,9 +83,9 @@ def _launch(w: torch.Tensor, codebooks: torch.Tensor,
                               device=dev)
     sums = torch.empty((n_items, k), dtype=torch.float32, device=dev)
     counts = torch.empty((n_items, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with on_card(dev.index):
         KERNEL(w.data_ptr(), codebooks.data_ptr(), n_items, p, k, n_tiles,
                assign.data_ptr(), part_sums.data_ptr(),
                part_counts.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-               torch.cuda.current_stream(dev).cuda_stream, counter=counter)
+               raw_stream(dev.index), counter=counter)
     return assign, sums, counts

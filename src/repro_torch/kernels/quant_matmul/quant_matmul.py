@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, on_card, raw_stream
 from repro_torch.kernels.quant_matmul.ref import (
     quant_matmul_packed_ref as quant_matmul_packed_plain,
     quant_matmul_ref as quant_matmul_plain)
@@ -59,10 +59,10 @@ def _launch(kernel: CudaKernel, name: str, x, w, codebook, k: int,
             and codebook.is_contiguous()):
         raise ValueError(f"{name} needs contiguous operands")
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    dev = x.get_device()
+    with on_card(dev):
         kernel(x.data_ptr(), w.data_ptr(), codebook.data_ptr(), c,
-               y.data_ptr(), m, n, k,
-               torch.cuda.current_stream(x.device).cuda_stream)
+               y.data_ptr(), m, n, k, raw_stream(dev))
     return y
 
 

@@ -36,9 +36,11 @@ def full_fp32_matmuls() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def init_mlp(generator: torch.Generator, dims=DIMS, device="cpu") -> dict:
+def init_mlp(generator: torch.Generator, dims=DIMS, device=None) -> dict:
     """{"l{i}": {"w": (in, out), "b": (out,)}} with w ~ N(0, 1/in); drawn
-    on the CPU from ``generator``, then moved to ``device``."""
+    on the CPU from ``generator``, then moved to ``device`` (``None``:
+    the card, as every entry point)."""
+    device = resolve_device(device)
     p = {}
     for i in range(len(dims) - 1):
         w = torch.randn((dims[i], dims[i + 1]), generator=generator)

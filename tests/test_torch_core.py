@@ -64,7 +64,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 @pytest.mark.parametrize("entry", ["LCAlgorithm", "reference_problem",
                                    "run_lc", "direct_compress",
                                    "quickstart", "gaussian_blobs", "Server",
-                                   "ServingEngine", "launch.serve.main"])
+                                   "ServingEngine", "launch.serve.main",
+                                   "init_mlp"])
 def test_entry_points_default_to_the_card(entry):
     """Called without ``device``, every entry point asks for CUDA and
     raises with a clear message when there is none."""
@@ -94,6 +95,7 @@ def test_entry_points_default_to_the_card(entry):
         "Server": lambda: Server(lm, {}),
         "ServingEngine": lambda: ServingEngine(lm, {}),
         "launch.serve.main": lambda: serve.main(["--reduced"]),
+        "init_mlp": lambda: showcase.init_mlp(torch.Generator()),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

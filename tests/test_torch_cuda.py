@@ -17,6 +17,7 @@ import math
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention as k6
 from repro_torch.kernels.kmeans import ops as kops
@@ -98,6 +99,41 @@ def test_flash_attention_kernel_matches_plain_on_card(gen, b, s, kvh, g, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 3, 4, 8, 64])
+@pytest.mark.parametrize("d", k6.HEAD_DIMS)
+def test_flash_attention_kernel_over_its_domain_on_card(gen, d, g):
+    """Every head dim × group sizes that do and do not divide the 64 rows
+    of a block × sequence lengths around the 64-key tile, with and
+    without a window."""
+    for s in (1, 63, 64, 65, 97, 513):
+        q = torch.randn((1, 2, g, s, d), device="cuda", generator=gen)
+        k = torch.randn((1, 2, s, d), device="cuda", generator=gen)
+        v = torch.randn((1, 2, s, d), device="cuda", generator=gen)
+        for window in (0, 37):
+            torch.testing.assert_close(
+                k6.flash_attention(q, k, v, window=window),
+                k6.flash_attention_plain(q, k, v, window=window),
+                rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_at_phi3_prefill_on_card(gen):
+    """phi3-mini's prefill (B=2, S=512, 32 heads of 96): against the plain
+    version, bit-identical on a rerun, and on operands 4 bytes off a
+    16-byte boundary (the wrapper copies them)."""
+    q = torch.randn((2, 32, 1, 512, 96), device="cuda", generator=gen)
+    k = torch.randn((2, 32, 512, 96), device="cuda", generator=gen)
+    v = torch.randn((2, 32, 512, 96), device="cuda", generator=gen)
+    got = k6.flash_attention(q, k, v)
+    torch.testing.assert_close(got, k6.flash_attention_plain(q, k, v),
+                               rtol=2e-4, atol=2e-4)
+    assert torch.equal(got, k6.flash_attention(q, k, v))
+    shifted = torch.empty(k.numel() + 1, device="cuda")[1:].view(k.shape)
+    shifted.copy_(k)
+    assert torch.equal(k6.flash_attention(q, shifted, v), got)
+
+
+@pytest.mark.cuda
 def test_kernel_reruns_are_bit_identical(gen):
     """No atomics in K4/K5/K6: a rerun gives the same bits."""
     x = torch.randn((1024, 512), device="cuda", generator=gen)
@@ -163,3 +199,21 @@ def test_single_vector_solvers_match_cpu_on_card(gen):
     cb_cpu, _ = kops.kmeans(w.cpu(), cb0.cpu(), iters=6)
     torch.testing.assert_close(cb.cpu(), cb_cpu, rtol=1e-5, atol=1e-5)
     assert assign.shape == w.shape and assign.dtype == torch.int32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 5, 266_200])
+def test_single_vector_mask_kernel_on_card(gen, p):
+    """K9 on aligned vectors and a view 4 bytes off a 16-byte boundary,
+    with the threshold as a Python float and as a 0-d CUDA tensor: equal
+    to its plain version and to ``F.hardshrink``, one launch a call."""
+    base = torch.randn(p + 1, device="cuda", generator=gen)
+    base[::7] = 0.5 * torch.sign(base[::7])             # magnitude ties
+    for w in (base[:p], base[1:]):
+        t = torch.tensor(0.5, device="cuda")            # exactly the ties
+        for tt in (t, 0.5, w.abs().median()):
+            n = k2.MASK_SINGLE.launches
+            got = k2.mask_apply(w, tt)
+            assert k2.MASK_SINGLE.launches == n + 1
+            assert torch.equal(got, k2.mask_apply_plain(w, tt))
+            assert torch.equal(got, F.hardshrink(w, float(tt)))

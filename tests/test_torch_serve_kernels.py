@@ -180,6 +180,51 @@ def test_k6_kernel_layout_matches_jax_kernel(window):
         **ATTN)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 as the K6 kernel rounds its operands: to nearest,
+    ties away from zero (add half a TF32 ulp to the bits, drop 13)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(a: torch.Tensor, b: torch.Tensor, passes: int):
+    """a @ b from TF32 operands: one pass (hi·hi) or the 3-pass split
+    (lo·hi + hi·lo + hi·hi). TF32 products are exact in f32; the sums run
+    in f64, so only the operand rounding differs from an f32 product."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = ah.double() @ bh.double()
+    if passes == 3:
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        out = al.double() @ bh.double() + ah.double() @ bl.double() + out
+    return out.float()
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,w", [
+    (2, 128, 32, 32, 96, 0), (1, 128, 32, 8, 96, 0), (1, 192, 8, 2, 64, 128),
+    (2, 97, 6, 3, 16, 7),
+])
+def test_k6_needs_the_three_pass_tf32_split(b, s, h, kvh, d, w):
+    """Why the K6 kernel runs each product three times on the tensor
+    cores: with its operand rounding emulated here, the 3-pass split's
+    attention stays within K6's tolerance of the f32 plain version and a
+    single TF32 pass does not (K6's chip_smoke.py shapes, S cut)."""
+    rng = np.random.default_rng(s + h + d)
+    q = _t(rng.standard_normal((b, kvh, h // kvh, s, d)).astype(np.float32))
+    k = _t(rng.standard_normal((b, kvh, s, d)).astype(np.float32))
+    v = _t(rng.standard_normal((b, kvh, s, d)).astype(np.float32))
+    want = k6.flash_attention_plain(q, k, v, window=w)
+    pos = torch.arange(s)
+    keep = pos[None, :] <= pos[:, None]
+    if w:
+        keep &= pos[None, :] > pos[:, None] - w
+    for passes, close in ((3, True), (1, False)):
+        x = _tf32_product(q, k[:, :, None].transpose(-1, -2), passes)
+        x = torch.where(keep, x / d ** 0.5, -1e30)
+        p = torch.exp(x - x.amax(-1, keepdim=True))     # unnormalised, ≤ 1
+        got = (_tf32_product(p, v[:, :, None], passes)
+               / p.sum(-1, keepdim=True))
+        assert torch.allclose(got, want, **ATTN) == close, passes
+
+
 # ----------------------------------------------------------------------
 # the plain-torch serving ops (no kernel of their own)
 # ----------------------------------------------------------------------
