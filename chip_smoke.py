@@ -58,10 +58,13 @@ CUDA toolkit (nvcc). Phases, each of which fails the run:
     selected ranks against the exact spectrum, distortion against the
     exact SVD, logits against the densified model, 4 K6 launches;
 14. ``torch.profiler`` over path C's prefill and 8 decode steps: the
-    device's busy share and the kernels that took the most time; and the
-    device time of K9 and ``F.hardshrink`` at P = 266,200, and of K6 and
-    SDPA at K6's main row, summed over 50 calls each, beside their event
-    times from phases 7 and 10;
+    device's busy share, the kernels that took the most time and the
+    K4/K5 kernels' sum; the device time of K9 and ``F.hardshrink`` at
+    P = 266,200, and of K6 and SDPA at K6's main row, summed over 50
+    calls each, beside their event times from phases 7 and 10; and K4's
+    and K5's device time at decode (M = 2, 8) and prefill over 50 calls
+    with the weight rotated over copies past the 50 MB L2, beside the
+    bytes bound and the event time;
 15. one JSON line listing every ported kernel, then the result line.
 
 Tolerances: assignments, masks and integer counts must be equal; K1/K7
@@ -75,15 +78,18 @@ low-rank Θ distortion within ``1e-4`` relative of the exact SVD's
 
 Bounds use the H100 SXM's published rates, which assume a 700 W power
 limit: 3.35 TB/s of device memory; 67 TFLOP/s f32 outside the tensor
-cores for every kernel but K6; for K6, which runs both products on the
-tensor cores as TF32 with a 3-pass split, 3 · 4·D operations per (query,
-key) pair kept at 495 TFLOP/s (TF32 dense).
+cores for K1–K3 and K7–K9; for the products that the tensor cores can
+run at f32 accuracy as TF32 with a 3-pass split, 495 TFLOP/s (TF32
+dense) for three times the operations, the faster of the two rates: 3 ·
+4·D per (query, key) pair kept for K6, 3 · 2·M·K·N for K4/K5 at every
+M, whichever kernel (decode GEMV or tensor-core prefill) runs.
 """
 from __future__ import annotations
 
 import importlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -170,6 +176,17 @@ def launches(kern: dict) -> dict:
 def only(kern: dict, **want) -> dict:
     """The exact launch counts a path must show: ``want``, 0 elsewhere."""
     return {n: want.get(n, 0) for n in kern}
+
+
+def kernel_name(mangled: str) -> str:
+    """``quant_gemv_kernel<4, 8>`` for the mangled name of that
+    instance in a ``-Xptxas -v`` log; the name as given if it is not a
+    ``*_kernel`` template of integer arguments."""
+    m = re.search(r"\d+([a-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?", mangled)
+    if m is None:
+        return mangled
+    args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
 def bound(n_bytes: float, n_ops: float,
@@ -410,6 +427,12 @@ def serve_kernel_phase(k45, k6, power: str) -> dict:
     rec = {"K4": [], "K5": [], "K6": []}
 
     def gemm_case(name, m, k, n, c):
+        """One K4/K5 row: checked and timed beside the plain version and
+        the densified ``torch.matmul``. The bound is the function's, not
+        the kernel's: x, the indices, the codebook and y moved once, and
+        2·M·K·N operations at the faster of the f32 CUDA cores and three
+        TF32 passes on the tensor cores, for the decode GEMV and the
+        prefill kernel alike."""
         x = torch.randn((m, k), device="cuda", generator=g)
         idx = torch.randint(0, c, (k, n), device="cuda", generator=g,
                             dtype=torch.uint8)
@@ -439,8 +462,10 @@ def serve_kernel_phase(k45, k6, power: str) -> dict:
         reps = 10 if m * k * n > 1e9 else 30
         ms, plain_ms, dense_ms = timed_turns(
             (kern, plain, lambda: torch.matmul(x, dense)), reps)
-        b_ms, b_by = bound(4.0 * m * k + w_bytes + 4.0 * c + 4.0 * m * n,
-                           2.0 * m * k * n)
+        n_bytes = 4.0 * m * k + w_bytes + 4.0 * c + 4.0 * m * n
+        ops = 2.0 * m * k * n
+        b_ms, b_by = min(bound(n_bytes, ops),
+                         bound(n_bytes, 3 * ops, TF32_OPS_PER_S))
         row = {"shape": [m, k, n, c], "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
                "densified_matmul_ms": dense_ms}
@@ -491,12 +516,12 @@ def serve_kernel_phase(k45, k6, power: str) -> dict:
     return rec
 
 
-def device_profile(fn, label: str, power: str) -> None:
+def device_profile(fn, label: str, power: str) -> list:
     """Run ``fn`` once under ``torch.profiler`` and print its wall time,
     the summed time of its device kernels and copies, the device's busy
-    share of the wall time, and the kernels that took the most time.
-    The profiler adds host work, so the wall time here is above the
-    untraced one."""
+    share of the wall time, and the kernels that took the most time;
+    return the device events. The profiler adds host work, so the wall
+    time here is above the untraced one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -514,6 +539,7 @@ def device_profile(fn, label: str, power: str) -> None:
           f"device_busy={dev_ms / wall_ms:.3f} top: " + "; ".join(
               f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f}ms"
               for e in top) + f" [{power}]", flush=True)
+    return dev
 
 
 def serving_config():
@@ -1202,11 +1228,17 @@ def profile_phase(path_c: dict, power: str) -> None:
             tf.decode_step(serving, caches, toks[:, i:i + 1],
                            SERVE_PROMPT + i, cfg)
 
-    device_profile(prefill, "path C prefill (B=2, S=512, compressed)",
-                   power)
+    def report(label, fn):
+        dev = device_profile(fn, f"path C {label}", power)
+        k45 = [e for e in dev if "quant_" in e.key]
+        print(f"path C {label}: K4/K5 kernels x"
+              f"{sum(e.count for e in k45)} device_ms="
+              f"{sum(e.self_device_time_total for e in k45) / 1e3:.3f} "
+              f"[{power}]", flush=True)
+
+    report("prefill (B=2, S=512, compressed)", prefill)
     caches = prefill()
-    device_profile(lambda: decode(caches), "path C 8 decode steps (M=2, "
-                   "compressed)", power)
+    report("8 decode steps (M=2, compressed)", lambda: decode(caches))
 
 
 def device_times(k2, k6, k9_row: dict, k6_row: dict, card: str) -> None:
@@ -1255,6 +1287,56 @@ def device_times(k2, k6, k9_row: dict, k6_row: dict, card: str) -> None:
           f"[{card}]", flush=True)
 
 
+def quant_device_times(k45, srec: dict, card: str) -> None:
+    """K4 and K5 at the serving paths' shapes (decode M = 2 and 8,
+    prefill M = 1024) under ``torch.profiler``: the summed device time
+    of 50 calls, the weight rotated over enough copies to exceed the
+    50 MB L2 (as a decode step finds it), beside the bytes bound and the
+    CUDA-event time of the row in phase 7. Runs after the timed phases
+    (a profiler session slows every later launch)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.quant_matmul import ops as qops
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for name, k, n, c in (("K4", 3072, 8192, 16), ("K5", 3072, 3072, 64)):
+        idx = torch.randint(0, c, (k, n), device="cuda", generator=g,
+                            dtype=torch.uint8)
+        cb = torch.sort(torch.randn(c, device="cuda", generator=g)).values \
+            / math.sqrt(k)
+        w0 = qops.pack4(idx) if name == "K4" else idx
+        copies = max(6, math.ceil(60e6 / w0.numel()))
+        ws = [w0.clone() for _ in range(copies)]
+        fn, plain = ((k45.quant_matmul_packed, k45.quant_matmul_packed_plain)
+                     if name == "K4" else
+                     (k45.quant_matmul, k45.quant_matmul_plain))
+        for m in SERVE_M:
+            x = torch.randn((m, k), device="cuda", generator=g)
+            torch.testing.assert_close(fn(x, ws[1], cb), plain(x, w0, cb),
+                                       rtol=1e-5, atol=1e-4)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for i in range(50):
+                    fn(x, ws[i % copies], cb)
+                torch.cuda.synchronize()
+            dev = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and "quant_" in e.key]
+            check(sum(e.count for e in dev) == 50,
+                  f"{name} M={m}: the profiler saw {dev}")
+            dev_ms = sum(e.self_device_time_total for e in dev) / 1e3 / 50
+            bytes_ms = (4.0 * m * k + w0.numel() + 4.0 * c
+                        + 4.0 * m * n) / HBM_BYTES_PER_S * 1e3
+            row = next(r for r in srec[name]
+                       if r["shape"] == [m, k, n, c])
+            print(f"{name} M={m} K={k} N={n} C={c} cold L2 ({copies} weight "
+                  f"copies): device_ms={dev_ms:.5f} (profiler, 50 calls) "
+                  f"bytes_bound_ms={bytes_ms:.5f} "
+                  f"({bytes_ms / dev_ms:.0%} of it) bound_ms="
+                  f"{row['bound_ms']:.5f} ({row['bound_by']}) "
+                  f"event_ms={row['ms']:.4f} [{card}]", flush=True)
+        del ws, w0, idx
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1287,8 +1369,10 @@ def main() -> int:
     print(f"build_s={time.time() - t0:.2f} sources={sorted(logs)}")
     for src_name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {src_name}: {line.strip()}")
+            if "Function properties for" in line:
+                print(f"  {src_name}: {kernel_name(line.split()[-1])}")
+            elif "registers" in line or "spill" in line:
+                print(f"  {src_name}:   {line.strip()}")
 
     # every kernel's launch counter (K7–K9 are the single-vector wrappers
     # of the K1–K3 sources)
@@ -1312,6 +1396,7 @@ def main() -> int:
     paths["F"] = main_path_f(kern, power)
     profile_phase(path_c, power)
     device_times(k2, k6, mrec["K9"][0], srec["K6"][0], card)
+    quant_device_times(k45, srec, card)
     print(f"jacobi kernels per round (profiler, sketch width 144): "
           f"{jacobi_kernels_per_round():.1f}", flush=True)
     total = {n: sum(p[n] for p in paths.values()) for n in kern}

@@ -5,7 +5,10 @@ Port of ``src/repro/kernels/quant_matmul/ops.py``. The kernels mask
 ragged edges themselves, so nothing is padded here, and the 4-bit kernel
 unpacks both nibbles itself, so x is not split into even and odd
 columns. The device of the tensors picks the kernel (CUDA) or its plain
-version (CPU).
+version (CPU); on the card the kernel picks its regime by M (a split-K
+GEMV for decode, M ≤ ``quant_matmul.GEMV_MAX_M``; the tensor cores
+above), see ``quant_matmul.py``. Operands are converted to float32 and
+made contiguous only where they are not already.
 """
 from __future__ import annotations
 
@@ -16,11 +19,17 @@ from repro_torch.kernels.quant_matmul.quant_matmul import (
     quant_matmul, quant_matmul_packed)
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype != torch.float32:
+        t = t.float()
+    return t if t.is_contiguous() else t.contiguous()
+
+
 def matmul(x: torch.Tensor, idx: torch.Tensor,
            codebook: torch.Tensor) -> torch.Tensor:
     """y = x @ codebook[idx] (K5). x: (M, K); idx: (K, N) uint8."""
-    return quant_matmul(x.float().contiguous(), idx.contiguous(),
-                        codebook.float().contiguous())
+    return quant_matmul(_f32(x), idx if idx.is_contiguous()
+                        else idx.contiguous(), _f32(codebook))
 
 
 def matmul_packed(x: torch.Tensor, packed: torch.Tensor,
@@ -34,8 +43,9 @@ def matmul_packed(x: torch.Tensor, packed: torch.Tensor,
     if k != 2 * packed.shape[0]:
         raise ValueError(f"x {tuple(x.shape)} needs 2·{packed.shape[0]} "
                          f"columns for packed {tuple(packed.shape)}")
-    return quant_matmul_packed(x.float().contiguous(), packed.contiguous(),
-                               codebook.float().contiguous())
+    return quant_matmul_packed(
+        _f32(x), packed if packed.is_contiguous() else packed.contiguous(),
+        _f32(codebook))
 
 
 def pack_quantized(w: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:

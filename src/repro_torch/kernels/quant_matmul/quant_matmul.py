@@ -4,7 +4,20 @@ kernels.
 The port of ``src/repro/kernels/quant_matmul/quant_matmul.py:
 quant_matmul`` (uint8 indices) and ``quant_matmul_packed`` (two 4-bit
 indices per byte), Pallas TPU kernels. Both come from one CUDA source,
-``../csrc/quant_matmul.cu``, whose note gives the design and the bound.
+``../csrc/quant_matmul.cu``, whose note gives the design and the bounds.
+Two regimes, picked by M inside the launch:
+
+* M ≤ ``GEMV_MAX_M`` (decode): a GEMV bound by the weight's bytes, its
+  K range split over several blocks per column tile so that every SM
+  has work (:func:`gemv_slices`). The wrapper allocates the slices'
+  workspace and keeps, per card and stream, the zeroed per-tile
+  counters by which the last block of a tile sums the slices in order
+  (one launch, no float atomics, same bits on a rerun). Launches on one
+  stream run in order, so they can share counters; two streams get two
+  sets, so GEMVs on concurrent streams never take each other's tickets;
+* M > ``GEMV_MAX_M`` (prefill): the product on the tensor cores, TF32
+  ``mma.sync`` with the 3-pass split for f32 accuracy.
+
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version for a CPU tensor. Unlike the Pallas K5 (compare-select dequant,
 C ≤ 16), the CUDA K5 reads the codebook through a lookup table and takes
@@ -13,6 +26,7 @@ any C ≤ 256.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import torch
 
@@ -23,17 +37,57 @@ from repro_torch.kernels.quant_matmul.ref import (
 
 MAX_CODES_U8 = 256
 MAX_CODES_4BIT = 16
+GEMV_MAX_M = 8            # kGemvMaxM in the source
+GEMV_COLS = 64            # columns of a GEMV block (kGemvCols)
+GEMV_MAX_SLICE = 512      # rows of a slice (8 chunks of 64 in the source)
 _INT_MAX = 2**31 - 1
 
 _p = ctypes.c_void_p
 _ARGS = [_p, _p, _p, ctypes.c_int, _p, ctypes.c_longlong,
-         ctypes.c_longlong, ctypes.c_longlong, _p]
+         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _p, _p, _p]
 KERNEL_U8 = CudaKernel("quant_matmul.cu", "quant_matmul_u8", _ARGS)
 KERNEL_PACKED4 = CudaKernel("quant_matmul.cu", "quant_matmul_packed4", _ARGS)
 
+_counters: dict[tuple[int, int], torch.Tensor] = {}
 
-def _launch(kernel: CudaKernel, name: str, x, w, codebook, k: int,
-            max_codes: int) -> torch.Tensor:
+
+@lru_cache(maxsize=None)
+def _sm_count(dev: int) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@lru_cache(maxsize=1024)
+def _slices(rows: int, n: int, sms: int) -> int:
+    want = max(1, min(3 * sms // -(-n // GEMV_COLS), -(-rows // 64)))
+    per = -(-rows // want)
+    per = min((per + 63) // 64 * 64, GEMV_MAX_SLICE)
+    return -(-rows // per)
+
+
+def gemv_slices(rows: int, n: int, dev: int = 0) -> int:
+    """K slices per column tile of the decode GEMV on card ``dev`` for a
+    weight of ``rows`` index rows and ``n`` columns: at most three blocks
+    an SM in all (resident at once but for the 4-bit M > 4 kernels, which
+    take two blocks' registers; fewer, longer slices measured faster),
+    each slice whole groups of 64 rows, at most ``GEMV_MAX_SLICE``."""
+    return _slices(rows, n, _sm_count(dev))
+
+
+def _tile_counters(dev: int, stream: int, tiles: int) -> torch.Tensor:
+    """The zeroed split-K counters of card ``dev``'s stream ``stream`` (a
+    raw handle), one per column tile. Each launch leaves them 0, and one
+    stream's launches run in order, so every launch on that stream finds
+    them 0."""
+    c = _counters.get((dev, stream))
+    if c is None or c.numel() < tiles:
+        c = torch.zeros(max(tiles, 1024), dtype=torch.int32,
+                        device=torch.device("cuda", dev))
+        _counters[(dev, stream)] = c
+    return c
+
+
+def _refuse(name: str, x, w, codebook, k: int, max_codes: int):
+    """Raise the error that names what the kernel does not take."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
     if x.dtype != torch.float32 or codebook.dtype != torch.float32:
@@ -55,14 +109,39 @@ def _launch(kernel: CudaKernel, name: str, x, w, codebook, k: int,
                          f"{max_codes}; got M={m}, N={n}, K={k}, C={c}")
     if w.device != x.device or codebook.device != x.device:
         raise ValueError(f"{name}: operands must be on one device")
-    if not (x.is_contiguous() and w.is_contiguous()
-            and codebook.is_contiguous()):
-        raise ValueError(f"{name} needs contiguous operands")
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    raise ValueError(f"{name} needs contiguous operands")
+
+
+def _launch(kernel: CudaKernel, name: str, x, w, codebook, k: int,
+            max_codes: int) -> torch.Tensor:
+    # one combined check; _refuse names the first rule broken
+    if not (x.device.type == "cuda" and x.dtype == torch.float32
+            and codebook.dtype == torch.float32 and w.dtype == torch.uint8
+            and x.ndim == 2 and w.ndim == 2 and codebook.ndim == 1
+            and x.shape[1] == k and w.device == x.device
+            and codebook.device == x.device and x.is_contiguous()
+            and w.is_contiguous() and codebook.is_contiguous()
+            and 1 <= x.shape[0] <= _INT_MAX and 1 <= w.shape[1] <= _INT_MAX
+            and 1 <= k <= _INT_MAX and 1 <= codebook.shape[0] <= max_codes):
+        _refuse(name, x, w, codebook, k, max_codes)
+    m, n = x.shape[0], w.shape[1]
     dev = x.get_device()
+    stream = raw_stream(dev)
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    slices, ws, counters = 1, None, None
+    if m <= GEMV_MAX_M:
+        slices = _slices(w.shape[0], n, _sm_count(dev))
+        if slices > 1:
+            counters = _tile_counters(dev, stream, -(-n // GEMV_COLS))
+            # held until the launch is queued, so that no allocation in
+            # between takes its memory
+            ws = torch.empty((slices, m, n), dtype=torch.float32,
+                             device=x.device)
     with on_card(dev):
-        kernel(x.data_ptr(), w.data_ptr(), codebook.data_ptr(), c,
-               y.data_ptr(), m, n, k, raw_stream(dev))
+        kernel(x.data_ptr(), w.data_ptr(), codebook.data_ptr(),
+               codebook.shape[0], y.data_ptr(), m, n, k, slices,
+               None if ws is None else ws.data_ptr(),
+               None if counters is None else counters.data_ptr(), stream)
     return y
 
 

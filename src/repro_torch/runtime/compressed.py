@@ -88,7 +88,7 @@ WEIGHT_FORMS = (QuantizedWeight, LowRankWeight, SparseWeight)
 def _quant_apply(x, w: QuantizedWeight, dt):
     k, n = w.shape
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, k).float()
+    x2 = x.reshape(-1, k)      # ops converts and copies only if needed
     if w.bits == 4:
         if k % 2:  # odd K: packed has a pad row of index 0; feed zero x
             x2 = torch.cat([x2, x2.new_zeros((x2.shape[0], 1))], dim=1)

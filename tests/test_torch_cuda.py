@@ -133,9 +133,109 @@ def test_flash_attention_kernel_at_phi3_prefill_on_card(gen):
     assert torch.equal(k6.flash_attention(q, shifted, v), got)
 
 
+def _gemm_operands(gen, m, k, n, c, bits, offset=0):
+    """x, the weight (uint8 indices, or 4-bit packed with x's zero column
+    for odd K) starting ``offset`` bytes into its buffer, and a codebook
+    at the model's weight scale."""
+    x = torch.randn((m, k), device="cuda", generator=gen)
+    idx = torch.randint(0, c, (k, n), device="cuda", generator=gen,
+                        dtype=torch.uint8)
+    cb = torch.sort(torch.randn(c, device="cuda",
+                                generator=gen)).values / math.sqrt(k)
+    w = qops.pack4(idx) if bits == 4 else idx
+    if offset:
+        buf = torch.empty(w.numel() + offset, dtype=torch.uint8,
+                          device="cuda")
+        w = buf[offset:].view(w.shape).copy_(w)
+    if bits == 4 and k % 2:
+        x = torch.cat([x, x.new_zeros((m, 1))], 1)
+    return x, w, cb
+
+
+def _k45(bits):
+    if bits == 4:
+        return k45.quant_matmul_packed, k45.quant_matmul_packed_plain
+    return k45.quant_matmul, k45.quant_matmul_plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 24, 129, 3072])
+@pytest.mark.parametrize("m", [1, 2, 7, 8, 9, 16, 33, 130, 1024])
+def test_quant_matmul_over_its_domain_on_card(gen, m, n):
+    """Both sides of the decode/prefill threshold (M = 8), ragged N, odd K
+    (u8; the zero column for 4-bit), C ∈ {1, 2, 16} (4-bit) and
+    {1, 64, 256} (u8), one launch a call."""
+    for bits, cs in ((8, (1, 64, 256)), (4, (1, 2, 16))):
+        kern, plain = _k45(bits)
+        counter = k45.KERNEL_U8 if bits == 8 else k45.KERNEL_PACKED4
+        for c in cs:
+            x, w, cb = _gemm_operands(gen, m, 301, n, c, bits)
+            before = counter.launches
+            got = kern(x, w, cb)
+            assert counter.launches == before + 1
+            torch.testing.assert_close(got, plain(x, w, cb), rtol=1e-5,
+                                       atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 1024])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_on_offset_weights_on_card(gen, bits, m):
+    """A weight view 1 byte off its buffer (the element-wise load path),
+    at N = 3072 and, for N not a multiple of 16, on an aligned one."""
+    kern, plain = _k45(bits)
+    for n, offset in ((3072, 1), (200, 0), (200, 1)):
+        x, w, cb = _gemm_operands(gen, m, 512, n, 16, bits, offset)
+        torch.testing.assert_close(kern(x, w, cb), plain(x, w, cb),
+                                   rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 8])
+@pytest.mark.parametrize("bits,k,n,c", [
+    (8, 3072, 3072, 64), (4, 3072, 8192, 16), (4, 8192, 3072, 16),
+    (8, 8192, 24, 256), (4, 20_000, 64, 16),
+])
+def test_quant_gemv_split_k_on_card(gen, bits, k, n, c, m):
+    """Decode shapes whose K is split over several blocks: the serving
+    paths' weights and a long, narrow one, against the plain version."""
+    assert k45.gemv_slices(k // 2 if bits == 4 else k, n) > 1
+    kern, plain = _k45(bits)
+    x, w, cb = _gemm_operands(gen, m, k, n, c, bits)
+    torch.testing.assert_close(kern(x, w, cb), plain(x, w, cb), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_gemv_on_two_streams_on_card(gen, bits):
+    """Split-K decode GEMVs queued on two streams at once, each stream
+    with its own ticket counters: every result equals the plain
+    version's, and so does a later call on the default stream."""
+    kern, plain = _k45(bits)
+    operands = [_gemm_operands(gen, 2, 3072, 3072, 16, bits)
+                for _ in range(2)]
+    want = [plain(*o) for o in operands]
+    streams = [torch.cuda.Stream() for _ in operands]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(20):
+        for s, o, out in zip(streams, operands, got):
+            with torch.cuda.stream(s):
+                out.append(kern(*o))
+    torch.cuda.synchronize()
+    for outs, w in zip(got, want):
+        for y in outs:
+            torch.testing.assert_close(y, w, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(kern(*operands[0]), want[0], rtol=1e-5,
+                               atol=1e-4)
+
+
 @pytest.mark.cuda
 def test_kernel_reruns_are_bit_identical(gen):
-    """No atomics in K4/K5/K6: a rerun gives the same bits."""
+    """No float atomics in K4/K5/K6: a rerun gives the same bits, at a
+    small shape, at a split-K decode shape and at the tensor-core prefill
+    shape."""
     x = torch.randn((1024, 512), device="cuda", generator=gen)
     idx = torch.randint(0, 16, (512, 300), device="cuda", generator=gen,
                         dtype=torch.uint8)
@@ -145,6 +245,11 @@ def test_kernel_reruns_are_bit_identical(gen):
                        k45.quant_matmul(x, idx, cb))
     assert torch.equal(k45.quant_matmul_packed(x, packed, cb),
                        k45.quant_matmul_packed(x, packed, cb))
+    for m in (2, 1024):
+        for bits, n, c in ((8, 3072, 64), (4, 8192, 16)):
+            kern, _ = _k45(bits)
+            xx, w, cbb = _gemm_operands(gen, m, 3072, n, c, bits)
+            assert torch.equal(kern(xx, w, cbb), kern(xx, w, cbb))
     q = torch.randn((1, 2, 2, 100, 64), device="cuda", generator=gen)
     kv = torch.randn((1, 2, 100, 64), device="cuda", generator=gen)
     assert torch.equal(k6.flash_attention(q, kv, kv),

@@ -225,6 +225,49 @@ def test_k6_needs_the_three_pass_tf32_split(b, s, h, kvh, d, w):
         assert torch.allclose(got, want, **ATTN) == close, passes
 
 
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """x truncated to TF32 (the low 13 mantissa bits dropped): how the
+    K4/K5 prefill kernel takes x's hi half, and how the tensor cores read
+    the lo half it passes as it is."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+@pytest.mark.parametrize("name,c", [("K4", 16), ("K5", 64)])
+def test_k45_prefill_needs_the_three_pass_tf32_split(name, c):
+    """Why the K4/K5 prefill kernel runs each product three times on the
+    tensor cores, at its prefill width K = 3072 (M and N cut), codebook
+    at 1/√K: with B's halves from the codebook tables (both rounded to
+    nearest, K6's ``_tf32``) and x split as the kernel splits it (hi
+    truncated, lo = x - hi read truncated), lo·hi + hi·lo + hi·hi stays
+    within the K4/K5 tolerance of the f32 plain version; one TF32 pass
+    does not, nor does rounding x alone (the weight in full f32)."""
+    rng = np.random.default_rng(c)
+    m, k, n = 8, 3072, 64
+    x = _t(rng.standard_normal((m, k)).astype(np.float32))
+    idx = _t(rng.integers(0, c, (k, n)).astype(np.uint8))
+    cb = _t(np.sort(rng.standard_normal(c)).astype(np.float32)
+            / np.float32(np.sqrt(k)))
+    want = k45.quant_matmul_plain(x, idx, cb)
+    cb_hi = _tf32(cb)
+    b_hi, b_lo = cb_hi[idx.long()], _tf32(cb - cb_hi)[idx.long()]
+    a_hi = _tf32_trunc(x)
+    a_lo = _tf32_trunc(x - a_hi)
+    three = (a_lo.double() @ b_hi.double() + a_hi.double() @ b_lo.double()
+             + a_hi.double() @ b_hi.double()).float()
+    one = (_tf32(x).double() @ cb_hi[idx.long()].double()).float()
+    x_only = (_tf32(x).double() @ cb[idx.long()].double()).float()
+    assert torch.allclose(three, want, **GEMM)
+    assert not torch.allclose(one, want, **GEMM)
+    assert not torch.allclose(x_only, want, **GEMM)
+    # the kernel's x split loses no more than the rounded split
+    r_hi = _tf32(x)
+    rounded = (_tf32(x - r_hi).double() @ b_hi.double()
+               + r_hi.double() @ b_lo.double()
+               + r_hi.double() @ b_hi.double()).float()
+    assert float((three - want).abs().max()) <= \
+        2 * float((rounded - want).abs().max()) + 1e-6
+
+
 # ----------------------------------------------------------------------
 # the plain-torch serving ops (no kernel of their own)
 # ----------------------------------------------------------------------
