@@ -2,21 +2,31 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --host-cost   # phase 12's launch-path times only
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit (nvcc). Phases, each of which fails the run:
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: compile every CUDA source of ``src/repro_torch/kernels/csrc``
-   (one nvcc process each, all started together);
-3. K1 and K2 against their plain PyTorch versions on the card, at the
-   main path's shapes, timed with CUDA events beside their bounds;
+2. build: compile every CUDA source of the main path (``build.SOURCES``
+   in ``src/repro_torch/kernels/csrc``; one nvcc process each, all
+   started together);
+3. K1 and K2 (single passes) against their plain PyTorch versions on
+   the card, at the main path's shapes, timed with CUDA events beside
+   their bounds; then the fused Lloyd loop (K1's source) and the fused
+   top-κ bisection (K2's source) at the main paths' shapes, each
+   bit-identical to the loop of single K1/K2 launches plus the torch
+   update and to its plain loop (codebooks within 1e-3, assignments,
+   thresholds, counts and masks equal; the w_down bisection must
+   compact), also with mixed K (+inf tails), more items than the loop's
+   grid has blocks, and heavily tied magnitudes, timed beside the
+   iterated loop, the plain loop, the bound and the design's floor;
 4. main path A — the quickstart (``repro_torch.quickstart.main``):
    LeNet300, per-layer K=4 quantization, 20 LC steps × 40 SGD steps;
-   LC ≤ DC and exactly 20 × 3 × 21 K1 launches;
+   LC ≤ DC and exactly 20 × 3 fused Lloyd loop launches;
 5. main path B — ℓ0 pruning of all LeNet300 weights at κ = 5% (13,310):
-   exactly κ nonzeros after every C step, the §7 monitor, 20 × 31 K2
-   launches;
+   exactly κ nonzeros after every C step, the §7 monitor, 20 fused
+   bisections and 20 K3 launches;
 6. the C step at LM width: phi3-mini-3.8b's FFN stacks (d_model 3072,
    d_ff 8192) with 4 of its 32 layers; K=16 quantization of w_gate|w_up
    (one group of 8 items × 25,165,824 weights) and ℓ0 pruning at 5% per
@@ -31,7 +41,8 @@ CUDA toolkit (nvcc). Phases, each of which fails the run:
    per-layer LC tasks (4-bit k=16 on w_gate|w_up, 8-bit k=64 on
    wq|wk|wv|wo, ℓ0 at 2% on w_down), LC init and one C step (K1, K2),
    the bridge into serving forms, ``Server.generate`` of 32 tokens for
-   2 prompts of 512; exact launch counts; logits against the densified
+   2 prompts of 512; exact launch counts (one fused Lloyd loop a k-means
+   group, one fused bisection); logits against the densified
    model (cuBLAS, TF32 off), fused attention (K6) against the plain loop;
 9. main path D — ``ServingEngine`` (8 slots) on the same compressed
    model: 24 Poisson requests of mixed lengths;
@@ -42,14 +53,18 @@ CUDA toolkit (nvcc). Phases, each of which fails the run:
     (``repro_torch.mixed_compression.main``): the paper's Table 2 last
     row (ℓ0 on l0, rank-10 low rank on l1, 1-bit quantization on l2) and
     row 5 (additive ℓ0 + quantization over all weights), 20 LC steps
-    each; exact κ, rank-10 factors, the §7 monitor and exact K1/K2/K3
-    launches after every C step; LC and DC test errors beside the JAX
+    each; exact κ, rank-10 factors, the §7 monitor and exact launches
+    after every C step (one fused Lloyd loop, one fused bisection, one
+    K3); LC and DC test errors beside the JAX
     package's CPU result on its own problem (its data and reference
     weights come from JAX's generator; both packages on one problem are
     compared in ``tests/test_torch_mixed.py``);
 12. main path G — the kernel API (``repro_torch.kernels.kmeans.kmeans``
-    and ``repro_torch.kernels.prune.topk_mask``, the single-vector K7,
-    K8 and K9 solvers) on path E's trained LeNet300;
+    and ``repro_torch.kernels.prune.topk_mask``, the single-vector
+    solvers: one fused loop each at I = 1, then K9) on path E's trained
+    LeNet300, and the single passes K7, K1, K8 and K2 on their results;
+    then the host time to queue 1,000 launches each of K1, K7, K2 and K8
+    at those shapes without a sync (the launch path's cost);
 13. main path F — low-rank serving of phi3-mini-3.8b at full width (4 of
     32 layers): 28 per-matrix tasks (LowRank on wq|wk|wv, w_gate, w_up;
     RankSelection with two α on wo; additive ℓ0 + quantization on
@@ -57,32 +72,47 @@ CUDA toolkit (nvcc). Phases, each of which fails the run:
     bridge (24 low-rank and 4 dense forms) and ``Server.generate``;
     selected ranks against the exact spectrum, distortion against the
     exact SVD, logits against the densified model, 4 K6 launches;
-14. ``torch.profiler`` over path C's prefill and 8 decode steps: the
-    device's busy share, the kernels that took the most time and the
-    K4/K5 kernels' sum; the device time of K9 and ``F.hardshrink`` at
-    P = 266,200, and of K6 and SDPA at K6's main row, summed over 50
-    calls each, beside their event times from phases 7 and 10; and K4's
+14. ``torch.profiler`` over one more LM C step, path C's prefill and 8
+    decode steps: the device's busy share, the kernels that took the
+    most time and the K4/K5 kernels' sum; the device time of K9 and
+    ``F.hardshrink`` at P = 266,200, and of K6 and SDPA at K6's main
+    row, summed over 50 calls each, beside their event times from
+    phases 7 and 10; and K4's
     and K5's device time at decode (M = 2, 8) and prefill over 50 calls
     with the weight rotated over copies past the 50 MB L2, beside the
-    bytes bound and the event time;
+    bytes bound and the event time; the same cold-L2 device time for
+    K1, K2, K3, K7 and K8 and the two fused loops at their main paths'
+    shapes;
 15. one JSON line listing every ported kernel, then the result line.
 
 Tolerances: assignments, masks and integer counts must be equal; K1/K7
 cluster sums may differ from the plain version's by the summation order
-(``rtol 1e-5, atol 1e-2``); the §7 monitor allows the reference's float
-slack (``after ≤ before·(1 + 1e-5) + 1e-6``); K4/K5 ``rtol 1e-5, atol
-1e-4`` and K6 ``rtol 2e-4, atol 2e-4`` (as ``tests/test_kernels.py``);
+(``rtol 1e-5, atol 1e-2``), and the fused Lloyd loop's codebooks from
+the plain loop's by 1e-3 (``KMEANS_CB_ATOL`` of the CPU tests), its
+assignment equal to the plain pass over its own codebooks, while the
+fused loops equal the iterated single launches bit for bit; the §7
+monitor allows the reference's float slack (``after ≤ before·(1 +
+1e-5) + 1e-6``); K4/K5 ``rtol 1e-5, atol 1e-4`` and K6 ``rtol 2e-4,
+atol 2e-4`` (as ``tests/test_kernels.py``);
 served logits within ``1e-3·max|logit|`` of the densified model's;
 low-rank Θ distortion within ``1e-4`` relative of the exact SVD's
 (``tests/test_lowrank_dispatch.py``).
 
 Bounds use the H100 SXM's published rates, which assume a 700 W power
 limit: 3.35 TB/s of device memory; 67 TFLOP/s f32 outside the tensor
-cores for K1–K3 and K7–K9; for the products that the tensor cores can
-run at f32 accuracy as TF32 with a 3-pass split, 495 TFLOP/s (TF32
-dense) for three times the operations, the faster of the two rates: 3 ·
-4·D per (query, key) pair kept for K6, 3 · 2·M·K·N for K4/K5 at every
-M, whichever kernel (decode GEMV or tensor-core prefill) runs.
+cores for K1–K3 and K7–K9 and the fused loops, each bound being the
+function's, not a design's: K1, K7 and the Lloyd loop read w once and
+write the assignment once (8 B an element) and need at least one
+comparison to place an element and two adds for its moments a step (3
+operations an element for a single pass, 3·iters + 1 for the loop); K2,
+K8 and the bisection read w once (4 B an element) against one compare an
+element. Beside each fused loop's bound, its design's floor (its passes
+× bytes) is printed and labelled as the design's. For the products that
+the tensor cores can run at f32 accuracy as TF32 with a 3-pass split,
+495 TFLOP/s (TF32 dense) for three times the operations, the faster of
+the two rates: 3 · 4·D per (query, key) pair kept for K6, 3 · 2·M·K·N
+for K4/K5 at every M, whichever kernel (decode GEMV or tensor-core
+prefill) runs.
 """
 from __future__ import annotations
 
@@ -139,6 +169,25 @@ LENET_WEIGHTS, LENET_KAPPA = 266_200, 13_310      # path B's ℓ0 task
 K7_SHAPES = [(235_200, 4), (LM_ITEM, 16)]
 # K8/K9 on path G (all LeNet300 weights), and K8 at the LM item width
 K8_CASES = [(LENET_WEIGHTS, LENET_KAPPA), (LM_ITEM, LM_ITEM // 100)]
+# the fused loops at the main paths' shapes: the Lloyd loop (I, P, K,
+# kvalid, iters) of the LM phase and path C (10 steps), of the quickstart
+# (20), a mixed-K case with +inf tails, and 37 more items than the loop's
+# grid for K (I None, from the wrapper; blocks take whole items in turn);
+# the bisection (I, P, κ, strict, tied) of w_down (κ = 5%, LM phase), of
+# path B (LeNet300), K8's rules on path G, ragged rows with mixed κ, and
+# magnitudes on a grid of 1/64, so that whole classes of ties straddle
+# every threshold
+LLOYD_CASES = [(*LM_K1_SHAPE, None, 10), (*QUICKSTART_SHAPES[0], None, 20),
+               (*MIXED_K, 10), (None, 1_000, 16, "mixed", 10)]
+W_DOWN_KAPPA_LM = int(0.05 * LM_ITEM)                  # 1,258,291
+TOPK_CASES = [(LM_LAYERS, LM_ITEM, [W_DOWN_KAPPA_LM] * LM_LAYERS, False,
+               False),
+              (1, LENET_WEIGHTS, [LENET_KAPPA], False, False),
+              (1, LENET_WEIGHTS, [LENET_KAPPA], True, False),
+              (3, 100_003, [1, 5_000, 100_003], False, False),
+              (2, 65_536, [1_000, 30_000], False, True),
+              (2, 65_536, [1_000, 30_000], True, True)]
+KMEANS_CB_ATOL = 1e-3      # as tests/test_torch_kernels.py
 
 # path E: the JAX package's CPU result of the same tasks on its own
 # problem, whose data and reference weights come from JAX's generator
@@ -245,8 +294,7 @@ def kernel_phase(k1, k2, power: str) -> dict:
         ms, plain_ms = timed_turns(
             (lambda: k1.kmeans_assign_moments_batched(w, cb),
              lambda: k1.kmeans_assign_moments_batched_plain(w, cb)), reps)
-        b_ms, b_by = bound(8.0 * i * p + 12.0 * i * k,
-                           3.0 * i * p * k + 2.0 * i * p)
+        b_ms, b_by = bound(8.0 * i * p + 12.0 * i * k, 3.0 * i * p)
         row = {"shape": [i, p, k], "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
         rec["K1"]["rows"].append(row)
@@ -283,6 +331,187 @@ def kernel_phase(k1, k2, power: str) -> dict:
     return rec
 
 
+def iterated_lloyd(k1, w, cb, iters):
+    """The Lloyd loop as single K1 passes plus the torch update (the
+    design before the fused loop)."""
+    for _ in range(iters):
+        _, sums, counts = k1.kmeans_assign_moments_batched(w, cb)
+        cb = torch.sort(torch.where(counts > 0, sums / counts.clamp_min(1),
+                                    cb), dim=-1).values
+    return cb, k1.kmeans_assign_moments_batched(w, cb)[0]
+
+
+def iterated_bisection(k2, w, kappa, iters, strict):
+    """The bisection as single K2 counts plus the torch update."""
+    a_max = w.abs().amax(dim=-1)
+    hi = a_max if strict else a_max * 2.0 + 1.0
+    lo = torch.zeros_like(hi)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        n = k2.count_above_batched(w, mid, strict)
+        move = n > kappa if strict else n >= kappa
+        lo = torch.where(move, mid, lo)
+        hi = torch.where(move, hi, mid)
+    return lo, hi, k2.count_above_batched(w, hi, strict)
+
+
+def lloyd_bound(k1, w, k, iters) -> tuple[float, str, float]:
+    """The Lloyd loop's bound and its design's floor for w (I, P). The
+    bound is the function's: w read once and the assignment written
+    once, 8 B an element, against the least operations it needs: a step
+    places each element (one comparison at the least) and adds it to its
+    cluster's sum and count, and the final pass places it once more,
+    3·iters + 1 an element; at these counts the bytes bound it. The
+    fused design reads w once a step and writes the assignment once,
+    (4·iters + 8) B an element, but where the kernel keeps each block's
+    slice in shared memory for the whole loop (8 B an element), as the
+    library reports for this launch (``k1._slice_resident``)."""
+    i, p = w.shape
+    b_ms, b_by = bound(8.0 * i * p + 8.0 * i * k, i * p * (3 * iters + 1))
+    per_elem = 8.0 if k1._slice_resident(w, k) else 4.0 * iters + 8.0
+    return b_ms, b_by, per_elem * i * p / HBM_BYTES_PER_S * 1e3
+
+
+def fused_phase(k1, k2, power: str) -> dict:
+    """The fused Lloyd loop and the fused bisection at the main paths'
+    shapes: bit-identical to the loop of single K1/K2 launches plus
+    today's torch update (codebooks, assignments, lo, hi, n_hi and the
+    final masks), and to their plain loops (codebooks within
+    KMEANS_CB_ATOL, thresholds, counts and masks equal); timed beside
+    the iterated loop, the plain loop, the bounds and the designs'
+    floors."""
+    from repro_torch.core.schemes.prune import topk_magnitude_mask
+    from repro_torch.kernels.prune import ops as pops
+    g = torch.Generator(device="cuda").manual_seed(9)
+    rec = {"lloyd": [], "topk": []}
+    for i, p, k, kvalid, iters in LLOYD_CASES:
+        if i is None:
+            i = k1._grid(0, k) + 37
+            check(k1._blocks_per_item(i, p, k1._grid(0, k)) == 1,
+                  "past the grid: whole items a block")
+        if kvalid == "mixed":
+            kvalid = [1 + r % k for r in range(i)]
+        w = torch.randn((i, p), device="cuda", generator=g)
+        w[:, ::97] = 0.5 * torch.sign(w[:, ::97])        # ties
+        cb = torch.sort(torch.randn((i, k), device="cuda", generator=g),
+                        dim=-1).values
+        if kvalid is not None:
+            live = torch.arange(k, device="cuda")[None] < torch.tensor(
+                kvalid, device="cuda")[:, None]
+            cb = torch.sort(torch.where(live, cb, torch.inf), dim=-1).values
+        got = k1.kmeans_lloyd_batched(w, cb, iters)
+        torch.cuda.synchronize()
+        want = iterated_lloyd(k1, w, cb, iters)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"fused Lloyd loop {i}x{p}x{k} differs from the iterated one")
+        # the codebooks drift from the plain loop's by its summation order
+        # (within KMEANS_CB_ATOL), so over 10^8 weights a few lie between
+        # the two loops' boundaries: the assignment is held against the
+        # plain pass over the fused loop's own codebooks
+        plain = k1.kmeans_lloyd_batched_plain(w, cb, iters)
+        check(torch.equal(got[1], k1.kmeans_assign_moments_batched_plain(
+            w, got[0])[0]), f"fused Lloyd loop {i}x{p}x{k}: assignments "
+              f"differ from the plain pass over its codebooks")
+        moved = int((got[1] != plain[1]).sum())
+        err = float((got[0] - plain[0]).abs().nan_to_num(0.0).max())
+        check(err <= KMEANS_CB_ATOL and bool(torch.equal(
+            torch.isinf(got[0]), torch.isinf(plain[0]))),
+              f"fused Lloyd loop {i}x{p}x{k}: codebooks off by {err}")
+        big = i * p > 10_000_000
+        ms, it_ms, plain_ms = timed_turns(
+            (lambda: k1.kmeans_lloyd_batched(w, cb, iters),
+             lambda: iterated_lloyd(k1, w, cb, iters),
+             lambda: k1.kmeans_lloyd_batched_plain(w, cb, iters)),
+            3 if big else 20)
+        b_ms, b_by, floor_ms = lloyd_bound(k1, w, k, iters)
+        rec["lloyd"].append({"shape": [i, p, k, iters], "ms": ms,
+                             "iterated_ms": it_ms, "plain_ms": plain_ms,
+                             "bound_ms": b_ms, "bound_by": b_by,
+                             "floor_ms": floor_ms, "max_abs_err": err})
+        print(f"Lloyd loop I={i} P={p} K={k} iters={iters}"
+              f"{' mixed-K' if kvalid else ''}: ms={ms:.4f} "
+              f"iterated_ms={it_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4g} ({b_by}) design_floor_ms={floor_ms:.4g} "
+              f"bit-identical to the iterated loop, "
+              f"max|Δcb| vs plain loop={err:.3g}, assignments differing "
+              f"from the plain loop's={moved} [{power}]", flush=True)
+        del w, cb, got, want, plain
+        torch.cuda.empty_cache()
+
+    for i, p, kappa, strict, tied in TOPK_CASES:
+        w = torch.randn((i, p), device="cuda", generator=g)
+        if tied:
+            w = torch.round(w * 64.0) / 64.0
+        else:
+            w[:, ::97] = 0.5 * torch.sign(w[:, ::97])    # magnitude ties
+        if i == LM_LAYERS:
+            w *= 0.02                                    # w_down's scale
+        kap = torch.tensor(kappa, dtype=torch.int32, device="cuda")
+        got = k2.topk_threshold_batched(w, kap, 30, strict,
+                                        with_stats=True)
+        torch.cuda.synchronize()
+        want = iterated_bisection(k2, w, kap, 30, strict)
+        plain = k2.topk_threshold_batched_plain(w, kap, 30, strict)
+        for a, b, c in zip(got[:3], want, plain):
+            check(torch.equal(a, b) and torch.equal(a, c),
+                  f"fused bisection {i}x{p} strict={strict}: (lo, hi, "
+                  f"n_hi) differ from the iterated or plain loop")
+        stats = got[3].tolist()
+        if i == LM_LAYERS:
+            check(all(c[0] > 0 for c in stats),
+                  f"fused bisection at w_down: no compaction {stats}")
+        # the final masks: the solver's on the fused bisection, on the
+        # iterated one (K3 and the fill over its lo, hi, n_hi) and exact
+        exact = torch.stack([torch.where(topk_magnitude_mask(
+            w[r], kappa[r]), w[r], 0.0) for r in range(i)])
+        if strict:
+            theta = torch.stack([pops.topk_mask(w[r], kappa[r])
+                                 for r in range(i)])
+        else:
+            theta = pops.topk_mask_batched(w, kap, impl="kernel")
+        lo, hi, n_hi = want
+        a_ = w.abs()
+        if strict:
+            boundary = (a_ > lo[:, None]) & (a_ <= hi[:, None])
+            kept = torch.stack([k2.mask_apply(w[r], hi[r])
+                                for r in range(i)])
+        else:
+            boundary = (a_ >= lo[:, None]) & (a_ < hi[:, None])
+            kept = k2.mask_apply_batched(w, hi, strict=False)
+        fill = (torch.cumsum(boundary, dim=-1, dtype=torch.int32)
+                <= (kap - n_hi)[:, None])
+        iterated_theta = torch.where(boundary & fill, w, kept)
+        check(torch.equal(theta, iterated_theta) and torch.equal(theta, exact),
+              f"fused bisection {i}x{p} strict={strict}: masks differ from "
+              f"the iterated loop's or the exact top-κ")
+        big = i * p > 10_000_000
+        ms, it_ms, plain_ms = timed_turns(
+            (lambda: k2.topk_threshold_batched(w, kap, 30, strict),
+             lambda: iterated_bisection(k2, w, kap, 30, strict),
+             lambda: k2.topk_threshold_batched_plain(w, kap, 30, strict)),
+            5 if big else 50)
+        b_ms, b_by = bound(4.0 * i * p + 16.0 * i, 2.0 * i * p)
+        # the design's floor: its passes over all of w (the band's
+        # passes after a compaction not counted)
+        passes = max(c[2] for c in stats)
+        floor_ms = passes * 4.0 * i * p / HBM_BYTES_PER_S * 1e3
+        rec["topk"].append({"shape": [i, p], "strict": strict, "ms": ms,
+                            "iterated_ms": it_ms, "plain_ms": plain_ms,
+                            "bound_ms": b_ms, "bound_by": b_by,
+                            "floor_ms": floor_ms, "max_abs_err": 0.0})
+        print(f"bisection I={i} P={p} κ={kappa[:4]} strict={strict}"
+              f"{' tied' if tied else ''}: ms={ms:.4f} "
+              f"iterated_ms={it_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4g} ({b_by}) full_passes={passes} "
+              f"design_floor_ms={floor_ms:.4g} (compactions, first step, "
+              f"passes over w, one-block finish from)={stats} (lo, hi, "
+              f"n_hi, masks) equal to the iterated and plain loops "
+              f"[{power}]", flush=True)
+        del w, kap, got, want, plain, theta, exact, iterated_theta
+        torch.cuda.empty_cache()
+    return rec
+
+
 def monitor_ok(history) -> bool:
     return all(after <= before * (1 + 1e-5) + 1e-6
                for m in history
@@ -299,12 +528,14 @@ def main_path_a(kern) -> dict:
     n = launches(kern)
     lc, dc = out["lc"], out["dc"]
     check(lc["test_err"] <= dc["test_err"] + 1e-6, "quickstart LC > DC")
-    check(n == only(kern, K1=20 * 3 * 21), f"quickstart launches {n}")
+    # one fused Lloyd loop per layer and C step
+    check(n == only(kern, K1loop=20 * 3), f"quickstart launches {n}")
     check(monitor_ok(lc["history"]), "quickstart §7 monitor")
     print(f"main path A (quickstart): ref_err={out['ref']:.4f} "
           f"dc_err={dc['test_err']:.4f} lc_err={lc['test_err']:.4f} "
           f"ratio={lc['ratio']:.1f}x lc_wall_s={lc['wall_s']:.2f} "
-          f"total_wall_s={wall:.2f} K1_launches={n['K1']}", flush=True)
+          f"total_wall_s={wall:.2f} Lloyd_loop_launches={n['K1loop']}",
+          flush=True)
     return n
 
 
@@ -338,35 +569,42 @@ def main_path_b(kern) -> dict:
     n = launches(kern)
     check(nnz == [kappa] * 20, f"ℓ0 nonzeros per C step {nnz}")
     check(monitor_ok(lc["history"]), "ℓ0 §7 monitor")
-    # per C step: 30 bisection counts + the ≥ hi count (K2), one mask (K3)
-    check(n == only(kern, K2=20 * 31, K3=20), f"ℓ0 launches {n}")
+    # per C step: one fused bisection, one mask (K3)
+    check(n == only(kern, K2loop=20, K3=20), f"ℓ0 launches {n}")
     print(f"main path B (ℓ0 κ={kappa}): dc_err={dc['test_err']:.4f} "
           f"lc_err={lc['test_err']:.4f} ratio={lc['ratio']:.1f}x "
           f"lc_wall_s={lc['wall_s']:.2f} total_wall_s={wall:.2f} "
-          f"K2_launches={n['K2']} K3_launches={n['K3']}", flush=True)
+          f"bisection_launches={n['K2loop']} K3_launches={n['K3']}",
+          flush=True)
     return n
 
 
-def lm_phase(kern) -> dict:
+def lm_problem(g):
+    """The LM phase's FFN stacks (random, from generator ``g``) and its
+    LC algorithm: K=16 quantization of w_gate|w_up, ℓ0 at 5% of w_down."""
     from repro_torch.core import AsStacked, CompressionTask, LCAlgorithm
     from repro_torch.core.schemes import (
         AdaptiveQuantization, ConstraintL0Pruning)
-    g = torch.Generator(device="cuda").manual_seed(1)
     shapes = {"w_gate": (LM_LAYERS, LM_D_MODEL, LM_D_FF),
               "w_up": (LM_LAYERS, LM_D_MODEL, LM_D_FF),
               "w_down": (LM_LAYERS, LM_D_FF, LM_D_MODEL)}
-    torch.cuda.reset_peak_memory_stats()
     params = {"ffn": {n: 0.02 * torch.randn(s, device="cuda", generator=g)
                       for n, s in shapes.items()}}
-    kappa = int(0.05 * LM_ITEM)
     tasks = [
         CompressionTask("quant", r"ffn/(w_gate|w_up)$", AsStacked("vector"),
                         AdaptiveQuantization(k=16, iters=10)),
         CompressionTask("prune", r"ffn/w_down$", AsStacked("vector"),
-                        ConstraintL0Pruning(kappa=kappa)),
+                        ConstraintL0Pruning(kappa=int(0.05 * LM_ITEM))),
     ]
+    return params, LCAlgorithm(tasks, [1e-4, 1.3e-4], device="cuda")
+
+
+def lm_phase(kern) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    params, lc = lm_problem(g)
+    kappa = int(0.05 * LM_ITEM)
     mus = [1e-4, 1.3e-4]
-    lc = LCAlgorithm(tasks, mus, device="cuda")
     groups = lc.group_summary(params)
     print("LM groups:", [(g_["tasks"], g_["items"], g_["solver"],
                           g_["backend"]) for g_ in groups], flush=True)
@@ -390,7 +628,7 @@ def lm_phase(kern) -> dict:
         torch.cuda.synchronize()
         c_s = time.time() - t0
         step_n = launches(kern)
-        check(step_n == only(kern, K1=11, K2=31, K3=1),
+        check(step_n == only(kern, K1loop=1, K2loop=1, K3=1),
               f"LM C-step launches {step_n}")
         total = {k: total[k] + step_n[k] for k in total}
         post = lc.shifted_distortion(params, state)
@@ -406,7 +644,8 @@ def lm_phase(kern) -> dict:
                   f"LM codebooks {name}")
         state = lc.multiplier_step(params, state)
         print(f"LM C step {step} (mu={mu:g}): c_step_s={c_s:.3f} "
-              f"K1={step_n['K1']} K2={step_n['K2']} K3={step_n['K3']} "
+              f"Lloyd_loop={step_n['K1loop']} bisection="
+              f"{step_n['K2loop']} K3={step_n['K3']} "
               f"shifted_distortion="
               f"{ {n: (round(pre[n], 3), round(float(post[n]), 3)) for n in pre} }",
               flush=True)
@@ -672,10 +911,11 @@ def main_path_c(kern, power: str) -> dict:
     check(sorted(kinds) == ["quant4"] * 8 + ["quant8"] * 16 + ["sparse"] * 4,
           f"bridged forms {sorted(kinds)}")
     # LC init runs no kernel (in either package); the C step runs two
-    # k-means groups × (10 Lloyd steps + 1) and 30 bisection steps + 1;
+    # k-means groups (one fused Lloyd loop each) and one fused bisection;
     # generate runs every quantized matrix once per token (prefill + 31
     # decode steps) and K6 once per layer at prefill
-    want = only(kern, K1=22, K2=31, K3=1, K4=LM_LAYERS * 2 * SERVE_GEN,
+    want = only(kern, K1loop=2, K2loop=1, K3=1,
+                K4=LM_LAYERS * 2 * SERVE_GEN,
                 K5=LM_LAYERS * 4 * SERVE_GEN, K6=LM_LAYERS)
     check(launches == want, f"path C launches {launches} != {want}")
     toks = res.tokens
@@ -809,19 +1049,20 @@ def mask_count_phase(k1, k2, power: str) -> dict:
         torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-2)
         row("K7", (p, k), (lambda: k1.kmeans_assign_moments(w, cb),
                            lambda: k1.kmeans_assign_moments_plain(w, cb)),
-            8.0 * p + 12.0 * k, 3.0 * p * k + 2.0 * p,
+            8.0 * p + 12.0 * k, 3.0 * p,
             err=float((got[1] - want[1]).abs().max()))
         del w, cb, got, want
 
     for p, kappa in K8_CASES:
         w = torch.randn(p, device="cuda", generator=g)
         w[::97] = 0.5 * torch.sign(w[::97])
-        n8, n9 = k2.COUNT_SINGLE.launches, k2.MASK_SINGLE.launches
+        n8, n9, nb = (k2.COUNT_SINGLE.launches, k2.MASK_SINGLE.launches,
+                      k2.TOPK.launches)
         theta = pops.topk_mask(w, kappa)
         torch.cuda.synchronize()
-        check((k2.COUNT_SINGLE.launches - n8,
-               k2.MASK_SINGLE.launches - n9) == (31, 1),
-              f"K8 top-κ at P={p}: K8/K9 launches per call")
+        check((k2.COUNT_SINGLE.launches - n8, k2.MASK_SINGLE.launches - n9,
+               k2.TOPK.launches - nb) == (0, 1, 1),
+              f"K8 top-κ at P={p}: one fused bisection and one K9 a call")
         check(torch.equal(theta, torch.where(topk_magnitude_mask(w, kappa),
                                              w, 0.0)),
               f"K8 top-κ at P={p}: mask differs from the exact top-κ")
@@ -849,6 +1090,51 @@ def mask_count_phase(k1, k2, power: str) -> dict:
     return rec
 
 
+def host_launch_cost(k1, k2, card: str, n: int = 1000,
+                     rounds: int = 7) -> None:
+    """The host's share of the single passes' launch path: the host time
+    to queue ``n`` launches of K1, K7, K2 and K8 at path G's LeNet300
+    shapes with no sync between them (wall time on the host), per
+    launch, the median of ``rounds`` rounds taken in turns. Uses only
+    the wrappers' public API, so that ``python3 chip_smoke.py
+    --host-cost`` times another checkout's launch path with the same
+    code."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    w0 = torch.randn(K7_SHAPES[0][0], device="cuda", generator=g)
+    cb = torch.sort(torch.randn(4, device="cuda", generator=g)).values
+    w_all = torch.randn(LENET_WEIGHTS, device="cuda", generator=g)
+    t = w_all.abs().kthvalue(LENET_WEIGHTS - LENET_KAPPA).values
+    w0b, cbb, w_allb, tb = w0[None], cb[None], w_all[None], t.reshape(1)
+    calls = {
+        "K1": ([1, K7_SHAPES[0][0], 4],
+               lambda: k1.kmeans_assign_moments_batched(w0b, cbb)),
+        "K7": ([K7_SHAPES[0][0], 4], lambda: k1.kmeans_assign_moments(w0, cb)),
+        "K2": ([1, LENET_WEIGHTS],
+               lambda: k2.count_above_batched(w_allb, tb, False)),
+        "K8": ([LENET_WEIGHTS], lambda: k2.count_above(w_all, t))}
+    wall = {name: [] for name in calls}
+    for _, fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    for r in range(rounds):
+        names = list(calls) if r % 2 == 0 else list(calls)[::-1]
+        for name in names:
+            fn = calls[name][1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            wall[name].append((t1 - t0) / n * 1e6)
+    for name, (shape, _) in calls.items():
+        print(f"host launch path {name} {shape}: wall_us="
+              f"{statistics.median(wall[name]):.3f} a launch ({n} queued "
+              f"without a sync, median of {rounds} rounds in turns; wall "
+              f"over rounds {min(wall[name]):.3f}-{max(wall[name]):.3f}) "
+              f"[{card}]", flush=True)
+
+
 def main_path_e(kern, power: str) -> dict:
     """``repro_torch.mixed_compression.main`` on the card: both runs, 20
     LC steps each, checked after every C step."""
@@ -867,8 +1153,8 @@ def main_path_e(kern, power: str) -> dict:
             ok = (nnz == 5000 and rank == 10
                   and th["u"].shape == (300, 10)
                   and th["v"].shape == (100, 10)
-                  # K2: 30 bisection counts + 1, K3: 1; K1: 25 Lloyd + 1
-                  and step == only(kern, K1=26, K2=31, K3=1))
+                  # one fused bisection and K3; one fused Lloyd loop
+                  and step == only(kern, K1loop=1, K2loop=1, K3=1))
             seen.append(("mixed", nnz, rank, step))
         else:                         # row 5: the additive combination
             nnz = int(torch.count_nonzero(
@@ -886,7 +1172,7 @@ def main_path_e(kern, power: str) -> dict:
     check([s[0] for s in seen] == ["mixed"] * 20 + ["additive"] * 20,
           f"path E C steps {[s[0] for s in seen]}")
     total = launches(kern)
-    check(total == only(kern, K1=20 * 26, K2=20 * 31, K3=20),
+    check(total == only(kern, K1loop=20, K2loop=20, K3=20),
           f"path E launches {total}")
     for run, (j_err, j_ratio) in zip(out["runs"], JAX_CPU_MIXED["runs"]):
         lc, dc = run["lc"], run["dc"]
@@ -908,13 +1194,17 @@ def main_path_e(kern, power: str) -> dict:
 
 def main_path_g(kern, k1, prob, power: str) -> dict:
     """The single-vector kernel API on the trained LeNet300: the Lloyd
-    loop (K7) on l0 at K=4, and top-κ (K8, K9) over all weights at
-    κ = 5%."""
+    loop (one fused launch at I = 1) on l0 at K=4 and top-κ (one fused
+    bisection with K8's rules, then K9) over all weights at κ = 5%; then
+    the single passes of the API on their results: K7 and K1 recount the
+    final clusters, K8 and K2 the kept weights."""
     from repro_torch.core.schemes.prune import topk_magnitude_mask
     from repro_torch.core.schemes.quantize import quantile_init
     from repro_torch.kernels.kmeans import kmeans
     from repro_torch.kernels.kmeans import ops as kops
     from repro_torch.kernels.prune import topk_mask
+    from repro_torch.kernels.prune.prune import (
+        count_above, count_above_batched)
     w0 = prob.params["l0"]["w"].reshape(-1)
     w_all = torch.cat([prob.params[f"l{i}"]["w"].reshape(-1)
                        for i in range(3)])
@@ -928,8 +1218,19 @@ def main_path_g(kern, k1, prob, power: str) -> dict:
     theta = topk_mask(w_all, LENET_KAPPA)
     torch.cuda.synchronize()
     wall = time.time() - t0
+    a7, _, c7 = kops.assign_moments(w0, cb)
+    a1, _, c1 = kops.assign_moments_batched(w0[None], cb[None])
+    n8 = count_above(theta, 0.0)
+    n2 = count_above_batched(theta[None], theta.new_zeros(1), strict=True)
+    torch.cuda.synchronize()
     n = launches(kern)
-    check(n == only(kern, K7=21, K8=31, K9=1), f"path G launches {n}")
+    check(n == only(kern, K1loop=1, K2loop=1, K9=1, K1=1, K7=1, K2=1, K8=1),
+          f"path G launches {n}")
+    check(torch.equal(a7, assign) and torch.equal(a1[0], assign)
+          and torch.equal(c1[0], c7) and int(c7.sum()) == w0.numel(),
+          "path G: K7/K1 passes differ from the Lloyd loop's assignment")
+    check(int(n8) == LENET_KAPPA and n2.tolist() == [LENET_KAPPA],
+          f"path G: K8/K2 count {int(n8)}, {n2.tolist()} kept weights")
     # the batched solvers on the same inputs (K1, and the exact top-κ)
     cb_b, assign_b = kops.kmeans_batched(w0[None], cb0[None], iters=20,
                                          impl="kernel")
@@ -944,6 +1245,7 @@ def main_path_g(kern, k1, prob, power: str) -> dict:
     print(f"main path G (kernel API on LeNet300): kmeans K=4 on l0 "
           f"codebook={[round(x, 5) for x in cb.tolist()]}, top-κ "
           f"κ={LENET_KAPPA} of {LENET_WEIGHTS}: wall_s={wall:.3f} "
+          f"(the two loops) "
           f"launches={n} [{power}]", flush=True)
     return n
 
@@ -1206,9 +1508,16 @@ def main_path_f(kern, power: str) -> dict:
 
 
 def profile_phase(path_c: dict, power: str) -> None:
-    """Device busy share and top kernels of path C's prefill and of 8 of
-    its decode steps, under ``torch.profiler``; run after the timed paths
-    so that the profiler's hooks touch none of their numbers."""
+    """Device busy share and top kernels of an LM C step (the LM phase's
+    problem made again, after one warm C step), of path C's prefill and
+    of 8 of its decode steps, under ``torch.profiler``; run after the
+    timed paths so that the profiler's hooks touch none of their
+    numbers."""
+    params, lc = lm_problem(torch.Generator(device="cuda").manual_seed(1))
+    state = lc.c_step(params, lc.init(params))
+    device_profile(lambda: lc.c_step(params, state), "LM C step", power)
+    del params, lc, state
+    torch.cuda.empty_cache()
     from repro_torch.models import transformer as tf
     from repro_torch.models.layers import unembed
     from repro_torch.runtime import server as srv
@@ -1337,6 +1646,98 @@ def quant_device_times(k45, srec: dict, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def cstep_device_times(k1, k2, rec: dict, mrec: dict, frec: dict,
+                       card: str) -> None:
+    """The C-step kernels' device time under ``torch.profiler``: all the
+    device work of one call (its kernels and any fill it launches),
+    summed over several calls and divided by them, with cold L2. At the
+    LM widths the operands exceed the 50 MB L2; at LeNet300 widths each
+    call takes the next of enough operand copies to exceed it (a fused
+    loop then finds only its first pass cold, as on the main path). K1,
+    K2, K3, K7 and K8 and the two fused loops at their main paths'
+    shapes, beside their CUDA-event times and bounds from the timed
+    phases (``rec``, ``mrec``, ``frec``). Runs after the timed phases (a
+    profiler session slows every later launch)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device="cuda").manual_seed(10)
+
+    def device_ms(call, n_calls: int) -> float:
+        call(0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for j in range(n_calls):
+                call(j)
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        check(bool(dev), "the profiler saw no device time")
+        return sum(e.self_device_time_total for e in dev) / 1e3 / n_calls
+
+    def operands(i, p, k=None):
+        n = 1 if i * p * 4 > 60e6 else math.ceil(60e6 / (i * p * 4))
+        ws = [torch.randn((i, p), device="cuda", generator=g)
+              for _ in range(n)]
+        cb = None if k is None else torch.sort(torch.randn(
+            (i, k), device="cuda", generator=g), dim=-1).values
+        return ws, cb
+
+    def report(name, shape, rows, call, ws, n_calls=None, match=None):
+        row = next(r for r in rows if r["shape"][:len(shape)] == shape
+                   and (match is None or match(r)))
+        n_calls = n_calls or (10 if len(ws) == 1 else 50)
+        ms = device_ms(call, n_calls)
+        floor = (f" design_floor_ms={row['floor_ms']:.4g}"
+                 if "floor_ms" in row else "")
+        print(f"{name} {shape} cold L2 ({len(ws)} operand copies): "
+              f"device_ms={ms:.5f} (profiler, {n_calls} calls) "
+              f"event_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"bound_ms={row['bound_ms']:.4g} ({row['bound_by']}; "
+              f"{row['bound_ms'] / ms:.0%} of it){floor} [{card}]",
+              flush=True)
+
+    for i, p, k, _, iters in LLOYD_CASES[:2]:
+        ws, cb = operands(i, p, k)
+        report("Lloyd loop", [i, p, k, iters], frec["lloyd"],
+               lambda j: k1.kmeans_lloyd_batched(ws[j % len(ws)], cb,
+                                                 iters), ws,
+               n_calls=3 if len(ws) == 1 else 20)
+        report("K1", [i, p, k], rec["K1"]["rows"],
+               lambda j: k1.kmeans_assign_moments_batched(
+                   ws[j % len(ws)], cb), ws)
+        if i == 1:
+            report("K7", [p, k], mrec["K7"],
+                   lambda j: k1.kmeans_assign_moments(ws[j % len(ws)][0],
+                                                      cb[0]), ws)
+        del ws, cb
+        torch.cuda.empty_cache()
+
+    for i, p, kappa, strict, _ in TOPK_CASES[:3]:
+        ws, _ = operands(i, p)
+        if i == LM_LAYERS:
+            ws = [w * 0.02 for w in ws]                  # w_down's scale
+        kap = torch.tensor(kappa, dtype=torch.int32, device="cuda")
+        report(f"bisection strict={strict}", [i, p], frec["topk"],
+               lambda j: k2.topk_threshold_batched(ws[j % len(ws)], kap, 30,
+                                                   strict), ws,
+               n_calls=5 if len(ws) == 1 else 20,
+               match=lambda r: r["strict"] == strict)
+        t = ws[0].abs().amax(dim=-1) * 0.3
+        if strict:
+            report("K8", [p], mrec["K8"],
+                   lambda j: k2.count_above(ws[j % len(ws)][0], t[0]), ws)
+            continue
+        report("K2", [i, p], rec["K2"]["rows"],
+               lambda j: k2.count_above_batched(ws[j % len(ws)], t, False),
+               ws)
+        if i == LM_LAYERS:
+            report("K3", [i, p], mrec["K3"],
+                   lambda j: k2.mask_apply_batched(ws[j % len(ws)], t,
+                                                   False), ws)
+        del ws, t
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1364,6 +1765,10 @@ def main() -> int:
     # the package exports the Lloyd loop ``kmeans``, which shadows the
     # kernel module of the same name
     k1 = importlib.import_module("repro_torch.kernels.kmeans.kmeans")
+    if sys.argv[1:] == ["--host-cost"]:
+        build.build(["kmeans_assign_moments.cu", "count_above.cu"])
+        host_launch_cost(k1, k2, card)
+        return 0
     t0 = time.time()
     logs = build.build(build.SOURCES)
     print(f"build_s={time.time() - t0:.2f} sources={sorted(logs)}")
@@ -1375,14 +1780,16 @@ def main() -> int:
                 print(f"  {src_name}:   {line.strip()}")
 
     # every kernel's launch counter (K7–K9 are the single-vector wrappers
-    # of the K1–K3 sources)
+    # of the K1–K3 sources; K1loop and K2loop the fused Lloyd loop and
+    # bisection of the K1 and K2 sources, at any I)
     kern = {"K1": k1.KERNEL, "K2": k2.KERNEL, "K3": k2.MASK_KERNEL,
             "K4": k45.KERNEL_PACKED4, "K5": k45.KERNEL_U8, "K6": k6.KERNEL,
             "K7": k1.SINGLE, "K8": k2.COUNT_SINGLE,
-            "K9": k2.MASK_SINGLE}
+            "K9": k2.MASK_SINGLE, "K1loop": k1.LLOYD, "K2loop": k2.TOPK}
     power = card.split(",")[-1].strip()
     t_start = time.time()
     rec = kernel_phase(k1, k2, power)
+    frec = fused_phase(k1, k2, power)
     paths = {"A": main_path_a(kern), "B": main_path_b(kern),
              "LM": lm_phase(kern)}
     srec = serve_kernel_phase(k45, k6, power)
@@ -1393,10 +1800,12 @@ def main() -> int:
     path_e = main_path_e(kern, power)
     paths["E"] = path_e["launches"]
     paths["G"] = main_path_g(kern, k1, path_e["problem"], power)
+    host_launch_cost(k1, k2, card)
     paths["F"] = main_path_f(kern, power)
     profile_phase(path_c, power)
     device_times(k2, k6, mrec["K9"][0], srec["K6"][0], card)
     quant_device_times(k45, srec, card)
+    cstep_device_times(k1, k2, rec, mrec, frec, card)
     print(f"jacobi kernels per round (profiler, sketch width 144): "
           f"{jacobi_kernels_per_round():.1f}", flush=True)
     total = {n: sum(p[n] for p in paths.values()) for n in kern}
@@ -1443,6 +1852,12 @@ def main() -> int:
         entry("mask_apply", csrc + "mask_apply.cu",
               "src/repro/kernels/prune/prune.py:76", "K9", mrec["K9"],
               (LENET_WEIGHTS,)),
+        entry("kmeans_lloyd_batched", csrc + "kmeans_assign_moments.cu",
+              "src/repro/kernels/kmeans/kmeans.py:127", "K1loop",
+              frec["lloyd"], LM_K1_SHAPE[:2]),
+        entry("topk_threshold_batched", csrc + "count_above.cu",
+              "src/repro/kernels/prune/prune.py:138", "K2loop",
+              frec["topk"], (LM_LAYERS, LM_ITEM)),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel never launched")
     check(all(math.isfinite(k["ms"]) for k in kernels), "timings")

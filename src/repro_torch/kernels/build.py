@@ -99,6 +99,32 @@ def raw_stream(device_index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(device_index)
 
 
+def stream_buffer(store: dict, device_index: int, stream: int, n: int,
+                  dtype: torch.dtype, zeroed: bool) -> torch.Tensor:
+    """Card ``device_index``'s buffer for stream ``stream`` (a raw handle)
+    in ``store``, grown to at least ``n`` elements (``zeroed``: filled
+    with zeros when made). One stream's launches run in order, so they
+    can share a workspace that each launch overwrites before it reads it,
+    or counters that each launch leaves zero; two streams get two."""
+    buf = store.get((device_index, stream))
+    if buf is None or buf.numel() < n:
+        make = torch.zeros if zeroed else torch.empty
+        buf = make(n, dtype=dtype, device=torch.device("cuda", device_index))
+        store[(device_index, stream)] = buf
+    return buf
+
+
+def blocks_per_item(n_items: int, p: int, grid: int,
+                    min_per_block: int) -> int:
+    """Blocks (slices) of each of ``n_items`` items of ``p`` elements for
+    a persistent grid of ``grid`` blocks: the grid shared out over the
+    items, at least ``min_per_block`` elements a slice; one (whole items
+    in turn) when there are more items than blocks."""
+    if n_items > grid:
+        return 1
+    return max(1, min(grid // n_items, -(-p // min_per_block)))
+
+
 class LaunchCounter:
     """The launch count of one wrapper. A kernel is its own counter; a
     wrapper that shares another's kernel (K7 and K8 launch the K1 and K2
@@ -133,6 +159,16 @@ class CudaKernel(LaunchCounter):
                 fn.restype = ctypes.c_int
                 self._lib, self._fn = lib, fn
         return self._fn
+
+    def query(self, symbol: str, argtypes: list, restype=ctypes.c_int):
+        """Another C function of the same source that launches nothing (a
+        grid or workspace query), bound with ``restype``."""
+        if self._fn is None:
+            self._load()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        return fn
 
     def __call__(self, *args, counter: LaunchCounter | None = None) -> None:
         fn = self._fn

@@ -1,17 +1,20 @@
-"""k-means solvers: the single-vector Lloyd loop on K7, and the batched
-one on K1 — the ``kmeans_lloyd`` entry of the dispatch registry.
+"""k-means solvers: the single-vector Lloyd loop and the batched one —
+the ``kmeans_lloyd`` entry of the dispatch registry — and the single
+passes (K1, K7) of the kernel API.
 
-Port of ``src/repro/kernels/kmeans/ops.py``. Each runs one kernel launch
-per Lloyd step (for the whole packed group, in the batched solver) plus
-one for the final assignment: ``iters + 1`` launches per call. On a CPU
-tensor the kernels' plain versions run instead.
+Port of ``src/repro/kernels/kmeans/ops.py``. On a CUDA tensor each Lloyd
+loop is one kernel launch (``kmeans.kmeans_lloyd_batched``: every step
+and the final assignment on the card, no host sync), for the whole
+packed group in the batched solver; on a CPU tensor the kernel's plain
+version, the loop of single passes, runs instead.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.kmeans.kmeans import (
-    kmeans_assign_moments, kmeans_assign_moments_batched)
+    kmeans_assign_moments, kmeans_assign_moments_batched,
+    kmeans_lloyd_batched)
 
 
 def assign_moments(w: torch.Tensor, codebook: torch.Tensor):
@@ -32,12 +35,12 @@ def lloyd_step(w: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
 
 
 def kmeans(w: torch.Tensor, codebook0: torch.Tensor, iters: int = 25):
-    """Full Lloyd loop on the kernel → (codebook (K,), assign (P,) i32)."""
+    """Full Lloyd loop on the kernel (the I = 1 launch of the fused loop)
+    → (codebook (K,), assign (P,) i32)."""
     cb = torch.sort(codebook0.float()).values
-    for _ in range(iters):
-        cb = lloyd_step(w, cb)
-    assign, _, _ = assign_moments(w, cb)
-    return cb, assign
+    cb, assign = kmeans_lloyd_batched(
+        w.reshape(1, -1).float().contiguous(), cb[None].contiguous(), iters)
+    return cb[0], assign[0]
 
 
 def assign_moments_batched(w: torch.Tensor, codebooks: torch.Tensor):
@@ -67,8 +70,9 @@ def kmeans_batched(w: torch.Tensor, codebooks0: torch.Tensor,
 
     ``impl``: ``"torch"`` runs :func:`~repro_torch.core.schemes.quantize.
     kmeans_1d` on the stack (midpoint-count assignment, the per-task
-    scheme's arithmetic); ``"kernel"`` runs the K1 wrapper per Lloyd step
-    (the CUDA kernel on a CUDA tensor, its plain version on a CPU one).
+    scheme's arithmetic); ``"kernel"`` runs the whole loop as one launch
+    of the fused kernel on a CUDA tensor, the loop of plain K1 passes on a
+    CPU one.
     """
     if kvalid is not None:
         k_max = codebooks0.shape[-1]
@@ -81,12 +85,5 @@ def kmeans_batched(w: torch.Tensor, codebooks0: torch.Tensor,
         return kmeans_1d(w, codebooks0, iters)
     if impl != "kernel":
         raise ValueError(f"impl must be 'torch' or 'kernel', got {impl!r}")
-    w = w.float().contiguous()
     cb = torch.sort(codebooks0.float(), dim=-1).values
-    for _ in range(iters):
-        _, sums, counts = assign_moments_batched(w, cb)
-        cb = torch.sort(torch.where(counts > 0,
-                                    sums / counts.clamp_min(1), cb),
-                        dim=-1).values
-    assign, _, _ = assign_moments_batched(w, cb)
-    return cb, assign
+    return kmeans_lloyd_batched(w.float().contiguous(), cb, iters)

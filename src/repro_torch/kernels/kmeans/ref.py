@@ -1,10 +1,12 @@
-"""Plain PyTorch version of the k-means assignment + moments kernel (K1).
+"""Plain PyTorch versions of the k-means kernel: the assignment +
+moments pass (K1, K7) and the Lloyd loop in one launch.
 
-It computes what ``kmeans.kmeans_assign_moments_batched`` computes, with
-the same semantics as the JAX package's kernel: assignment by explicit
-squared-distance argmin (first index on ties, +inf entries never win),
-per-cluster Σw in f32 and int32 counts. The CPU tests and the chip smoke
-test hold the kernel against it.
+They compute what ``kmeans.kmeans_assign_moments_batched`` and
+``kmeans.kmeans_lloyd_batched`` compute, with the same semantics as the
+JAX package's kernel: assignment by explicit squared-distance argmin
+(first index on ties, +inf entries never win), per-cluster Σw in f32 and
+int32 counts. The CPU tests and the chip smoke test hold the kernel
+against them.
 """
 from __future__ import annotations
 
@@ -44,3 +46,18 @@ def kmeans_assign_moments_plain(w: torch.Tensor, codebook: torch.Tensor):
     assign, sums, counts = kmeans_assign_moments_batched_plain(
         w[None], codebook[None])
     return assign[0], sums[0], counts[0]
+
+
+def kmeans_lloyd_batched_plain(w: torch.Tensor, codebooks: torch.Tensor,
+                               iters: int):
+    """w (I, P) f32, ascending codebooks (I, K) f32 → (codebooks (I, K)
+    after ``iters`` Lloyd steps, assign (I, P) i32): the loop of single
+    passes, each followed by ``sort(where(counts > 0, sums / counts,
+    cb))`` (empty clusters keep their entry)."""
+    cb = codebooks
+    for _ in range(iters):
+        _, sums, counts = kmeans_assign_moments_batched_plain(w, cb)
+        cb = torch.sort(torch.where(counts > 0, sums / counts.clamp_min(1),
+                                    cb), dim=-1).values
+    assign, _, _ = kmeans_assign_moments_batched_plain(w, cb)
+    return cb, assign

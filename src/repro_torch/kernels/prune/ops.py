@@ -2,11 +2,12 @@
 ``topk_mask``, ``project_l1_ball`` and ``soft_threshold`` entries of the
 dispatch registry.
 
-Port of ``src/repro/kernels/prune/ops.py``. Only the top-κ bisections
-launch kernels: the batched one K2 (``count_above_batched``) and K3
-(``mask_apply_batched``), the single-vector one K8 (``count_above``) and
-K9 (``mask_apply``). The ℓ1 solvers are plain tensor programs, as in the
-JAX package.
+Port of ``src/repro/kernels/prune/ops.py``. Only the top-κ solvers
+launch kernels: each bisection is one launch of the count kernel
+(``topk_threshold_batched``, with the batched or the single-vector
+rules), then K3 (``mask_apply_batched``) or K9 (``mask_apply``) keeps the
+``hi`` class. The ℓ1 solvers are plain tensor programs, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -14,13 +15,13 @@ import torch
 
 from repro_torch.kernels.prune import ref
 from repro_torch.kernels.prune.prune import (
-    count_above, count_above_batched, mask_apply, mask_apply_batched)
+    mask_apply, mask_apply_batched, topk_threshold_batched)
 
 
 def topk_mask(w: torch.Tensor, kappa: int, iters: int = 30) -> torch.Tensor:
     """θ = w · 1[top-κ support] for one tensor of any shape, by threshold
-    bisection over the K8 count (``iters`` launches, then one more for
-    the ``> hi`` class) and the K9 mask.
+    bisection (one launch of the count kernel with K8's rules, which also
+    counts the ``> hi`` class) and the K9 mask.
 
     The single-vector loop of the JAX package, whose semantics differ
     from the batched one's: strict ``>`` counts; ``lo = 0``, ``hi =
@@ -30,18 +31,14 @@ def topk_mask(w: torch.Tensor, kappa: int, iters: int = 30) -> torch.Tensor:
     weights are kept, lower index first on ties. The thresholds are
     computed in float32 as the JAX loop computes them, so the mask is
     bit-identical to its kernel path (``use_pallas=True``). On a CUDA
-    tensor the counts and the mask are the kernels; on a CPU tensor their
-    plain versions."""
+    tensor the bisection and the mask are the kernels; on a CPU tensor
+    their plain versions (``iters + 1`` single counts)."""
     flat = w.reshape(-1).float().contiguous()
-    hi = flat.abs().amax()
-    lo = torch.zeros_like(hi)
-    for _ in range(iters):
-        mid = 0.5 * (lo + hi)
-        too_many = count_above(flat, mid) > kappa   # raise the threshold
-        lo = torch.where(too_many, mid, lo)
-        hi = torch.where(too_many, hi, mid)
+    # a fill on the card: a host tensor copied in would sync the stream
+    kap = torch.full((1,), kappa, dtype=torch.int32, device=flat.device)
+    lo, hi, n_hi = (t[0] for t in topk_threshold_batched(
+        flat[None], kap, iters, strict=True))
     a = flat.abs()
-    n_hi = count_above(flat, hi)
     boundary = (a > lo) & (a <= hi)
     fill = torch.cumsum(boundary, dim=0, dtype=torch.int32) <= (kappa - n_hi)
     out = torch.where(boundary & fill, flat, mask_apply(flat, hi))
@@ -55,10 +52,10 @@ def topk_mask_batched(w: torch.Tensor, kappa: torch.Tensor, iters: int = 30,
 
     ``impl``: ``"torch"`` (stable argsort, :func:`ref.
     topk_mask_batched_ref`) or ``"kernel"``: per-item threshold bisection
-    on the feasibility predicate ``count(|w| ≥ t) ≥ κ`` over K2 (``iters``
-    launches), one more launch to count the ``|w| ≥ hi`` class, then K3
-    keeps that class and the boundary class ``[lo, hi)`` is filled in
-    index order. Both keep exactly
+    on the feasibility predicate ``count(|w| ≥ t) ≥ κ``, ``iters`` steps
+    and the count of the ``|w| ≥ hi`` class in one launch of the count
+    kernel, then K3 keeps that class and the boundary class ``[lo, hi)``
+    is filled in index order. Both keep exactly
     min(κ_i, P) weights per item with the ``lax.top_k`` tie-break (lower
     index wins); near-ties inside the final unconverged interval are
     filled by index, not magnitude.
@@ -66,9 +63,9 @@ def topk_mask_batched(w: torch.Tensor, kappa: torch.Tensor, iters: int = 30,
     The thresholds are computed in float32 exactly as the JAX driver
     computes them (``hi = 2·max|w| + 1``, ``mid = 0.5·(lo + hi)``), so the
     masks are bit-identical to its ``interpret`` path. ``lo``/``hi`` stay
-    on the device (``torch.where``): the loop never syncs with the host.
-    Counts are int32, exact at any item size (the JAX kernel counts in
-    float32, exact below 2^24 elements per item).
+    on the device: the loop never syncs with the host. Counts are int32,
+    exact at any item size (the JAX kernel counts in float32, exact below
+    2^24 elements per item).
     """
     w = w.float()
     kappa = kappa.to(torch.int32)
@@ -79,17 +76,10 @@ def topk_mask_batched(w: torch.Tensor, kappa: torch.Tensor, iters: int = 30,
     w = w.contiguous()
     # invariant: lo feasible (count(|w| ≥ lo) ≥ κ, true at 0 since κ ≤ P),
     # hi infeasible (strictly above the max magnitude)
-    hi = w.abs().amax(dim=-1) * 2.0 + 1.0
-    lo = torch.zeros_like(hi)
-    for _ in range(iters):
-        mid = 0.5 * (lo + hi)
-        feasible = count_above_batched(w, mid, strict=False) >= kappa
-        lo = torch.where(feasible, mid, lo)
-        hi = torch.where(feasible, hi, mid)
+    lo, hi, n_hi = topk_threshold_batched(w, kappa, iters)
     # keep the |w| ≥ hi class whole (< κ weights), then fill the remaining
     # κ − n_hi slots from the [lo, hi) boundary class in index order
     a = w.abs()
-    n_hi = count_above_batched(w, hi, strict=False)
     boundary = (a >= lo[:, None]) & (a < hi[:, None])
     fill = (torch.cumsum(boundary, dim=-1, dtype=torch.int32)
             <= (kappa - n_hi)[:, None])

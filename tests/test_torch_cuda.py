@@ -280,15 +280,17 @@ def test_mask_kernels_match_plain_on_card(gen, i, p):
 
 @pytest.mark.cuda
 def test_single_vector_solvers_match_cpu_on_card(gen):
-    """K8's top-κ (31 K2 launches, one K9) is bit-identical to the same
-    loop on CPU copies (the plain versions); K7's Lloyd loop lands on
+    """K8's top-κ (one fused bisection launch with K8's rules, one K9, no
+    single count) is bit-identical to the same loop on CPU copies (the
+    plain versions); K7's Lloyd loop (one fused launch at I = 1) lands on
     the same assignments."""
     w = torch.randn(50_001, device="cuda", generator=gen)
     w[::11] = 0.25 * torch.sign(w[::11])
-    n8, n9 = k2.COUNT_SINGLE.launches, k2.MASK_SINGLE.launches
+    n8, n9, nb = (k2.COUNT_SINGLE.launches, k2.MASK_SINGLE.launches,
+                  k2.TOPK.launches)
     got = pops.topk_mask(w, 2_500)
-    assert (k2.COUNT_SINGLE.launches - n8,
-            k2.MASK_SINGLE.launches - n9) == (31, 1)
+    assert (k2.COUNT_SINGLE.launches - n8, k2.MASK_SINGLE.launches - n9,
+            k2.TOPK.launches - nb) == (0, 1, 1)
     assert torch.equal(got.cpu(), pops.topk_mask(w.cpu(), 2_500))
     assert int(torch.count_nonzero(got)) == 2_500
     assert torch.equal(k2.count_above(w, torch.tensor(0.5, device="cuda")),
@@ -298,9 +300,9 @@ def test_single_vector_solvers_match_cpu_on_card(gen):
     pa, ps, pc = k1.kmeans_assign_moments_plain(w, cb0)
     assert torch.equal(a, pa) and torch.equal(c, pc)
     torch.testing.assert_close(s, ps, rtol=1e-5, atol=1e-3)
-    n7 = k1.SINGLE.launches
+    n7, nl = k1.SINGLE.launches, k1.LLOYD.launches
     cb, assign = kops.kmeans(w, cb0, iters=6)
-    assert k1.SINGLE.launches == n7 + 7
+    assert (k1.SINGLE.launches, k1.LLOYD.launches) == (n7, nl + 1)
     cb_cpu, _ = kops.kmeans(w.cpu(), cb0.cpu(), iters=6)
     torch.testing.assert_close(cb.cpu(), cb_cpu, rtol=1e-5, atol=1e-5)
     assert assign.shape == w.shape and assign.dtype == torch.int32
@@ -322,3 +324,289 @@ def test_single_vector_mask_kernel_on_card(gen, p):
             assert k2.MASK_SINGLE.launches == n + 1
             assert torch.equal(got, k2.mask_apply_plain(w, tt))
             assert torch.equal(got, F.hardshrink(w, float(tt)))
+
+
+def _iterated_lloyd(w, cb, iters):
+    """The loop of single K1 passes with the update done by torch."""
+    for _ in range(iters):
+        _, sums, counts = k1.kmeans_assign_moments_batched(w, cb)
+        cb = torch.sort(torch.where(counts > 0, sums / counts.clamp_min(1),
+                                    cb), dim=-1).values
+    return cb, k1.kmeans_assign_moments_batched(w, cb)[0]
+
+
+def _iterated_bisection(w, kappa, iters, strict):
+    """The loop of single K2 counts with the update done by torch."""
+    a_max = w.abs().amax(dim=-1)
+    hi = a_max if strict else a_max * 2.0 + 1.0
+    lo = torch.zeros_like(hi)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        n = k2.count_above_batched(w, mid, strict)
+        move = n > kappa if strict else n >= kappa
+        lo, hi = torch.where(move, mid, lo), torch.where(move, hi, mid)
+    return lo, hi, k2.count_above_batched(w, hi, strict)
+
+
+def _rows(gen, i, p, offset=False):
+    """(I, P) weights with tied magnitudes; ``offset``: a view 4 bytes off
+    a 16-byte boundary (the element loads)."""
+    w = torch.randn(i * p + 1, device="cuda", generator=gen)
+    w = w[1:] if offset else w[:-1]
+    w = w.view(i, p)
+    w[:, ::7] = 0.5 * torch.sign(w[:, ::7])
+    return w
+
+
+# (case, I, P, K, kvalid, iters); I None: past the loop's grid for K,
+# taken from the wrapper's grid so it stays past it on any card
+_LLOYD_CASES = [
+    ("slices, ragged", 3, 10_001, 16, None, 6),
+    ("slices, mixed K", 3, 40_000, 16, [16, 5, 9], 8),
+    ("slices, resident", 2, 4096, 4, None, 20),
+    ("slices, K 64, mixed K", 2, 30_000, 64, [64, 33], 4),
+    ("slices, K 200", 1, 5_000, 200, None, 2),
+    ("single block, resident, K 256", 1, 1_000, 256, None, 3),
+    ("single block, ragged", 1, 77, 2, None, 3),
+    ("single block, resident", 1, 2048, 4, None, 5),
+    ("one block an item", 300, 1_000, 4, None, 3),
+    ("past the grid", None, 1_000, 4, None, 3),
+    ("past the grid, mixed K", None, 1_000, 16, "mixed", 3),
+    ("past the grid, K 64, ragged", None, 701, 64, None, 2),
+    ("offset row", 2, 8_192, 16, None, 4),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,i,p,k,kvalid,iters", _LLOYD_CASES,
+                         ids=[c[0] for c in _LLOYD_CASES])
+def test_lloyd_kernel_branches(gen, case, i, p, k, kvalid, iters):
+    """Each branch of the Lloyd kernel: the single pass against its plain
+    version (assignments and counts equal, sums within rtol 1e-5 / atol
+    1e-3), and the fused loop, one launch, against the loop of single
+    passes plus the torch update bit for bit, against the plain loop
+    (codebooks within KMEANS_CB_ATOL = 1e-3, the assignment the plain
+    pass over its codebooks), +inf tails kept, a rerun the same bits;
+    and the library's report of a resident slice where the case fixes
+    it (the design floor that chip_smoke.py prints reads it)."""
+    grid = k1._grid(0, k)
+    if i is None:
+        i = grid + 37
+    bpi = k1._blocks_per_item(i, p, grid)
+    if case.startswith("past the grid"):
+        assert i > grid and bpi == 1
+    elif case.startswith("one block an item"):
+        assert 1 < i <= grid and bpi == 1
+    elif case.startswith("single block"):
+        assert i == bpi == 1
+    else:
+        assert i * bpi <= grid and bpi > 1
+    if kvalid == "mixed":
+        kvalid = [1 + r % k for r in range(i)]
+    w = _rows(gen, i, p, offset=case == "offset row")
+    if "resident" in case:
+        assert k1._slice_resident(w, k)
+    if case.startswith("past the grid") or case.endswith(("ragged", "row")):
+        assert not k1._slice_resident(w, k)
+    cb = torch.sort(torch.randn((i, k), device="cuda", generator=gen),
+                    -1).values
+    if kvalid is not None:
+        live = torch.arange(k, device="cuda")[None] < torch.tensor(
+            kvalid, device="cuda")[:, None]
+        cb = torch.sort(torch.where(live, cb, torch.inf), -1).values
+    a, s, c = k1.kmeans_assign_moments_batched(w, cb)
+    pa, ps, pc = k1.kmeans_assign_moments_batched_plain(w, cb)
+    assert torch.equal(a, pa) and torch.equal(c, pc)
+    torch.testing.assert_close(s, ps, rtol=1e-5, atol=1e-3)
+    n = k1.LLOYD.launches
+    got = k1.kmeans_lloyd_batched(w, cb, iters)
+    assert k1.LLOYD.launches == n + 1
+    want = _iterated_lloyd(w, cb, iters)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    plain = k1.kmeans_lloyd_batched_plain(w, cb, iters)
+    torch.testing.assert_close(got[0], plain[0], rtol=0, atol=1e-3)
+    assert torch.equal(got[1],
+                       k1.kmeans_assign_moments_batched_plain(w, got[0])[0])
+    if kvalid is not None:
+        for r, kv in enumerate(kvalid):
+            assert bool(torch.isinf(got[0][r, kv:]).all())
+    again = k1.kmeans_lloyd_batched(w, cb, iters)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i,p,k", [(3, 10_001, 16), (2, 50_000, 64),
+                                   (700, 1_000, 4)])
+def test_lloyd_kernel_unsorted_codebook(gen, i, p, k):
+    """A codebook in no order takes the full scan: the single pass equals
+    its plain version, and the fused loop from it (whose first step
+    scans, the later ones search) equals the iterated loop."""
+    w = _rows(gen, i, p)
+    cb = torch.randn((i, k), device="cuda", generator=gen)
+    assert not bool((cb[:, 1:] >= cb[:, :-1]).all())
+    a, s, c = k1.kmeans_assign_moments_batched(w, cb)
+    pa, ps, pc = k1.kmeans_assign_moments_batched_plain(w, cb)
+    assert torch.equal(a, pa) and torch.equal(c, pc)
+    torch.testing.assert_close(s, ps, rtol=1e-5, atol=1e-3)
+    got = k1.kmeans_lloyd_batched(w, cb, 3)
+    want = _iterated_lloyd(w, cb, 3)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gap", [None, 1e-6, 0.0])
+def test_lloyd_table_path_is_exact(gen, gap):
+    """Slices long enough for the kernel's lookup table (one item of 20M
+    weights): assignments equal to the plain pass over the same codebook
+    (single pass) and over the loop's codebooks, also with two entries
+    1e-6 apart (bins that hold two boundaries) and a duplicate entry (no
+    table), and the loop bit-identical to the iterated single passes."""
+    w = torch.randn((1, 20_000_000), device="cuda", generator=gen)
+    w[0, ::1000] = torch.randn(20_000, device="cuda", generator=gen) * 50
+    cb = torch.sort(torch.randn((1, 16), device="cuda", generator=gen),
+                    -1).values
+    if gap is not None:
+        cb[0, 8] = cb[0, 7] + gap
+    a, _, c = k1.kmeans_assign_moments_batched(w, cb)
+    pa, _, pc = k1.kmeans_assign_moments_batched_plain(w, cb)
+    assert torch.equal(a, pa) and torch.equal(c, pc)
+    got = k1.kmeans_lloyd_batched(w, cb, 3)
+    assert torch.equal(got[1],
+                       k1.kmeans_assign_moments_batched_plain(w, got[0])[0])
+    want = _iterated_lloyd(w, cb, 3)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_fused_lloyd_rounds_counts_to_nearest(gen):
+    """A cluster of 2^24 + 3 weights on the card: the in-kernel update
+    divides by the count rounded to nearest f32, as torch does."""
+    w = torch.ones((1, 2**24 + 8), device="cuda")
+    w[0, :5] = 7.0                       # equidistant: the first, 5.0
+    cb = torch.tensor([[1.0, 5.0, 9.0]], device="cuda")
+    got = k1.kmeans_lloyd_batched(w, cb, 2)
+    assert torch.equal(got[0], _iterated_lloyd(w, cb, 2)[0])
+    _, _, counts = k1.kmeans_assign_moments_batched(w, cb)
+    assert counts.tolist() == [[2**24 + 3, 5, 0]]
+
+
+# (case, I, P, κ, iters); I None: past the grid, from the wrapper's grid;
+# κ None: drawn per item
+_TOPK_CASES = [
+    ("tracked, ragged", 3, 10_001, [1, 500, 10_001], 30),
+    ("tracked, compacts", 4, 2_000_000, [100_000, 100_000, 7, 1_999_999],
+     30),
+    ("single block", 1, 5, [2], 30),
+    ("LeNet300", 1, 266_200, [13_310], 30),
+    ("own item", 20, 3_000, None, 30),
+    ("past the grid", None, 3_000, None, 30),
+    ("offset row", 2, 8_192, [100, 4_000], 30),
+    ("no compaction", 3, 50_000, [10, 100, 1_000], 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strict", [False, True])
+@pytest.mark.parametrize("case,i,p,kappa,iters", _TOPK_CASES,
+                         ids=[c[0] for c in _TOPK_CASES])
+def test_bisection_kernel_branches(gen, case, i, p, kappa, iters, strict):
+    """Each branch of the count kernel, with the batched and the
+    single-vector (strict) rules on tied magnitudes: the single count
+    against its plain version (at the ties' magnitude too); the fused
+    bisection, one launch, against the loop of single counts plus the
+    torch update and against its plain version, bit for bit; the masks
+    of the batched solver against the exact top-κ."""
+    grid = k2._grid(0)
+    if i is None:
+        i = grid + 37
+    bpi = k2._blocks_per_item(i, p, grid)
+    assert (i > grid) == case.startswith("past the grid")
+    w = _rows(gen, i, p, offset=case == "offset row")
+    kap = (torch.randint(1, p + 1, (i,), device="cuda", generator=gen,
+                         dtype=torch.int32) if kappa is None else
+           torch.tensor(kappa, dtype=torch.int32, device="cuda"))
+    for t in (w.abs().amax(-1) * 0.3, torch.full((i,), 0.5, device="cuda")):
+        assert torch.equal(k2.count_above_batched(w, t, strict),
+                           k2.count_above_batched_plain(w, t, strict))
+    n = k2.TOPK.launches
+    lo, hi, n_hi, stats = k2.topk_threshold_batched(w, kap, iters, strict,
+                                                    with_stats=True)
+    assert k2.TOPK.launches == n + 1
+    for got, want in zip((lo, hi, n_hi),
+                         _iterated_bisection(w, kap, iters, strict)):
+        assert torch.equal(got, want)
+    for got, want in zip((lo, hi, n_hi), k2.topk_threshold_batched_plain(
+            w, kap, iters, strict)):
+        assert torch.equal(got, want)
+    if case == "tracked, compacts":
+        assert bool((stats[:, 0] > 0).all()) and bool(
+            (stats[:, 3] >= 0).all()), stats
+    if case == "no compaction":
+        assert stats[:, 0].tolist() == [0] * i, stats
+    if case == "single block":
+        assert bpi == 1
+    if not strict:
+        theta = pops.topk_mask_batched(w, kap, iters=iters, impl="kernel")
+        if iters == 30:
+            assert torch.equal(theta, pops.topk_mask_batched(w, kap))
+        assert torch.equal(torch.count_nonzero(theta, dim=1),
+                           kap.long().clamp(max=p))
+
+
+@pytest.mark.cuda
+def test_fused_entries_refuse_what_they_do_not_take(gen):
+    """A CUDA tensor that the fused entries do not take raises; nothing
+    falls back to the plain loop."""
+    w = torch.randn((2, 100), device="cuda", generator=gen)
+    cb = torch.sort(torch.randn((2, 4), device="cuda", generator=gen),
+                    -1).values
+    kap = torch.tensor([5, 6], dtype=torch.int32, device="cuda")
+    n = (k1.LLOYD.launches, k2.TOPK.launches)
+    for call in (lambda: k1.kmeans_lloyd_batched(w.double(), cb, 3),
+                 lambda: k1.kmeans_lloyd_batched(w, cb[:1], 3),
+                 lambda: k1.kmeans_lloyd_batched(w[:, ::2], cb, 3),
+                 lambda: k1.kmeans_lloyd_batched(
+                     w, torch.zeros((2, 257), device="cuda"), 3),
+                 lambda: k1.kmeans_lloyd_batched(w, cb, -1),
+                 lambda: k2.topk_threshold_batched(w, kap.long()),
+                 lambda: k2.topk_threshold_batched(w, kap[:1]),
+                 lambda: k2.topk_threshold_batched(w.t(), kap),
+                 lambda: k2.topk_threshold_batched(w, kap.cpu())):
+        with pytest.raises((TypeError, ValueError)):
+            call()
+    assert (k1.LLOYD.launches, k2.TOPK.launches) == n
+
+
+@pytest.mark.cuda
+def test_c_step_kernels_on_two_streams_on_card(gen):
+    """K1's and K2's single passes and fused loops queued on two streams
+    at once, each stream with its own workspace, tickets and compaction
+    counters: every result equals the one made alone on the default
+    stream."""
+    ops = []
+    for _ in range(2):
+        w = _rows(gen, 3, 40_000)
+        cb = torch.sort(torch.randn((3, 16), device="cuda", generator=gen),
+                        -1).values
+        kap = torch.tensor([100, 2_000, 39_000], dtype=torch.int32,
+                           device="cuda")
+        ops.append((w, cb, kap, w.abs().amax(-1) * 0.3))
+
+    def run(w, cb, kap, t):
+        return (*k1.kmeans_assign_moments_batched(w, cb),
+                *k1.kmeans_lloyd_batched(w, cb, 5),
+                k2.count_above_batched(w, t, False),
+                *k2.topk_threshold_batched(w, kap, 30))
+
+    want = [run(*o) for o in ops]
+    streams = [torch.cuda.Stream() for _ in ops]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(10):
+        for s, o, out in zip(streams, ops, got):
+            with torch.cuda.stream(s):
+                out.append(run(*o))
+    torch.cuda.synchronize()
+    for outs, ref in zip(got, want):
+        for res in outs:
+            assert all(torch.equal(a, b) for a, b in zip(res, ref))

@@ -160,26 +160,110 @@ def test_topk_mask_batched_bit_identical(impl, jimpl, i, p, kappa,
                                   np.minimum(kap, p))
 
 
-def test_topk_kernel_driver_launch_count_and_no_sync_state():
-    """The driver makes iters + 1 count calls; on CPU tensors they run the
-    plain version and the kernel's launch counter stays put."""
+def test_topk_kernel_driver_launch_count_and_no_sync_state(monkeypatch):
+    """On CPU tensors the solver's bisection is the plain loop of the
+    fused kernel: iters + 1 plain count calls, and neither the fused
+    kernel's nor the single count's launch counter moves."""
+    from repro_torch.kernels.prune import ref as pref
     calls = []
-    real = pops.count_above_batched
+    real = pref.count_above_batched_plain
 
     def spy(w, t, strict=True):
         calls.append((tuple(w.shape), strict))
         return real(w, t, strict)
 
     w = _weights(1, 2, 500)
-    before = k2.KERNEL.launches
-    pops.count_above_batched = spy
-    try:
-        pops.topk_mask_batched(_t(w), torch.tensor([10, 20]), iters=30,
-                               impl="kernel")
-    finally:
-        pops.count_above_batched = real
+    before = (k2.TOPK.launches, k2.KERNEL.launches)
+    monkeypatch.setattr(pref, "count_above_batched_plain", spy)
+    pops.topk_mask_batched(_t(w), torch.tensor([10, 20]), iters=30,
+                           impl="kernel")
     assert len(calls) == 31 and all(not s for _, s in calls)
-    assert k2.KERNEL.launches == before
+    assert (k2.TOPK.launches, k2.KERNEL.launches) == before
+
+
+def _np_bisection(w, kappa, iters, strict):
+    """The bisection in numpy float32 over the JAX package's K2 kernel in
+    interpret mode (rows padded with zeros, which no threshold > 0
+    counts): (lo, hi, n_hi)."""
+    pad = (-w.shape[1]) % 1024
+    wp = jnp.asarray(np.pad(w, ((0, 0), (0, pad))))
+
+    def count(t):
+        return np.asarray(j_count(wp, jnp.asarray(t), interpret=True,
+                                  strict=strict)).astype(np.int32)
+
+    a_max = np.abs(w).max(-1)
+    hi = a_max if strict else a_max * np.float32(2) + np.float32(1)
+    lo = np.zeros_like(hi)
+    for _ in range(iters):
+        mid = np.float32(0.5) * (lo + hi)
+        n = count(mid)
+        move = n > kappa if strict else n >= kappa
+        lo, hi = np.where(move, mid, lo), np.where(move, hi, mid)
+    return lo, hi, count(hi)
+
+
+@pytest.mark.parametrize("strict", [False, True])
+@pytest.mark.parametrize("i,p,kappa,tie_every", [
+    (3, 2500, [1, 250, 2499], 5),              # ragged P, tied magnitudes
+    (4, 777, [100, 100, 7, 777], 3),           # mixed κ, κ = P
+    (1, 4096, [409], 0),
+])
+def test_topk_threshold_plain_matches_jax_bisection(strict, i, p, kappa,
+                                                    tie_every):
+    """The fused bisection's plain version: (lo, hi, n_hi) bit for bit
+    those of a numpy bisection over the JAX kernel, with the batched and
+    the single-vector (strict) rules."""
+    w = _weights(p + i, i, p, tie_every=tie_every)
+    kap = np.asarray(kappa, np.int32)
+    lo, hi, n_hi = k2.topk_threshold_batched_plain(_t(w), _t(kap), 30,
+                                                   strict)
+    jlo, jhi, jn = _np_bisection(w, kap, 30, strict)
+    assert lo.dtype == hi.dtype == torch.float32 and n_hi.dtype == torch.int32
+    np.testing.assert_array_equal(_np(lo).view(np.int32), jlo.view(np.int32))
+    np.testing.assert_array_equal(_np(hi).view(np.int32), jhi.view(np.int32))
+    np.testing.assert_array_equal(_np(n_hi), jn)
+    # the wrapper on a CPU tensor is the plain version, and reports no
+    # compaction and the plain loop's passes
+    got = k2.topk_threshold_batched(_t(w), _t(kap), 30, strict,
+                                    with_stats=True)
+    for a, b in zip(got[:3], (lo, hi, n_hi)):
+        assert torch.equal(a, b)
+    assert got[3].tolist() == [[0, -1, 32, -1]] * i
+
+
+@pytest.mark.parametrize("kvalid", [None, [4, 8, 2]])
+def test_kmeans_lloyd_plain_matches_jax(kvalid):
+    """The fused Lloyd loop's plain version against the JAX solver's
+    interpret path: codebooks within KMEANS_CB_ATOL, assignments equal."""
+    w = _weights(13, 3, 3000, tie_every=11)
+    cb0 = _codebooks(7, 3, 8, kvalid)
+    cb, a = k1.kmeans_lloyd_batched_plain(
+        _t(w), torch.sort(_t(cb0), dim=-1).values, 6)
+    kv_j = None if kvalid is None else jnp.asarray(kvalid, jnp.int32)
+    jcb, ja = jkops.kmeans_batched(jnp.asarray(w), jnp.asarray(cb0), kv_j,
+                                   iters=6, impl="interpret")
+    np.testing.assert_allclose(_np(cb), np.asarray(jcb), atol=KMEANS_CB_ATOL)
+    np.testing.assert_array_equal(_np(a), np.asarray(ja))
+    assert a.dtype == torch.int32 and cb.shape == (3, 8)
+
+
+def test_kmeans_lloyd_plain_rounds_counts_to_nearest():
+    """A cluster of 2^24 + 3 weights: the update divides by the count
+    rounded to nearest f32 (2^24 + 4, as torch's type promotion and the
+    kernel's __int2float_rn round it), not truncated (2^24 + 2)."""
+    n = 2**24 + 3
+    w = torch.ones((1, n), dtype=torch.float32)
+    cb, a = k1.kmeans_lloyd_batched_plain(w, torch.tensor([[1.0, 5.0]]), 1)
+    _, sums, counts = k1.kmeans_assign_moments_batched_plain(
+        w, torch.tensor([[1.0, 5.0]]))
+    assert counts.tolist() == [[n, 0]]
+    s = np.float32(_np(sums)[0, 0])
+    assert np.float32(n) == np.float32(2**24 + 4)
+    want = s / np.float32(n)
+    assert want != s / np.float32(2**24 + 2)
+    assert _np(cb).tolist() == [[float(want), 5.0]]
+    assert int(a.sum()) == 0
 
 
 def test_l1_solvers_match_jax():
@@ -324,27 +408,31 @@ def test_prune_count_mask_kernels_vs_jax(t):
 ])
 def test_topk_mask_single_vector_bit_identical(p, kappa, tie_every, shape):
     """K8's top-κ loop: strict counts, (lo, hi] boundary filled in index
-    order — bit-identical to JAX's kernel path, 31 count calls and one
-    mask call."""
+    order — bit-identical to JAX's kernel path, 31 strict count calls (the
+    plain loop of the fused bisection, on a CPU tensor) and one mask
+    call."""
+    from repro_torch.kernels.prune import ref as pref
     w = _weights(p + kappa, 1, p, tie_every=tie_every)[0]
     if shape is not None:
         w = w.reshape(shape)
     calls = {"count": 0, "mask": 0}
-    real_count, real_mask = pops.count_above, pops.mask_apply
+    real_count, real_mask = pref.count_above_batched_plain, pops.mask_apply
 
-    def count_spy(w_, t_):
+    def count_spy(w_, t_, strict=True):
+        assert strict and w_.shape == (1, p)
         calls["count"] += 1
-        return real_count(w_, t_)
+        return real_count(w_, t_, strict)
 
     def mask_spy(w_, t_):
         calls["mask"] += 1
         return real_mask(w_, t_)
 
-    pops.count_above, pops.mask_apply = count_spy, mask_spy
+    pref.count_above_batched_plain, pops.mask_apply = count_spy, mask_spy
     try:
         out = pops.topk_mask(_t(w), kappa)
     finally:
-        pops.count_above, pops.mask_apply = real_count, real_mask
+        pref.count_above_batched_plain, pops.mask_apply = (real_count,
+                                                           real_mask)
     ref = jpops.topk_mask(jnp.asarray(w), kappa, use_pallas=True)
     assert out.shape == w.shape
     np.testing.assert_array_equal(_np(out), np.asarray(ref))

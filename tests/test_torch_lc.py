@@ -247,12 +247,13 @@ def test_lc_beats_direct_compression_at_full_width_in_both_packages():
     tprob = showcase.reference_problem(device="cpu")
     assert {k: v["w"].shape for k, v in tprob.params.items()} == {
         "l0": (784, 300), "l1": (300, 100), "l2": (100, 10)}
-    n1 = k1.KERNEL.launches
+    n1 = (k1.KERNEL.launches, k1.LLOYD.launches)
     tdc = showcase.direct_compress(tprob, quickstart_tasks(), device="cpu")
     tlc = showcase.run_lc(tprob, quickstart_tasks(), device="cpu", **kw)
     assert tlc["test_err"] <= tdc["test_err"] + 1e-6
     assert tlc["ratio"] == pytest.approx(jlc["ratio"])
-    assert k1.KERNEL.launches == n1     # CPU tensors never reach a kernel
+    # CPU tensors never reach a kernel
+    assert (k1.KERNEL.launches, k1.LLOYD.launches) == n1
 
 
 def test_ell0_lc_loop_keeps_exactly_kappa():
@@ -275,8 +276,8 @@ def test_ell0_lc_loop_keeps_exactly_kappa():
                      [1e-2 * 1.3**k for k in range(3)],
                      l_step=showcase.sgd_l_step_factory(prob, iters=5),
                      cstep_backend="cuda", device="cpu")
-    n2 = k2.KERNEL.launches
+    n2 = (k2.KERNEL.launches, k2.TOPK.launches)
     lc.run(showcase.LeNet300(prob.params), params_of=showcase.LeNet300.tree,
            callbacks=[check])
     assert seen == [kappa] * 3
-    assert k2.KERNEL.launches == n2
+    assert (k2.KERNEL.launches, k2.TOPK.launches) == n2
