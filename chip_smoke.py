@@ -72,7 +72,24 @@ CUDA toolkit (nvcc). Phases, each of which fails the run:
     bridge (24 low-rank and 4 dense forms) and ``Server.generate``;
     selected ranks against the exact spectrum, distortion against the
     exact SVD, logits against the densified model, 4 K6 launches;
-14. ``torch.profiler`` over one more LM C step, path C's prefill and 8
+14. main path H — LC training of phi3-mini-3.8b at full width (4 of 32
+    layers, float32, remat, plain attention) with ``LCTrainer``: AdamW L
+    steps on the port's ``TokenStream`` (8 × 1024 tokens a step), the
+    tasks and defaults of ``launch/train.py``. H1: per-layer K=16
+    quantization of every matrix (28 items in two groups), 3 μ × 5 L
+    steps, serial; H2: the same overlapped (C step on a second stream),
+    its first boundary's Θ equal bit for bit to a serial C step on the
+    same snapshot; H3: ℓ0 pruning of all matrices at κ = 5%, 2 × 2,
+    exactly κ nonzeros after every C step; H4 (1 layer): a hard failure
+    that outlasts the retries, restored from a checkpoint, ending equal
+    bit for bit to an uninterrupted run, and a mid-run checkpoint
+    restored onto the card. Each run checks its records (§7 monitor,
+    finite losses, the reference's compression ratio, CE falling) and
+    its exact launches (H1/H2 one fused Lloyd loop a group every C step,
+    H3 one bisection and one K3 each), and prints the
+    train step's median time (CUDA events), tokens/s, C-step ms (serial)
+    or dispatch→ready ms (overlap), LC wall time and peak memory;
+15. ``torch.profiler`` over one more LM C step, path C's prefill and 8
     decode steps: the device's busy share, the kernels that took the
     most time and the K4/K5 kernels' sum; the device time of K9 and
     ``F.hardshrink`` at P = 266,200, and of K6 and SDPA at K6's main
@@ -82,8 +99,10 @@ CUDA toolkit (nvcc). Phases, each of which fails the run:
     with the weight rotated over copies past the 50 MB L2, beside the
     bytes bound and the event time; the same cold-L2 device time for
     K1, K2, K3, K7 and K8 and the two fused loops at their main paths'
-    shapes;
-15. one JSON line listing every ported kernel, then the result line.
+    shapes; last, path H's trainer (one L step and boundary serial,
+    two overlapped): the device's busy share, each stream's busy time
+    and the time both streams ran at once;
+16. one JSON line listing every ported kernel, then the result line.
 
 Tolerances: assignments, masks and integer counts must be equal; K1/K7
 cluster sums may differ from the plain version's by the summation order
@@ -116,6 +135,7 @@ prefill) runs.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import math
@@ -201,6 +221,16 @@ F_RANKS = {"wq": 128, "wk": 128, "wv": 128, "w_gate": 256, "w_up": 192}
 F_WO_STEPS, F_WO_MAX_RANK = (24, 48), 128
 F_DOWN_KAPPA = LM_ITEM // 100                     # 251,658
 F_MU = 1e-4
+
+# path H: LC training of phi3-mini-3.8b at full width, 4 of 32 layers
+# (H4: 1), batches of 8 × 1024 tokens; the CLI defaults of
+# ``launch/train.py`` (μ0 9e-5, a 1.2, lr 1e-3); the quantization tasks'
+# two groups: wq|wk|wv|wo (16 items of 3072²) and w_gate|w_up|w_down (12
+# of 3072 × 8192)
+H_BATCH, H_SEQ = 8, 1024
+H_MU0, H_MU_A, H_LR = 9e-5, 1.2, 1e-3
+H_GROUPS = [(4 * LM_LAYERS, LM_D_MODEL * LM_D_MODEL), (3 * LM_LAYERS, LM_ITEM)]
+H_WEIGHTS = sum(i * p for i, p in H_GROUPS)           # 452,984,832
 
 
 def fail(msg: str) -> None:
@@ -355,6 +385,44 @@ def iterated_bisection(k2, w, kappa, iters, strict):
     return lo, hi, k2.count_above_batched(w, hi, strict)
 
 
+def check_lloyd(k1, w, cb, iters, got, label: str) -> tuple[float, int]:
+    """Hold a fused Lloyd loop's result ``got`` (codebooks, assignments)
+    on w (I, P) from codebooks cb: bit-identical to the loop of single K1
+    launches with the torch update, and against the plain loop: the
+    codebooks within KMEANS_CB_ATOL with the same +inf tails. They drift
+    from the plain loop's by its summation order, so over 10^8 weights a
+    few lie between the two loops' boundaries: the assignments are held
+    against the plain pass over the fused loop's own codebooks. Returns
+    the codebooks' max |Δ| and the count of assignments that differ from
+    the plain loop's."""
+    want = iterated_lloyd(k1, w, cb, iters)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"{label} differs from the iterated loop")
+    plain = k1.kmeans_lloyd_batched_plain(w, cb, iters)
+    check(torch.equal(got[1], k1.kmeans_assign_moments_batched_plain(
+        w, got[0])[0]), f"{label}: assignments differ from the plain pass "
+          f"over its codebooks")
+    moved = int((got[1] != plain[1]).sum())
+    err = float((got[0] - plain[0]).abs().nan_to_num(0.0).max())
+    check(err <= KMEANS_CB_ATOL and bool(torch.equal(
+        torch.isinf(got[0]), torch.isinf(plain[0]))),
+          f"{label}: codebooks off by {err}")
+    return err, moved
+
+
+def check_bisection(k2, w, kap, iters, strict, got, label: str):
+    """Hold a fused bisection's (lo, hi, n_hi) ``got`` on w (I, P) and κ
+    (I,) equal to the loop of single K2 launches with the torch update
+    and to the plain loop; returns the iterated loop's (lo, hi, n_hi)."""
+    want = iterated_bisection(k2, w, kap, iters, strict)
+    plain = k2.topk_threshold_batched_plain(w, kap, iters, strict)
+    for a, b, c in zip(got, want, plain):
+        check(torch.equal(a, b) and torch.equal(a, c),
+              f"{label}: (lo, hi, n_hi) differ from the iterated or plain "
+              f"loop")
+    return want
+
+
 def lloyd_bound(k1, w, k, iters) -> tuple[float, str, float]:
     """The Lloyd loop's bound and its design's floor for w (I, P). The
     bound is the function's: w read once and the assignment written
@@ -401,22 +469,8 @@ def fused_phase(k1, k2, power: str) -> dict:
             cb = torch.sort(torch.where(live, cb, torch.inf), dim=-1).values
         got = k1.kmeans_lloyd_batched(w, cb, iters)
         torch.cuda.synchronize()
-        want = iterated_lloyd(k1, w, cb, iters)
-        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-              f"fused Lloyd loop {i}x{p}x{k} differs from the iterated one")
-        # the codebooks drift from the plain loop's by its summation order
-        # (within KMEANS_CB_ATOL), so over 10^8 weights a few lie between
-        # the two loops' boundaries: the assignment is held against the
-        # plain pass over the fused loop's own codebooks
-        plain = k1.kmeans_lloyd_batched_plain(w, cb, iters)
-        check(torch.equal(got[1], k1.kmeans_assign_moments_batched_plain(
-            w, got[0])[0]), f"fused Lloyd loop {i}x{p}x{k}: assignments "
-              f"differ from the plain pass over its codebooks")
-        moved = int((got[1] != plain[1]).sum())
-        err = float((got[0] - plain[0]).abs().nan_to_num(0.0).max())
-        check(err <= KMEANS_CB_ATOL and bool(torch.equal(
-            torch.isinf(got[0]), torch.isinf(plain[0]))),
-              f"fused Lloyd loop {i}x{p}x{k}: codebooks off by {err}")
+        err, moved = check_lloyd(k1, w, cb, iters, got,
+                                 f"fused Lloyd loop {i}x{p}x{k}")
         big = i * p > 10_000_000
         ms, it_ms, plain_ms = timed_turns(
             (lambda: k1.kmeans_lloyd_batched(w, cb, iters),
@@ -435,7 +489,7 @@ def fused_phase(k1, k2, power: str) -> dict:
               f"bit-identical to the iterated loop, "
               f"max|Δcb| vs plain loop={err:.3g}, assignments differing "
               f"from the plain loop's={moved} [{power}]", flush=True)
-        del w, cb, got, want, plain
+        del w, cb, got
         torch.cuda.empty_cache()
 
     for i, p, kappa, strict, tied in TOPK_CASES:
@@ -450,12 +504,8 @@ def fused_phase(k1, k2, power: str) -> dict:
         got = k2.topk_threshold_batched(w, kap, 30, strict,
                                         with_stats=True)
         torch.cuda.synchronize()
-        want = iterated_bisection(k2, w, kap, 30, strict)
-        plain = k2.topk_threshold_batched_plain(w, kap, 30, strict)
-        for a, b, c in zip(got[:3], want, plain):
-            check(torch.equal(a, b) and torch.equal(a, c),
-                  f"fused bisection {i}x{p} strict={strict}: (lo, hi, "
-                  f"n_hi) differ from the iterated or plain loop")
+        want = check_bisection(k2, w, kap, 30, strict, got[:3],
+                               f"fused bisection {i}x{p} strict={strict}")
         stats = got[3].tolist()
         if i == LM_LAYERS:
             check(all(c[0] > 0 for c in stats),
@@ -507,7 +557,7 @@ def fused_phase(k1, k2, power: str) -> dict:
               f"passes over w, one-block finish from)={stats} (lo, hi, "
               f"n_hi, masks) equal to the iterated and plain loops "
               f"[{power}]", flush=True)
-        del w, kap, got, want, plain, theta, exact, iterated_theta
+        del w, kap, got, want, theta, exact, iterated_theta
         torch.cuda.empty_cache()
     return rec
 
@@ -755,29 +805,77 @@ def serve_kernel_phase(k45, k6, power: str) -> dict:
     return rec
 
 
-def device_profile(fn, label: str, power: str) -> list:
+#: the trace names of the port's kernels (each source keeps its kernels
+#: in an anonymous namespace), each with the counters of the wrappers
+#: that launch it: K7–K9 and the fused loops share the K1–K3 sources, and
+#: K4 and K5 are the ``quant_gemv``/``quant_mma`` kernels
+DEVICE_KERNELS = {
+    f"(anonymous namespace)::{name}": keys for name, keys in (
+        ("lloyd_kernel", ("K1", "K7", "K1loop")),
+        ("topk_kernel", ("K2", "K8", "K2loop")),
+        ("mask_apply_kernel", ("K3", "K9")),
+        ("quant_", ("K4", "K5")),
+        ("flash_attention_kernel", ("K6",)))}
+
+
+def port_kernel(name: str) -> bool:
+    """Whether a trace name is one of the port's kernels."""
+    return any(k in name for k in DEVICE_KERNELS)
+
+
+def device_profile(fn, label: str, power: str, kern: dict) -> list:
     """Run ``fn`` once under ``torch.profiler`` and print its wall time,
-    the summed time of its device kernels and copies, the device's busy
-    share of the wall time, and the kernels that took the most time;
-    return the device events. The profiler adds host work, so the wall
-    time here is above the untraced one."""
+    each CUDA stream's busy time (kernels, copies and fills), their
+    union (the device's busy time) and its share of the wall time (the
+    device's busy share), the time two streams ran at once, and the
+    kernels that took the most time; return the device events. The
+    launch counts are set to 0 before ``fn``: every launch of the port's
+    kernels that the wrappers count must show in the trace, or the
+    profile fails (a dropped event would make every number here short).
+    The spans come from the profiler's events, with no trace file. The
+    profiler adds host work, so the wall time here is above the untraced
+    one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    reset(kern)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    n = launches(kern)
+    spans: dict = {}
+    names = []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA:
+            spans.setdefault(ev.device_resource_id(), []).append(
+                (ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+            names.append(ev.name())
+    for name, keys in DEVICE_KERNELS.items():
+        seen = sum(name in x for x in names)
+        want = sum(n[k] for k in keys)
+        check(seen == want, f"profile {label}: {seen} {name} events in the "
+              f"trace, {want} launches counted ({keys})")
+    busy = {st: sum(e - b for b, e in v) / 1e6 for st, v in spans.items()}
+    union, end = 0.0, -math.inf
+    for b, e in sorted(x for v in spans.values() for x in v):
+        if e > end:
+            union += e - max(b, end)
+            end = e
+    union /= 1e6
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"profile {label}: wall_ms={wall_ms:.2f} device_ms={dev_ms:.2f} "
-          f"device_busy={dev_ms / wall_ms:.3f} top: " + "; ".join(
-              f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f}ms"
-              for e in top) + f" [{power}]", flush=True)
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"profile {label}: wall_ms={wall_ms:.2f} device_busy_ms="
+          f"{union:.2f} device_busy={union / wall_ms:.3f} per_stream_ms="
+          f"{ {st: round(v, 2) for st, v in sorted(busy.items())} } "
+          f"two_streams_at_once_ms={sum(busy.values()) - union:.2f} "
+          f"port_kernels={ {k: v for k, v in n.items() if v} } top: "
+          + "; ".join(f"{e.key[:50]} x{e.count} "
+                      f"{e.self_device_time_total / 1e3:.3f}ms"
+                      for e in top) + f" [{power}]", flush=True)
     return dev
 
 
@@ -1507,7 +1605,7 @@ def main_path_f(kern, power: str) -> dict:
     return n
 
 
-def profile_phase(path_c: dict, power: str) -> None:
+def profile_phase(kern, path_c: dict, power: str) -> None:
     """Device busy share and top kernels of an LM C step (the LM phase's
     problem made again, after one warm C step), of path C's prefill and
     of 8 of its decode steps, under ``torch.profiler``; run after the
@@ -1515,7 +1613,8 @@ def profile_phase(path_c: dict, power: str) -> None:
     numbers."""
     params, lc = lm_problem(torch.Generator(device="cuda").manual_seed(1))
     state = lc.c_step(params, lc.init(params))
-    device_profile(lambda: lc.c_step(params, state), "LM C step", power)
+    device_profile(lambda: lc.c_step(params, state), "LM C step", power,
+                   kern)
     del params, lc, state
     torch.cuda.empty_cache()
     from repro_torch.models import transformer as tf
@@ -1538,7 +1637,7 @@ def profile_phase(path_c: dict, power: str) -> None:
                            SERVE_PROMPT + i, cfg)
 
     def report(label, fn):
-        dev = device_profile(fn, f"path C {label}", power)
+        dev = device_profile(fn, f"path C {label}", power, kern)
         k45 = [e for e in dev if "quant_" in e.key]
         print(f"path C {label}: K4/K5 kernels x"
               f"{sum(e.count for e in k45)} device_ms="
@@ -1585,6 +1684,9 @@ def device_times(k2, k6, k9_row: dict, k6_row: dict, card: str) -> None:
         dev = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
         check(bool(dev), f"{name}: the profiler saw no device time")
+        seen = sum(e.count for e in dev if port_kernel(e.key))
+        check(seen == (50 if name in ("K9", "K6") else 0),
+              f"{name}: the profiler saw {seen} of the port's launches")
         dev_ms[name] = sum(e.self_device_time_total for e in dev) / 1e3 / 50
     print(f"K9 P={LENET_WEIGHTS} device_ms={dev_ms['K9']:.5f} "
           f"hardshrink device_ms={dev_ms['hardshrink']:.5f} (profiler, 50 "
@@ -1671,7 +1773,9 @@ def cstep_device_times(k1, k2, rec: dict, mrec: dict, frec: dict,
             torch.cuda.synchronize()
         dev = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-        check(bool(dev), "the profiler saw no device time")
+        seen = sum(e.count for e in dev if port_kernel(e.key))
+        check(seen == n_calls, f"the profiler saw {seen} of {n_calls} "
+              f"launches")
         return sum(e.self_device_time_total for e in dev) / 1e3 / n_calls
 
     def operands(i, p, k=None):
@@ -1738,6 +1842,436 @@ def cstep_device_times(k1, k2, rec: dict, mrec: dict, frec: dict,
         torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# path H: the LC trainer at phi3-mini width
+# ----------------------------------------------------------------------
+def h_config(layers: int = LM_LAYERS):
+    """phi3-mini-3.8b at full width, ``layers`` of its 32 layers, float32,
+    remat on, plain attention (K6 has no backward, and refuses autograd)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("phi3-mini-3.8b").with_(
+        pattern_reps=layers, dtype="float32", remat=True,
+        fused_attention=False)
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+           cfg.d_ff, cfg.vocab_size, cfg.tie_embeddings)
+          == (LM_D_MODEL, 32, 32, 96, LM_D_FF, 32064, False),
+          "phi3-mini widths")
+    return cfg
+
+
+def h_trainer(cfg, compression: str, n_lc: int, steps_per_l: int,
+              faults=None, **tcfg):
+    """``launch/train.py``'s tasks and defaults on the card: an LCTrainer
+    over the port's TokenStream (batches of H_BATCH × H_SEQ)."""
+    from repro_torch.core import LCAlgorithm, exponential_mu_schedule
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.train import default_tasks
+    from repro_torch.runtime import LCTrainer, TrainerConfig
+    lc = LCAlgorithm(default_tasks(cfg, compression),
+                     exponential_mu_schedule(H_MU0, H_MU_A, n_lc),
+                     device="cuda")
+    return LCTrainer(cfg, lc, TokenStream(cfg.vocab_size, H_BATCH, H_SEQ),
+                     tcfg=TrainerConfig(steps_per_l=steps_per_l, lr=H_LR,
+                                        **tcfg),
+                     fault_injector=faults, device="cuda")
+
+
+def h_run(kern, trainer, label: str, power: str) -> dict:
+    """Run ``trainer`` from seed 0 with every launch count at 0, CUDA
+    events on the main stream around each train step (no sync), and the
+    peak memory reset; check its records (one per μ, no §7 violation,
+    finite losses) and print its times."""
+    events = []
+    step = trainer._train_step
+    init_s = []
+    lc_init = trainer.lc.init
+
+    def timed_init(params):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = lc_init(params)
+        torch.cuda.synchronize()
+        init_s.append(time.time() - t0)
+        return out
+
+    trainer.lc.init = timed_init
+
+    def timed(state, batch):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(state, batch)
+        end.record()
+        events.append((start, end))
+        return out
+
+    trainer._train_step = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kern)
+    t0 = time.time()
+    state, lc_state = trainer.run(0)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n = launches(kern)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    hist = trainer.history
+    check(len(hist) == len(trainer.lc.mu_schedule), f"{label} records")
+    for h in hist:
+        check(h["c_step_violations"] == [], f"{label} §7 monitor {h}")
+        check(math.isfinite(h["loss"]) and math.isfinite(h["ce"]),
+              f"{label} losses {h['loss']} {h['ce']}")
+    med = statistics.median(step_ms[1:]) if len(step_ms) > 1 else math.nan
+    print(f"path H {label}: lc_wall_s={wall:.3f} init_s={init_s[0]:.3f} "
+          f"steps={len(step_ms)} "
+          f"first_step_ms={step_ms[0]:.2f} median_step_ms={med:.2f} "
+          f"tokens_per_s={H_BATCH * H_SEQ / med * 1e3:.1f} "
+          f"c_step_ms={[round(h['c_step_ms'], 2) for h in hist]} "
+          f"loss={[round(h['loss'], 4) for h in hist]} "
+          f"ce={[round(h['ce'], 4) for h in hist]} "
+          f"ratio={hist[-1]['compression_ratio']:.4f} "
+          f"peak_memory_gib={peak:.2f} launches="
+          f"{ {k: v for k, v in n.items() if v} } [{power}]", flush=True)
+    return {"state": state, "lc_state": lc_state, "launches": n,
+            "history": hist, "wall_s": wall, "step_ms": step_ms}
+
+
+def quant_ratio() -> float:
+    """The reference's compression_ratio for path H's quantization: 32
+    bits a weight against 4-bit indices and a 16-entry f32 codebook an
+    item."""
+    return 32.0 * H_WEIGHTS / sum(i * (p * 4 + 16 * 32) for i, p in H_GROUPS)
+
+
+@contextlib.contextmanager
+def calls_of(module, name: str, first: int):
+    """Route ``module.name`` through a wrapper that keeps the arguments
+    and the result of its calls from the ``first``-th (0-based) on, as
+    references: the C step writes none of its solvers' operands or
+    results in place (only ``a``), so they hold what the kernel saw."""
+    fn = getattr(module, name)
+    calls: list = []
+    seen = [0]
+
+    def wrapped(*args, **kw):
+        out = fn(*args, **kw)
+        if seen[0] >= first:
+            calls.append((args, kw, out))
+        seen[0] += 1
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def check_h_lloyd(k1, calls, label: str, power: str) -> None:
+    """The last C step's fused Lloyd loops of a path-H run, one a group,
+    against the iterated and the plain loops on the operands they were
+    launched with (``check_lloyd``)."""
+    shapes = sorted(tuple(args[0].shape) for args, _, _ in calls)
+    check(shapes == sorted(H_GROUPS), f"{label} Lloyd loops {shapes}")
+    for (w, cb, iters), _, got in calls:
+        err, moved = check_lloyd(k1, w, cb, iters, got,
+                                 f"{label} Lloyd loop {tuple(w.shape)}")
+        print(f"path H {label}: Lloyd loop I={w.shape[0]} P={w.shape[1]} "
+              f"K={cb.shape[1]} iters={iters} of the last C step "
+              f"bit-identical to the iterated loop, max|Δcb| vs plain "
+              f"loop={err:.3g}, assignments differing from the plain "
+              f"loop's={moved} [{power}]", flush=True)
+
+
+def h_prune_run(kern, trainer, label: str, power: str) -> dict:
+    """``h_run`` of a pruning trainer with Θ's count of nonzeros after
+    every C step (``nnz``), and the last C step's bisection, K3 and Θ
+    kept (``last``) for ``check_h_prune``."""
+    from repro_torch.kernels.prune import ops as pops
+    first = len(trainer.lc.mu_schedule) - 1
+    nnz, theta = [], []
+    c_step = trainer.lc.c_step
+
+    def counted(params, lc_in):
+        out = c_step(params, lc_in)
+        theta[:] = [out["tasks"]["prune-all"]["theta"]["theta"]]
+        nnz.append(int(torch.count_nonzero(theta[0])))
+        return out
+
+    trainer.lc.c_step = counted
+    with calls_of(pops, "topk_threshold_batched", first) as bis, \
+            calls_of(pops, "mask_apply_batched", first) as masks:
+        r = h_run(kern, trainer, label, power)
+    del trainer.lc.c_step           # the wrapper's cycle would keep Θ
+    r.update(nnz=nnz, last=(bis, masks, theta[0]))
+    return r
+
+
+def check_h_prune(k2, last, kappa: int, label: str, power: str) -> None:
+    """The last C step of a path-H pruning run on the operands its kernels
+    were launched with: the fused bisection's (lo, hi, n_hi) equal to the
+    iterated and the plain loops (``check_bisection``), K3's output equal
+    to its plain version, and Θ equal to the exact top-κ of its input (a
+    stable sort by magnitude, lower index first on ties): so the band
+    that the fill takes in index order holds only weights of the top κ."""
+    from repro_torch.core.schemes.prune import topk_magnitude_mask
+    bis, masks, theta = last
+    check(len(bis) == 1 and len(masks) == 1,
+          f"{label}: {len(bis)} bisections, {len(masks)} K3 launches in "
+          f"the last C step")
+    (w, kap, iters), kw, got = bis[0]
+    check(tuple(kap.tolist()) == (kappa,), f"{label} κ {kap.tolist()}")
+    check_bisection(k2, w, kap, iters, kw.get("strict", False), got,
+                    f"{label} bisection {tuple(w.shape)}")
+    (mw, t), mkw, kept = masks[0]
+    check(torch.equal(kept, k2.mask_apply_batched_plain(mw, t, **mkw)),
+          f"{label}: K3 differs from its plain version")
+    exact = torch.where(topk_magnitude_mask(w, kappa), w, 0.0)
+    check(torch.equal(theta.reshape(w.shape), exact),
+          f"{label}: Θ differs from the exact top-κ of its input")
+    print(f"path H {label}: bisection I={w.shape[0]} P={w.shape[1]} "
+          f"κ={kappa} iters={iters} of the last C step: (lo, hi, n_hi) "
+          f"equal to the iterated and plain loops, K3 equal to its plain "
+          f"version, Θ equal to the exact top-κ [{power}]", flush=True)
+
+
+def main_path_h(kern, k1, k2, power: str) -> dict:
+    """H1–H4: the LC trainer (``repro_torch.runtime.LCTrainer``) with
+    AdamW L steps on phi3-mini-3.8b at full width."""
+    from repro_torch.kernels.kmeans import ops as kops
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = h_config()
+    paths = {}
+    # a first train step at these shapes pays cuBLAS's and the
+    # allocator's warm-up (seconds): take it before the timed runs
+    trainer = h_trainer(cfg, "quantize", 1, 1)
+    state = trainer.init_state(0)
+    trainer._train_step(state, trainer._batch(0))
+    del trainer, state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # H1: quantization, serial; one fused Lloyd loop a group at every C
+    # step (the direct compression at init runs the scheme's own init,
+    # the plain loop, as the reference's grouped_init does)
+    trainer = h_trainer(cfg, "quantize", 3, 5)
+    with calls_of(kops, "kmeans_lloyd_batched",
+                  len(H_GROUPS) * (len(trainer.lc.mu_schedule) - 1)) as lloyd:
+        r1 = h_run(kern, trainer, "H1 quantize serial", power)
+    groups = trainer.lc.group_summary(r1["state"]["params"])
+    got = sorted((g["items"], math.prod(g["item_shape"]), g["backend"])
+                 for g in groups)
+    check(got == sorted((i, p, "cuda") for i, p in H_GROUPS),
+          f"H1 groups {got}")
+    hist = r1["history"]
+    check(hist[-1]["ce"] < hist[0]["ce"], f"H1 ce {hist[0]['ce']} -> "
+          f"{hist[-1]['ce']}")
+    check(all(abs(h["compression_ratio"] / quant_ratio() - 1) < 1e-12
+              for h in hist), f"H1 ratio {hist[-1]['compression_ratio']}")
+    want = len(H_GROUPS) * len(hist)
+    check(r1["launches"] == only(kern, K1loop=want),
+          f"H1 launches {r1['launches']} (want {want} Lloyd loops)")
+    print(f"path H H1: groups {got}; launches as derived from the code: "
+          f"{want} fused Lloyd loops ({len(H_GROUPS)} groups × "
+          f"{len(hist)} C steps; none at init)", flush=True)
+    paths["H1"] = r1["launches"]
+    del trainer, r1
+    torch.cuda.empty_cache()
+    check_h_lloyd(k1, lloyd, "H1", power)
+    del lloyd
+    torch.cuda.empty_cache()
+
+    # H2: the same run, overlapped: the C step on the side stream; the
+    # first boundary's inputs and Θ kept for the equality check
+    trainer = h_trainer(cfg, "quantize", 3, 5, overlap="on")
+    lc = trainer.lc
+    captured = []
+    c_step_async = lc.c_step_async
+
+    def capture(params, lc_in):
+        out = c_step_async(params, lc_in)
+        if not captured:
+            captured.append((params, lc_in, out))
+        return out
+
+    lc.c_step_async = capture
+    r2 = h_run(kern, trainer, "H2 quantize overlapped", power)
+    hist = r2["history"]
+    check(hist[-1]["ce"] < hist[0]["ce"], "H2 ce")
+    check(all(abs(h["compression_ratio"] / quant_ratio() - 1) < 1e-12
+              for h in hist), "H2 ratio")
+    check(r2["launches"] == only(kern, K1loop=len(H_GROUPS) * len(hist)),
+          f"H2 launches {r2['launches']}")
+    print(f"path H H2: swap_after_microbatches="
+          f"{[h['swap_after_microbatches'] for h in hist]} "
+          f"dispatch_to_ready_ms={[round(h['c_step_ms'], 2) for h in hist]}"
+          f" [{power}]", flush=True)
+    params, lc_in, side = captured[0]
+    held = {x.data_ptr(): x.numel() * x.element_size()
+            for x in tree_leaves((params, lc_in)) if x.is_cuda}
+    print(f"path H H2: the check's hold on boundary 0's params and LC "
+          f"state during the run: {sum(held.values()) / 2**30:.2f} GiB of "
+          f"the peak", flush=True)
+    serial = lc.c_step(params, tree_map(
+        lambda x: x.clone() if isinstance(x, torch.Tensor) else x, lc_in))
+    for name in side["tasks"]:
+        got, want_ = (tree_leaves((st["tasks"][name]["theta"],
+                                   st["tasks"][name]["a"]))
+                      for st in (side, serial))
+        check(all(torch.equal(a, b) for a, b in zip(got, want_)),
+              f"H2 side-stream Θ of {name} differs from the serial C step")
+    print(f"path H H2: the side stream's C step at boundary 0 equals the "
+          f"serial C step on its snapshot bit for bit "
+          f"({len(side['tasks'])} tasks)", flush=True)
+    paths["H2"] = r2["launches"]
+    del trainer, lc, r2, captured, params, lc_in, side, serial
+    torch.cuda.empty_cache()
+
+    # H3: pruning, serial: κ = 5% of the selected weights as one vector;
+    # one fused bisection and one K3 a C step (none at init: the scheme's
+    # own init, as for H1)
+    trainer = h_trainer(cfg, "prune", 2, 2)
+    kappa = trainer.lc.tasks[0].scheme.kappa
+    check(kappa == int(0.05 * H_WEIGHTS), f"H3 κ {kappa}")
+    r3 = h_prune_run(kern, trainer, "H3 prune serial", power)
+    nnz = r3["nnz"]
+    check(nnz == [kappa] * 2, f"H3 nonzeros per C step {nnz}")
+    ratio = 32.0 * H_WEIGHTS / (kappa * (32 + math.ceil(math.log2(
+        H_WEIGHTS))))
+    check(abs(r3["history"][-1]["compression_ratio"] / ratio - 1) < 1e-12,
+          "H3 ratio")
+    check(r3["launches"] == only(kern, K2loop=2, K3=2),
+          f"H3 launches {r3['launches']}")
+    print(f"path H H3: kappa={kappa} nonzeros={nnz}", flush=True)
+    paths["H3"] = r3["launches"]
+    last = r3["last"]
+    del trainer, r3
+    torch.cuda.empty_cache()
+    check_h_prune(k2, last, kappa, "H3", power)
+    del last
+    torch.cuda.empty_cache()
+
+    paths["H4"] = path_h4(kern, k2, power)
+    return paths
+
+
+def path_h4(kern, k2, power: str) -> dict:
+    """H4: checkpoints and faults at 1 layer (short disk I/O), pruning
+    (the quantization tasks stack layers): a hard failure at step 4
+    outlasts the retries, the trainer restores the step-2 checkpoint and
+    replays from step 3; the run ends equal, bit for bit, to an
+    uninterrupted one (deterministic algorithms on: the embedding's
+    gradient otherwise sums by atomics), and its mid-run checkpoint
+    restores onto the card."""
+    import os
+    import tempfile
+    from repro_torch.runtime import FaultInjector
+    from repro_torch.tree import tree_leaves
+    cfg = h_config(1)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            trainer = h_trainer(cfg, "prune", 2, 3, ckpt_dir=d,
+                                ckpt_every=2,
+                                faults=FaultInjector({4: 5}))
+            restores = []
+            restore = trainer._restore_state
+
+            def rec(state):
+                out = restore(state)
+                restores.append((int(state["step"]), out[1]))
+                return out
+
+            trainer._restore_state = rec
+            r4 = h_run(kern, trainer, "H4 faults + checkpoints", power)
+            state = r4["state"]
+            check(trainer.faults.injected == 5, "H4 faults injected")
+            check(restores == [(4, 3)], f"H4 restore (from, to) {restores}")
+            check(int(state["step"]) == 6, "H4 final step")
+            steps = trainer.ckpt.steps()
+            check(steps == [2, 4, 6], f"H4 checkpoints {steps}")
+            t0 = time.time()
+            mid, label = trainer.ckpt.restore(state, step=4)
+            torch.cuda.synchronize()
+            check(all(x.is_cuda for x in tree_leaves(mid)), "H4 on card")
+            check(int(mid["step"]) == 5, f"H4 mid step {int(mid['step'])}")
+            restore_s = time.time() - t0
+            n = r4["launches"]
+        clean = h_trainer(cfg, "prune", 2, 3)
+        kappa = clean.lc.tasks[0].scheme.kappa
+        r_clean = h_prune_run(kern, clean, "H4 uninterrupted", power)
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(state["params"]),
+            tree_leaves(r_clean["state"]["params"])))
+        check(same, "H4 params differ from the uninterrupted run's")
+        check(r_clean["nnz"] == [kappa] * 2,
+              f"H4 nonzeros per C step {r_clean['nnz']}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    last = r_clean["last"]
+    del trainer, clean, r_clean, state, mid
+    torch.cuda.empty_cache()
+    check_h_prune(k2, last, kappa, "H4", power)
+    print(f"path H H4: restore (from step, to step)={restores} "
+          f"checkpoints={steps} mid-run restore onto the card "
+          f"s={restore_s:.2f} params equal to the uninterrupted run's "
+          f"bit for bit [{power}]", flush=True)
+    return n
+
+
+def profile_path_h(kern, power: str) -> None:
+    """Path H's trainer under the profiler, after the timed paths: one L
+    step (one microbatch) and one boundary, serial; two L steps and two
+    boundaries overlapped (the second L step runs beside the first
+    boundary's C step on the side stream). Each boundary launches one
+    fused Lloyd loop a group, each seen in the trace."""
+    cfg = h_config()
+    for overlap, n_lc in (("off", 1), ("on", 2)):
+        trainer = h_trainer(cfg, "quantize", n_lc, 1, overlap=overlap)
+        state = trainer.init_state(0)
+        trainer._train_step(state, trainer._batch(0))   # warm
+        state = trainer.init_state(0)
+        run = (trainer._run_serial if overlap == "off"
+               else trainer._run_overlapped)
+        device_profile(lambda: run(state, trainer.lc.mu_schedule, 0),
+                       f"path H overlap={overlap} ({n_lc} L step(s) of one "
+                       f"microbatch, {n_lc} boundary(ies))", power, kern)
+        check(launches(kern) == only(kern, K1loop=len(H_GROUPS) * n_lc),
+              f"path H profile overlap={overlap}: launches {launches(kern)}")
+        del trainer, state, run
+        torch.cuda.empty_cache()
+
+
+def profile_after_overlap(k45, card: str) -> None:
+    """One profiler session of 50 K4 launches after path H's overlapped
+    profile: print how many launches its trace shows. After that session
+    every later one of the process showed one launch fewer than it made
+    (PERF.md), so it runs last and every profile above checks its
+    counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.quant_matmul import ops as qops
+    g = torch.Generator(device="cuda").manual_seed(11)
+    idx = torch.randint(0, 16, (LM_D_MODEL, LM_D_FF), device="cuda",
+                        generator=g, dtype=torch.uint8)
+    w = qops.pack4(idx)
+    cb = torch.sort(torch.randn(16, device="cuda", generator=g)).values
+    x = torch.randn((2, LM_D_MODEL), device="cuda", generator=g)
+    k45.quant_matmul_packed(x, w, cb)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(50):
+            k45.quant_matmul_packed(x, w, cb)
+        torch.cuda.synchronize()
+    seen = sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and port_kernel(e.key))
+    print(f"profiler after the overlapped profile: {seen} of 50 K4 "
+          f"launches in the trace [{card}]", flush=True)
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1802,12 +2336,17 @@ def main() -> int:
     paths["G"] = main_path_g(kern, k1, path_e["problem"], power)
     host_launch_cost(k1, k2, card)
     paths["F"] = main_path_f(kern, power)
-    profile_phase(path_c, power)
+    paths.update(main_path_h(kern, k1, k2, power))
+    profile_phase(kern, path_c, power)
     device_times(k2, k6, mrec["K9"][0], srec["K6"][0], card)
     quant_device_times(k45, srec, card)
     cstep_device_times(k1, k2, rec, mrec, frec, card)
     print(f"jacobi kernels per round (profiler, sketch width 144): "
           f"{jacobi_kernels_per_round():.1f}", flush=True)
+    # last: every profiler session after the overlapped one misses a
+    # launch (profile_after_overlap)
+    profile_path_h(kern, power)
+    profile_after_overlap(k45, card)
     total = {n: sum(p[n] for p in paths.values()) for n in kern}
     print(f"launches per path: {paths}", flush=True)
     print(f"phases_s={time.time() - t_start:.1f}", flush=True)

@@ -14,8 +14,9 @@ PyTorch runs eagerly: there is no ``jit`` counterpart and no
 ``torch.compile``. Where JAX donates the LC state to the C and multiplier
 steps, the port updates the state's ``a`` and ``λ`` tensors in place:
 a step consumes the state it is given and returns the new one. The
-mesh, sharding rules, planner and ``*_async`` entry points of the JAX
-driver are not ported.
+``*_async`` entry points, which the trainer's overlapped pipeline queues
+on a second CUDA stream, write nothing in place (see ``core/state.py``).
+The mesh, sharding rules and planner of the JAX driver are not ported.
 
 Everything runs on ``device``: ``None`` means the card, and the
 constructor raises when CUDA is absent. Parameters handed in must live
@@ -74,13 +75,22 @@ class LCAlgorithm:
         # kernel dispatch backend for opted-in scheme solvers
         # ("auto" | "torch" | "cuda" | "off"), resolved per group by
         # repro_torch.kernels.dispatch
-        if cstep_backend is not None and cstep_backend not in REQUESTS:
-            raise ValueError(f"cstep_backend must be one of {REQUESTS}, "
-                             f"got {cstep_backend!r}")
-        self.cstep_backend = cstep_backend
+        self.cstep_backend = self._check_backend(cstep_backend)
         self.device = resolve_device(device)
         self._resolved = False
         self._last_lc = None
+
+    @staticmethod
+    def _check_backend(backend):
+        if backend is not None and backend not in REQUESTS:
+            raise ValueError(f"cstep_backend must be one of {REQUESTS}, "
+                             f"got {backend!r}")
+        return backend
+
+    def set_backend(self, backend: str | None) -> "LCAlgorithm":
+        """Select the kernel dispatch backend of the C step."""
+        self.cstep_backend = self._check_backend(backend)
+        return self
 
     def _check_device(self, params):
         for p, leaf in flatten_params(params).items():
@@ -133,13 +143,8 @@ class LCAlgorithm:
                                 self.device)
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
-    def c_step(self, params, lc) -> dict:
-        """Θ ← Π(w − λ/μ) for every task; ``a`` is updated in place.
-
-        With ``group_tasks`` the tasks are solved in groups (one kernel
-        launch per solver step per group on the card); otherwise task by
-        task. Kernel dispatch applies on both paths."""
+    def _solve(self, params, lc) -> dict:
+        """{task name: (Θ, Δ(Θ) in the task's view)} of Π(w − λ/μ)."""
         mu = lc["mu"]
         xs = {t.name: t.shifted_compressible(params, lc["tasks"][t.name],
                                              mu)
@@ -158,7 +163,16 @@ class LCAlgorithm:
                                    backend=self.cstep_backend,
                                    device=self.device)
                 results[t.name] = (theta, t.scheme_decompress(theta))
-        del xs
+        return results
+
+    @torch.no_grad()
+    def c_step(self, params, lc) -> dict:
+        """Θ ← Π(w − λ/μ) for every task; ``a`` is updated in place.
+
+        With ``group_tasks`` the tasks are solved in groups (one kernel
+        launch per solver step per group on the card); otherwise task by
+        task. Kernel dispatch applies on both paths."""
+        results = self._solve(params, lc)
         new_tasks = {}
         for t in self.tasks:
             ts = lc["tasks"][t.name]
@@ -167,6 +181,20 @@ class LCAlgorithm:
                 ts["a"][p].copy_(leaf)
             new_tasks[t.name] = lcstate.task_state(theta, ts["lam"],
                                                    ts["a"])
+        return lcstate.with_tasks(lc, new_tasks)
+
+    @torch.no_grad()
+    def c_step_async(self, params, lc) -> dict:
+        """:meth:`c_step` for the overlapped trainer: the same Θ and
+        ``a``, bit for bit, in new tensors. Nothing of ``lc`` is written:
+        the L step in flight beside it still reads the old ``a``."""
+        results = self._solve(params, lc)
+        new_tasks = {}
+        for t in self.tasks:
+            theta, a_arr = results.pop(t.name)
+            new_tasks[t.name] = lcstate.task_state(
+                theta, lc["tasks"][t.name]["lam"],
+                t.scatter_decompressed(a_arr, params))
         return lcstate.with_tasks(lc, new_tasks)
 
     def group_summary(self, params) -> list[dict]:
@@ -189,6 +217,21 @@ class LCAlgorithm:
                 ts["lam"][p].sub_(
                     mu * (get_path(params, p).float() - ts["a"][p]))
         return lcstate.with_tasks(lc, lc["tasks"])
+
+    @torch.no_grad()
+    def multiplier_step_async(self, params, lc) -> dict:
+        """:meth:`multiplier_step` into new λ tensors (the old λ is still
+        read by the L step in flight), the same values bit for bit."""
+        mu = lc["mu"]
+        new_tasks = {}
+        for t in self.tasks:
+            ts = lc["tasks"][t.name]
+            lam = {p: ts["lam"][p]
+                   - mu * (get_path(params, p).float() - ts["a"][p])
+                   for p in t.paths}
+            new_tasks[t.name] = lcstate.task_state(ts["theta"], lam,
+                                                   ts["a"])
+        return lcstate.with_tasks(lc, new_tasks)
 
     def set_mu(self, lc, mu: float, k: int) -> dict:
         return {"tasks": lc["tasks"],

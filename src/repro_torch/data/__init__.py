@@ -1,3 +1,6 @@
-from repro_torch.data.pipeline import gaussian_blobs
+from repro_torch.data.pipeline import (
+    Prefetcher, TokenStream, embedding_stream, gaussian_blobs,
+    teacher_classification)
 
-__all__ = ["gaussian_blobs"]
+__all__ = ["Prefetcher", "TokenStream", "embedding_stream",
+           "gaussian_blobs", "teacher_classification"]

@@ -103,3 +103,17 @@ def lc_state_from_numpy(state: dict, device) -> dict:
                                device=device),
             "k": torch.tensor(int(state["k"]), dtype=torch.int32,
                               device=device)}
+
+
+def train_state_from_numpy(state: dict, device) -> dict:
+    """A train state as numpy (``{"params", "opt": {"m", "v", "step"},
+    "step", "lc": {"a", "lam", "mu"}}``, the JAX package's
+    ``init_train_state`` through ``jax.tree_util.tree_map(np.asarray,
+    ·)``) → the same tree of tensors on ``device``: params, AdamW
+    moments and LC refs as they were, the step counters 0-d int32."""
+    return params_from_numpy(state, device)
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """The inverse of :func:`train_state_from_numpy`."""
+    return to_numpy(state)

@@ -19,21 +19,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCHS, get_config, reduced_config
-from repro_torch.core.tasks import flatten_params, get_path
+from repro_torch.core.tasks import get_path
 from repro_torch.interop import resolve_device
+from repro_torch.launch.steps import lc_param_paths
 from repro_torch.models.transformer import init_params
 from repro_torch.runtime import compressed as cforms
 from repro_torch.runtime.server import (
     Request, Server, ServingEngine, load_compressed_for_serving)
 
 FORMS = ("dense", "quant4", "quant8", "lowrank", "sparse")
-
-
-def lc_param_paths(params) -> list[str]:
-    """The compressed set: every parameter with ndim ≥ 2 (matrices and
-    stacked matrices; norms stay uncompressed, per paper practice)."""
-    return [p for p, leaf in flatten_params(params).items()
-            if leaf.ndim >= 2]
 
 
 def compress_for_form(cfg, params, form: str, device):

@@ -54,7 +54,9 @@ def blockwise_attention(q, k, v, q_positions, k_positions, *,
 
     ``fused=True`` runs the flash-attention kernel (K6), which takes the
     full-sequence causal case of the model's prefill: Sq == Sk with
-    positions 0..S-1, scale 1/√D and V's head dim equal to D. Otherwise
+    positions 0..S-1, scale 1/√D and V's head dim equal to D. It is
+    forward-only: under autograd (grad mode on and an input requiring
+    grad) it raises, on every device, rather than cut the graph. Otherwise
     the loop below runs, scanning q chunks × kv chunks with running
     (m, l, acc) so the (Sq, Sk) logits are never formed.
     """
@@ -62,6 +64,15 @@ def blockwise_attention(q, k, v, q_positions, k_positions, *,
     sk, kv = k.shape[1], k.shape[2]
     dv = v.shape[-1]                      # may differ from d (MLA)
     if fused:
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            # the kernel has no backward: its output carries no grad_fn,
+            # so a train step through it would leave attention untrained
+            raise NotImplementedError(
+                "the flash kernel (fused=True) is forward-only and cannot "
+                "be differentiated (its backward kernel is open in "
+                "ROADMAP.md); train with fused_attention=False, the plain "
+                "online-softmax path")
         if sq != sk or scale is not None or dv != d:
             raise NotImplementedError(
                 "the flash kernel takes the causal Sq == Sk prefill with "

@@ -4,9 +4,14 @@ Port of ``src/repro/models/transformer.py`` for ``attn`` mixers and
 ``dense``/``none`` FFNs. A model = embedding → [stages] → final norm →
 unembed. A stage is either ``reps`` repetitions of a layer pattern (one
 set of block params per pattern position, stacked over reps; the
-reference's ``lax.scan`` becomes a Python loop over the stacked reps,
-without remat since serving takes no gradient) or an unrolled run of
-layers. Blocks are pre-norm residual: mixer then FFN.
+reference's ``lax.scan`` becomes a Python loop over the stacked reps)
+or an unrolled run of layers. Blocks are pre-norm residual: mixer then
+FFN. With ``cfg.remat``, a forward that records gradients checkpoints
+each repetition (or unrolled block) with
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, as the
+reference wraps its scan body and blocks in ``jax.checkpoint``; the
+training loss (``loss_fn``) takes the cross-entropy in sequence chunks
+that are checkpointed too, so (B, S, vocab) logits are never held.
 
 The MLA, Mamba and xLSTM mixers and the MoE FFN raise
 ``NotImplementedError`` naming their ROADMAP item; nothing falls back.
@@ -16,6 +21,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.interop import resolve_device
 from repro_torch.models import attention as attn
@@ -128,6 +134,14 @@ def _apply_block_full(spec, bp, x, cfg, positions, want_cache=False):
     return _apply_ffn(spec, bp, x + h, cfg), cache
 
 
+def _apply_blocks(specs, first, rp, x, cfg, positions):
+    """Blocks ``first``, ``first + 1``, … of one repetition's params
+    ``rp``, one per spec: the unit that remat recomputes."""
+    for pi, spec in enumerate(specs, start=first):
+        x, _ = _apply_block_full(spec, rp[f"pos{pi}"], x, cfg, positions)
+    return x
+
+
 def forward_hidden(params, inputs, cfg, return_caches: bool = False):
     """inputs: (B, S) int tokens or (B, S, d_input) embeddings.
 
@@ -139,6 +153,10 @@ def forward_hidden(params, inputs, cfg, return_caches: bool = False):
     x = embed(params["embed"], inputs, cfg)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int64, device=x.device)
+    # remat (training only): the reference checkpoints its scan body and
+    # each unrolled block; here one checkpoint per repetition of a
+    # stage's pattern, or per block of an unrolled stage
+    remat = cfg.remat and torch.is_grad_enabled() and not return_caches
     caches = {}
     for si, st in enumerate(plan_stages(cfg)):
         sp = params["stages"][f"s{si}"]
@@ -148,6 +166,15 @@ def forward_hidden(params, inputs, cfg, return_caches: bool = False):
         for r in range(reps):
             rp = _rep(sp, r) if st["kind"] == "scan" else sp
             cc = {}
+            if remat:
+                groups = ([st["specs"]] if st["kind"] == "scan"
+                          else [[sp_] for sp_ in st["specs"]])
+                first = 0
+                for specs in groups:
+                    x = checkpoint(_apply_blocks, specs, first, rp, x, cfg,
+                                   positions, use_reentrant=False)
+                    first += len(specs)
+                continue
             for pi, spec in enumerate(st["specs"]):
                 x, cc[f"pos{pi}"] = _apply_block_full(
                     spec, rp[f"pos{pi}"], x, cfg, positions,
@@ -256,6 +283,54 @@ def prefill(params, inputs, cfg, max_len: int | None = None):
     """The full-sequence path → last-token logits."""
     hidden, _ = forward_hidden(params, inputs, cfg)
     return unembed(params["embed"], hidden[:, -1:], cfg)
+
+
+# ----------------------------------------------------------------------
+# Training loss
+# ----------------------------------------------------------------------
+def _chunk_nll(embed_params, h, labels, mask, cfg):
+    """(Σ masked NLL, Σ mask) of one sequence chunk, in float32."""
+    logits = unembed(embed_params, h, cfg).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels.long()[..., None],
+                                dim=-1)[..., 0]
+    return torch.sum((lse - gold) * mask), torch.sum(mask)
+
+
+def chunked_ce_loss(params, hidden, labels, cfg, chunk: int = 512,
+                    mask=None):
+    """Sequence-chunked cross-entropy: never materializes (B, S, V).
+    Chunks are summed in order, each recomputed in the backward pass
+    when gradients are recorded (the reference's checkpointed scan)."""
+    b, s, d = hidden.shape
+    c = min(chunk, s)
+    assert s % c == 0
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=hidden.device)
+    mask = mask.float()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, c):
+        args = (params["embed"], hidden[:, i:i + c], labels[:, i:i + c],
+                mask[:, i:i + c], cfg)
+        if torch.is_grad_enabled():
+            nll, n = checkpoint(_chunk_nll, *args, use_reentrant=False)
+        else:
+            nll, n = _chunk_nll(*args)
+        total = total + nll
+        count = count + n
+    return total / torch.clamp_min(count, 1.0)
+
+
+def loss_fn(params, batch, cfg):
+    """batch: {"inputs": ..., "labels": (B, S)} → (loss, metrics)."""
+    hidden, aux = forward_hidden(params, batch["inputs"], cfg)
+    ce = chunked_ce_loss(params, hidden, batch["labels"], cfg,
+                         mask=batch.get("mask"))
+    loss = ce
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ----------------------------------------------------------------------

@@ -65,7 +65,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                                    "run_lc", "direct_compress",
                                    "quickstart", "gaussian_blobs", "Server",
                                    "ServingEngine", "launch.serve.main",
-                                   "init_mlp"])
+                                   "init_mlp", "LCTrainer",
+                                   "launch.train.main"])
 def test_entry_points_default_to_the_card(entry):
     """Called without ``device``, every entry point asks for CUDA and
     raises with a clear message when there is none."""
@@ -74,7 +75,8 @@ def test_entry_points_default_to_the_card(entry):
     from repro_torch import quickstart, showcase
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.data import gaussian_blobs
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
+    from repro_torch.runtime import LCTrainer
     from repro_torch.runtime import Server, ServingEngine
     params = {"l0": {"w": torch.zeros(4, 3), "b": torch.zeros(3)}}
     prob = showcase.Problem(params, torch.zeros(300, 4),
@@ -96,6 +98,10 @@ def test_entry_points_default_to_the_card(entry):
         "ServingEngine": lambda: ServingEngine(lm, {}),
         "launch.serve.main": lambda: serve.main(["--reduced"]),
         "init_mlp": lambda: showcase.init_mlp(torch.Generator()),
+        "LCTrainer": lambda: LCTrainer(lm, LCAlgorithm(tasks, [1e-3],
+                                                       device="cpu"), None),
+        "launch.train.main": lambda: train.main(["--arch", "phi3-mini-3.8b",
+                                                 "--reduced"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

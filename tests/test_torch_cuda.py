@@ -610,3 +610,111 @@ def test_c_step_kernels_on_two_streams_on_card(gen):
     for outs, ref in zip(got, want):
         for res in outs:
             assert all(torch.equal(a, b) for a, b in zip(res, ref))
+
+
+# ----------------------------------------------------------------------
+# the trainer on the card
+# ----------------------------------------------------------------------
+def _train_cfg():
+    from repro_torch.configs import get_config, reduced_config
+    return reduced_config(get_config("phi3-mini-3.8b")).with_(
+        dtype="float32", pattern_reps=2)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(gen):
+    """One LC train step (loss + penalty, clip, AdamW) on the card against
+    the same step on the CPU, leaf by leaf: metrics rtol 1e-4, params
+    rtol 1e-5 / atol 1e-5 (as tests/test_torch_train_step.py holds the
+    step), AdamW's moments m and v rtol 1e-4 / atol 1e-4 of each leaf's
+    largest magnitude (the moments scale with the clipped gradient)."""
+    from repro_torch import interop
+    from repro_torch.core.tasks import flatten_params
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import steps
+    cfg = _train_cfg()
+    state = steps.init_train_state(torch.Generator().manual_seed(0), cfg)
+    state["lc"]["mu"] = torch.tensor(0.5)
+    for p, a in state["lc"]["a"].items():
+        state["lc"]["lam"][p] = 0.01 * torch.randn_like(a)
+    batch = TokenStream(cfg.vocab_size, 2, 16).batch_at(0)
+    step = steps.make_train_step(cfg, lr=1e-3, clip_norm=0.05)
+    want, wm = step(state, batch)
+    on_card = interop.train_state_from_numpy(interop.to_numpy(state), "cuda")
+    got, gm = step(on_card, {k: v.cuda() for k, v in batch.items()})
+    for k in ("loss", "ce", "lc_penalty", "grad_norm"):
+        torch.testing.assert_close(gm[k].cpu(), wm[k], rtol=1e-4, atol=0)
+
+    def leaves(tree):
+        return {k: torch.from_numpy(v)
+                for k, v in flatten_params(interop.to_numpy(tree)).items()}
+
+    for part, rtol in (("params", 1e-5), ("m", 1e-4), ("v", 1e-4)):
+        ours, theirs = (leaves(s[part] if part == "params" else s["opt"][part])
+                        for s in (got, want))
+        assert set(ours) == set(theirs) and len(ours) > 3
+        for k, b in theirs.items():
+            atol = 1e-5 if part == "params" else 1e-4 * float(b.abs().max())
+            torch.testing.assert_close(ours[k], b, rtol=rtol, atol=atol,
+                                       msg=lambda m: f"{part} {k}: {m}")
+    assert int(got["step"]) == 1 and int(got["opt"]["step"]) == 1
+
+
+@pytest.mark.cuda
+def test_side_stream_c_step_equals_serial_on_card(gen):
+    """The overlapped trainer's C and multiplier steps, queued on a second
+    stream behind the main stream's work, give the serial steps' Θ, a
+    and λ bit for bit; an overlapped run on the card keeps its monitors
+    clean."""
+    from repro_torch.core import AsStacked, CompressionTask, LCAlgorithm
+    from repro_torch.core.schemes import (AdaptiveQuantization,
+                                          ConstraintL0Pruning)
+    from repro_torch.data import TokenStream
+    from repro_torch.runtime import LCTrainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+    params = {"f": {"w_gate": torch.randn((4, 64, 300), device="cuda",
+                                          generator=gen),
+                    "w_down": torch.randn((4, 300, 64), device="cuda",
+                                          generator=gen)}}
+    tasks = [CompressionTask("q", "w_gate$", AsStacked("vector"),
+                             AdaptiveQuantization(k=16, iters=10)),
+             CompressionTask("p", "w_down$", AsStacked("vector"),
+                             ConstraintL0Pruning(kappa=960))]
+    lc = LCAlgorithm(tasks, [1e-3], device="cuda")
+    st = lc.set_mu(lc.init(params), 1e-3, 0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = lc.multiplier_step_async(params, lc.c_step_async(params, st))
+    torch.cuda.synchronize()
+    want = lc.multiplier_step(params, lc.c_step(params, st))
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(a, b)
+
+    cfg = _train_cfg()
+    tlc = LCAlgorithm([CompressionTask("q", r"stages/.*/w_(gate|up)$",
+                                       AsStacked("vector"),
+                                       AdaptiveQuantization(k=4, iters=5))],
+                      [1e-3, 2e-3, 4e-3], device="cuda")
+    trainer = LCTrainer(cfg, tlc, TokenStream(cfg.vocab_size, 2, 16),
+                        tcfg=TrainerConfig(steps_per_l=3, overlap="on"),
+                        device="cuda")
+    state, _ = trainer.run(0)
+    assert [h["lc_step"] for h in trainer.history] == [0, 1, 2]
+    assert all(h["c_step_violations"] == [] for h in trainer.history)
+    assert int(state["step"]) == 9
+
+
+@pytest.mark.cuda
+def test_flash_attention_refused_under_autograd_on_card(gen):
+    """K6 has no backward: through autograd it raises on the card too."""
+    from repro_torch.models.attention import blockwise_attention
+    q = torch.randn((1, 64, 2, 16), device="cuda", generator=gen,
+                    requires_grad=True)
+    k = torch.randn((1, 64, 2, 16), device="cuda", generator=gen)
+    pos = torch.arange(64, device="cuda")
+    with pytest.raises(NotImplementedError, match="fused_attention=False"):
+        blockwise_attention(q, k, k, pos, pos, fused=True)
+    with torch.no_grad():
+        out = blockwise_attention(q, k, k, pos, pos, fused=True)
+    assert out.shape == q.shape and out.grad_fn is None
