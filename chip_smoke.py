@@ -32,8 +32,10 @@ CUDA toolkit (nvcc). Phases, each of which fails the run:
    (one group of 8 items × 25,165,824 weights) and ℓ0 pruning at 5% per
    item of w_down; init, then 2 × (C step + multiplier step);
 7. K4, K5 and K6 (the serving kernels) against their plain versions on
-   the card at the serving paths' shapes, timed beside their bounds,
-   the plain versions, and a PyTorch yardstick (SDPA for K6; for K4/K5
+   the card at the serving paths' shapes (paths I and J's too: K6 at
+   MLA's qk 96 / v 64 and at mixtral's 4096 window over 4608 tokens),
+   timed beside their bounds, the plain versions, and a PyTorch
+   yardstick (SDPA for K6, the window as a mask; for K4/K5
    ``torch.matmul`` by the already-densified weight, what the
    uncompressed model pays);
 8. main path C — compressed serving of phi3-mini-3.8b at full width
@@ -89,7 +91,25 @@ CUDA toolkit (nvcc). Phases, each of which fails the run:
     H3 one bisection and one K3 each), and prints the
     train step's median time (CUDA events), tokens/s, C-step ms (serial)
     or dispatch→ready ms (overlap), LC wall time and peak memory;
-15. ``torch.profiler`` over one more LM C step, path C's prefill and 8
+15. main paths I and J — MoE and MLA serving at the published widths
+    (float32, fused attention, random weights, depth cut; each: LC init
+    and one C step, the bridge, ``Server.generate`` of 32 tokens for 2
+    prompts, logits against the densified model, greedy agreement 1.0,
+    fused attention against the plain loop, exact launch counts, peak
+    memory). I1: mixtral-8x7b, 2 of 32 layers, 4-bit on the w_gate and
+    w_up expert stacks (one fused Lloyd loop over 4 items of
+    469,762,048, held against the iterated and plain loops), 8-bit
+    attention, prompts of 4608 past the 4096 window (K6 masks real keys,
+    the ring buffer wraps). I2: deepseek-moe-16b, its dense lead layer
+    and 3 MoE layers, ℓ0 at 5% on the 3 w_down expert stacks as one
+    vector of 553,648,128 (the bisection and K3 held against their
+    plain versions, exactly κ nonzeros, Θ the exact top-κ), 4-bit lead
+    FFN and shared experts (K4), 8-bit attention (K5), prompts of 512,
+    then a ``ServingEngine`` trace (8 slots, 16 requests) whose MoE
+    decode routes at capacity 1. J: minicpm3-4b, 4 of 62 layers, 8-bit
+    MLA projections, 4-bit FFN, K6 at qk 96 / v 64, prompts of 512,
+    then a short ``ServingEngine`` trace over the latent cache;
+16. ``torch.profiler`` over one more LM C step, path C's prefill and 8
     decode steps: the device's busy share, the kernels that took the
     most time and the K4/K5 kernels' sum; the device time of K9 and
     ``F.hardshrink`` at P = 266,200, and of K6 and SDPA at K6's main
@@ -102,7 +122,7 @@ CUDA toolkit (nvcc). Phases, each of which fails the run:
     shapes; last, path H's trainer (one L step and boundary serial,
     two overlapped): the device's busy share, each stream's busy time
     and the time both streams ran at once;
-16. one JSON line listing every ported kernel, then the result line.
+17. one JSON line listing every ported kernel, then the result line.
 
 Tolerances: assignments, masks and integer counts must be equal; K1/K7
 cluster sums may differ from the plain version's by the summation order
@@ -129,13 +149,14 @@ element. Beside each fused loop's bound, its design's floor (its passes
 × bytes) is printed and labelled as the design's. For the products that
 the tensor cores can run at f32 accuracy as TF32 with a 3-pass split,
 495 TFLOP/s (TF32 dense) for three times the operations, the faster of
-the two rates: 3 · 4·D per (query, key) pair kept for K6, 3 · 2·M·K·N
+the two rates: 3 · 2·(D + Dv) per (query, key) pair kept for K6, 3 · 2·M·K·N
 for K4/K5 at every M, whichever kernel (decode GEMV or tensor-core
 prefill) runs.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import importlib
 import json
 import math
@@ -166,20 +187,37 @@ K2_SHAPES = [(i, p) for i, p, _ in QUICKSTART_SHAPES] + [
     (1, 266_200), LM_K1_SHAPE[:2], MIXED_K[:2], (LM_LAYERS, LM_ITEM)]
 
 # serving (main paths C and D): decode M = 2 (Server) and 8 (engine
-# slots), prefill M = 2 × 512
+# slots), the engine's prefill tick M = 8 slots × 32, prefill M = 2 × 512
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 2, 512, 32
 SERVE_MAX_LEN = SERVE_PROMPT + SERVE_GEN
-SERVE_M = (2, 8, SERVE_BATCH * SERVE_PROMPT)
+SERVE_M = (2, 8, 8 * 32, SERVE_BATCH * SERVE_PROMPT)
 W_DOWN_KAPPA = 503_316                     # 2% of 25,165,824
 # (M, K, N, C); the JSON line reports the prefill row
 K4_SHAPES = [(m, k, n, 16) for m in SERVE_M
              for k, n in ((3072, 8192), (8192, 3072))] + [
     (5, 33, 24, 4), (5, 33, 24, 16), (17, 300, 129, 4), (17, 300, 129, 16)]
 K5_SHAPES = [(m, 3072, 3072, 64) for m in SERVE_M] + [(17, 300, 129, 8)]
+# paths I and J's products: 4-bit deepseek lead FFN (2048 × 10944) and
+# shared experts (2048 × 2816), minicpm3 FFN (2560 × 6400) at SERVE_M;
+# 8-bit mixtral attention (4096 × 4096, 4096 × 1024) at prefill (M = 2 ×
+# 4608) and decode (M = 2; path I1 runs no engine), deepseek attention
+# (2048²) and minicpm3's MLA projections (wdq 2560 × 768, wuq 768 × 3840,
+# wdkv 2560 × 288, wo 2560²) at SERVE_M
+K4_SHAPES += [(m, k, n, 16) for m in SERVE_M
+              for k, n in ((2048, 2816), (2816, 2048), (2560, 6400),
+                           (6400, 2560), (2048, 10944), (10944, 2048))]
+K5_SHAPES += [(9216, 4096, 4096, 64), (9216, 4096, 1024, 64),
+              (2, 4096, 4096, 64), (2, 4096, 1024, 64)] + [
+    (m, k, n, 64) for m in SERVE_M
+    for k, n in ((2048, 2048), (2560, 768), (768, 3840), (2560, 288),
+                 (2560, 2560))]
 K4_MAIN, K5_MAIN = (1024, 3072, 8192, 16), (1024, 3072, 3072, 64)
-# (B, S, H, KV, D, window)
-K6_SHAPES = [(2, 512, 32, 32, 96, 0), (1, 512, 32, 8, 96, 0),
-             (1, 512, 8, 2, 64, 128), (2, 97, 6, 3, 16, 7)]
+# (B, S, H, KV, D, Dv, window): phi3-mini's prefill first, then
+# minicpm3-4b's MLA prefill (qk 96, v 64) and mixtral-8x7b's (S = 4608
+# against a 4096 window)
+K6_SHAPES = [(2, 512, 32, 32, 96, 96, 0), (1, 512, 32, 8, 96, 96, 0),
+             (1, 512, 8, 2, 64, 64, 128), (2, 97, 6, 3, 16, 16, 7),
+             (2, 512, 40, 40, 96, 64, 0), (2, 4608, 32, 8, 128, 128, 4096)]
 
 # K3 on the main path: the top-κ solver's last pass over w_down's 4 items
 # (LM phase, path C), kept at a top-1% threshold here; ragged rows too
@@ -231,6 +269,20 @@ H_BATCH, H_SEQ = 8, 1024
 H_MU0, H_MU_A, H_LR = 9e-5, 1.2, 1e-3
 H_GROUPS = [(4 * LM_LAYERS, LM_D_MODEL * LM_D_MODEL), (3 * LM_LAYERS, LM_ITEM)]
 H_WEIGHTS = sum(i * p for i, p in H_GROUPS)           # 452,984,832
+
+
+# paths I and J: mixtral-8x7b (2 of 32 layers; 2 prompts of 4608 tokens,
+# past its 4096 window; 4-bit on the w_gate and w_up expert stacks, one
+# item of 8 × 4096 × 14336 each), deepseek-moe-16b (its dense lead layer
+# and 3 of 27 MoE layers; ℓ0 at 5% on the 3 w_down expert stacks, 64 ×
+# 1408 × 2048 each, as one vector) and minicpm3-4b (4 of 62 layers)
+MIX_LAYERS, MIX_PROMPT = 2, 4608
+MIX_ITEM = 8 * 4096 * 14336                          # 469,762,048
+I1_MATRICES = ("w_gate", "w_up")
+DS_MOE_LAYERS = 3
+DS_ITEM = 64 * 1408 * 2048                           # 184,549,376
+DS_KAPPA = int(0.05 * DS_MOE_LAYERS * DS_ITEM)       # 27,682,406
+CPM_LAYERS = 4
 
 
 def fail(msg: str) -> None:
@@ -293,6 +345,20 @@ def timed_turns(fns, reps: int) -> list[float]:
             end.synchronize()
             times[which].append(start.elapsed_time(end))
     return [statistics.median(t) for t in times]
+
+
+@contextlib.contextmanager
+def profiled(activities):
+    """``torch.profiler.profile`` over ``activities`` whose first device
+    event is a fill that no check counts: a session can miss the first
+    kernel it records (on the H100 the missing event of a session was its
+    first launch each time it was traced), so no counted launch of the
+    port's kernels comes first."""
+    from torch.profiler import profile
+    with profile(activities=activities) as prof:
+        torch.empty(1, device="cuda").fill_(0.0)
+        torch.cuda.synchronize()
+        yield prof
 
 
 def kernel_phase(k1, k2, power: str) -> dict:
@@ -769,38 +835,50 @@ def serve_kernel_phase(k45, k6, power: str) -> dict:
     for m, k, n, c in K5_SHAPES:
         gemm_case("K5", m, k, n, c)
 
-    for b, s, h, kvh, d, window in K6_SHAPES:
+    for b, s, h, kvh, d, dv, window in K6_SHAPES:
         grp = h // kvh
         q = torch.randn((b, kvh, grp, s, d), device="cuda", generator=g)
         k = torch.randn((b, kvh, s, d), device="cuda", generator=g)
-        v = torch.randn((b, kvh, s, d), device="cuda", generator=g)
-        got = k6.flash_attention(q, k, v, window=window)
+        v = torch.randn((b, kvh, s, dv), device="cuda", generator=g)
+        # MLA passes its scale; another than the default 1/√D, so that
+        # the row shows the caller's scale reaches the kernel
+        scale = 0.9 / math.sqrt(d) if dv != d else None
+        got = k6.flash_attention(q, k, v, window=window, scale=scale)
         torch.cuda.synchronize()
-        want = k6.flash_attention_plain(q, k, v, window=window)
+        want = k6.flash_attention_plain(q, k, v, window=window, scale=scale)
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
         err = float((got - want).abs().max())
-        fns = [lambda: k6.flash_attention(q, k, v, window=window),
-               lambda: k6.flash_attention_plain(q, k, v, window=window)]
-        if window == 0:
-            qh = q.reshape(b, h, s, d)
-            fns.append(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qh, k, v, is_causal=True, enable_gqa=True))
-        times = timed_turns(fns, 50)
-        ms, plain_ms = times[:2]
-        lib_ms = times[2] if window == 0 else None
+        del want
+        qh = q.reshape(b, h, s, d)
+        # SDPA: causal, or the causal window as a boolean mask
+        mask = None
+        if window:
+            pos = torch.arange(s, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - window)
+        fns = [lambda: k6.flash_attention(q, k, v, window=window,
+                                          scale=scale),
+               lambda: k6.flash_attention_plain(q, k, v, window=window,
+                                                scale=scale),
+               lambda: F.scaled_dot_product_attention(
+                   qh, k, v, attn_mask=mask, is_causal=mask is None,
+                   scale=scale, enable_gqa=True)]
+        ms, plain_ms, lib_ms = timed_turns(fns, 50 if s <= 1024 else 10)
         pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
-        # three TF32 passes of 4·D operations per pair (the f32 split)
-        b_ms, b_by = bound(4.0 * (2 * b * h * s * d + 2 * b * kvh * s * d),
-                           3 * 4.0 * d * b * h * pairs, TF32_OPS_PER_S)
-        rec["K6"].append({"shape": [b, s, h, kvh, d, window], "ms": ms,
+        # three TF32 passes of 2·D (Q·Kᵀ) + 2·Dv (P·V) operations per
+        # pair (the f32 split)
+        b_ms, b_by = bound(
+            4.0 * (b * h * s * (d + dv) + b * kvh * s * (d + dv)),
+            3 * 2.0 * (d + dv) * b * h * pairs, TF32_OPS_PER_S)
+        rec["K6"].append({"shape": [b, s, h, kvh, d, dv, window], "ms": ms,
                           "plain_ms": plain_ms, "bound_ms": b_ms,
                           "bound_by": b_by, "max_abs_err": err,
                           "library_ms": lib_ms})
-        print(f"K6 B={b} S={s} H={h} KV={kvh} D={d} window={window}: "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.3g} "
-              f"({b_by}) sdpa_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} "
+        print(f"K6 B={b} S={s} H={h} KV={kvh} D={d} Dv={dv} "
+              f"window={window}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.3g} ({b_by}) sdpa_ms={lib_ms:.4f} "
               f"max|Δ|={err:.3g} [{power}]", flush=True)
-        del q, k, v, got, want
+        del q, k, v, qh, got, mask
     torch.cuda.empty_cache()
     return rec
 
@@ -836,11 +914,10 @@ def device_profile(fn, label: str, power: str, kern: dict) -> list:
     profiler adds host work, so the wall time here is above the untraced
     one."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     torch.cuda.synchronize()
     reset(kern)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -894,7 +971,7 @@ def serving_config():
 
 
 @torch.inference_mode()
-def teacher_logits(params, cfg, prompts_t, toks_t):
+def teacher_logits(params, cfg, prompts_t, toks_t, max_len=SERVE_MAX_LEN):
     """Logits of ``params`` at every generation step, teacher-forced with
     the generated tokens ``toks_t``; with prefill ms and decode ms per
     step."""
@@ -908,26 +985,28 @@ def teacher_logits(params, cfg, prompts_t, toks_t):
     out = [unembed(params["embed"], hidden[:, -1:], cfg)[:, 0]]
     torch.cuda.synchronize()
     t_pre = time.time() - t0
-    caches = srv.pad_caches_to(caches, cfg, SERVE_PROMPT, SERVE_MAX_LEN)
+    s, n_gen = prompts_t.shape[1], toks_t.shape[1]
+    caches = srv.pad_caches_to(caches, cfg, s, max_len)
     t0 = time.time()
-    for i in range(SERVE_GEN - 1):
+    for i in range(n_gen - 1):
         logits, caches = tf.decode_step(params, caches, toks_t[:, i:i + 1],
-                                        SERVE_PROMPT + i, cfg)
+                                        s + i, cfg)
         out.append(logits[:, 0])
     torch.cuda.synchronize()
-    t_dec = (time.time() - t0) / (SERVE_GEN - 1)
+    t_dec = (time.time() - t0) / (n_gen - 1)
     return torch.stack(out, dim=1), t_pre, t_dec
 
 
 def against_densified(label, cfg, serving, dense, prompts_t, toks_t,
-                      power: str) -> float:
+                      power: str, max_len=SERVE_MAX_LEN) -> float:
     """The served model's logits within 1e-3·max|logit| of the densified
     model's at every step (both teacher-forced with the served tokens),
     and every served token a maximum of both; returns the greedy token
     agreement."""
     lc_logits, pre_c, dec_c = teacher_logits(serving, cfg, prompts_t,
-                                             toks_t)
-    ld_logits, pre_d, dec_d = teacher_logits(dense, cfg, prompts_t, toks_t)
+                                             toks_t, max_len)
+    ld_logits, pre_d, dec_d = teacher_logits(dense, cfg, prompts_t, toks_t,
+                                             max_len)
     tol = 1e-3 * float(ld_logits.abs().max())
     diff = (lc_logits - ld_logits).abs().amax(dim=(0, 2))     # per step
     check(bool((diff <= tol).all()),
@@ -950,23 +1029,15 @@ def against_densified(label, cfg, serving, dense, prompts_t, toks_t,
 
 
 def main_path_c(kern, power: str) -> dict:
-    """LC init + one C step → bridge → ``Server.generate`` on phi3-mini at
-    full width; ``kern`` maps K1–K9 to their launch counters. Returns the
-    path's launches and what path D needs."""
-    from repro_torch.core import (
-        AsVector, CompressionTask, LCAlgorithm, flatten_params)
+    """phi3-mini at full width, 4 of 32 layers: 4-bit k=16 on each
+    layer's w_gate/w_up, 8-bit k=64 on its attention and ℓ0 on its
+    w_down (the fused bisection and K3), served by ``serve_path`` and
+    checked by ``check_served``. Returns the path's launches and what
+    path D and the profile phase need."""
+    from repro_torch.core import AsVector, CompressionTask
     from repro_torch.core.schemes import (
         AdaptiveQuantization, ConstraintL0Pruning)
-    from repro_torch.models import transformer as tf
-    from repro_torch.runtime import server as srv
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = serving_config()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    params = tf.init_params(torch.Generator(device="cuda").manual_seed(2),
-                            cfg)
-    n_params = sum(t.numel() for t in flatten_params(params).values())
     tasks = []
     for i in range(LM_LAYERS):
         pre = rf"^stages/s0/pos{i}/"
@@ -977,37 +1048,11 @@ def main_path_c(kern, power: str) -> dict:
                             AsVector(), AdaptiveQuantization(k=64, iters=10)),
             CompressionTask(f"down{i}", pre + r"ffn/w_down$", AsVector(),
                             ConstraintL0Pruning(kappa=W_DOWN_KAPPA))]
-    rng = np.random.default_rng(4)
-    prompts = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
-                           dtype=np.int64).astype(np.int32)
-
-    reset(kern)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    lc = LCAlgorithm(tasks, [1e-4], device="cuda")
-    state = lc.init(params)
-    torch.cuda.synchronize()
-    t_init = time.time() - t0
-    t0 = time.time()
-    state = lc.c_step(params, state)
-    torch.cuda.synchronize()
-    t_cstep = time.time() - t0
-    t0 = time.time()
-    serving, report = srv.load_compressed_for_serving(params, state,
-                                                      lc.tasks)
-    torch.cuda.synchronize()
-    t_bridge = time.time() - t0
-    server = srv.Server(cfg, serving, max_len=SERVE_MAX_LEN, device="cuda")
-    t0 = time.time()
-    res = server.generate(prompts, SERVE_GEN)
-    torch.cuda.synchronize()
-    t_gen = time.time() - t0
-    launches = {n: kk.launches for n, kk in kern.items()}
-    peak = torch.cuda.max_memory_allocated() / 2**30
-
-    kinds = [f.split("(")[0] for fs in report.values() for f in fs.values()]
-    check(sorted(kinds) == ["quant4"] * 8 + ["quant8"] * 16 + ["sparse"] * 4,
-          f"bridged forms {sorted(kinds)}")
+    run = serve_path(kern, "C", cfg, tasks, SERVE_PROMPT, power,
+                     seeds=(2, 4))
+    check(run["kinds"] == {"quant4": 2 * LM_LAYERS, "quant8": 4 * LM_LAYERS,
+                           "sparse": LM_LAYERS},
+          f"C bridged forms {run['kinds']}")
     # LC init runs no kernel (in either package); the C step runs two
     # k-means groups (one fused Lloyd loop each) and one fused bisection;
     # generate runs every quantized matrix once per token (prefill + 31
@@ -1015,83 +1060,14 @@ def main_path_c(kern, power: str) -> dict:
     want = only(kern, K1loop=2, K2loop=1, K3=1,
                 K4=LM_LAYERS * 2 * SERVE_GEN,
                 K5=LM_LAYERS * 4 * SERVE_GEN, K6=LM_LAYERS)
-    check(launches == want, f"path C launches {launches} != {want}")
-    toks = res.tokens
-    check(toks.shape == (SERVE_BATCH, SERVE_GEN) and toks.min() >= 0
-          and toks.max() < cfg.vocab_size, f"generated tokens {toks.shape}")
-    print(f"main path C (phi3-mini-3.8b full width, {LM_LAYERS} layers, "
-          f"{n_params:,} params): init_s={t_init:.2f} c_step_s={t_cstep:.3f} "
-          f"bridge_s={t_bridge:.3f} generate_s={t_gen:.3f} "
-          f"({SERVE_BATCH}x{SERVE_PROMPT} prompt, {SERVE_GEN} new tokens) "
-          f"peak_memory_gib={peak:.2f} launches={launches} [{power}]",
-          flush=True)
-
-    # checks, outside the counted run: the densified model (cuBLAS, TF32
-    # off) teacher-forced with the compressed run's tokens
-    dense = srv.densified_for_serving(params, state, lc.tasks)
-    del state, lc
-    prompts_t = torch.as_tensor(prompts, device="cuda")
-    toks_t = torch.as_tensor(toks, device="cuda")
-    against_densified("path C", cfg, serving, dense, prompts_t, toks_t,
-                      power)
-    del dense
-
-    # K6 inside the model: fused (the kernel) against the plain loop
-    with torch.inference_mode():
-        h_fused, _ = tf.forward_hidden(serving, prompts_t, cfg)
-        h_plain, _ = tf.forward_hidden(
-            serving, prompts_t, cfg.with_(fused_attention=False))
-    torch.testing.assert_close(h_fused, h_plain, rtol=2e-4, atol=2e-4)
-    print(f"path C fused vs plain attention: max|Δhidden|="
-          f"{float((h_fused - h_plain).abs().max()):.3g}", flush=True)
-    del h_fused, h_plain, params
+    check(run["kmeans_groups"] == 2 and run["launches"] == want,
+          f"path C launches {run['launches']} != {want}")
+    del run["state"], run["lc"]
+    check_served("path C", cfg, run, power)
+    out = {k: run[k] for k in ("launches", "serving", "prompts", "tokens")}
+    del run
     torch.cuda.empty_cache()
-    return {"launches": launches, "cfg": cfg, "serving": serving,
-            "prompts": prompts_t, "tokens": toks_t}
-
-
-def main_path_d(kern, cfg, serving, power: str) -> dict:
-    """``ServingEngine`` on the compressed model: 24 Poisson requests of
-    mixed lengths through 8 slots."""
-    from repro_torch.runtime import server as srv
-    rng = np.random.default_rng(5)
-    t, reqs = 0.0, []
-    for i in range(24):
-        t += float(rng.exponential(0.02))
-        n = int(rng.integers(32, 385))
-        reqs.append(srv.Request(
-            id=i, prompt=rng.integers(1, cfg.vocab_size, size=n)
-            .astype(np.int32), max_new=int(rng.integers(16, 65)),
-            arrival=t))
-    reset(kern)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    eng = srv.ServingEngine(cfg, serving, slots=8, max_len=448,
-                            prefill_chunk=32, device="cuda")
-    out = eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = {n: kk.launches for n, kk in kern.items()}
-    fin = {f.id: f for f in out["finished"]}
-    check(not out["rejected"], f"rejected {[r.id for r in out['rejected']]}")
-    check(sorted(fin) == list(range(24)), "unfinished requests")
-    check(all(len(fin[r.id].tokens) == r.max_new for r in reqs),
-          "a request got another number of tokens than max_new")
-    check(launches["K4"] > 0 and launches["K5"] > 0
-          and launches == only(kern, K4=launches["K4"], K5=launches["K5"]),
-          f"path D launches {launches}")
-    check(eng.trace_counts == {"decode": 1, "prefill": 1, "reset": 1},
-          f"program signatures {eng.trace_counts}")
-    s = out["stats"]
-    print(f"main path D (ServingEngine, 8 slots, 24 requests, prompts "
-          f"32-384, max_new 16-64): tokens={s['tokens']} "
-          f"tokens_per_s={s['tokens_per_sec']:.1f} "
-          f"p50_latency_s={s['p50_latency_s']:.3f} "
-          f"p99_latency_s={s['p99_latency_s']:.3f} "
-          f"p50_ttft_s={s['p50_ttft_s']:.3f} p99_ttft_s={s['p99_ttft_s']:.3f} "
-          f"wall_s={wall:.2f} signatures={eng.trace_counts} "
-          f"launches={launches} [{power}]", flush=True)
-    return launches
+    return {"cfg": cfg, **out}
 
 
 def mask_count_phase(k1, k2, power: str) -> dict:
@@ -1404,14 +1380,14 @@ def jacobi_kernels_per_round() -> float:
     over one and two sweeps at the sketch width 144 (run after the timed
     paths: the profiler slows every later launch of the process)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     from repro_torch.kernels.lowrank.lowrank import jacobi_eigh_batched
     a = torch.randn((12, 144, 144), device="cuda")
     a = a @ a.transpose(1, 2)
     counts = []
     for sweeps in (1, 2):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profiled([ProfilerActivity.CUDA]) as prof:
             jacobi_eigh_batched(a, sweeps=sweeps)
             torch.cuda.synchronize()
         counts.append(sum(e.count for e in prof.key_averages()
@@ -1656,14 +1632,14 @@ def device_times(k2, k6, k9_row: dict, k6_row: dict, card: str) -> None:
     ``k6_row``), which hold the host's share of a call too. Runs after the
     timed phases (a profiler session slows every later launch)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     g = torch.Generator(device="cuda").manual_seed(6)
     w = torch.randn(LENET_WEIGHTS, device="cuda", generator=g)
     t = w.abs().kthvalue(LENET_WEIGHTS - LENET_KAPPA).values
     t_f = float(t)
     check(torch.equal(k2.mask_apply(w, t), F.hardshrink(w, t_f)),
           "K9 against hardshrink (profiled)")
-    b, s, h, kvh, d, _ = K6_SHAPES[0]
+    b, s, h, kvh, d, _, _ = K6_SHAPES[0]
     q = torch.randn((b, kvh, h // kvh, s, d), device="cuda", generator=g)
     k = torch.randn((b, kvh, s, d), device="cuda", generator=g)
     v = torch.randn((b, kvh, s, d), device="cuda", generator=g)
@@ -1677,7 +1653,7 @@ def device_times(k2, k6, k9_row: dict, k6_row: dict, card: str) -> None:
                 qh, k, v, is_causal=True, enable_gqa=True))):
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profiled([ProfilerActivity.CUDA]) as prof:
             for _ in range(50):
                 fn()
             torch.cuda.synchronize()
@@ -1699,14 +1675,14 @@ def device_times(k2, k6, k9_row: dict, k6_row: dict, card: str) -> None:
 
 
 def quant_device_times(k45, srec: dict, card: str) -> None:
-    """K4 and K5 at the serving paths' shapes (decode M = 2 and 8,
-    prefill M = 1024) under ``torch.profiler``: the summed device time
+    """K4 and K5 at the serving paths' shapes (decode M = 2 and 8, the
+    engine's prefill tick M = 256, prefill M = 1024) under ``torch.profiler``: the summed device time
     of 50 calls, the weight rotated over enough copies to exceed the
     50 MB L2 (as a decode step finds it), beside the bytes bound and the
     CUDA-event time of the row in phase 7. Runs after the timed phases
     (a profiler session slows every later launch)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     from repro_torch.kernels.quant_matmul import ops as qops
     g = torch.Generator(device="cuda").manual_seed(7)
     for name, k, n, c in (("K4", 3072, 8192, 16), ("K5", 3072, 3072, 64)):
@@ -1725,7 +1701,7 @@ def quant_device_times(k45, srec: dict, card: str) -> None:
             torch.testing.assert_close(fn(x, ws[1], cb), plain(x, w0, cb),
                                        rtol=1e-5, atol=1e-4)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with profiled([ProfilerActivity.CUDA]) as prof:
                 for i in range(50):
                     fn(x, ws[i % copies], cb)
                 torch.cuda.synchronize()
@@ -1761,13 +1737,13 @@ def cstep_device_times(k1, k2, rec: dict, mrec: dict, frec: dict,
     phases (``rec``, ``mrec``, ``frec``). Runs after the timed phases (a
     profiler session slows every later launch)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     g = torch.Generator(device="cuda").manual_seed(10)
 
     def device_ms(call, n_calls: int) -> float:
         call(0)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profiled([ProfilerActivity.CUDA]) as prof:
             for j in range(n_calls):
                 call(j)
             torch.cuda.synchronize()
@@ -2247,12 +2223,12 @@ def profile_path_h(kern, power: str) -> None:
 
 def profile_after_overlap(k45, card: str) -> None:
     """One profiler session of 50 K4 launches after path H's overlapped
-    profile: print how many launches its trace shows. After that session
-    every later one of the process showed one launch fewer than it made
-    (PERF.md), so it runs last and every profile above checks its
-    counts."""
+    profile: print how many launches its trace shows. Sessions after
+    that one missed their first kernel event (PERF.md); every session
+    now opens with an uncounted fill (``profiled``), and this one shows
+    whether the launches themselves all reach the trace."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     from repro_torch.kernels.quant_matmul import ops as qops
     g = torch.Generator(device="cuda").manual_seed(11)
     idx = torch.randint(0, 16, (LM_D_MODEL, LM_D_FF), device="cuda",
@@ -2262,7 +2238,7 @@ def profile_after_overlap(k45, card: str) -> None:
     x = torch.randn((2, LM_D_MODEL), device="cuda", generator=g)
     k45.quant_matmul_packed(x, w, cb)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiled([ProfilerActivity.CUDA]) as prof:
         for _ in range(50):
             k45.quant_matmul_packed(x, w, cb)
         torch.cuda.synchronize()
@@ -2270,6 +2246,443 @@ def profile_after_overlap(k45, card: str) -> None:
                if e.device_type == DeviceType.CUDA and port_kernel(e.key))
     print(f"profiler after the overlapped profile: {seen} of 50 K4 "
           f"launches in the trace [{card}]", flush=True)
+
+
+# ----------------------------------------------------------------------
+# paths I and J: MoE and MLA serving at the published widths
+# ----------------------------------------------------------------------
+def moe_mla_config(arch: str, layers: int):
+    """``arch`` at its published widths, float32, fused attention, cut to
+    ``layers`` repetitions of its pattern (unrolled: the bridge needs
+    per-layer leaves) after its lead layers."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    cfg = cfg.with_(pattern=cfg.pattern * layers, pattern_reps=1,
+                    dtype="float32", fused_attention=True)
+    widths = {"mixtral-8x7b": (4096, 32, 8, 128, 32000, 8, 2, 14336, 0),
+              "deepseek-moe-16b": (2048, 16, 16, 128, 102400, 64, 6, 1408,
+                                   2),
+              "minicpm3-4b": (2560, 40, 40, 64, 73448, 768, 256, 64, 32,
+                              64, 6400, True)}[arch]
+    got = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+           cfg.vocab_size)
+    check(cfg.pattern[0].window == (4096 if arch == "mixtral-8x7b" else 0),
+          f"{arch} window")
+    if cfg.moe is not None:
+        got += (cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_expert,
+                cfg.moe.n_shared)
+    if cfg.mla is not None:
+        m = cfg.mla
+        got += (m.q_lora_rank, m.kv_lora_rank, m.qk_nope_dim,
+                m.qk_rope_dim, m.v_head_dim, cfg.d_ff, cfg.tie_embeddings)
+    check(got == widths, f"{arch} widths {got}")
+    return cfg
+
+
+def kmeans_groups(lc, params) -> int:
+    """The C step's k-means groups: one fused Lloyd loop each."""
+    return sum(g["solver"] == "kmeans_lloyd"
+               for g in lc.group_summary(params))
+
+
+def serve_path(kern, label: str, cfg, tasks, prompt_len: int,
+               power: str, seeds: tuple[int, int], capture=()):
+    """LC init + one C step → bridge → ``Server.generate`` (2 prompts of
+    ``prompt_len``, SERVE_GEN new tokens) with every kernel launch
+    counted from 0; returns the run's record. ``seeds`` seed the weights
+    and the prompts; ``capture`` lists (module, name) of kernel wrappers
+    whose calls in the C step are kept for the checks."""
+    from repro_torch.core import LCAlgorithm, flatten_params
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime import server as srv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the peak is this path's own: nothing of an earlier path may linger
+    # in a reference cycle
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_params(
+        torch.Generator(device="cuda").manual_seed(seeds[0]), cfg)
+    n_params = sum(t.numel() for t in flatten_params(params).values())
+    prompts = np.random.default_rng(seeds[1]).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, prompt_len),
+        dtype=np.int64).astype(np.int32)
+    max_len = prompt_len + SERVE_GEN
+    reset(kern)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    lc = LCAlgorithm(tasks, [1e-4], device="cuda")
+    state = lc.init(params)
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    with contextlib.ExitStack() as stack:
+        calls = [stack.enter_context(calls_of(m, n, 0)) for m, n in capture]
+        t0 = time.time()
+        state = lc.c_step(params, state)
+        torch.cuda.synchronize()
+        t_cstep = time.time() - t0
+    t0 = time.time()
+    serving, report = srv.load_compressed_for_serving(params, state,
+                                                      lc.tasks)
+    torch.cuda.synchronize()
+    t_bridge = time.time() - t0
+    server = srv.Server(cfg, serving, max_len=max_len, device="cuda")
+    t0 = time.time()
+    res = server.generate(prompts, SERVE_GEN)
+    torch.cuda.synchronize()
+    t_gen = time.time() - t0
+    n = launches(kern)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    toks = res.tokens
+    check(toks.shape == (SERVE_BATCH, SERVE_GEN) and toks.min() >= 0
+          and toks.max() < cfg.vocab_size, f"{label} tokens {toks.shape}")
+    print(f"main path {label} ({cfg.name} full width, {cfg.n_layers} "
+          f"layers, {n_params:,} params): init_s={t_init:.2f} "
+          f"c_step_s={t_cstep:.3f} bridge_s={t_bridge:.3f} "
+          f"generate_s={t_gen:.3f} ({SERVE_BATCH}x{prompt_len} prompt, "
+          f"{SERVE_GEN} new tokens) init_peak_memory_gib={init_peak:.2f} "
+          f"peak_memory_gib={peak:.2f} "
+          f"launches={ {k: v for k, v in n.items() if v} } [{power}]",
+          flush=True)
+    kinds = {}
+    for forms in report.values():
+        for f in forms.values():
+            kinds[f.split("(")[0]] = kinds.get(f.split("(")[0], 0) + 1
+    dense = srv.densified_for_serving(params, state, lc.tasks)
+    groups = kmeans_groups(lc, params)
+    del params
+    prompts_t = torch.as_tensor(prompts, device="cuda")
+    toks_t = torch.as_tensor(toks, device="cuda")
+    return {"launches": n, "kinds": kinds, "state": state, "lc": lc,
+            "serving": serving, "dense": dense, "prompts": prompts_t,
+            "tokens": toks_t, "max_len": max_len, "calls": calls,
+            "kmeans_groups": groups, "peak_gib": peak}
+
+
+def check_served(label: str, cfg, run: dict, power: str) -> None:
+    """The served logits against the densified model's, greedy tokens
+    agreeing at 1.0, fused attention (K6) against the plain loop."""
+    from repro_torch.models import transformer as tf
+    agree = against_densified(label, cfg, run["serving"], run["dense"],
+                              run["prompts"], run["tokens"], power,
+                              max_len=run["max_len"])
+    check(agree == 1.0, f"{label} token agreement {agree}")
+    # the plain loop's chunks must divide the prompt (4608 = 9 × 512)
+    chunk = math.gcd(run["prompts"].shape[1], cfg.attn_chunk_q)
+    with torch.inference_mode():
+        h_fused, _ = tf.forward_hidden(run["serving"], run["prompts"], cfg)
+        h_plain, _ = tf.forward_hidden(
+            run["serving"], run["prompts"], cfg.with_(
+                fused_attention=False, attn_chunk_q=chunk,
+                attn_chunk_kv=chunk))
+    torch.testing.assert_close(h_fused, h_plain, rtol=2e-4, atol=2e-4)
+    print(f"{label} fused vs plain attention: max|Δhidden|="
+          f"{float((h_fused - h_plain).abs().max()):.3g}", flush=True)
+
+
+def check_lloyd_at(k1, calls, label: str, power: str) -> dict:
+    """The C step's fused Lloyd loops (``calls``) held against the
+    iterated and plain loops on their own operands (``check_lloyd``),
+    the fused loop timed (3 turns) beside the plain loop (one run) and
+    its bound; returns the largest item stack's row."""
+    rows = []
+    for (w, cb, iters), _, got in calls:
+        err, moved = check_lloyd(k1, w, cb, iters, got,
+                                 f"{label} Lloyd loop {tuple(w.shape)}")
+        k = cb.shape[1]
+        ms = timed_turns([lambda: k1.kmeans_lloyd_batched(w, cb, iters)],
+                         3)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k1.kmeans_lloyd_batched_plain(w, cb, iters)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        b_ms, b_by, floor = lloyd_bound(k1, w, k, iters)
+        rows.append({"shape": list(w.shape), "k": k, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "max_abs_err": err})
+        print(f"path {label}: Lloyd loop I={w.shape[0]} P={w.shape[1]} "
+              f"K={k} iters={iters} of the C step bit-identical to the "
+              f"iterated loop, max|Δcb| vs plain loop={err:.3g}, "
+              f"assignments differing from the plain loop's={moved}; "
+              f"ms={ms:.3f} plain_ms={plain_ms:.1f} bound_ms={b_ms:.3f} "
+              f"({b_by}) design_floor_ms={floor:.3f} [{power}]", flush=True)
+    return max(rows, key=lambda r: r["shape"][0] * r["shape"][1])
+
+
+def main_path_i1(kern, k1, power: str) -> dict:
+    """mixtral-8x7b at full width, 2 of 32 layers: 4-bit k=16 on the
+    expert stacks I1_MATRICES of both layers (one AsVector task a matrix
+    and layer: one fused Lloyd loop over items of 469,762,048 weights),
+    8-bit k=64 on each layer's attention; ``Server.generate`` on 2
+    prompts of 4608 > the 4096 window (K6 masks real keys, the ring
+    buffer wraps in decode)."""
+    from repro_torch.core import AsVector, CompressionTask
+    from repro_torch.core.schemes import AdaptiveQuantization
+    from repro_torch.kernels.kmeans import ops as kops
+    cfg = moe_mla_config("mixtral-8x7b", MIX_LAYERS)
+    check(0 < cfg.pattern[0].window < MIX_PROMPT, "mixtral window")
+    tasks = []
+    for i in range(MIX_LAYERS):
+        pre = rf"^stages/s0/pos{i}/"
+        tasks += [CompressionTask(f"{m}{i}", pre + rf"ffn/{m}$", AsVector(),
+                                  AdaptiveQuantization(k=16, iters=10))
+                  for m in I1_MATRICES]
+        tasks.append(CompressionTask(
+            f"attn{i}", pre + r"mixer/(wq|wk|wv|wo)$", AsVector(),
+            AdaptiveQuantization(k=64, iters=10)))
+    run = serve_path(kern, "I1", cfg, tasks, MIX_PROMPT, power,
+                     seeds=(21, 21),
+                     capture=[(kops, "kmeans_lloyd_batched")])
+    n_experts = len(I1_MATRICES) * MIX_LAYERS
+    check(run["kinds"] == {"dense": n_experts, "quant8": 4 * MIX_LAYERS},
+          f"I1 bridged forms {run['kinds']}")
+    # the C step: one Lloyd loop for the expert stacks, one for the
+    # attention; generate: every attention matrix once a token, K6 once a
+    # layer at prefill (the expert stacks stay dense: batched GEMMs)
+    want = only(kern, K1loop=2, K5=4 * MIX_LAYERS * SERVE_GEN,
+                K6=MIX_LAYERS)
+    check(run["kmeans_groups"] == 2 and run["launches"] == want,
+          f"I1 launches {run['launches']} != {want}")
+    (lloyd,) = run.pop("calls")
+    shapes = sorted(tuple(a[0].shape) for a, _, _ in lloyd)
+    attn = 2 * cfg.d_model * (cfg.q_dim + cfg.kv_dim)
+    check(shapes == sorted([(n_experts, MIX_ITEM), (MIX_LAYERS, attn)]),
+          f"I1 Lloyd loops {shapes}")
+    del run["state"], run["lc"]
+    check_served("path I1", cfg, run, power)
+    out = {"launches": run["launches"], "peak_gib": run["peak_gib"]}
+    del run
+    torch.cuda.empty_cache()
+    out["lloyd"] = check_lloyd_at(k1, lloyd, "I1", power)
+    del lloyd
+    torch.cuda.empty_cache()
+    return out
+
+
+def engine_trace(kern, label: str, cfg, serving, n_req: int, prompts,
+                 new, power: str) -> dict:
+    """``ServingEngine`` (8 slots, prefill chunks of 32) on a Poisson
+    trace of ``n_req`` requests, prompt lengths in ``prompts`` and new
+    tokens in ``new`` (inclusive ranges); only K4 and K5 may launch."""
+    from repro_torch.runtime import server as srv
+    rng = np.random.default_rng(5)
+    t, reqs = 0.0, []
+    for i in range(n_req):
+        t += float(rng.exponential(0.02))
+        reqs.append(srv.Request(
+            id=i, prompt=rng.integers(1, cfg.vocab_size,
+                                      size=int(rng.integers(prompts[0],
+                                                            prompts[1] + 1)))
+            .astype(np.int32), max_new=int(rng.integers(new[0], new[1] + 1)),
+            arrival=t))
+    max_len = prompts[1] + new[1]
+    reset(kern)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    eng = srv.ServingEngine(cfg, serving, slots=8, max_len=max_len,
+                            prefill_chunk=32, device="cuda")
+    out = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n = launches(kern)
+    fin = {f.id: f for f in out["finished"]}
+    check(not out["rejected"] and sorted(fin) == list(range(n_req)),
+          f"{label} finished {sorted(fin)}")
+    check(all(len(fin[r.id].tokens) == r.max_new for r in reqs),
+          f"{label}: a request got another number of tokens than max_new")
+    check(n["K4"] > 0 and n["K5"] > 0
+          and n == only(kern, K4=n["K4"], K5=n["K5"]),
+          f"{label} launches {n}")
+    check(eng.trace_counts == {"decode": 1, "prefill": 1, "reset": 1},
+          f"{label} program signatures {eng.trace_counts}")
+    st = out["stats"]
+    print(f"main path {label} (ServingEngine, 8 slots, {n_req} requests, "
+          f"prompts {prompts[0]}-{prompts[1]}, max_new {new[0]}-{new[1]}): "
+          f"tokens={st['tokens']} tokens_per_s={st['tokens_per_sec']:.1f} "
+          f"p50_latency_s={st['p50_latency_s']:.3f} "
+          f"p99_latency_s={st['p99_latency_s']:.3f} "
+          f"p50_ttft_s={st['p50_ttft_s']:.3f} "
+          f"p99_ttft_s={st['p99_ttft_s']:.3f} wall_s={wall:.2f} "
+          f"launches={ {k: v for k, v in n.items() if v} } [{power}]",
+          flush=True)
+    return n
+
+
+def main_path_i2(kern, k1, k2, power: str) -> dict:
+    """deepseek-moe-16b at full width: its dense lead layer and 3 MoE
+    layers; ℓ0 at 5% on all expert ``w_down`` stacks as one vector (the
+    fused bisection and K3), 4-bit k=16 on the lead FFN and on each
+    layer's shared experts (K4 in serving), 8-bit k=64 on each layer's
+    attention (K5); ``Server.generate`` (2 × 512), then a ServingEngine
+    trace whose per-slot MoE decode drops tokens at capacity."""
+    from repro_torch.core import AsVector, CompressionTask
+    from repro_torch.core.schemes import (
+        AdaptiveQuantization, ConstraintL0Pruning)
+    from repro_torch.core.schemes.prune import topk_magnitude_mask
+    from repro_torch.kernels.kmeans import ops as kops
+    from repro_torch.kernels.prune import ops as pops
+    from repro_torch.models import moe
+    cfg = moe_mla_config("deepseek-moe-16b", DS_MOE_LAYERS)
+    check(moe.capacity_for(8, cfg) == 1,
+          "I2: the engine's decode is not the capacity-drop case")
+    q4 = dict(k=16, iters=10)
+    tasks = [CompressionTask("experts_down", r"^stages/s1/pos\d/ffn/w_down$",
+                             AsVector(), ConstraintL0Pruning(kappa=DS_KAPPA)),
+             CompressionTask("lead_ffn",
+                             r"^stages/s0/pos0/ffn/(w_gate|w_up|w_down)$",
+                             AsVector(), AdaptiveQuantization(**q4))]
+    tasks += [CompressionTask(
+        f"shared{i}", rf"^stages/s1/pos{i}/ffn/(sw_gate|sw_up|sw_down)$",
+        AsVector(), AdaptiveQuantization(**q4)) for i in range(DS_MOE_LAYERS)]
+    tasks += [CompressionTask(f"attn{si}{i}",
+                              rf"^stages/s{si}/pos{i}/mixer/(wq|wk|wv|wo)$",
+                              AsVector(), AdaptiveQuantization(k=64, iters=10))
+              for si, n in ((0, 1), (1, DS_MOE_LAYERS)) for i in range(n)]
+    run = serve_path(kern, "I2", cfg, tasks, SERVE_PROMPT, power,
+                     seeds=(22, 22),
+                     capture=[(pops, "topk_threshold_batched"),
+                              (pops, "mask_apply_batched"),
+                              (kops, "kmeans_lloyd_batched")])
+    n_layers = 1 + DS_MOE_LAYERS
+    check(run["kinds"] == {"dense": DS_MOE_LAYERS,
+                           "quant4": 3 * n_layers,
+                           "quant8": 4 * n_layers},
+          f"I2 bridged forms {run['kinds']}")
+    want = only(kern, K1loop=run["kmeans_groups"], K2loop=1, K3=1,
+                K4=3 * n_layers * SERVE_GEN, K5=4 * n_layers * SERVE_GEN,
+                K6=n_layers)
+    check(run["kmeans_groups"] == 3 and run["launches"] == want,
+          f"I2 launches {run['launches']} != {want}")
+    theta = run["state"]["tasks"]["experts_down"]["theta"]["theta"]
+    nnz = int(torch.count_nonzero(theta))
+    check(nnz == DS_KAPPA, f"I2 nonzeros {nnz} != κ {DS_KAPPA}")
+    bis, masks, lloyd = run.pop("calls")
+    check(len(bis) == 1 and len(masks) == 1, "I2 bisection / K3 calls")
+    # the Lloyd loops: the lead FFN (one item), the shared experts (one
+    # item a layer), the attention (one item a layer)
+    shapes = sorted(tuple(a[0].shape) for a, _, _ in lloyd)
+    want_shapes = sorted([
+        (1, 3 * cfg.d_model * cfg.d_ff),
+        (DS_MOE_LAYERS, 3 * cfg.d_model * cfg.moe.n_shared
+         * cfg.moe.d_expert),
+        (n_layers, 2 * cfg.d_model * (cfg.q_dim + cfg.kv_dim))])
+    check(shapes == want_shapes, f"I2 Lloyd loops {shapes}")
+    (w, kap, iters), kw, got = bis[0]
+    check(tuple(w.shape) == (1, DS_ITEM * DS_MOE_LAYERS)
+          and kap.tolist() == [DS_KAPPA], f"I2 bisection {tuple(w.shape)}")
+    del run["state"], run["lc"]
+    check_served("path I2", cfg, run, power)
+    out = {"launches": run["launches"], "peak_gib": run["peak_gib"]}
+    serving = run.pop("serving")
+    del run
+    torch.cuda.empty_cache()
+    out["engine"] = engine_trace(kern, "I2 engine", cfg, serving, 16,
+                                 (32, 384), (16, 64), power)
+    del serving
+    torch.cuda.empty_cache()
+    out["lloyd"] = check_lloyd_at(k1, lloyd, "I2", power)
+    del lloyd
+    torch.cuda.empty_cache()
+
+    # the bisection and K3 at this shape, on their own operands
+    strict = kw.get("strict", False)
+    check_bisection(k2, w, kap, iters, strict, got, "I2 bisection")
+    (mw, t), mkw, kept = masks[0]
+    check(torch.equal(kept, k2.mask_apply_batched_plain(mw, t, **mkw)),
+          "I2: K3 differs from its plain version")
+    exact = torch.where(topk_magnitude_mask(w, DS_KAPPA), w, 0.0)
+    check(torch.equal(theta.reshape(w.shape), exact),
+          "I2: Θ differs from the exact top-κ of its input")
+    del exact
+    ms, k3_ms = timed_turns(
+        [lambda: k2.topk_threshold_batched(w, kap, iters, strict),
+         lambda: k2.mask_apply_batched(mw, t, **mkw)], 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k2.topk_threshold_batched_plain(w, kap, iters, strict)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    k3_plain = timed_turns(
+        [lambda: k2.mask_apply_batched_plain(mw, t, **mkw)], 3)[0]
+    p_all = w.numel()
+    b_ms, b_by = bound(4.0 * p_all, float(p_all))
+    b3_ms, b3_by = bound(8.0 * p_all, float(p_all))
+    out["topk"] = {"shape": list(w.shape), "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0}
+    out["K3"] = {"shape": list(mw.shape), "ms": k3_ms, "plain_ms": k3_plain,
+                 "bound_ms": b3_ms, "bound_by": b3_by, "max_abs_err": 0.0}
+    print(f"path I2: bisection I=1 P={p_all} κ={DS_KAPPA} iters={iters}: "
+          f"(lo, hi, n_hi) equal to the iterated and plain loops, K3 equal "
+          f"to its plain version, Θ equal to the exact top-κ, "
+          f"nonzeros={nnz}; bisection ms={ms:.3f} plain_ms={plain_ms:.1f} "
+          f"bound_ms={b_ms:.3f} ({b_by}); K3 ms={k3_ms:.3f} plain_ms="
+          f"{k3_plain:.3f} bound_ms={b3_ms:.3f} ({b3_by}) [{power}]",
+          flush=True)
+    del bis, masks, w, kap, got, mw, t, kept, theta
+    torch.cuda.empty_cache()
+    return out
+
+
+def main_path_j(kern, k1, power: str) -> dict:
+    """minicpm3-4b at full width, 4 of 62 layers, tied embeddings: 8-bit
+    k=64 on each layer's MLA projections (wukv materialized in serving),
+    4-bit k=16 on each layer's FFN; ``Server.generate`` (2 × 512; K6 at
+    qk 96, v 64), then a short ServingEngine trace (the per-slot latent
+    cache decode)."""
+    from repro_torch.core import AsVector, CompressionTask
+    from repro_torch.core.schemes import AdaptiveQuantization
+    from repro_torch.kernels.kmeans import ops as kops
+    cfg = moe_mla_config("minicpm3-4b", CPM_LAYERS)
+    tasks = []
+    for i in range(CPM_LAYERS):
+        pre = rf"^stages/s0/pos{i}/"
+        tasks += [CompressionTask(f"mla{i}",
+                                  pre + r"mixer/(wdq|wuq|wdkv|wukv|wo)$",
+                                  AsVector(),
+                                  AdaptiveQuantization(k=64, iters=10)),
+                  CompressionTask(f"ffn{i}",
+                                  pre + r"ffn/(w_gate|w_up|w_down)$",
+                                  AsVector(),
+                                  AdaptiveQuantization(k=16, iters=10))]
+    run = serve_path(kern, "J", cfg, tasks, SERVE_PROMPT, power,
+                     seeds=(23, 23),
+                     capture=[(kops, "kmeans_lloyd_batched")])
+    check(run["kinds"] == {"quant8": 5 * CPM_LAYERS,
+                           "quant4": 3 * CPM_LAYERS},
+          f"J bridged forms {run['kinds']}")
+    # wukv is materialized (wload), the other four projections run K5
+    want = only(kern, K1loop=2, K4=3 * CPM_LAYERS * SERVE_GEN,
+                K5=4 * CPM_LAYERS * SERVE_GEN, K6=CPM_LAYERS)
+    check(run["kmeans_groups"] == 2 and run["launches"] == want,
+          f"J launches {run['launches']} != {want}")
+    (lloyd,) = run.pop("calls")
+    m, h, d = cfg.mla, cfg.n_heads, cfg.d_model
+    mla = (d * m.q_lora_rank
+           + m.q_lora_rank * h * (m.qk_nope_dim + m.qk_rope_dim)
+           + d * (m.kv_lora_rank + m.qk_rope_dim)
+           + m.kv_lora_rank * h * (m.qk_nope_dim + m.v_head_dim)
+           + h * m.v_head_dim * d)
+    shapes = sorted(tuple(a[0].shape) for a, _, _ in lloyd)
+    check(shapes == sorted([(CPM_LAYERS, mla),
+                            (CPM_LAYERS, 3 * d * cfg.d_ff)]),
+          f"J Lloyd loops {shapes}")
+    del run["state"], run["lc"]
+    check_served("path J", cfg, run, power)
+    out = {"launches": run["launches"], "peak_gib": run["peak_gib"]}
+    serving = run.pop("serving")
+    del run
+    torch.cuda.empty_cache()
+    out["engine"] = engine_trace(kern, "J engine", cfg, serving, 8,
+                                 (32, 128), (8, 32), power)
+    del serving
+    torch.cuda.empty_cache()
+    out["lloyd"] = check_lloyd_at(k1, lloyd, "J", power)
+    del lloyd
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -2329,7 +2742,9 @@ def main() -> int:
     srec = serve_kernel_phase(k45, k6, power)
     path_c = main_path_c(kern, power)
     paths["C"] = path_c["launches"]
-    paths["D"] = main_path_d(kern, path_c["cfg"], path_c["serving"], power)
+    # D: the engine on path C's model, 24 requests
+    paths["D"] = engine_trace(kern, "D", path_c["cfg"], path_c["serving"],
+                              24, (32, 384), (16, 64), power)
     mrec = mask_count_phase(k1, k2, power)
     path_e = main_path_e(kern, power)
     paths["E"] = path_e["launches"]
@@ -2337,14 +2752,20 @@ def main() -> int:
     host_launch_cost(k1, k2, card)
     paths["F"] = main_path_f(kern, power)
     paths.update(main_path_h(kern, k1, k2, power))
+    i1 = main_path_i1(kern, k1, power)
+    i2 = main_path_i2(kern, k1, k2, power)
+    path_j = main_path_j(kern, k1, power)
+    paths.update({"I1": i1["launches"], "I2": i2["launches"],
+                  "I2 engine": i2["engine"], "J": path_j["launches"],
+                  "J engine": path_j["engine"]})
     profile_phase(kern, path_c, power)
     device_times(k2, k6, mrec["K9"][0], srec["K6"][0], card)
     quant_device_times(k45, srec, card)
     cstep_device_times(k1, k2, rec, mrec, frec, card)
     print(f"jacobi kernels per round (profiler, sketch width 144): "
           f"{jacobi_kernels_per_round():.1f}", flush=True)
-    # last: every profiler session after the overlapped one misses a
-    # launch (profile_after_overlap)
+    # last: sessions after the overlapped one missed their first kernel
+    # event before ``profiled`` opened each with an uncounted fill
     profile_path_h(kern, power)
     profile_after_overlap(k45, card)
     total = {n: sum(p[n] for p in paths.values()) for n in kern}

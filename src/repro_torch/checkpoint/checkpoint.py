@@ -46,18 +46,18 @@ def _flatten(state) -> dict[str, np.ndarray]:
     return {p.replace("/", _SEP): _host(v) for p, v in flat.items()}
 
 
-def _unflatten_into(template, flat: dict):
+def _unflatten_into(template, flat: dict, prefix: str = ""):
     """Rebuild the nested structure of ``template`` from flat arrays, each
-    leaf a tensor on its template leaf's device."""
-    def rec(node, prefix):
-        if isinstance(node, dict):
-            return {k: rec(v, f"{prefix}/{k}" if prefix else str(k))
-                    for k, v in node.items()}
-        arr = torch.from_numpy(flat[prefix.replace("/", _SEP)])
-        dev = node.device if isinstance(node, torch.Tensor) else "cpu"
-        return arr.to(dev)
-
-    return rec(template, "")
+    leaf a tensor on its template leaf's device. (Recursive at module
+    level: a recursive closure would hold ``flat`` in a reference
+    cycle.)"""
+    if isinstance(template, dict):
+        return {k: _unflatten_into(v, flat,
+                                   f"{prefix}/{k}" if prefix else str(k))
+                for k, v in template.items()}
+    arr = torch.from_numpy(flat[prefix.replace("/", _SEP)])
+    dev = template.device if isinstance(template, torch.Tensor) else "cpu"
+    return arr.to(dev)
 
 
 class CheckpointManager:

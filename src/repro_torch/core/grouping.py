@@ -156,13 +156,16 @@ def _pack_group(group: Sequence[CompressionTask], xs: dict, thetas: dict,
     thetas_lead = [thetas[t.name] if t.view.stacked
                    else add_leading_axis(thetas[t.name])
                    for t in group]
+    # only what the solves read of the previous Θ is packed (a codebook,
+    # not an assignment as large as the weights)
+    warm = [t.scheme.warm_start(th) for t, th in zip(group, thetas_lead)]
     if solver_fn is not None:
         # batched solvers take Θ leaves padded to the group max trailing
         # shape (mixed-K codebooks → K_max, mixed-rank factors → R_max)
-        packed = pack_thetas_padded(thetas_lead)
+        packed = pack_thetas_padded(warm)
         operands = _group_operands(group, counts, device)
     else:
-        packed = pack_thetas(thetas_lead)
+        packed = pack_thetas(warm)
         operands = ((_packed_keys(group, counts),)
                     if group[0].scheme.wants_key else ())
     return (items, packed) + operands, thetas_lead

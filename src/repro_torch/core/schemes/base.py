@@ -61,6 +61,13 @@ class CompressionScheme:
         """Δ(Θ) → dense tensor with the view's compressible shape."""
         raise NotImplementedError
 
+    def warm_start(self, theta: Theta) -> Theta:
+        """The part of the previous Θ that :meth:`compress` (and
+        :meth:`compress_batched`) reads, in Θ's structure: the grouped C
+        step packs only this. Leaves it does not read may be cut to
+        zero width; by default it reads all of Θ."""
+        return theta
+
     def bits(self, theta: Theta, float_bits: int = 32) -> float:
         """Storage cost of Θ in bits (compression-ratio accounting)."""
         raise NotImplementedError
@@ -192,8 +199,15 @@ def unpack_thetas(packed: Theta, counts: list[int]) -> list[Theta]:
 
 def map_items(fn: Callable, *trees) -> Theta:
     """Apply ``fn`` to each item of trees that share a leading item axis
-    and stack the results: the port's ``jax.vmap`` over items."""
+    and stack the results: the port's ``jax.vmap`` over items. Each
+    item's result is copied into the stacked output as it comes, so the
+    results of all items are never held twice (at LM width an item stack
+    is gigabytes)."""
     n = int(tree_leaves(trees[0])[0].shape[0])
-    outs = [fn(*(tree_map(lambda x, i=i: x[i], t) for t in trees))
-            for i in range(n)]
-    return tree_map(lambda *xs: torch.stack(xs, dim=0), *outs)
+    out = None
+    for i in range(n):
+        res = fn(*(tree_map(lambda x, i=i: x[i], t) for t in trees))
+        if out is None:
+            out = tree_map(lambda x: x.new_empty((n, *x.shape)), res)
+        tree_map(lambda o, x, i=i: o[i].copy_(x), out, res)
+    return out

@@ -158,6 +158,11 @@ class AdaptiveQuantization(CompressionScheme):
     def decompress(self, theta: QuantTheta):
         return theta.codebook[theta.assign.long()]
 
+    def warm_start(self, theta: QuantTheta) -> QuantTheta:
+        # the Lloyd loop starts from the codebook; the assignment (as
+        # large as the weights) is its output, so it is not packed
+        return QuantTheta(theta.codebook, theta.assign[..., :0])
+
     def bits(self, theta: QuantTheta, float_bits: int = 32):
         p = theta.assign.numel()
         return p * math.ceil(math.log2(self.k)) + self.k * float_bits

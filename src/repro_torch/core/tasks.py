@@ -20,16 +20,20 @@ from repro_torch.core.views import View
 def flatten_params(params) -> dict[str, Any]:
     """Nested dict → {'a/b/c': leaf} with deterministic (sorted) order."""
     flat = {}
-
-    def rec(node, prefix):
-        if isinstance(node, dict):
-            for k in sorted(node.keys()):
-                rec(node[k], f"{prefix}/{k}" if prefix else str(k))
-        else:
-            flat[prefix] = node
-
-    rec(params, "")
+    _flatten_into(params, "", flat)
     return flat
+
+
+def _flatten_into(node, prefix: str, flat: dict) -> None:
+    # a module-level function: a recursive closure would keep itself and
+    # ``flat`` (every leaf) in a reference cycle, alive until the cyclic
+    # GC runs, which device memory does not trigger
+    if isinstance(node, dict):
+        for k in sorted(node.keys()):
+            _flatten_into(node[k], f"{prefix}/{k}" if prefix else str(k),
+                          flat)
+    else:
+        flat[prefix] = node
 
 
 def set_path(params, path: str, value):

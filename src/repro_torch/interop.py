@@ -33,7 +33,11 @@ def _to_tensor(x, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree, device) -> dict:
-    """Nested dict of numpy arrays → same tree of tensors on ``device``."""
+    """Nested dict of numpy arrays → same tree of tensors on ``device``:
+    any model's params (the MoE router, stacked experts and shared
+    experts, MLA's projections and ``q_norm``/``kv_norm`` included) and
+    any cache tree (MLA's ``{"ckv", "k_rope"}`` latents included), which
+    are dicts of arrays in both packages."""
     return tree_map(lambda x: _to_tensor(x, device), tree)
 
 

@@ -5,10 +5,14 @@
 //   src/repro/kernels/flash_attention/flash_attention.py:flash_attention
 //   (body _kernel).
 //
-// For q (B, KV, G, S, D), k and v (B, KV, S, D), all f32 and contiguous:
+// For q (B, KV, G, S, D), k (B, KV, S, D) and v (B, KV, S, DV), all f32
+// and contiguous:
 //   o[b, h, g, i] = sum_j softmax_j(q[b,h,g,i] . k[b,h,j] * scale) v[b,h,j]
-// over keys j <= i (and j > i - window when window > 0), scale = 1/sqrt(D).
-// The (S, S) score matrix never reaches device memory.
+// over keys j <= i (and j > i - window when window > 0); o is
+// (B, KV, G, S, DV). The caller gives the scale (1/sqrt(D) for GQA, and for
+// MLA 1/sqrt(qk_nope + qk_rope)). V's head dim DV is the second template
+// parameter: DV == D for every D, and MLA's (96, 64) (minicpm3-4b). The
+// (S, S) score matrix never reaches device memory.
 //
 // Bound on the H100: the kernel reads q, k, v and writes o once, and does
 // 4·D operations per (query, key) pair it keeps. Both products run on the
@@ -45,7 +49,8 @@
 //     causal rows start first and the short ones fill the tail; kv tiles
 //     wholly above the diagonal or outside the window are skipped, and
 //     only tiles that cross the diagonal or the window edge are masked;
-//   * at D = 96 a block takes 100 KB of shared memory, so two fit on an SM.
+//   * at D = 96 a block takes 100 KB of shared memory (84 KB at (96, 64)),
+//     so two fit on an SM.
 // Numerics follow the Pallas kernel: masked scores are NEG_INF = -1e30
 // (here in units of log2), l is clamped at 1e-30; any S, the ragged tail
 // of queries and keys is zero-filled and masked in the kernel. No atomics:
@@ -62,9 +67,9 @@ constexpr int kKv = 64;        // keys per kv tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// floats of one padded K or V tile; stage st holds K then V
-template <int D>
-__host__ __device__ constexpr int tile_floats() { return kKv * (D + 4); }
+// floats of one padded K or V tile of head dim W; stage st holds K then V
+template <int W>
+__host__ __device__ constexpr int tile_floats() { return kKv * (W + 4); }
 
 // x rounded to TF32, to nearest with ties away from zero: the result of
 // cvt.rna.tf32.f32, which sm_90a emulates in ~6 instructions; an add and a
@@ -114,32 +119,35 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
-// rows [0, 64) of a padded tile from `base` rows first_row + r (zero past s)
-template <int D>
+// rows [0, 64) of a padded tile of head dim W from `base` rows
+// first_row + r (zero past s)
+template <int W>
 __device__ __forceinline__ void load_kv(float* dst, const float* base,
                                         int first_row, int s) {
-  constexpr int C4 = D / 4;
+  constexpr int C4 = W / 4;
   for (int e = threadIdx.x; e < kKv * C4; e += kThreads) {
     const int r = e / C4, c = (e % C4) * 4;
     const int pos = first_row + r;
     const bool live = pos < s;
-    cp_async16(dst + r * (D + 4) + c,
-               live ? base + (int64_t)pos * D + c : base, live);
+    cp_async16(dst + r * (W + 4) + c,
+               live ? base + (int64_t)pos * W + c : base, live);
   }
 }
 
 // 1-D grid over n_q_tiles × n_heads blocks (n_heads = B·KV), q tiles in
 // reverse; bq = query positions per tile (kRows / G)
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        int s, int g, int bq, int window, float scale_log2,
                        int n_q_tiles, int64_t n_heads) {
-  constexpr int SK = D + 4;
-  constexpr int KS = D / 8;  // k-steps of Q·Kᵀ = n-tiles of P·V
-  constexpr int TILE = tile_floats<D>();
+  constexpr int SK = D + 4, SV = DV + 4;
+  constexpr int KS = D / 8;   // k-steps of Q·Kᵀ
+  constexpr int NS = DV / 8;  // n-tiles of P·V
+  constexpr int KT = tile_floats<D>();
+  constexpr int STAGE = KT + tile_floats<DV>();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
 
@@ -152,7 +160,7 @@ flash_attention_kernel(const float* __restrict__ q,
   const int rows = g * bq;                    // live rows of this block
   const int64_t head0 = hk * g;
   const float* kb = k + hk * (int64_t)s * D;
-  const float* vb = v + hk * (int64_t)s * D;
+  const float* vb = v + hk * (int64_t)s * DV;
 
   const int q_last = min(q0 + bq, s) - 1;
   int kt_begin = 0;
@@ -163,7 +171,7 @@ flash_attention_kernel(const float* __restrict__ q,
   // head0 + r / bq at position q0 + r % bq
   {
     constexpr int C4 = D / 4;
-    float* qs = smem + 2 * TILE;
+    float* qs = smem + STAGE;
     for (int e = threadIdx.x; e < kRows * C4; e += kThreads) {
       const int r = e / C4, c = (e % C4) * 4;
       const int pos = q0 + r % bq;
@@ -174,7 +182,7 @@ flash_attention_kernel(const float* __restrict__ q,
     cp_async_commit();
   }
   load_kv<D>(smem, kb, kt_begin * kKv, s);
-  load_kv<D>(smem + TILE, vb, kt_begin * kKv, s);
+  load_kv<DV>(smem + KT, vb, kt_begin * kKv, s);
   cp_async_commit();
   cp_async_wait_one();                        // the Q tile has landed
   __syncthreads();
@@ -183,7 +191,7 @@ flash_attention_kernel(const float* __restrict__ q,
   const int r0 = warp * 16 + gid, r1 = r0 + 8;
   float qf[KS][4];
   {
-    const float* qs = smem + 2 * TILE + r0 * SK + tig;
+    const float* qs = smem + STAGE + r0 * SK + tig;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       qf[kk][0] = qs[8 * kk];
@@ -196,23 +204,23 @@ flash_attention_kernel(const float* __restrict__ q,
 
   const int qpos0 = q0 + r0 % bq, qpos1 = q0 + r1 % bq;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-  float acc[KS][4];
+  float acc[NS][4];
 #pragma unroll
-  for (int n = 0; n < KS; ++n)
+  for (int n = 0; n < NS; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
 
   for (int kt = kt_begin, st = 0; kt <= kt_end; ++kt, st ^= 1) {
     if (kt < kt_end) {
-      float* nxt = smem + (st ^ 1) * 2 * TILE;
+      float* nxt = smem + (st ^ 1) * STAGE;
       load_kv<D>(nxt, kb, (kt + 1) * kKv, s);
-      load_kv<D>(nxt + TILE, vb, (kt + 1) * kKv, s);
+      load_kv<DV>(nxt + KT, vb, (kt + 1) * kKv, s);
     }
     cp_async_commit();
     cp_async_wait_one();                      // tile kt has landed
     __syncthreads();
-    const float* ks = smem + st * 2 * TILE;
-    const float* vs = ks + TILE;
+    const float* ks = smem + st * STAGE;
+    const float* vs = ks + KT;
 
     // scores: sc[n] holds rows (gid, gid + 8) × keys 8n + 2tig + {0, 1}
     float sc[8][4];
@@ -278,7 +286,7 @@ flash_attention_kernel(const float* __restrict__ q,
     l0 = l0 * alpha0 + sum0;                  // this thread's columns only
     l1 = l1 * alpha1 + sum1;
 #pragma unroll
-    for (int n = 0; n < KS; ++n) {
+    for (int n = 0; n < NS; ++n) {
       acc[n][0] *= alpha0;
       acc[n][1] *= alpha0;
       acc[n][2] *= alpha1;
@@ -294,10 +302,10 @@ flash_attention_kernel(const float* __restrict__ q,
       split(sc[j][2], ah[1], al[1]);
       split(sc[j][1], ah[2], al[2]);
       split(sc[j][3], ah[3], al[3]);
-      const float* vp = vs + (8 * j + 2 * tig) * SK + gid;
+      const float* vp = vs + (8 * j + 2 * tig) * SV + gid;
 #pragma unroll
-      for (int n = 0; n < KS; ++n)
-        mma3(acc[n], ah, al, vp[8 * n], vp[SK + 8 * n]);
+      for (int n = 0; n < NS; ++n)
+        mma3(acc[n], ah, al, vp[8 * n], vp[SV + 8 * n]);
     }
     __syncthreads();                          // the next loads reuse stage st
   }
@@ -308,38 +316,39 @@ flash_attention_kernel(const float* __restrict__ q,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   if (r0 < rows && qpos0 < s) {
     const float inv = 1.f / fmaxf(l0, 1e-30f);
-    float* out = o + ((head0 + r0 / bq) * s + qpos0) * D + 2 * tig;
+    float* out = o + ((head0 + r0 / bq) * s + qpos0) * DV + 2 * tig;
 #pragma unroll
-    for (int n = 0; n < KS; ++n)
+    for (int n = 0; n < NS; ++n)
       *reinterpret_cast<float2*>(out + 8 * n) =
           make_float2(acc[n][0] * inv, acc[n][1] * inv);
   }
   if (r1 < rows && qpos1 < s) {
     const float inv = 1.f / fmaxf(l1, 1e-30f);
-    float* out = o + ((head0 + r1 / bq) * s + qpos1) * D + 2 * tig;
+    float* out = o + ((head0 + r1 / bq) * s + qpos1) * DV + 2 * tig;
 #pragma unroll
-    for (int n = 0; n < KS; ++n)
+    for (int n = 0; n < NS; ++n)
       *reinterpret_cast<float2*>(out + 8 * n) =
           make_float2(acc[n][2] * inv, acc[n][3] * inv);
   }
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    long long b, long long kvh, long long g, long long s,
                    int window, float scale, cudaStream_t stream) {
-  constexpr size_t bytes = sizeof(float) * 4 * tile_floats<D>();
+  constexpr size_t bytes =
+      sizeof(float) * 2 * (tile_floats<D>() + tile_floats<DV>());
   // The attribute is per device, so set it on every launch (it is cheap):
   // a once-per-process flag would miss a second card.
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<D>,
+      flash_attention_kernel<D, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const int bq = kRows / (int)g;
   const long long n_q_tiles = (s + bq - 1) / bq;
   const long long n_heads = b * kvh;
   if (n_q_tiles * n_heads > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_attention_kernel<D>
+  flash_attention_kernel<D, DV>
       <<<(unsigned)(n_q_tiles * n_heads), kThreads, bytes, stream>>>(
           q, k, v, o, (int)s, (int)g, bq, window, scale * kLog2e,
           (int)n_q_tiles, n_heads);
@@ -350,13 +359,14 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 
 extern "C" {
 
-// q (B, KV, G, S, D), k/v (B, KV, S, D), o like q; all f32, contiguous and
-// 16-byte aligned. D in {8, 16, 32, 64, 96, 128}, 1 <= G <= 64, B and
-// KV <= 65535. Launches on `stream` and returns the cudaError_t of the
-// launch (0 on success). Does not synchronise.
+// q (B, KV, G, S, D), k (B, KV, S, D), v (B, KV, S, DV), o (B, KV, G, S,
+// DV); all f32, contiguous and 16-byte aligned. (D, DV) is (D, D) for D in
+// {8, 16, 32, 64, 96, 128}, or (96, 64); 1 <= G <= 64, B and KV <= 65535.
+// Launches on `stream` and returns the cudaError_t of the launch (0 on
+// success). Does not synchronise.
 int flash_attention_fwd(const float* q, const float* k, const float* v,
                         float* o, long long b, long long kvh, long long g,
-                        long long s, int d, int window, float scale,
+                        long long s, int d, int dv, int window, float scale,
                         void* stream) {
   if (b < 1 || b > 65535 || kvh < 1 || kvh > 65535 || g < 1 || g > kRows ||
       s < 1 || s > 0x7fffffffLL)
@@ -365,13 +375,16 @@ int flash_attention_fwd(const float* q, const float* k, const float* v,
       0)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 96 && dv == 64)
+    return (int)launch<96, 64>(q, k, v, o, b, kvh, g, s, window, scale, st);
+  if (dv != d) return (int)cudaErrorInvalidValue;
   switch (d) {
-    case 8: return (int)launch<8>(q, k, v, o, b, kvh, g, s, window, scale, st);
-    case 16: return (int)launch<16>(q, k, v, o, b, kvh, g, s, window, scale, st);
-    case 32: return (int)launch<32>(q, k, v, o, b, kvh, g, s, window, scale, st);
-    case 64: return (int)launch<64>(q, k, v, o, b, kvh, g, s, window, scale, st);
-    case 96: return (int)launch<96>(q, k, v, o, b, kvh, g, s, window, scale, st);
-    case 128: return (int)launch<128>(q, k, v, o, b, kvh, g, s, window, scale, st);
+    case 8: return (int)launch<8, 8>(q, k, v, o, b, kvh, g, s, window, scale, st);
+    case 16: return (int)launch<16, 16>(q, k, v, o, b, kvh, g, s, window, scale, st);
+    case 32: return (int)launch<32, 32>(q, k, v, o, b, kvh, g, s, window, scale, st);
+    case 64: return (int)launch<64, 64>(q, k, v, o, b, kvh, g, s, window, scale, st);
+    case 96: return (int)launch<96, 96>(q, k, v, o, b, kvh, g, s, window, scale, st);
+    case 128: return (int)launch<128, 128>(q, k, v, o, b, kvh, g, s, window, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -14,15 +14,16 @@ from repro_torch.kernels.flash_attention.flash_attention import (
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              window: int = 0) -> torch.Tensor:
-    """q: (B, S, H, D); k, v: (B, S, KV, D) → (B, S, H, D) in q's dtype.
-    Head h belongs to kv head h // (H / KV)."""
+              window: int = 0, scale: float | None = None) -> torch.Tensor:
+    """q: (B, S, H, D); k: (B, S, KV, D); v: (B, S, KV, Dv) → (B, S, H, Dv)
+    in q's dtype; ``scale`` defaults to 1/√D. Head h belongs to kv head
+    h // (H / KV)."""
     b, s, h, d = q.shape
-    kvh = k.shape[2]
+    kvh, dv = k.shape[2], v.shape[-1]
     g = h // kvh
     qg = q.float().reshape(b, s, kvh, g, d).permute(0, 2, 3, 1, 4)
     kg = k.float().transpose(1, 2)                     # (B, KV, S, D)
-    vg = v.float().transpose(1, 2)
+    vg = v.float().transpose(1, 2)                     # (B, KV, S, Dv)
     out = flash_attention(qg.contiguous(), kg.contiguous(), vg.contiguous(),
-                          window=window)               # (B, KV, G, S, D)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+                          window=window, scale=scale)  # (B, KV, G, S, Dv)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dv).to(q.dtype)

@@ -7,7 +7,11 @@ Port of ``src/repro/launch/serve.py`` (no mesh). Runs on the card unless
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \
         --reduced --engine --form quant4 --slots 4 --requests 12 --device cpu
 
-Only GQA-attention models with dense FFNs are ported so far.
+Every token model runs but those with Mamba or xLSTM mixers (jamba,
+xlstm), which are not ported yet; e.g. ``--arch mixtral-8x7b``,
+``deepseek-moe-16b`` (MoE) or ``minicpm3-4b`` (MLA). A compressed
+``--form`` bridges every 2-D matrix (MoE expert stacks are 3-D and stay
+dense).
 """
 from __future__ import annotations
 

@@ -9,7 +9,8 @@ Port of ``src/repro/launch/train.py`` (no mesh). Runs on the card unless
 LC-compressed training end to end: data stream → L steps (train step
 with the LC penalty, AdamW) → C steps → multipliers, with checkpointing
 and fault tolerance. ``--reduced`` uses the smoke config (CPU-sized).
-Only GQA-attention models with dense FFNs are ported so far.
+Every architecture runs but those with Mamba or xLSTM mixers (jamba,
+xlstm), which are not ported yet.
 """
 from __future__ import annotations
 
@@ -26,15 +27,20 @@ from repro_torch.runtime import FaultInjector, LCTrainer, TrainerConfig
 
 
 def pruned_weights(cfg) -> int:
-    """How many weights the ``prune`` task selects: every layer's
-    wq, wk, wv, wo and dense FFN matrices."""
+    """How many weights the ``prune`` task selects: every layer's wq, wk,
+    wv and wo (MLA: wo), and its dense FFN matrices or MoE expert stacks
+    (not the shared experts)."""
     d = cfg.d_model
     total = 0
     for spec in cfg.all_layer_specs():
         if spec.mixer == "attn":
             total += 2 * d * cfg.q_dim + 2 * d * cfg.kv_dim
+        elif spec.mixer == "mla":
+            total += cfg.n_heads * cfg.mla.v_head_dim * d
         if spec.ffn == "dense":
             total += 3 * d * cfg.d_ff
+        elif spec.ffn == "moe":
+            total += cfg.moe.n_experts * 3 * d * cfg.moe.d_expert
     return total
 
 

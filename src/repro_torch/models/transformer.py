@@ -1,9 +1,10 @@
 """Decoder stack: pattern-repeated blocks + embeddings + head.
 
-Port of ``src/repro/models/transformer.py`` for ``attn`` mixers and
-``dense``/``none`` FFNs. A model = embedding → [stages] → final norm →
-unembed. A stage is either ``reps`` repetitions of a layer pattern (one
-set of block params per pattern position, stacked over reps; the
+Port of ``src/repro/models/transformer.py`` for the ``attn`` and ``mla``
+mixers and the ``dense``, ``moe`` and ``none`` FFNs. A model =
+embedding → [stages] → final norm → unembed. A stage is either ``reps``
+repetitions of a layer pattern (one set of block params per pattern
+position, stacked over reps; the
 reference's ``lax.scan`` becomes a Python loop over the stacked reps)
 or an unrolled run of layers. Blocks are pre-norm residual: mixer then
 FFN. With ``cfg.remat``, a forward that records gradients checkpoints
@@ -13,8 +14,8 @@ reference wraps its scan body and blocks in ``jax.checkpoint``; the
 training loss (``loss_fn``) takes the cross-entropy in sequence chunks
 that are checkpointed too, so (B, S, vocab) logits are never held.
 
-The MLA, Mamba and xLSTM mixers and the MoE FFN raise
-``NotImplementedError`` naming their ROADMAP item; nothing falls back.
+The Mamba and xLSTM mixers raise ``NotImplementedError`` naming their
+ROADMAP item; nothing falls back.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.interop import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     cdtype, dense_ffn, embed, init_dense_ffn, init_embed, rms_norm, unembed)
 
@@ -40,10 +42,11 @@ def _not_ported(what: str, item: str):
 MIXERS = {
     "attn": (attn.init_attn, attn.attn_forward, attn.attn_decode,
              attn.init_attn_cache),
+    "mla": (attn.init_mla, attn.mla_forward, attn.mla_decode,
+            attn.init_mla_cache),
     **{name: (_not_ported(f"the {name} mixer", "10"),) * 4
-       for name in ("mla", "mamba", "mlstm", "slstm")},
+       for name in ("mamba", "mlstm", "slstm")},
 }
-_moe_ffn = _not_ported("the moe FFN", "10")
 
 
 # ----------------------------------------------------------------------
@@ -76,7 +79,8 @@ def init_block(gen: torch.Generator, spec, cfg) -> dict:
         p["ffn_norm"] = torch.zeros((cfg.d_model,), device=gen.device)
         p["ffn"] = init_dense_ffn(gen, cfg.d_model, cfg.d_ff)
     elif spec.ffn == "moe":
-        _moe_ffn()
+        p["ffn_norm"] = torch.zeros((cfg.d_model,), device=gen.device)
+        p["ffn"] = moe_mod.init_moe(gen, cfg)
     return p
 
 
@@ -115,12 +119,17 @@ def _rep(tree, i: int):
 # Forward (prefill)
 # ----------------------------------------------------------------------
 def _apply_ffn(spec, bp, x, cfg):
+    """The block's FFN on the residual x → (x, the MoE router loss as a
+    0-d f32 tensor, or None for the other FFNs)."""
+    aux = None
     if spec.ffn == "dense":
         h = rms_norm(x, bp["ffn_norm"], cfg.norm_eps)
-        return x + dense_ffn(bp["ffn"], h, cfg)
-    if spec.ffn == "moe":
-        _moe_ffn()
-    return x
+        x = x + dense_ffn(bp["ffn"], h, cfg)
+    elif spec.ffn == "moe":
+        h = rms_norm(x, bp["ffn_norm"], cfg.norm_eps)
+        y, aux = moe_mod.moe_ffn(bp["ffn"], h, cfg)
+        x = x + y
+    return x, aux
 
 
 def _apply_block_full(spec, bp, x, cfg, positions, want_cache=False):
@@ -131,25 +140,31 @@ def _apply_block_full(spec, bp, x, cfg, positions, want_cache=False):
                                          positions, return_cache=True)
     else:
         h = MIXERS[spec.mixer][1](bp["mixer"], h, cfg, spec, positions)
-    return _apply_ffn(spec, bp, x + h, cfg), cache
+    x, aux = _apply_ffn(spec, bp, x + h, cfg)
+    return x, aux, cache
 
 
 def _apply_blocks(specs, first, rp, x, cfg, positions):
     """Blocks ``first``, ``first + 1``, … of one repetition's params
-    ``rp``, one per spec: the unit that remat recomputes."""
+    ``rp``, one per spec: the unit that remat recomputes. Returns (x, the
+    blocks' summed router loss, None without MoE blocks)."""
+    aux = None
     for pi, spec in enumerate(specs, start=first):
-        x, _ = _apply_block_full(spec, rp[f"pos{pi}"], x, cfg, positions)
-    return x
+        x, a, _ = _apply_block_full(spec, rp[f"pos{pi}"], x, cfg, positions)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 def forward_hidden(params, inputs, cfg, return_caches: bool = False):
     """inputs: (B, S) int tokens or (B, S, d_input) embeddings.
 
-    Returns (hidden (B, S, d_model), aux_loss 0-d tensor) — and, with
-    ``return_caches=True`` (prefill), a decode-ready cache tree whose
+    Returns (hidden (B, S, d_model), aux_loss 0-d f32 tensor) — and,
+    with ``return_caches=True`` (prefill), a decode-ready cache tree whose
     layout matches ``init_cache`` (seq-sized; the server pads to
-    max_len). The aux loss is the MoE router loss, 0 for the ported
-    FFNs."""
+    max_len). The aux loss is the MoE router loss summed over every MoE
+    block of every stage and repetition, as the reference's
+    ``aux_total``; 0 for a model without MoE blocks."""
     x = embed(params["embed"], inputs, cfg)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int64, device=x.device)
@@ -157,6 +172,7 @@ def forward_hidden(params, inputs, cfg, return_caches: bool = False):
     # each unrolled block; here one checkpoint per repetition of a
     # stage's pattern, or per block of an unrolled stage
     remat = cfg.remat and torch.is_grad_enabled() and not return_caches
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = {}
     for si, st in enumerate(plan_stages(cfg)):
         sp = params["stages"][f"s{si}"]
@@ -171,24 +187,27 @@ def forward_hidden(params, inputs, cfg, return_caches: bool = False):
                           else [[sp_] for sp_ in st["specs"]])
                 first = 0
                 for specs in groups:
-                    x = checkpoint(_apply_blocks, specs, first, rp, x, cfg,
-                                   positions, use_reentrant=False)
+                    x, a = checkpoint(_apply_blocks, specs, first, rp, x,
+                                      cfg, positions, use_reentrant=False)
+                    if a is not None:
+                        aux_total = aux_total + a
                     first += len(specs)
                 continue
             for pi, spec in enumerate(st["specs"]):
-                x, cc[f"pos{pi}"] = _apply_block_full(
+                x, a, cc[f"pos{pi}"] = _apply_block_full(
                     spec, rp[f"pos{pi}"], x, cfg, positions,
                     want_cache=return_caches)
+                if a is not None:
+                    aux_total = aux_total + a
             per_rep.append(cc)
         if return_caches:
             stage_cache = (_stack(per_rep) if st["kind"] == "scan"
                            else per_rep[0])
             caches[f"s{si}"] = stage_cache
     hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_caches:
-        return hidden, aux, caches
-    return hidden, aux
+        return hidden, aux_total, caches
+    return hidden, aux_total
 
 
 # ----------------------------------------------------------------------
@@ -249,7 +268,8 @@ def _apply_block_decode(spec, bp, x, cache, pos, cfg, layer_idx=None,
     h, new_cache = MIXERS[spec.mixer][2](bp["mixer"], h, cache, pos, cfg,
                                          spec, layer_idx=layer_idx,
                                          active=active)
-    return _apply_ffn(spec, bp, x + h, cfg), new_cache
+    x, _ = _apply_ffn(spec, bp, x + h, cfg)
+    return x, new_cache
 
 
 def decode_step(params, cache, inputs, pos, cfg, active=None):

@@ -54,6 +54,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    assert {ROOT / "src" / "repro_torch" / "models" / f
+            for f in ("moe.py", "attention.py")} <= set(files)
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
@@ -141,6 +143,25 @@ def test_views_match_jax(views, shapes):
     back = ours.from_compressible(x, [torch.from_numpy(l) for l in leaves])
     for b, l in zip(back, leaves):
         np.testing.assert_array_equal(_np(b), l)
+
+
+def test_flatten_params_holds_no_reference_cycle():
+    """A flattened tree's leaves die with their last reference, not at the
+    next cyclic GC (which device memory does not trigger): a recursive
+    closure used to keep every leaf alive in a cycle."""
+    import gc
+    import weakref
+    from repro_torch.core import flatten_params
+    leaf = torch.zeros(3)
+    ref = weakref.ref(leaf)
+    gc.disable()
+    try:
+        flat = flatten_params({"a": {"b": leaf}, "c": torch.ones(1)})
+        assert list(flat) == ["a/b", "c"]
+        del flat, leaf
+        assert ref() is None
+    finally:
+        gc.enable()
 
 
 def test_tasks_paths_and_signatures():

@@ -117,6 +117,52 @@ def test_flash_attention_kernel_over_its_domain_on_card(gen, d, g):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 3, 4])
+def test_flash_attention_kernel_at_mla_head_dims_on_card(gen, g):
+    """V's own head dim (qk 96, v 64: MLA's pair) with the default and an
+    explicit scale, sequence lengths around the 64-key tile, with and
+    without a window; a pair the kernel is not built for is refused."""
+    for s in (1, 63, 65, 130, 513):
+        q = torch.randn((1, 2, g, s, 96), device="cuda", generator=gen)
+        k = torch.randn((1, 2, s, 96), device="cuda", generator=gen)
+        v = torch.randn((1, 2, s, 64), device="cuda", generator=gen)
+        for window in (0, 37):
+            for scale in (None, 0.07):
+                got = k6.flash_attention(q, k, v, window=window, scale=scale)
+                assert got.shape == (1, 2, g, s, 64)
+                torch.testing.assert_close(
+                    got, k6.flash_attention_plain(q, k, v, window=window,
+                                                  scale=scale),
+                    rtol=2e-4, atol=2e-4)
+    with pytest.raises(ValueError, match="Dv"):
+        k6.flash_attention(q, k, v[..., :32].contiguous())
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_at_minicpm3_and_mixtral_prefill_on_card(gen):
+    """minicpm3-4b's MLA prefill (B=2, S=512, 40 heads, qk 96, v 64,
+    scale 1/√96) and mixtral-8x7b's windowed GQA prefill cut to S=1100
+    with a window of 1024 that masks real keys (32 heads on 8, D=128):
+    against the plain version, bit-identical on a rerun."""
+    q = torch.randn((2, 40, 1, 512, 96), device="cuda", generator=gen)
+    k = torch.randn((2, 40, 512, 96), device="cuda", generator=gen)
+    v = torch.randn((2, 40, 512, 64), device="cuda", generator=gen)
+    got = k6.flash_attention(q, k, v, scale=1 / math.sqrt(96))
+    torch.testing.assert_close(got, k6.flash_attention_plain(q, k, v),
+                               rtol=2e-4, atol=2e-4)
+    assert torch.equal(got, k6.flash_attention(q, k, v,
+                                               scale=1 / math.sqrt(96)))
+    q = torch.randn((1, 8, 4, 1100, 128), device="cuda", generator=gen)
+    k = torch.randn((1, 8, 1100, 128), device="cuda", generator=gen)
+    v = torch.randn((1, 8, 1100, 128), device="cuda", generator=gen)
+    got = k6.flash_attention(q, k, v, window=1024)
+    torch.testing.assert_close(
+        got, k6.flash_attention_plain(q, k, v, window=1024), rtol=2e-4,
+        atol=2e-4)
+    assert torch.equal(got, k6.flash_attention(q, k, v, window=1024))
+
+
+@pytest.mark.cuda
 def test_flash_attention_kernel_at_phi3_prefill_on_card(gen):
     """phi3-mini's prefill (B=2, S=512, 32 heads of 96): against the plain
     version, bit-identical on a rerun, and on operands 4 bytes off a
@@ -718,3 +764,44 @@ def test_flash_attention_refused_under_autograd_on_card(gen):
     with torch.no_grad():
         out = blockwise_attention(q, k, k, pos, pos, fused=True)
     assert out.shape == q.shape and out.grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-moe-16b",
+                                  "minicpm3-4b"])
+def test_moe_and_mla_models_on_card_match_cpu(gen, arch):
+    """The reduced MoE and MLA models on the card against the CPU on the
+    same weights: routing indices equal (``torch.topk`` on CUDA against
+    the CPU's, which the CPU tests hold to ``jax.lax.top_k``), hidden
+    states and the aux loss rtol 1e-5 / atol 2e-5, and 6 greedy tokens
+    equal (plain attention: the reduced head dims are not K6's)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.interop import params_from_numpy, to_numpy
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import forward_hidden, init_params
+    from repro_torch.runtime.server import Server
+    cfg = reduced_config(get_config(arch)).with_(dtype="float32")
+    cpu = init_params(torch.Generator().manual_seed(0), cfg)
+    card = params_from_numpy(to_numpy(cpu), "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 16),
+                         generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        h_cpu, aux_cpu = forward_hidden(cpu, toks, cfg)
+        h_card, aux_card = forward_hidden(card, toks.cuda(), cfg)
+    torch.testing.assert_close(h_card.cpu(), h_cpu, rtol=1e-5, atol=2e-5)
+    torch.testing.assert_close(aux_card.cpu(), aux_cpu, rtol=1e-5,
+                               atol=1e-7)
+    if cfg.moe is not None:
+        x = torch.randn((64, cfg.d_model), generator=torch.Generator()
+                        .manual_seed(2))
+        from repro_torch.core import flatten_params
+        router = next(v for p, v in flatten_params(cpu).items()
+                      if p.endswith("ffn/router"))
+        if router.ndim == 3:
+            router = router[0]
+        _, _, idx_cpu = moe.route(x, router, cfg)
+        _, _, idx_card = moe.route(x.cuda(), router.cuda(), cfg)
+        assert torch.equal(idx_card.cpu(), idx_cpu)
+    want = Server(cfg, cpu, max_len=32, device="cpu").generate(toks, 6)
+    got = Server(cfg, card, max_len=32, device="cuda").generate(toks, 6)
+    assert (got.tokens == want.tokens).all()

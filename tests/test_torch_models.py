@@ -1,13 +1,23 @@
-"""The port's configs, layers, GQA attention and decoder stack against the
+"""The port's configs, layers, attention and decoder stack against the
 JAX package, on the same weights (the JAX ``init_params`` carried over
 with ``interop.params_from_numpy``) and the same numpy inputs.
+
+The stack's forward, decode and prefill-then-decode tests run every
+reduced config whose mixers are ported: phi3-mini (scan and unrolled),
+mistral-nemo-12b (q_dim ≠ d_model), gemma3-27b (5:1 window pattern, scan
+plus tail, tied embeddings), musicgen-large and internvl2-1b (embedding
+inputs), mixtral-8x7b and deepseek-moe-16b (MoE, at the reference's
+capacity factor, so tokens are dropped; prefill-then-decode at the
+no-drop 8.0, as ``tests/test_models.py`` does) and minicpm3-4b (MLA).
 
 Tolerances: configs and parameter counts equal; elementwise layers
 (RMSNorm, RoPE, embedding) rtol 1e-6 / atol 1e-6; anything that runs a
 matrix product or a softmax — XLA and PyTorch sum in other orders —
-rtol 1e-5 / atol 2e-5 in float32 (reduced phi3-mini, 2 layers); the
-flash kernel's plain version against the online-softmax loop rtol 2e-4 /
-atol 2e-4, as ``tests/test_kernels.py`` holds the Pallas kernel.
+rtol 1e-5 / atol 2e-5 in float32; the flash kernel's plain version
+against the online-softmax loop rtol 2e-4 / atol 2e-4, as
+``tests/test_kernels.py`` holds the Pallas kernel; the port's prefill
+against its own token-by-token decode rtol 2e-3 / atol 2e-3, the
+reference's own tolerance for that check.
 """
 import dataclasses
 
@@ -50,6 +60,34 @@ def _cfgs(arch="phi3-mini-3.8b", **kw):
     t = dataclasses.replace(tconfigs.reduced_config(tconfigs.get_config(arch)),
                             dtype="float32", **kw)
     return j, t
+
+
+#: the reduced configs, beside phi3-mini, that the stack tests run
+ARCHS = ["mistral-nemo-12b", "gemma3-27b", "musicgen-large", "internvl2-1b",
+         "mixtral-8x7b", "deepseek-moe-16b", "minicpm3-4b"]
+
+
+def _arch_cfgs(arch, layout):
+    return _unrolled() if layout == "unrolled" else _cfgs(arch)
+
+
+def _cases(second):
+    """phi3-mini at both layouts, with the ids those cases always had,
+    then every other config in its own layout, for both values of the
+    test's ``second`` parameter."""
+    return ([pytest.param("phi3-mini-3.8b", layout, x, id=f"{x}-{layout}")
+             for x in (False, True) for layout in ("scan", "unrolled")]
+            + [pytest.param(a, "own", x, id=f"{a}-{x}")
+               for a in ARCHS for x in (False, True)])
+
+
+def _inputs(cfg, b, s, seed):
+    """Tokens, or frontend embeddings for an ``input_mode="embeddings"``
+    config, as numpy."""
+    rng = np.random.default_rng(seed)
+    if cfg.input_mode == "tokens":
+        return rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    return rng.standard_normal((b, s, cfg.d_input)).astype(np.float32)
 
 
 def _unrolled(**kw):
@@ -96,7 +134,7 @@ def test_count_params_match_jax(arch):
     assert ttf.count_params(rt) == jtf.count_params(rj)
 
 
-@pytest.mark.parametrize("mixer", ["mla", "mamba", "mlstm", "slstm"])
+@pytest.mark.parametrize("mixer", ["mamba", "mlstm", "slstm"])
 def test_unported_mixers_raise(mixer):
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         ttf.MIXERS[mixer][0](torch.Generator(), None)
@@ -188,55 +226,71 @@ def test_blockwise_attention_matches_jax(b, s, h, kvh, d, window, chunk):
 
 
 def test_fused_attention_refuses_what_the_kernel_does_not_take():
+    """The kernel takes the causal Sq == Sk prefill only; an explicit
+    scale and V's own head dim (MLA) it takes."""
     q = torch.zeros(1, 8, 2, 8)
     pos = torch.arange(8)
     with pytest.raises(NotImplementedError, match="flash kernel"):
-        tattn.blockwise_attention(q, q, q, pos, pos, scale=0.5, fused=True)
-    with pytest.raises(NotImplementedError, match="flash kernel"):
         tattn.blockwise_attention(q, q[:, :4], q[:, :4], pos, pos[:4],
                                   fused=True)
+    q, k, v = (torch.from_numpy(_rand(i, 1, 8, 2, d))
+               for i, d in ((1, 8), (2, 8), (3, 4)))
+    np.testing.assert_allclose(
+        _np(tattn.blockwise_attention(q, k, v, pos, pos, scale=0.5,
+                                      fused=True)),
+        _np(tattn.blockwise_attention(q, k, v, pos, pos, scale=0.5,
+                                      q_chunk=4, kv_chunk=4)),
+        rtol=2e-4, atol=2e-4)
 
 
 # ----------------------------------------------------------------------
 # the stack: prefill and decode
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("layout", ["scan", "unrolled"])
-@pytest.mark.parametrize("fused", [False, True])
-def test_forward_hidden_and_caches_match_jax(layout, fused):
-    jcfg, tcfg = _cfgs() if layout == "scan" else _unrolled()
+@pytest.mark.parametrize("arch,layout,fused", _cases("fused"))
+def test_forward_hidden_and_caches_match_jax(arch, layout, fused):
+    jcfg, tcfg = _arch_cfgs(arch, layout)
     jcfg, tcfg = (c.with_(fused_attention=fused) for c in (jcfg, tcfg))
-    assert len(jtf.plan_stages(jcfg)) == 1
-    assert jtf.plan_stages(jcfg)[0]["kind"] == layout.replace("unrolled",
-                                                              "unroll")
+    if layout != "own":
+        assert len(jtf.plan_stages(jcfg)) == 1
+        assert jtf.plan_stages(jcfg)[0]["kind"] == layout.replace(
+            "unrolled", "unroll")
     jp, tp = _params(jcfg)
-    toks = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, 16))
-    h_j, _, c_j = jtf.forward_hidden(jp, jnp.asarray(toks), jcfg,
-                                     return_caches=True)
-    h_t, aux, c_t = ttf.forward_hidden(tp, torch.from_numpy(toks), tcfg,
+    inputs = _inputs(jcfg, 2, 16, 1)
+    h_j, aux_j, c_j = jtf.forward_hidden(jp, jnp.asarray(inputs), jcfg,
+                                         return_caches=True)
+    h_t, aux, c_t = ttf.forward_hidden(tp, torch.from_numpy(inputs), tcfg,
                                        return_caches=True)
     tol = MM if not fused else dict(rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(_np(h_t), np.asarray(h_j), **tol)
     _assert_tree(c_t, jax.tree_util.tree_map(np.asarray, c_j), **MM)
-    assert float(aux) == 0.0
+    if jcfg.moe is None:
+        assert float(aux) == float(aux_j) == 0.0
+    else:
+        assert float(aux_j) > 0.0
+        np.testing.assert_allclose(float(aux), float(aux_j), rtol=1e-5)
     np.testing.assert_allclose(
-        _np(ttf.prefill(tp, torch.from_numpy(toks), tcfg)),
-        np.asarray(jtf.prefill(jp, jnp.asarray(toks), jcfg)), **tol)
+        _np(ttf.prefill(tp, torch.from_numpy(inputs), tcfg)),
+        np.asarray(jtf.prefill(jp, jnp.asarray(inputs), jcfg)), **tol)
 
 
-@pytest.mark.parametrize("layout", ["scan", "unrolled"])
-@pytest.mark.parametrize("per_slot", [False, True])
-def test_decode_step_matches_jax(layout, per_slot):
-    jcfg, tcfg = _cfgs() if layout == "scan" else _unrolled()
-    jp, tp = _params(jcfg)
-    b, max_len = 3, 12
+def _random_cache(jcfg, b, max_len):
     shapes = jax.tree_util.tree_map(
         lambda a: a.shape, jtf.init_cache(jcfg, b, max_len))
     leaves, treedef = jax.tree_util.tree_flatten(shapes,
                                                  is_leaf=lambda x: isinstance(
                                                      x, tuple))
-    cache = jax.tree_util.tree_unflatten(
+    return jax.tree_util.tree_unflatten(
         treedef, [_rand(i, *s) for i, s in enumerate(leaves)])
-    toks = np.array([[5], [17], [200]], np.int32)
+
+
+@pytest.mark.parametrize("arch,layout,per_slot", _cases("per_slot"))
+def test_decode_step_matches_jax(arch, layout, per_slot):
+    jcfg, tcfg = _arch_cfgs(arch, layout)
+    jp, tp = _params(jcfg)
+    b, max_len = 3, 12
+    cache = _random_cache(jcfg, b, max_len)
+    toks = (np.array([[5], [17], [200]], np.int32)
+            if jcfg.input_mode == "tokens" else _inputs(jcfg, b, 1, 9))
     pos = np.array([4, 0, 11], np.int32) if per_slot else np.int32(6)
     lj, cj = jtf.decode_step(jp, jax.tree_util.tree_map(jnp.asarray, cache),
                              jnp.asarray(toks), jnp.asarray(pos), jcfg)
@@ -245,6 +299,55 @@ def test_decode_step_matches_jax(layout, per_slot):
         torch.from_numpy(pos) if per_slot else int(pos), tcfg)
     np.testing.assert_allclose(_np(lt), np.asarray(lj), **MM)
     _assert_tree(ct, jax.tree_util.tree_map(np.asarray, cj), **MM)
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", *ARCHS])
+def test_prefill_then_decode_matches_jax(arch):
+    """Prefill with cache capture, padding to decode capacity, then 4
+    decode steps fed with the reference's greedy tokens: every step's
+    logits and the final caches against the JAX package on the same
+    path; and the port's prefill against its own token-by-token decode
+    from an empty cache (the reference's own check). MoE configs use the
+    no-drop capacity factor here: decode routes B tokens at a time, so
+    at the reference's factor its drops differ from prefill's."""
+    from repro.runtime.server import pad_caches_to as jpad
+    from repro_torch.runtime.server import pad_caches_to as tpad
+    jcfg, tcfg = _cfgs(arch)
+    if jcfg.moe is not None:
+        jcfg = jcfg.with_(moe=dataclasses.replace(jcfg.moe,
+                                                  capacity_factor=8.0))
+        tcfg = tcfg.with_(moe=dataclasses.replace(tcfg.moe,
+                                                  capacity_factor=8.0))
+    jp, tp = _params(jcfg)
+    b, s, extra = 2, 24, 4
+    inputs = _inputs(jcfg, b, s + extra, 2)
+    prompt, cont = inputs[:, :s], inputs[:, s:]
+    hj, _, cj = jtf.forward_hidden(jp, jnp.asarray(prompt), jcfg,
+                                   return_caches=True)
+    ht, _, ct = ttf.forward_hidden(tp, torch.from_numpy(prompt), tcfg,
+                                   return_caches=True)
+    cj, ct = jpad(cj, jcfg, s, s + extra), tpad(ct, tcfg, s, s + extra)
+    _assert_tree(ct, jax.tree_util.tree_map(np.asarray, cj), **MM)
+    lt_prefill = tlayers.unembed(tp["embed"], ht[:, -1:], tcfg)
+    np.testing.assert_allclose(
+        _np(lt_prefill),
+        np.asarray(jlayers.unembed(jp["embed"], hj[:, -1:], jcfg)), **MM)
+    for i in range(extra):
+        x = cont[:, i:i + 1]
+        lj, cj = jtf.decode_step(jp, cj, jnp.asarray(x), jnp.int32(s + i),
+                                 jcfg)
+        lt, ct = ttf.decode_step(tp, ct, torch.from_numpy(x), s + i, tcfg)
+        np.testing.assert_allclose(_np(lt), np.asarray(lj), **MM)
+    _assert_tree(ct, jax.tree_util.tree_map(np.asarray, cj), **MM)
+
+    # the port's prefill equals its own all-decode path
+    cache = ttf.init_cache(tcfg, b, s + extra, device="cpu")
+    for i in range(s):
+        logits, cache = ttf.decode_step(tp, cache,
+                                        torch.from_numpy(prompt[:, i:i + 1]),
+                                        i, tcfg)
+    np.testing.assert_allclose(_np(logits), _np(lt_prefill), rtol=2e-3,
+                               atol=2e-3)
 
 
 def test_decode_active_mask_keeps_inactive_rows_bit_for_bit():
