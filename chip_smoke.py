@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --host-cost   # phase 12's launch-path times only
+    python3 chip_smoke.py --ssm         # paths K and L1 and their profile
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit (nvcc). Phases, each of which fails the run:
@@ -32,7 +33,7 @@ CUDA toolkit (nvcc). Phases, each of which fails the run:
    (one group of 8 items × 25,165,824 weights) and ℓ0 pruning at 5% per
    item of w_down; init, then 2 × (C step + multiplier step);
 7. K4, K5 and K6 (the serving kernels) against their plain versions on
-   the card at the serving paths' shapes (paths I and J's too: K6 at
+   the card at the serving paths' shapes (paths I, J, K and L1's too: K6 at
    MLA's qk 96 / v 64 and at mixtral's 4096 window over 4608 tokens),
    timed beside their bounds, the plain versions, and a PyTorch
    yardstick (SDPA for K6, the window as a mask; for K4/K5
@@ -109,9 +110,38 @@ CUDA toolkit (nvcc). Phases, each of which fails the run:
     decode routes at capacity 1. J: minicpm3-4b, 4 of 62 layers, 8-bit
     MLA projections, 4-bit FFN, K6 at qk 96 / v 64, prompts of 512,
     then a short ``ServingEngine`` trace over the latent cache;
-16. ``torch.profiler`` over one more LM C step, path C's prefill and 8
+16. main paths K, L1 and L2 — the recurrent mixers at the published
+    widths (float32, random weights). K: jamba-v0.1-52b, layers 2–4 of
+    its 8-layer super-block (Mamba + dense FFN, Mamba + MoE, attention +
+    dense FFN; 3,960,418,304 params), 4-bit in_proj|out_proj and
+    w_gate|w_up, 8-bit x_proj|dt_proj and attention, ℓ0 at 5% on both
+    w_down as one vector; L1: xlstm-125m, all 12 blocks (10 mLSTM, 2
+    sLSTM), 4-bit wq|wk|wv|up_proj|down_proj|w. Each: LC init and one C
+    step, the bridge, ``Server.generate`` of 32 tokens for 2 prompts of
+    1024, logits against the densified model, greedy agreement 1.0,
+    exact launches, every Lloyd loop of the C step held against the
+    iterated and plain loops (K: the bisection and K3 too, exactly κ
+    nonzeros), the prefill's last logits against token-by-token decode
+    from an empty cache on 2 prompts of two scan chunks (K 2 × 256 at
+    the no-drop MoE capacity 8.0, L1 2 × 512), then a ``ServingEngine``
+    trace (8 slots, 16 requests; L1 also prints each request's
+    agreement with its own single-slot decode). Every engine trace (D,
+    I2, J, K, L1) holds each re-admitted slot's cache to
+    ``init_cache``'s values right after its reset. K and L1 run last, in
+    a process of their own (``--ssm``), with phase 17's profile of their
+    served models. L2: LC training of xlstm-125m
+    (``train_lm_compress.make_trainer``, 4 × 1024 tokens a step, 2 μ × 3
+    L steps): finite losses, CE falling, the §7 monitor, the reference's
+    compression ratio, one fused Lloyd loop a k-means group each C step,
+    the groups derived from the widths, the last C step's loops held
+    against the iterated and plain loops; the train step's ms,
+    tokens/s, C-step ms, peak memory;
+17. ``torch.profiler`` over one more LM C step, path C's prefill and 8
     decode steps: the device's busy share, the kernels that took the
-    most time and the K4/K5 kernels' sum; the device time of K9 and
+    most time and the K4/K5 kernels' sum; then (in the ``--ssm``
+    process) one session over paths K and L1's prefills and 8 decode
+    steps each, with the device time of the selective scan's chunks, the
+    mLSTM chunks and the sLSTM steps; the device time of K9 and
     ``F.hardshrink`` at P = 266,200, and of K6 and SDPA at K6's main
     row, summed over 50 calls each, beside their event times from
     phases 7 and 10; and K4's
@@ -122,7 +152,7 @@ CUDA toolkit (nvcc). Phases, each of which fails the run:
     shapes; last, path H's trainer (one L step and boundary serial,
     two overlapped): the device's busy share, each stream's busy time
     and the time both streams ran at once;
-17. one JSON line listing every ported kernel, then the result line.
+18. one JSON line listing every ported kernel, then the result line.
 
 Tolerances: assignments, masks and integer counts must be equal; K1/K7
 cluster sums may differ from the plain version's by the summation order
@@ -211,6 +241,21 @@ K5_SHAPES += [(9216, 4096, 4096, 64), (9216, 4096, 1024, 64),
     (m, k, n, 64) for m in SERVE_M
     for k, n in ((2048, 2048), (2560, 768), (768, 3840), (2560, 288),
                  (2560, 2560))]
+# paths K and L1's products at the M they run: prefill 2 × 1024, decode
+# 2, the engine's 8 slots, and the 8 × 32 tick. 4-bit: jamba's Mamba
+# in_proj (4096 × 16384) and out_proj (8192 × 4096) and dense FFN w_gate,
+# w_up (4096 × 14336); xlstm's mLSTM up_proj (768 × 3072), wq|wk|wv
+# (1536²), down_proj (1536 × 768) and sLSTM w (768 × 3072), up_proj
+# (768 × 2048), down_proj (1024 × 768). 8-bit: jamba's x_proj (8192 ×
+# 288), dt_proj (256 × 8192) and attention (4096², 4096 × 1024)
+SSM_M = (2, 8, 8 * 32, 2 * 1024)
+K4_SHAPES += [(m, k, n, 16) for m in SSM_M
+              for k, n in ((4096, 16384), (8192, 4096), (4096, 14336),
+                           (768, 3072), (1536, 1536), (1536, 768),
+                           (768, 2048), (1024, 768))]
+K5_SHAPES += [(m, k, n, 64) for m in SSM_M
+              for k, n in ((8192, 288), (256, 8192), (4096, 4096),
+                           (4096, 1024))]
 K4_MAIN, K5_MAIN = (1024, 3072, 8192, 16), (1024, 3072, 3072, 64)
 # (B, S, H, KV, D, Dv, window): phi3-mini's prefill first, then
 # minicpm3-4b's MLA prefill (qk 96, v 64) and mixtral-8x7b's (S = 4608
@@ -283,6 +328,20 @@ DS_MOE_LAYERS = 3
 DS_ITEM = 64 * 1408 * 2048                           # 184,549,376
 DS_KAPPA = int(0.05 * DS_MOE_LAYERS * DS_ITEM)       # 27,682,406
 CPM_LAYERS = 4
+
+# paths K, L1 and L2: jamba-v0.1-52b (layers 2–4 of its 8-layer
+# super-block: Mamba + dense FFN, Mamba + MoE, attention + dense FFN) and
+# xlstm-125m (all 12 blocks), prompts of 1024 (8 Mamba chunks of 128, 4
+# mLSTM chunks of 256, 1024 sLSTM steps); the prefill-against-decode
+# check on 2 prompts of two chunks (K 2 × 256, L1 2 × 512); L2 trains
+# xlstm-125m at 4 × 1024 tokens a step
+SSM_PROMPT = 1024
+SSM_LAUNCHES = "ssm_launches"          # the line ``--ssm`` reports on
+JAMBA_PARAMS, XLSTM_PARAMS = 3_960_418_304, 155_651_408
+JAMBA_FFN = 4096 * 14336                               # 58,720,256
+JAMBA_KAPPA = int(0.05 * 2 * JAMBA_FFN)                # 5,872,025
+L2_BATCH, L2_SEQ, L2_LC, L2_STEPS = 4, 1024, 2, 3
+K_SEEDS, L1_SEEDS = (24, 24), (26, 26)
 
 
 def fail(msg: str) -> None:
@@ -359,6 +418,30 @@ def profiled(activities):
         torch.empty(1, device="cuda").fill_(0.0)
         torch.cuda.synchronize()
         yield prof
+
+
+def device_trace(run, n_port: int, label: str) -> list:
+    """The device events (``key_averages``) of ``run``, which queues
+    work on the card, under ``profiled([CUDA])``: traced again, up to 3
+    sessions, until the trace holds exactly the ``n_port`` launches of
+    the port's kernels that ``run`` made. A session can drop kernel
+    events (on the H100: 49 of 50 K5 launches, 47 of 50 K9, 10 of 50
+    K2), and a trace short of a launch makes every sum short."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    for _ in range(3):
+        with profiled([ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        seen = sum(e.count for e in dev if port_kernel(e.key))
+        if seen == n_port:
+            return dev
+        print(f"{label}: the profiler saw {seen} of {n_port} launches of "
+              f"the port's kernels; tracing again", flush=True)
+    fail(f"{label}: the profiler saw {seen} of {n_port} launches of the "
+         f"port's kernels in each of 3 sessions")
 
 
 def kernel_phase(k1, k2, power: str) -> dict:
@@ -901,12 +984,14 @@ def port_kernel(name: str) -> bool:
     return any(k in name for k in DEVICE_KERNELS)
 
 
-def device_profile(fn, label: str, power: str, kern: dict) -> list:
+def device_profile(fn, label: str, power: str, kern: dict) -> tuple:
     """Run ``fn`` once under ``torch.profiler`` and print its wall time,
-    each CUDA stream's busy time (kernels, copies and fills), their
-    union (the device's busy time) and its share of the wall time (the
+    each CUDA stream's busy time (kernels, copies and fills; not the
+    spans of ``record_function`` ranges), their union (the device's busy
+    time) and its share of the wall time (the
     device's busy share), the time two streams ran at once, and the
-    kernels that took the most time; return the device events. The
+    kernels that took the most time; return the device events and the
+    profiler's event tree (``prof.events()``). The
     launch counts are set to 0 before ``fn``: every launch of the port's
     kernels that the wrappers count must show in the trace, or the
     profile fails (a dropped event would make every number here short).
@@ -925,11 +1010,16 @@ def device_profile(fn, label: str, power: str, kern: dict) -> list:
     n = launches(kern)
     spans: dict = {}
     names = []
+    ranges = set()       # record_function ranges' spans on the device
     for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() == DeviceType.CUDA:
-            spans.setdefault(ev.device_resource_id(), []).append(
-                (ev.start_ns(), ev.start_ns() + ev.duration_ns()))
-            names.append(ev.name())
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        if ev.is_user_annotation():
+            ranges.add(ev.name())
+            continue
+        spans.setdefault(ev.device_resource_id(), []).append(
+            (ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+        names.append(ev.name())
     for name, keys in DEVICE_KERNELS.items():
         seen = sum(name in x for x in names)
         want = sum(n[k] for k in keys)
@@ -943,7 +1033,7 @@ def device_profile(fn, label: str, power: str, kern: dict) -> list:
             end = e
     union /= 1e6
     dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
+           if e.device_type == DeviceType.CUDA and e.key not in ranges]
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
     print(f"profile {label}: wall_ms={wall_ms:.2f} device_busy_ms="
           f"{union:.2f} device_busy={union / wall_ms:.3f} per_stream_ms="
@@ -953,7 +1043,7 @@ def device_profile(fn, label: str, power: str, kern: dict) -> list:
           + "; ".join(f"{e.key[:50]} x{e.count} "
                       f"{e.self_device_time_total / 1e3:.3f}ms"
                       for e in top) + f" [{power}]", flush=True)
-    return dev
+    return dev, prof.events()
 
 
 def serving_config():
@@ -1613,7 +1703,7 @@ def profile_phase(kern, path_c: dict, power: str) -> None:
                            SERVE_PROMPT + i, cfg)
 
     def report(label, fn):
-        dev = device_profile(fn, f"path C {label}", power, kern)
+        dev, _ = device_profile(fn, f"path C {label}", power, kern)
         k45 = [e for e in dev if "quant_" in e.key]
         print(f"path C {label}: K4/K5 kernels x"
               f"{sum(e.count for e in k45)} device_ms="
@@ -1631,8 +1721,6 @@ def device_times(k2, k6, k9_row: dict, k6_row: dict, card: str) -> None:
     each, beside their CUDA-event times from the timed phases (``k9_row``,
     ``k6_row``), which hold the host's share of a call too. Runs after the
     timed phases (a profiler session slows every later launch)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
     g = torch.Generator(device="cuda").manual_seed(6)
     w = torch.randn(LENET_WEIGHTS, device="cuda", generator=g)
     t = w.abs().kthvalue(LENET_WEIGHTS - LENET_KAPPA).values
@@ -1653,16 +1741,9 @@ def device_times(k2, k6, k9_row: dict, k6_row: dict, card: str) -> None:
                 qh, k, v, is_causal=True, enable_gqa=True))):
         fn()
         torch.cuda.synchronize()
-        with profiled([ProfilerActivity.CUDA]) as prof:
-            for _ in range(50):
-                fn()
-            torch.cuda.synchronize()
-        dev = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+        dev = device_trace(lambda: [fn() for _ in range(50)],
+                           50 if name in ("K9", "K6") else 0, name)
         check(bool(dev), f"{name}: the profiler saw no device time")
-        seen = sum(e.count for e in dev if port_kernel(e.key))
-        check(seen == (50 if name in ("K9", "K6") else 0),
-              f"{name}: the profiler saw {seen} of the port's launches")
         dev_ms[name] = sum(e.self_device_time_total for e in dev) / 1e3 / 50
     print(f"K9 P={LENET_WEIGHTS} device_ms={dev_ms['K9']:.5f} "
           f"hardshrink device_ms={dev_ms['hardshrink']:.5f} (profiler, 50 "
@@ -1681,8 +1762,6 @@ def quant_device_times(k45, srec: dict, card: str) -> None:
     50 MB L2 (as a decode step finds it), beside the bytes bound and the
     CUDA-event time of the row in phase 7. Runs after the timed phases
     (a profiler session slows every later launch)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
     from repro_torch.kernels.quant_matmul import ops as qops
     g = torch.Generator(device="cuda").manual_seed(7)
     for name, k, n, c in (("K4", 3072, 8192, 16), ("K5", 3072, 3072, 64)):
@@ -1701,12 +1780,9 @@ def quant_device_times(k45, srec: dict, card: str) -> None:
             torch.testing.assert_close(fn(x, ws[1], cb), plain(x, w0, cb),
                                        rtol=1e-5, atol=1e-4)
             torch.cuda.synchronize()
-            with profiled([ProfilerActivity.CUDA]) as prof:
-                for i in range(50):
-                    fn(x, ws[i % copies], cb)
-                torch.cuda.synchronize()
-            dev = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and "quant_" in e.key]
+            dev = [e for e in device_trace(
+                lambda: [fn(x, ws[i % copies], cb) for i in range(50)], 50,
+                f"{name} M={m}") if "quant_" in e.key]
             check(sum(e.count for e in dev) == 50,
                   f"{name} M={m}: the profiler saw {dev}")
             dev_ms = sum(e.self_device_time_total for e in dev) / 1e3 / 50
@@ -1736,22 +1812,13 @@ def cstep_device_times(k1, k2, rec: dict, mrec: dict, frec: dict,
     shapes, beside their CUDA-event times and bounds from the timed
     phases (``rec``, ``mrec``, ``frec``). Runs after the timed phases (a
     profiler session slows every later launch)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
     g = torch.Generator(device="cuda").manual_seed(10)
 
     def device_ms(call, n_calls: int) -> float:
         call(0)
         torch.cuda.synchronize()
-        with profiled([ProfilerActivity.CUDA]) as prof:
-            for j in range(n_calls):
-                call(j)
-            torch.cuda.synchronize()
-        dev = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-        seen = sum(e.count for e in dev if port_kernel(e.key))
-        check(seen == n_calls, f"the profiler saw {seen} of {n_calls} "
-              f"launches")
+        dev = device_trace(lambda: [call(j) for j in range(n_calls)],
+                           n_calls, "C-step kernel device time")
         return sum(e.self_device_time_total for e in dev) / 1e3 / n_calls
 
     def operands(i, p, k=None):
@@ -2302,6 +2369,7 @@ def serve_path(kern, label: str, cfg, tasks, prompt_len: int,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
     params = tf.init_params(
         torch.Generator(device="cuda").manual_seed(seeds[0]), cfg)
     n_params = sum(t.numel() for t in flatten_params(params).values())
@@ -2343,7 +2411,7 @@ def serve_path(kern, label: str, cfg, tasks, prompt_len: int,
           f"c_step_s={t_cstep:.3f} bridge_s={t_bridge:.3f} "
           f"generate_s={t_gen:.3f} ({SERVE_BATCH}x{prompt_len} prompt, "
           f"{SERVE_GEN} new tokens) init_peak_memory_gib={init_peak:.2f} "
-          f"peak_memory_gib={peak:.2f} "
+          f"peak_memory_gib={peak:.2f} (held before the path: {held:.2f}) "
           f"launches={ {k: v for k, v in n.items() if v} } [{power}]",
           flush=True)
     kinds = {}
@@ -2462,11 +2530,52 @@ def main_path_i1(kern, k1, power: str) -> dict:
     return out
 
 
+def watch_resets(eng, cfg, label: str) -> dict:
+    """Route ``eng``'s reset program through a check: every slot admitted
+    a second time holds exactly ``init_cache``'s values in every cache
+    leaf (recurrent states and KV rows) right after its reset. The
+    check's own time is taken off the engine's clock. Returns a record
+    whose ``checked`` counts the slots checked."""
+    from repro_torch.core import flatten_params
+    from repro_torch.models import transformer as tf
+    fresh = flatten_params(tf.init_cache(cfg, eng.slots, eng.max_len,
+                                         device="cuda"))
+    axes = flatten_params(tf.cache_axes(cfg))
+    admitted = [0] * eng.slots
+    rec = {"checked": 0}
+    reset = eng._reset
+
+    def watched(cache, mask):
+        out = reset(cache, mask)
+        t0 = time.perf_counter()
+        flat = flatten_params(out)
+        for slot in torch.nonzero(mask).flatten().tolist():
+            admitted[slot] += 1
+            if admitted[slot] < 2:
+                continue
+            for k, v in flat.items():
+                ax = axes[k].index("batch")
+                check(torch.equal(v.select(ax, slot),
+                                  fresh[k].select(ax, slot)),
+                      f"{label}: slot {slot} after its reset holds another "
+                      f"{k} than init_cache's")
+            rec["checked"] += 1
+        eng._now -= time.perf_counter() - t0
+        return out
+
+    eng._reset = watched
+    return rec
+
+
 def engine_trace(kern, label: str, cfg, serving, n_req: int, prompts,
-                 new, power: str) -> dict:
+                 new, power: str, after=None,
+                 kernels=("K4", "K5")) -> dict:
     """``ServingEngine`` (8 slots, prefill chunks of 32) on a Poisson
     trace of ``n_req`` requests, prompt lengths in ``prompts`` and new
-    tokens in ``new`` (inclusive ranges); only K4 and K5 may launch."""
+    tokens in ``new`` (inclusive ranges); exactly the ``kernels`` launch,
+    and every re-admitted slot's cache is held to ``init_cache``'s values
+    (``watch_resets``). ``after(reqs, finished)`` runs once the launches
+    are read."""
     from repro_torch.runtime import server as srv
     rng = np.random.default_rng(5)
     t, reqs = 0.0, []
@@ -2484,6 +2593,7 @@ def engine_trace(kern, label: str, cfg, serving, n_req: int, prompts,
     t0 = time.time()
     eng = srv.ServingEngine(cfg, serving, slots=8, max_len=max_len,
                             prefill_chunk=32, device="cuda")
+    resets = watch_resets(eng, cfg, label)
     out = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.time() - t0
@@ -2493,8 +2603,8 @@ def engine_trace(kern, label: str, cfg, serving, n_req: int, prompts,
           f"{label} finished {sorted(fin)}")
     check(all(len(fin[r.id].tokens) == r.max_new for r in reqs),
           f"{label}: a request got another number of tokens than max_new")
-    check(n["K4"] > 0 and n["K5"] > 0
-          and n == only(kern, K4=n["K4"], K5=n["K5"]),
+    check(all(n[k] > 0 for k in kernels)
+          and n == only(kern, **{k: n[k] for k in kernels}),
           f"{label} launches {n}")
     check(eng.trace_counts == {"decode": 1, "prefill": 1, "reset": 1},
           f"{label} program signatures {eng.trace_counts}")
@@ -2508,7 +2618,66 @@ def engine_trace(kern, label: str, cfg, serving, n_req: int, prompts,
           f"p99_ttft_s={st['p99_ttft_s']:.3f} wall_s={wall:.2f} "
           f"launches={ {k: v for k, v in n.items() if v} } [{power}]",
           flush=True)
+    # every request past the first 8 enters a slot used before
+    check(resets["checked"] == max(n_req - eng.slots, 0),
+          f"{label}: {resets['checked']} re-admitted slots checked")
+    print(f"{label}: {resets['checked']} re-admitted slots each held "
+          f"init_cache's values in every cache leaf right after its "
+          f"reset [{power}]", flush=True)
+    if after is not None:
+        after(reqs, fin)
     return n
+
+
+def topk_at(k2, calls, theta, kappa: int, label: str, power: str) -> dict:
+    """An ℓ0 task's C step on the operands its kernels were launched with
+    (``calls``: the fused bisection's and K3's calls of one C step): the
+    bisection's (lo, hi, n_hi) equal to the iterated and plain loops, K3
+    equal to its plain version, Θ the exact top-κ of its input with
+    exactly κ nonzeros; both timed beside their plain versions and
+    bounds. Returns the rows {"topk", "K3"}."""
+    from repro_torch.core.schemes.prune import topk_magnitude_mask
+    bis, masks = calls
+    check(len(bis) == 1 and len(masks) == 1, f"{label} bisection / K3 calls")
+    nnz = int(torch.count_nonzero(theta))
+    check(nnz == kappa, f"{label} nonzeros {nnz} != κ {kappa}")
+    (w, kap, iters), kw, got = bis[0]
+    check(tuple(w.shape) == (1, theta.numel())
+          and kap.tolist() == [kappa], f"{label} bisection {tuple(w.shape)}")
+    strict = kw.get("strict", False)
+    check_bisection(k2, w, kap, iters, strict, got, f"{label} bisection")
+    (mw, t), mkw, kept = masks[0]
+    check(torch.equal(kept, k2.mask_apply_batched_plain(mw, t, **mkw)),
+          f"{label}: K3 differs from its plain version")
+    exact = torch.where(topk_magnitude_mask(w, kappa), w, 0.0)
+    check(torch.equal(theta.reshape(w.shape), exact),
+          f"{label}: Θ differs from the exact top-κ of its input")
+    del exact
+    ms, k3_ms = timed_turns(
+        [lambda: k2.topk_threshold_batched(w, kap, iters, strict),
+         lambda: k2.mask_apply_batched(mw, t, **mkw)], 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k2.topk_threshold_batched_plain(w, kap, iters, strict)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    k3_plain = timed_turns(
+        [lambda: k2.mask_apply_batched_plain(mw, t, **mkw)], 3)[0]
+    p_all = w.numel()
+    b_ms, b_by = bound(4.0 * p_all, float(p_all))
+    b3_ms, b3_by = bound(8.0 * p_all, float(p_all))
+    print(f"path {label}: bisection I=1 P={p_all} κ={kappa} iters={iters}: "
+          f"(lo, hi, n_hi) equal to the iterated and plain loops, K3 equal "
+          f"to its plain version, Θ equal to the exact top-κ, "
+          f"nonzeros={nnz}; bisection ms={ms:.3f} plain_ms={plain_ms:.1f} "
+          f"bound_ms={b_ms:.3f} ({b_by}); K3 ms={k3_ms:.3f} plain_ms="
+          f"{k3_plain:.3f} bound_ms={b3_ms:.3f} ({b3_by}) [{power}]",
+          flush=True)
+    return {"topk": {"shape": list(w.shape), "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0},
+            "K3": {"shape": list(mw.shape), "ms": k3_ms,
+                   "plain_ms": k3_plain, "bound_ms": b3_ms,
+                   "bound_by": b3_by, "max_abs_err": 0.0}}
 
 
 def main_path_i2(kern, k1, k2, power: str) -> dict:
@@ -2521,7 +2690,6 @@ def main_path_i2(kern, k1, k2, power: str) -> dict:
     from repro_torch.core import AsVector, CompressionTask
     from repro_torch.core.schemes import (
         AdaptiveQuantization, ConstraintL0Pruning)
-    from repro_torch.core.schemes.prune import topk_magnitude_mask
     from repro_torch.kernels.kmeans import ops as kops
     from repro_torch.kernels.prune import ops as pops
     from repro_torch.models import moe
@@ -2557,10 +2725,9 @@ def main_path_i2(kern, k1, k2, power: str) -> dict:
     check(run["kmeans_groups"] == 3 and run["launches"] == want,
           f"I2 launches {run['launches']} != {want}")
     theta = run["state"]["tasks"]["experts_down"]["theta"]["theta"]
-    nnz = int(torch.count_nonzero(theta))
-    check(nnz == DS_KAPPA, f"I2 nonzeros {nnz} != κ {DS_KAPPA}")
     bis, masks, lloyd = run.pop("calls")
-    check(len(bis) == 1 and len(masks) == 1, "I2 bisection / K3 calls")
+    check(theta.numel() == DS_ITEM * DS_MOE_LAYERS,
+          f"I2 pruned weights {theta.numel()}")
     # the Lloyd loops: the lead FFN (one item), the shared experts (one
     # item a layer), the attention (one item a layer)
     shapes = sorted(tuple(a[0].shape) for a, _, _ in lloyd)
@@ -2570,9 +2737,6 @@ def main_path_i2(kern, k1, k2, power: str) -> dict:
          * cfg.moe.d_expert),
         (n_layers, 2 * cfg.d_model * (cfg.q_dim + cfg.kv_dim))])
     check(shapes == want_shapes, f"I2 Lloyd loops {shapes}")
-    (w, kap, iters), kw, got = bis[0]
-    check(tuple(w.shape) == (1, DS_ITEM * DS_MOE_LAYERS)
-          and kap.tolist() == [DS_KAPPA], f"I2 bisection {tuple(w.shape)}")
     del run["state"], run["lc"]
     check_served("path I2", cfg, run, power)
     out = {"launches": run["launches"], "peak_gib": run["peak_gib"]}
@@ -2588,40 +2752,8 @@ def main_path_i2(kern, k1, k2, power: str) -> dict:
     torch.cuda.empty_cache()
 
     # the bisection and K3 at this shape, on their own operands
-    strict = kw.get("strict", False)
-    check_bisection(k2, w, kap, iters, strict, got, "I2 bisection")
-    (mw, t), mkw, kept = masks[0]
-    check(torch.equal(kept, k2.mask_apply_batched_plain(mw, t, **mkw)),
-          "I2: K3 differs from its plain version")
-    exact = torch.where(topk_magnitude_mask(w, DS_KAPPA), w, 0.0)
-    check(torch.equal(theta.reshape(w.shape), exact),
-          "I2: Θ differs from the exact top-κ of its input")
-    del exact
-    ms, k3_ms = timed_turns(
-        [lambda: k2.topk_threshold_batched(w, kap, iters, strict),
-         lambda: k2.mask_apply_batched(mw, t, **mkw)], 5)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    k2.topk_threshold_batched_plain(w, kap, iters, strict)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    k3_plain = timed_turns(
-        [lambda: k2.mask_apply_batched_plain(mw, t, **mkw)], 3)[0]
-    p_all = w.numel()
-    b_ms, b_by = bound(4.0 * p_all, float(p_all))
-    b3_ms, b3_by = bound(8.0 * p_all, float(p_all))
-    out["topk"] = {"shape": list(w.shape), "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0}
-    out["K3"] = {"shape": list(mw.shape), "ms": k3_ms, "plain_ms": k3_plain,
-                 "bound_ms": b3_ms, "bound_by": b3_by, "max_abs_err": 0.0}
-    print(f"path I2: bisection I=1 P={p_all} κ={DS_KAPPA} iters={iters}: "
-          f"(lo, hi, n_hi) equal to the iterated and plain loops, K3 equal "
-          f"to its plain version, Θ equal to the exact top-κ, "
-          f"nonzeros={nnz}; bisection ms={ms:.3f} plain_ms={plain_ms:.1f} "
-          f"bound_ms={b_ms:.3f} ({b_by}); K3 ms={k3_ms:.3f} plain_ms="
-          f"{k3_plain:.3f} bound_ms={b3_ms:.3f} ({b3_by}) [{power}]",
-          flush=True)
-    del bis, masks, w, kap, got, mw, t, kept, theta
+    out.update(topk_at(k2, (bis, masks), theta, DS_KAPPA, "I2", power))
+    del bis, masks, theta
     torch.cuda.empty_cache()
     return out
 
@@ -2685,6 +2817,471 @@ def main_path_j(kern, k1, power: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# paths K, L1 and L2: the recurrent mixers at the published widths
+# ----------------------------------------------------------------------
+def ssm_config(arch: str):
+    """jamba-v0.1-52b cut to layers 2–4 of its super-block, or xlstm-125m
+    whole, at the published widths, float32, fused attention, unrolled
+    (the bridge needs per-layer leaves)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.ssm import mamba_dims, mlstm_dims, slstm_dims
+    from repro_torch.models.transformer import count_params
+    cfg = get_config(arch)
+    if arch == "jamba-v0.1-52b":
+        cfg = cfg.with_(pattern=cfg.pattern[2:5], pattern_reps=1,
+                        dtype="float32", fused_attention=True)
+        got = (cfg.d_model, *mamba_dims(cfg), cfg.mamba.d_state,
+               cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_expert,
+               cfg.n_heads, cfg.n_kv_heads, cfg.vocab_size,
+               [(x.mixer, x.ffn) for x in cfg.pattern], count_params(cfg))
+        want = (4096, 8192, 256, 16, 16, 2, 14336, 32, 8, 65536,
+                [("mamba", "dense"), ("mamba", "moe"), ("attn", "dense")],
+                JAMBA_PARAMS)
+    else:
+        cfg = cfg.with_(pattern=cfg.pattern * cfg.pattern_reps,
+                        pattern_reps=1, dtype="float32",
+                        fused_attention=True)
+        got = (cfg.d_model, cfg.n_heads, cfg.vocab_size, cfg.tie_embeddings,
+               mlstm_dims(cfg), slstm_dims(cfg), cfg.xlstm.chunk,
+               [x.mixer for x in cfg.pattern].count("mlstm"),
+               [x.mixer for x in cfg.pattern].count("slstm"),
+               count_params(cfg))
+        want = (768, 4, 50304, True, (1536, 384), (768, 192, 1024), 256,
+                10, 2, XLSTM_PARAMS)
+    check(got == want, f"{arch} widths {got}")
+    return cfg
+
+
+def prefill_against_decode(label: str, cfg, serving, power: str,
+                           seed: int, chunk: int) -> None:
+    """The prefill's last logits on 2 prompts of two scan chunks
+    (``chunk`` tokens each) against ``decode_step`` token by token from
+    an empty cache, within the reference's rtol 2e-3 / atol 2e-3
+    (``tests/test_models.py``): the chunked scans, the state carried
+    from one chunk to the next included, against their recurrences at
+    full width."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import unembed
+    n = 2 * chunk
+    p = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (2, n)), device="cuda")
+    with torch.inference_mode():
+        hidden, _ = tf.forward_hidden(serving, p, cfg)
+        want = unembed(serving["embed"], hidden[:, -1:], cfg)[:, 0]
+        cache = tf.init_cache(cfg, 2, n, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for i in range(n):
+            logits, cache = tf.decode_step(serving, cache, p[:, i:i + 1], i,
+                                           cfg)
+        torch.cuda.synchronize()
+        step_ms = (time.time() - t0) / n * 1e3
+    got = logits[:, 0]
+    err = (got - want).abs()
+    check(bool((err <= 2e-3 + 2e-3 * want.abs()).all()),
+          f"{label} prefill vs token-by-token decode: max|Δ|="
+          f"{float(err.max()):.3g}")
+    print(f"{label} prefill (2 x {n}, {n // chunk} chunks of {chunk}) vs "
+          f"token-by-token decode from an empty cache: "
+          f"max|Δlogit|={float(err.max()):.3g} "
+          f"max|logit|={float(want.abs().max()):.3g} (rtol 2e-3, atol 2e-3) "
+          f"decode_ms_per_step={step_ms:.2f} [{power}]", flush=True)
+
+
+def k_tasks() -> list:
+    """Path K's tasks on jamba's layers 2–4 (s0/pos0–pos2): 4-bit k=16 on
+    each Mamba layer's in_proj|out_proj and each dense FFN's w_gate|w_up,
+    8-bit k=64 on each Mamba layer's x_proj|dt_proj and the attention,
+    ℓ0 at 5% on both dense FFNs' w_down as one vector."""
+    from repro_torch.core import AsVector, CompressionTask
+    from repro_torch.core.schemes import (
+        AdaptiveQuantization, ConstraintL0Pruning)
+    q4, q8 = dict(k=16, iters=10), dict(k=64, iters=10)
+    tasks = [CompressionTask("ffn_down", r"^stages/s0/pos(0|2)/ffn/w_down$",
+                             AsVector(), ConstraintL0Pruning(
+                                 kappa=JAMBA_KAPPA))]
+    for i in (0, 1):
+        pre = rf"^stages/s0/pos{i}/mixer/"
+        tasks += [CompressionTask(f"mamba4_{i}", pre + "(in_proj|out_proj)$",
+                                  AsVector(), AdaptiveQuantization(**q4)),
+                  CompressionTask(f"mamba8_{i}", pre + "(x_proj|dt_proj)$",
+                                  AsVector(), AdaptiveQuantization(**q8))]
+    tasks += [CompressionTask(f"ffn{i}", rf"^stages/s0/pos{i}/ffn/"
+                              r"(w_gate|w_up)$", AsVector(),
+                              AdaptiveQuantization(**q4)) for i in (0, 2)]
+    tasks.append(CompressionTask("attn", r"^stages/s0/pos2/mixer/"
+                                 r"(wq|wk|wv|wo)$", AsVector(),
+                                 AdaptiveQuantization(**q8)))
+    return tasks
+
+
+def l1_tasks(cfg) -> list:
+    """Path L1's tasks: 4-bit k=16 per layer on the reference twin's set
+    wq|wk|wv|up_proj|down_proj|w."""
+    from repro_torch.core import AsVector, CompressionTask
+    from repro_torch.core.schemes import AdaptiveQuantization
+    return [CompressionTask(f"layer{i}", rf"^stages/s0/pos{i}/mixer/"
+                            r"(wq|wk|wv|up_proj|down_proj|w)$", AsVector(),
+                            AdaptiveQuantization(k=16, iters=10))
+            for i in range(cfg.n_layers)]
+
+
+def main_path_k(kern, k1, k2, power: str) -> dict:
+    """jamba-v0.1-52b at full width, layers 2–4 of its super-block: 4-bit
+    k=16 on each Mamba layer's in_proj|out_proj and each dense FFN's
+    w_gate|w_up (K4), 8-bit k=64 on each Mamba layer's x_proj|dt_proj and
+    the attention (K5), ℓ0 at 5% on both dense FFNs' w_down as one vector
+    (the bisection and K3); the expert stacks stay dense. LC init, one C
+    step, the bridge, ``Server.generate`` (2 × 1024), the served checks,
+    prefill against decode (MoE at the no-drop capacity 8.0), then an
+    engine trace whose re-admitted slots must hold ``init_cache``'s
+    states. Returns the path's record, whose ``served`` holds the
+    serving tree, the prompts and the generated tokens for
+    ``profile_ssm``."""
+    import dataclasses
+    import inspect
+    from repro_torch.kernels.kmeans import ops as kops
+    from repro_torch.kernels.prune import ops as pops
+    from repro_torch.models import ssm
+    from repro_torch.models.ssm import mamba_dims
+    cfg = ssm_config("jamba-v0.1-52b")
+    run = serve_path(kern, "K", cfg, k_tasks(), SSM_PROMPT, power,
+                     seeds=K_SEEDS,
+                     capture=[(pops, "topk_threshold_batched"),
+                              (pops, "mask_apply_batched"),
+                              (kops, "kmeans_lloyd_batched")])
+    check(run["kinds"] == {"quant4": 8, "quant8": 8, "sparse": 2},
+          f"K bridged forms {run['kinds']}")
+    # generate: each quantized matrix once a token, K6 once at prefill;
+    # the C step: one fused Lloyd loop a k-means group, one bisection
+    want = only(kern, K1loop=run["kmeans_groups"], K2loop=1, K3=1,
+                K4=8 * SERVE_GEN, K5=8 * SERVE_GEN, K6=1)
+    check(run["launches"] == want, f"K launches {run['launches']} != {want}")
+    theta = run["state"]["tasks"]["ffn_down"]["theta"]["theta"]
+    bis, masks, lloyd = run.pop("calls")
+    check(theta.numel() == 2 * JAMBA_FFN, f"K pruned weights {theta.numel()}")
+    di, dtr = mamba_dims(cfg)
+    d, ds = cfg.d_model, cfg.mamba.d_state
+    items = {(1, d * 2 * di + di * d), (1, di * (dtr + 2 * ds) + dtr * di),
+             (1, 2 * d * cfg.d_ff),
+             (1, 2 * d * (cfg.q_dim + cfg.kv_dim))}
+    shapes = {tuple(a[0].shape[1:]) for a, _, _ in lloyd}
+    check(shapes == {(p,) for _, p in items}
+          and sum(a[0].shape[0] for a, _, _ in lloyd) == 7,
+          f"K Lloyd loops {[tuple(a[0].shape) for a, _, _ in lloyd]}")
+    del run["state"], run["lc"]
+    check_served("path K", cfg, run, power)
+    out = {"launches": run["launches"], "peak_gib": run["peak_gib"],
+           "served": ("K", cfg, run["serving"], run["prompts"],
+                      run["tokens"])}
+    serving = run["serving"]
+    del run
+    torch.cuda.empty_cache()
+    no_drop = cfg.with_(moe=dataclasses.replace(cfg.moe,
+                                                capacity_factor=8.0))
+    chunk = inspect.signature(ssm.mamba_forward).parameters["chunk"].default
+    prefill_against_decode("path K", no_drop, serving, power, 25, chunk)
+    out["engine"] = engine_trace(kern, "K engine", cfg, serving, 16,
+                                 (32, 384), (16, 64), power)
+    torch.cuda.empty_cache()
+    out["lloyd"] = check_lloyd_at(k1, lloyd, "K", power)
+    del lloyd
+    torch.cuda.empty_cache()
+    out.update(topk_at(k2, (bis, masks), theta, JAMBA_KAPPA, "K", power))
+    del bis, masks, theta
+    torch.cuda.empty_cache()
+    return out
+
+
+def single_slot_agreement(cfg, serving, power: str):
+    """The ``after`` of path L1's engine trace: each request again alone,
+    token by token from an empty one-slot cache (its prompt, then greedy
+    decode), and its greedy agreement with the engine's tokens; printed,
+    not asserted (a batch of 8 against a batch of 1 may flip a near-tied
+    argmax at full width; the CPU tests hold the engine to scalar decode
+    token for token)."""
+    from repro_torch.models import transformer as tf
+
+    def after(reqs, fin):
+        agree = []
+        with torch.inference_mode():
+            for r in reqs:
+                cache = tf.init_cache(cfg, 1, len(r.prompt) + r.max_new,
+                                      device="cuda")
+                p = torch.as_tensor(r.prompt, device="cuda")[None]
+                for t in range(p.shape[1]):
+                    logits, cache = tf.decode_step(serving, cache,
+                                                   p[:, t:t + 1], t, cfg)
+                toks = [torch.argmax(logits[:, 0], dim=-1)]
+                for i in range(r.max_new - 1):
+                    logits, cache = tf.decode_step(
+                        serving, cache, toks[-1][:, None],
+                        len(r.prompt) + i, cfg)
+                    toks.append(torch.argmax(logits[:, 0], dim=-1))
+                alone = torch.cat(toks).cpu().numpy()
+                agree.append(float(np.mean(alone == fin[r.id].tokens)))
+        print(f"path L1 engine against each request decoded alone (one "
+              f"slot, token by token): greedy agreement per request "
+              f"{[round(a, 4) for a in agree]} mean={np.mean(agree):.4f} "
+              f"[{power}]", flush=True)
+    return after
+
+
+def main_path_l1(kern, k1, power: str) -> dict:
+    """xlstm-125m at full width and depth (10 mLSTM, 2 sLSTM blocks,
+    unrolled): 4-bit k=16 per layer on the reference twin's set
+    wq|wk|wv|up_proj|down_proj|w (K1, then K4 in serving); LC init, one C
+    step, the bridge, ``Server.generate`` (2 × 1024), the served checks,
+    prefill against decode, then an engine trace whose re-admitted slots
+    must hold ``init_cache``'s states (m at −30), each request's agreement
+    with its own single-slot decode printed. Returns the path's record,
+    with ``served`` as path K's."""
+    from repro_torch.kernels.kmeans import ops as kops
+    from repro_torch.models.ssm import mlstm_dims, slstm_dims
+    cfg = ssm_config("xlstm-125m")
+    run = serve_path(kern, "L1", cfg, l1_tasks(cfg), SSM_PROMPT, power,
+                     seeds=L1_SEEDS,
+                     capture=[(kops, "kmeans_lloyd_batched")])
+    check(run["kinds"] == {"quant4": 10 * 5 + 2 * 3},
+          f"L1 bridged forms {run['kinds']}")
+    want = only(kern, K1loop=run["kmeans_groups"], K4=56 * SERVE_GEN)
+    check(run["launches"] == want, f"L1 launches {run['launches']} != {want}")
+    (lloyd,) = run.pop("calls")
+    (di, _), (_, _, ff), d = mlstm_dims(cfg), slstm_dims(cfg), cfg.d_model
+    items = sorted([(10, d * 2 * di + 3 * di * di + di * d),
+                    (2, d * 4 * d + d * 2 * ff + ff * d)])
+    got = sorted((1, a[0].shape[1]) for a, _, _ in lloyd
+                 for _ in range(a[0].shape[0]))
+    check(got == sorted(x for n, p in items for x in [(1, p)] * n),
+          f"L1 Lloyd loops {[tuple(a[0].shape) for a, _, _ in lloyd]}")
+    del run["state"], run["lc"]
+    check_served("path L1", cfg, run, power)
+    out = {"launches": run["launches"], "peak_gib": run["peak_gib"],
+           "served": ("L1", cfg, run["serving"], run["prompts"],
+                      run["tokens"])}
+    serving = run["serving"]
+    del run
+    torch.cuda.empty_cache()
+    prefill_against_decode("path L1", cfg, serving, power, 27,
+                           cfg.xlstm.chunk)
+    out["engine"] = engine_trace(
+        kern, "L1 engine", cfg, serving, 16, (32, 384), (16, 64), power,
+        after=single_slot_agreement(cfg, serving, power), kernels=("K4",))
+    torch.cuda.empty_cache()
+    out["lloyd"] = check_lloyd_at(k1, lloyd, "L1", power)
+    del lloyd
+    torch.cuda.empty_cache()
+    return out
+
+
+def l2_groups(cfg) -> list:
+    """L2's k-means groups as (items, weights an item), from the widths:
+    ``AsStacked`` makes each layer of each matched stack an item, and
+    items of one size share a group (one fused Lloyd loop)."""
+    from repro_torch.models.ssm import mlstm_dims, slstm_dims
+    (di, _), (_, _, ff), d = mlstm_dims(cfg), slstm_dims(cfg), cfg.d_model
+    kinds = [x.mixer for x in cfg.pattern]
+    sizes = ([di * di] * 3 + [d * 2 * di, di * d]) * kinds.count("mlstm") \
+        + [d * 4 * d, d * 2 * ff, ff * d] * kinds.count("slstm")
+    return sorted((sizes.count(p) * cfg.pattern_reps, p) for p in set(sizes))
+
+
+def main_path_l2(kern, k1, power: str) -> dict:
+    """LC training of xlstm-125m on the card: the twin of
+    ``examples/train_lm_compress.py`` (``train_lm_compress.make_trainer``
+    on the published config, float32, remat): AdamW on ``TokenStream``
+    at 4 × 1024 tokens a step, 2 μ × 3 L steps, serial; per-layer K=16
+    codebooks on wq|wk|wv|up_proj|down_proj|w. Checks the records (finite
+    losses, CE falling, the §7 monitor, the reference's compression
+    ratio) and exactly one fused Lloyd loop a k-means group each C step,
+    the groups those of ``l2_groups`` and the last C step's loops held
+    against the iterated and plain loops (``check_lloyd_at``); prints the
+    train step's median ms, tokens/s, C-step ms and peak memory (the
+    median over the steps after the first, which pays cuBLAS's and the
+    allocator's warm-up; the LC wall time holds it). Returns the
+    launches."""
+    from repro_torch import train_lm_compress as twin
+    from repro_torch.kernels.kmeans import ops as kops
+    cfg = twin.model_config(True)
+    check((cfg.name, cfg.d_model, cfg.n_layers, cfg.dtype, cfg.remat)
+          == ("xlstm-125m", 768, 12, "float32", True), "L2 config")
+    want_groups = l2_groups(cfg)
+    trainer = twin.make_trainer(cfg, lc_steps=L2_LC, steps_per_l=L2_STEPS,
+                                batch=L2_BATCH, seq=L2_SEQ, device="cuda")
+    events = []
+    step = trainer._train_step
+
+    def timed(st, batch):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(st, batch)
+        end.record()
+        events.append((start, end))
+        return out
+
+    trainer._train_step = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kern)
+    t0 = time.time()
+    with calls_of(kops, "kmeans_lloyd_batched",
+                  len(want_groups) * (L2_LC - 1)) as lloyd:
+        state, _ = trainer.run(0)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n = launches(kern)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    hist = trainer.history
+    check(len(hist) == L2_LC, "L2 records")
+    for h in hist:
+        check(h["c_step_violations"] == [], f"L2 §7 monitor {h}")
+        check(math.isfinite(h["loss"]) and math.isfinite(h["ce"]),
+              f"L2 losses {h['loss']} {h['ce']}")
+    check(hist[-1]["ce"] < hist[0]["ce"],
+          f"L2 ce {hist[0]['ce']} -> {hist[-1]['ce']}")
+    groups = trainer.lc.group_summary(state["params"])
+    n_groups = sum(g["solver"] == "kmeans_lloyd" for g in groups)
+    got = sorted((g["items"], math.prod(g["item_shape"])) for g in groups)
+    check(got == want_groups, f"L2 groups {got} != {want_groups}")
+    loops = sorted(tuple(a[0].shape) for a, _, _ in lloyd)
+    check(loops == want_groups, f"L2 Lloyd loops of the last C step "
+          f"{loops} != {want_groups}")
+    check(n == only(kern, K1loop=n_groups * L2_LC),
+          f"L2 launches {n} (want {n_groups} Lloyd loops a C step)")
+    # the reference's ratio: 32 bits a weight against 4-bit indices and a
+    # 16-entry f32 codebook an item (one item a layer and matrix stack)
+    sizes = [g["items"] * math.prod(g["item_shape"]) for g in groups]
+    items = sum(g["items"] for g in groups)
+    weights = sum(sizes)
+    ratio = 32.0 * weights / (4 * weights + 16 * 32 * items)
+    check(all(abs(h["compression_ratio"] / ratio - 1) < 1e-12 for h in hist),
+          f"L2 ratio {hist[-1]['compression_ratio']} != {ratio}")
+    med = statistics.median(step_ms[1:])
+    print(f"path L2 (xlstm-125m LC training, {L2_BATCH}x{L2_SEQ} tokens a "
+          f"step, {L2_LC} mu x {L2_STEPS} L steps, serial): "
+          f"lc_wall_s={wall:.3f} steps={len(step_ms)} "
+          f"first_step_ms={step_ms[0]:.2f} median_step_ms={med:.2f} "
+          f"tokens_per_s={L2_BATCH * L2_SEQ / med * 1e3:.1f} "
+          f"c_step_ms={[round(h['c_step_ms'], 2) for h in hist]} "
+          f"loss={[round(h['loss'], 4) for h in hist]} "
+          f"ce={[round(h['ce'], 4) for h in hist]} "
+          f"ratio={hist[-1]['compression_ratio']:.4f} groups={n_groups} "
+          f"({items} items, {weights:,} weights) peak_memory_gib={peak:.2f} "
+          f"launches={ {k: v for k, v in n.items() if v} } [{power}]",
+          flush=True)
+    del trainer, state
+    torch.cuda.empty_cache()
+    check_lloyd_at(k1, lloyd, "L2", power)
+    return n
+
+
+@contextlib.contextmanager
+def ranges_on(module, names: dict):
+    """Run each function ``module.<attr>`` of ``names`` inside a
+    ``torch.profiler.record_function`` range of the name given."""
+    saved = {a: getattr(module, a) for a in names}
+
+    def wrap(fn, label):
+        def run(*args, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kw)
+        return run
+
+    for a, label in names.items():
+        setattr(module, a, wrap(saved[a], label))
+    try:
+        yield
+    finally:
+        for a, fn in saved.items():
+            setattr(module, a, fn)
+
+
+def profile_ssm(kern, served: list, power: str) -> None:
+    """One ``torch.profiler`` session over path K's prefill (2 × 1024)
+    and 8 decode steps, then path L1's, on the served models the paths
+    built (``served``: (name, cfg, serving tree, prompts, generated
+    tokens) each): the device's busy share and top kernels
+    (``device_profile``), each phase's device time, and the share of it
+    in the selective scan's chunks (Mamba), the mLSTM chunks and the
+    sLSTM cell steps (plain PyTorch ops, no kernel of the port): the
+    device time of each range's kernels, read from the profiler's event
+    tree."""
+    from torch.autograd import DeviceType
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import unembed
+    from repro_torch.runtime import server as srv
+    phases = []
+    max_len = SSM_PROMPT + SERVE_GEN
+    for name, cfg, serving, prompts, toks in served:
+        @torch.inference_mode()
+        def phase(cfg=cfg, serving=serving, prompts=prompts, toks=toks,
+                  name=name, max_len=max_len):
+            with torch.profiler.record_function(f"path {name} prefill"):
+                hidden, _, caches = tf.forward_hidden(
+                    serving, prompts, cfg, return_caches=True)
+                unembed(serving["embed"], hidden[:, -1:], cfg)
+                caches = srv.pad_caches_to(caches, cfg, SSM_PROMPT, max_len)
+            with torch.profiler.record_function(f"path {name} decode"):
+                for i in range(8):
+                    tf.decode_step(serving, caches, toks[:, i:i + 1],
+                                   SSM_PROMPT + i, cfg)
+        phases.append(phase)
+    scans = {"_mamba_chunk": "ssm::selective_scan_chunk",
+             "_mlstm_chunk": "ssm::mlstm_chunk",
+             "_slstm_cell": "ssm::slstm_cell"}
+
+    def both():
+        for fn in phases:
+            fn()
+
+    for fn in phases:                    # warm: the first call's set-up
+        fn()
+
+    with ranges_on(ssm, scans):
+        _, events = device_profile(
+            both, "paths K and L1 (prefill 2x1024 + 8 decode steps each)",
+            power, kern)
+
+    def inside(e, name):
+        return sum(c.device_time_total if c.name == name else inside(c, name)
+                   for c in e.cpu_children)
+
+    for name, *_ in served:
+        for phase in ("prefill", "decode"):
+            outer = [e for e in events if e.name == f"path {name} {phase}"
+                     and e.device_type == DeviceType.CPU]
+            total = sum(e.device_time_total for e in outer)
+            parts = {r: sum(inside(e, r) for e in outer)
+                     for r in scans.values()}
+            check(total > 0, f"profile: no device time in path {name} "
+                  f"{phase}")
+            print(f"profile path {name} {phase}: device_ms={total / 1e3:.3f} "
+                  + " ".join(f"{r}_ms={v / 1e3:.3f} ({v / total:.1%})"
+                             for r, v in parts.items() if v)
+                  + f" [{power}]", flush=True)
+
+
+def ssm_paths(kern, k1, k2, power: str) -> None:
+    """``python3 chip_smoke.py --ssm``: paths L1 and K, then one profile
+    over both served models (``profile_ssm``), each model built once; L1
+    first, so that K's serving tree (~13 GiB) is not held through L1's
+    peak. ``main`` runs this in a process of its own, last: a profiler
+    session after the SSM profile saw 47 of 50 K9 launches, and the
+    profiler slows every later launch of its process. The paths'
+    launches end the output as the line ``ssm_launches {json}``."""
+    path_l1 = main_path_l1(kern, k1, power)
+    path_k = main_path_k(kern, k1, k2, power)
+    profile_ssm(kern, [path_k.pop("served"), path_l1.pop("served")], power)
+    print(SSM_LAUNCHES, json.dumps({
+        "K": path_k["launches"], "K engine": path_k["engine"],
+        "L1": path_l1["launches"], "L1 engine": path_l1["engine"]}),
+        flush=True)
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -2734,6 +3331,9 @@ def main() -> int:
             "K7": k1.SINGLE, "K8": k2.COUNT_SINGLE,
             "K9": k2.MASK_SINGLE, "K1loop": k1.LLOYD, "K2loop": k2.TOPK}
     power = card.split(",")[-1].strip()
+    if sys.argv[1:] == ["--ssm"]:
+        ssm_paths(kern, k1, k2, power)
+        return 0
     t_start = time.time()
     rec = kernel_phase(k1, k2, power)
     frec = fused_phase(k1, k2, power)
@@ -2758,6 +3358,7 @@ def main() -> int:
     paths.update({"I1": i1["launches"], "I2": i2["launches"],
                   "I2 engine": i2["engine"], "J": path_j["launches"],
                   "J engine": path_j["engine"]})
+    paths["L2"] = main_path_l2(kern, k1, power)
     profile_phase(kern, path_c, power)
     device_times(k2, k6, mrec["K9"][0], srec["K6"][0], card)
     quant_device_times(k45, srec, card)
@@ -2768,6 +3369,21 @@ def main() -> int:
     # event before ``profiled`` opened each with an uncounted fill
     profile_path_h(kern, power)
     profile_after_overlap(k45, card)
+    # paths K and L1 and their profile in a process of its own, which
+    # sees no earlier profiler session (``ssm_paths``)
+    del path_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--ssm"], stdout=subprocess.PIPE, text=True,
+                           timeout=900)
+    print(child.stdout, end="", flush=True)
+    check(child.returncode == 0,
+          f"the process of paths K and L1 exited with {child.returncode}")
+    mark = [x for x in child.stdout.splitlines()
+            if x.startswith(SSM_LAUNCHES + " ")]
+    check(len(mark) == 1, "paths K and L1 reported no launches")
+    paths.update(json.loads(mark[0][len(SSM_LAUNCHES) + 1:]))
     total = {n: sum(p[n] for p in paths.values()) for n in kern}
     print(f"launches per path: {paths}", flush=True)
     print(f"phases_s={time.time() - t_start:.1f}", flush=True)

@@ -7,11 +7,11 @@ Port of ``src/repro/launch/serve.py`` (no mesh). Runs on the card unless
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \
         --reduced --engine --form quant4 --slots 4 --requests 12 --device cpu
 
-Every token model runs but those with Mamba or xLSTM mixers (jamba,
-xlstm), which are not ported yet; e.g. ``--arch mixtral-8x7b``,
-``deepseek-moe-16b`` (MoE) or ``minicpm3-4b`` (MLA). A compressed
-``--form`` bridges every 2-D matrix (MoE expert stacks are 3-D and stay
-dense).
+Every token model runs: e.g. ``--arch mixtral-8x7b``,
+``deepseek-moe-16b`` (MoE), ``minicpm3-4b`` (MLA), ``jamba-v0.1-52b``
+(Mamba) or ``xlstm-125m`` (mLSTM and sLSTM). A compressed ``--form``
+bridges every 2-D matrix that the model applies as a product (MoE
+expert stacks are 3-D and stay dense; see ``compress_for_form``).
 """
 from __future__ import annotations
 
@@ -34,15 +34,26 @@ from repro_torch.runtime.server import (
 FORMS = ("dense", "quant4", "quant8", "lowrank", "sparse")
 
 
+#: 2-D leaves that the mixers read as they are, in no product (Mamba's
+#: and mLSTM's depthwise conv taps, Mamba's state matrix): a weight form
+#: there could not be applied
+NOT_PRODUCTS = ("conv_w", "A_log")
+
+
 def compress_for_form(cfg, params, form: str, device):
     """Bridge the model's matrices into one serving form through a real
-    LC state (direct compression init)."""
+    LC state (direct compression init).
+
+    Every 2-D leaf is selected, as in the reference, but those named in
+    ``NOT_PRODUCTS``: the reference selects them too, and then its own
+    Mamba and mLSTM raise on the weight form they get (ROADMAP §3)."""
     from repro_torch.core import AsIs, AsVector, CompressionTask, LCAlgorithm
     from repro_torch.core.schemes import (
         AdaptiveQuantization, ConstraintL0Pruning, LowRank)
 
     paths = [p for p in lc_param_paths(params)
-             if get_path(params, p).ndim == 2]
+             if get_path(params, p).ndim == 2
+             and p.rsplit("/", 1)[-1] not in NOT_PRODUCTS]
     if not paths:
         raise ValueError("no 2-D compressible matrices (use --reduced?)")
     pattern = "|".join(f"^{re.escape(p)}$" for p in paths)

@@ -9,8 +9,7 @@ Port of ``src/repro/launch/train.py`` (no mesh). Runs on the card unless
 LC-compressed training end to end: data stream → L steps (train step
 with the LC penalty, AdamW) → C steps → multipliers, with checkpointing
 and fault tolerance. ``--reduced`` uses the smoke config (CPU-sized).
-Every architecture runs but those with Mamba or xLSTM mixers (jamba,
-xlstm), which are not ported yet.
+Every architecture runs, the default xlstm-125m included.
 """
 from __future__ import annotations
 
@@ -23,13 +22,15 @@ from repro_torch.core import (
     exponential_mu_schedule)
 from repro_torch.core.schemes import AdaptiveQuantization, ConstraintL0Pruning
 from repro_torch.data import TokenStream, embedding_stream
+from repro_torch.models.ssm import mlstm_dims
 from repro_torch.runtime import FaultInjector, LCTrainer, TrainerConfig
 
 
 def pruned_weights(cfg) -> int:
     """How many weights the ``prune`` task selects: every layer's wq, wk,
-    wv and wo (MLA: wo), and its dense FFN matrices or MoE expert stacks
-    (not the shared experts)."""
+    wv and wo (MLA: wo; mLSTM: wq, wk, wv; Mamba and sLSTM: none), and
+    its dense FFN matrices or MoE expert stacks (not the shared
+    experts)."""
     d = cfg.d_model
     total = 0
     for spec in cfg.all_layer_specs():
@@ -37,6 +38,8 @@ def pruned_weights(cfg) -> int:
             total += 2 * d * cfg.q_dim + 2 * d * cfg.kv_dim
         elif spec.mixer == "mla":
             total += cfg.n_heads * cfg.mla.v_head_dim * d
+        elif spec.mixer == "mlstm":
+            total += 3 * mlstm_dims(cfg)[0] ** 2
         if spec.ffn == "dense":
             total += 3 * d * cfg.d_ff
         elif spec.ffn == "moe":

@@ -1,7 +1,8 @@
 """Decoder stack: pattern-repeated blocks + embeddings + head.
 
-Port of ``src/repro/models/transformer.py`` for the ``attn`` and ``mla``
-mixers and the ``dense``, ``moe`` and ``none`` FFNs. A model =
+Port of ``src/repro/models/transformer.py``: every mixer (``attn``,
+``mla``, and the recurrent ``mamba``, ``mlstm`` and ``slstm`` of
+``models/ssm.py``) and every FFN (``dense``, ``moe``, ``none``). A model =
 embedding → [stages] → final norm → unembed. A stage is either ``reps``
 repetitions of a layer pattern (one set of block params per pattern
 position, stacked over reps; the
@@ -13,13 +14,8 @@ each repetition (or unrolled block) with
 reference wraps its scan body and blocks in ``jax.checkpoint``; the
 training loss (``loss_fn``) takes the cross-entropy in sequence chunks
 that are checkpointed too, so (B, S, vocab) logits are never held.
-
-The Mamba and xLSTM mixers raise ``NotImplementedError`` naming their
-ROADMAP item; nothing falls back.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -27,15 +23,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.interop import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
 from repro_torch.models.layers import (
     cdtype, dense_ffn, embed, init_dense_ffn, init_embed, rms_norm, unembed)
-
-
-def _not_ported(what: str, item: str):
-    def fail(*args, **kwargs):
-        raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP item {item})")
-    return fail
 
 
 # mixer registry: init, forward, decode, cache-init
@@ -44,8 +34,12 @@ MIXERS = {
              attn.init_attn_cache),
     "mla": (attn.init_mla, attn.mla_forward, attn.mla_decode,
             attn.init_mla_cache),
-    **{name: (_not_ported(f"the {name} mixer", "10"),) * 4
-       for name in ("mamba", "mlstm", "slstm")},
+    "mamba": (ssm.init_mamba, ssm.mamba_forward, ssm.mamba_decode,
+              ssm.init_mamba_cache),
+    "mlstm": (ssm.init_mlstm, ssm.mlstm_forward, ssm.mlstm_decode,
+              ssm.init_mlstm_cache),
+    "slstm": (ssm.init_slstm, ssm.slstm_forward, ssm.slstm_decode,
+              ssm.init_slstm_cache),
 }
 
 
@@ -215,8 +209,9 @@ def forward_hidden(params, inputs, cfg, return_caches: bool = False):
 # ----------------------------------------------------------------------
 def init_cache(cfg, batch: int, max_len: int, dtype=None,
                device=None) -> dict:
-    """Zero caches for ``batch`` sequences of up to ``max_len`` tokens on
-    ``device`` (``None`` means the card)."""
+    """Empty caches for ``batch`` sequences of up to ``max_len`` tokens
+    on ``device`` (``None`` means the card): each mixer's initial state,
+    in every repetition of a stacked stage."""
     dtype = dtype or cdtype(cfg)
     device = resolve_device(device)
     cache = {}
@@ -226,8 +221,10 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None,
             c1 = MIXERS[spec.mixer][3](cfg, spec, batch, max_len, dtype,
                                        device)
             if st["kind"] == "scan":
-                c1 = {k: torch.zeros((st["reps"],) + tuple(a.shape),
-                                     dtype=a.dtype, device=device)
+                # every repetition starts from the mixer's own initial
+                # state (mLSTM/sLSTM's m at −30): the reference stacks
+                # zeros here (ROADMAP §3)
+                c1 = {k: a.expand((st["reps"],) + tuple(a.shape)).clone()
                       for k, a in c1.items()}
             sc[f"pos{pi}"] = c1
         cache[f"s{si}"] = sc
@@ -356,25 +353,6 @@ def loss_fn(params, batch, cfg):
 # ----------------------------------------------------------------------
 # Analytic parameter counts
 # ----------------------------------------------------------------------
-def _mamba_dims(cfg):
-    m = cfg.mamba
-    d_inner = m.expand * cfg.d_model
-    dt_rank = m.dt_rank or int(math.ceil(cfg.d_model / 16))
-    return d_inner, dt_rank
-
-
-def _mlstm_dims(cfg):
-    di = int(cfg.xlstm.proj_factor_m * cfg.d_model)
-    return di, di // cfg.n_heads
-
-
-def _slstm_dims(cfg):
-    di = cfg.d_model                      # no up-projection in the core
-    ff = int(cfg.xlstm.proj_factor_s * cfg.d_model)
-    ff = (ff + 63) // 64 * 64
-    return di, di // cfg.n_heads, ff
-
-
 def count_params(cfg, active_only: bool = False) -> int:
     d, ff, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
     total = v * d if cfg.input_mode == "tokens" else cfg.d_input * d
@@ -394,18 +372,18 @@ def count_params(cfg, active_only: bool = False) -> int:
                     * (m.qk_nope_dim + m.v_head_dim)
                     + cfg.n_heads * m.v_head_dim * d)
         if spec.mixer == "mamba":
-            di, dtr = _mamba_dims(cfg)
+            di, dtr = ssm.mamba_dims(cfg)
             ds = cfg.mamba.d_state
             return (d * 2 * di + cfg.mamba.d_conv * di
                     + di * (dtr + 2 * ds) + dtr * di + di * ds
                     + 3 * di + di * d)  # conv_b, dt_bias, D
         if spec.mixer == "mlstm":
-            di, _ = _mlstm_dims(cfg)
+            di, _ = ssm.mlstm_dims(cfg)
             return (d * 2 * di + cfg.xlstm.conv_kernel * di + 3 * di * di
                     + 2 * di * cfg.n_heads + 2 * cfg.n_heads  # bi, bf
                     + 2 * di + di * d)
         if spec.mixer == "slstm":
-            di, dh, ffs = _slstm_dims(cfg)
+            di, dh, ffs = ssm.slstm_dims(cfg)
             return (d * 4 * di + 4 * cfg.n_heads * dh * dh + 4 * di
                     + di  # out_norm
                     + di * 2 * ffs + ffs * d)

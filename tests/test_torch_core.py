@@ -55,7 +55,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
     assert {ROOT / "src" / "repro_torch" / "models" / f
-            for f in ("moe.py", "attention.py")} <= set(files)
+            for f in ("moe.py", "attention.py", "ssm.py")} <= set(files)
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]

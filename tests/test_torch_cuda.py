@@ -768,13 +768,20 @@ def test_flash_attention_refused_under_autograd_on_card(gen):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-moe-16b",
-                                  "minicpm3-4b"])
+                                  "minicpm3-4b", "jamba-v0.1-52b",
+                                  "xlstm-125m"])
 def test_moe_and_mla_models_on_card_match_cpu(gen, arch):
-    """The reduced MoE and MLA models on the card against the CPU on the
-    same weights: routing indices equal (``torch.topk`` on CUDA against
-    the CPU's, which the CPU tests hold to ``jax.lax.top_k``), hidden
-    states and the aux loss rtol 1e-5 / atol 2e-5, and 6 greedy tokens
-    equal (plain attention: the reduced head dims are not K6's)."""
+    """The reduced MoE, MLA, Mamba and xLSTM models on the card against
+    the CPU on the same weights: routing indices equal (``torch.topk`` on
+    CUDA against the CPU's, which the CPU tests hold to
+    ``jax.lax.top_k``), hidden states and the aux loss rtol 1e-5 / atol
+    2e-5, and 6 greedy tokens equal (plain attention: the reduced head
+    dims are not K6's). xlstm's hidden states are held normwise (atol
+    2e-5 · max|h|): its 12 blocks of gate exponentials carry the two
+    devices' summation-order gaps to 6.5e-5 at max|h| = 3.66 on an H100
+    (93 of 2048 entries above 2e-5 + 1e-5·|h|), as
+    ``tests/test_torch_ssm.py`` holds its states against the JAX
+    package."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.interop import params_from_numpy, to_numpy
     from repro_torch.models import moe
@@ -788,7 +795,9 @@ def test_moe_and_mla_models_on_card_match_cpu(gen, arch):
     with torch.no_grad():
         h_cpu, aux_cpu = forward_hidden(cpu, toks, cfg)
         h_card, aux_card = forward_hidden(card, toks.cuda(), cfg)
-    torch.testing.assert_close(h_card.cpu(), h_cpu, rtol=1e-5, atol=2e-5)
+    scale = float(h_cpu.abs().max()) if cfg.xlstm is not None else 1.0
+    torch.testing.assert_close(h_card.cpu(), h_cpu, rtol=1e-5,
+                               atol=2e-5 * max(1.0, scale))
     torch.testing.assert_close(aux_card.cpu(), aux_cpu, rtol=1e-5,
                                atol=1e-7)
     if cfg.moe is not None:

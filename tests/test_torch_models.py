@@ -134,12 +134,6 @@ def test_count_params_match_jax(arch):
     assert ttf.count_params(rt) == jtf.count_params(rj)
 
 
-@pytest.mark.parametrize("mixer", ["mamba", "mlstm", "slstm"])
-def test_unported_mixers_raise(mixer):
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        ttf.MIXERS[mixer][0](torch.Generator(), None)
-
-
 @pytest.mark.parametrize("layout", ["scan", "unrolled"])
 def test_init_params_shapes_match_jax(layout):
     jcfg, tcfg = _cfgs() if layout == "scan" else _unrolled()
