@@ -4,9 +4,14 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --host-cost   # phase 12's launch-path times only
     python3 chip_smoke.py --ssm         # paths K and L1 and their profile
+    python3 chip_smoke.py --busy C      # serving's busy shares, eager and
+                                        # through CUDA graphs (C, K or L1)
 
 Run from the root of a checkout, on a machine with one CUDA card and the
-CUDA toolkit (nvcc). Phases, each of which fails the run:
+CUDA toolkit (nvcc). Every ``Server`` and ``ServingEngine`` serves
+through CUDA graphs (``repro_torch/graphs.py``), and the launch counts
+count what ran on the card, replays included. Phases, each of which
+fails the run:
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile every CUDA source of the main path (``build.SOURCES``
@@ -47,8 +52,15 @@ CUDA toolkit (nvcc). Phases, each of which fails the run:
    2 prompts of 512; exact launch counts (one fused Lloyd loop a k-means
    group, one fused bisection); logits against the densified
    model (cuBLAS, TF32 off), fused attention (K6) against the plain loop;
+   then ``Server.generate`` through CUDA graphs against the same
+   programs run eagerly (``server_against_eager``: greedy tokens equal,
+   the logits' max|Δ|, prefill and decode ms and tokens/s of each, in
+   turns, the capture's seconds and graph-pool bytes);
 9. main path D — ``ServingEngine`` (8 slots) on the same compressed
-   model: 24 Poisson requests of mixed lengths;
+   model: 24 Poisson requests of mixed lengths; then the engine through
+   CUDA graphs against the eager programs on a short trace
+   (``engine_against_eager``: every request's tokens equal, each mode's
+   tokens/s, p50/p99 latency and TTFT, in turns);
 10. K3, K7, K8 and K9 (the threshold masks and the single-vector count
     and k-means kernels) against their plain versions on the card,
     timed beside their bounds;
@@ -125,7 +137,8 @@ CUDA toolkit (nvcc). Phases, each of which fails the run:
     from an empty cache on 2 prompts of two scan chunks (K 2 × 256 at
     the no-drop MoE capacity 8.0, L1 2 × 512), then a ``ServingEngine``
     trace (8 slots, 16 requests; L1 also prints each request's
-    agreement with its own single-slot decode). Every engine trace (D,
+    agreement with its own single-slot decode), and K and L1 compare
+    graphs with the eager programs as C and D do. Every engine trace (D,
     I2, J, K, L1) holds each re-admitted slot's cache to
     ``init_cache``'s values right after its reset. K and L1 run last, in
     a process of their own (``--ssm``), with phase 17's profile of their
@@ -138,7 +151,10 @@ CUDA toolkit (nvcc). Phases, each of which fails the run:
     tokens/s, C-step ms, peak memory;
 17. ``torch.profiler`` over one more LM C step, path C's prefill and 8
     decode steps: the device's busy share, the kernels that took the
-    most time and the K4/K5 kernels' sum; then (in the ``--ssm``
+    most time and the K4/K5 kernels' sum; last, for C, K and L1 each in
+    a process of its own (``--busy``), the busy share of 8 steps of
+    ``Server``'s decode program and of an engine's short trace, through
+    CUDA graphs and eagerly (``serving_busy``); then (in the ``--ssm``
     process) one session over paths K and L1's prefills and 8 decode
     steps each, with the device time of the selective scan's chunks, the
     mLSTM chunks and the sLSTM steps; the device time of K9 and
@@ -342,6 +358,14 @@ JAMBA_FFN = 4096 * 14336                               # 58,720,256
 JAMBA_KAPPA = int(0.05 * 2 * JAMBA_FFN)                # 5,872,025
 L2_BATCH, L2_SEQ, L2_LC, L2_STEPS = 4, 1024, 2, 3
 K_SEEDS, L1_SEEDS = (24, 24), (26, 26)
+
+
+_T0 = time.time()
+
+
+def stamp(what: str) -> None:
+    """Print the seconds since this process started, before ``what``."""
+    print(f"[t={time.time() - _T0:.1f}s] {what}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -984,7 +1008,8 @@ def port_kernel(name: str) -> bool:
     return any(k in name for k in DEVICE_KERNELS)
 
 
-def device_profile(fn, label: str, power: str, kern: dict) -> tuple:
+def device_profile(fn, label: str, power: str, kern: dict,
+                   tries: int = 1) -> tuple:
     """Run ``fn`` once under ``torch.profiler`` and print its wall time,
     each CUDA stream's busy time (kernels, copies and fills; not the
     spans of ``record_function`` ranges), their union (the device's busy
@@ -994,37 +1019,46 @@ def device_profile(fn, label: str, power: str, kern: dict) -> tuple:
     profiler's event tree (``prof.events()``). The
     launch counts are set to 0 before ``fn``: every launch of the port's
     kernels that the wrappers count must show in the trace, or the
-    profile fails (a dropped event would make every number here short).
+    profile fails (a dropped event would make every number here short);
+    with ``tries`` > 1, a session short of a launch is taken again, up
+    to ``tries`` sessions, as ``device_trace`` does.
     The spans come from the profiler's events, with no trace file. The
     profiler adds host work, so the wall time here is above the untraced
     one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
-    torch.cuda.synchronize()
-    reset(kern)
-    with profiled([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(tries):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    n = launches(kern)
-    spans: dict = {}
-    names = []
-    ranges = set()       # record_function ranges' spans on the device
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() != DeviceType.CUDA:
-            continue
-        if ev.is_user_annotation():
-            ranges.add(ev.name())
-            continue
-        spans.setdefault(ev.device_resource_id(), []).append(
-            (ev.start_ns(), ev.start_ns() + ev.duration_ns()))
-        names.append(ev.name())
-    for name, keys in DEVICE_KERNELS.items():
-        seen = sum(name in x for x in names)
-        want = sum(n[k] for k in keys)
-        check(seen == want, f"profile {label}: {seen} {name} events in the "
-              f"trace, {want} launches counted ({keys})")
+        reset(kern)
+        with profiled([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        n = launches(kern)
+        spans: dict = {}
+        names = []
+        ranges = set()       # record_function ranges' spans on the device
+        for ev in prof.profiler.kineto_results.events():
+            if ev.device_type() != DeviceType.CUDA:
+                continue
+            if ev.is_user_annotation():
+                ranges.add(ev.name())
+                continue
+            spans.setdefault(ev.device_resource_id(), []).append(
+                (ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+            names.append(ev.name())
+        short = [(name, keys, sum(name in x for x in names),
+                  sum(n[k] for k in keys))
+                 for name, keys in DEVICE_KERNELS.items()]
+        short = [x for x in short if x[2] != x[3]]
+        if not short:
+            break
+        name, keys, seen, want = short[0]
+        msg = (f"profile {label}: {seen} {name} events in the trace, "
+               f"{want} launches counted ({keys})")
+        check(attempt + 1 < tries, msg)
+        print(f"{msg}; tracing again", flush=True)
     busy = {st: sum(e - b for b, e in v) / 1e6 for st, v in spans.items()}
     union, end = 0.0, -math.inf
     for b, e in sorted(x for v in spans.values() for x in v):
@@ -1118,16 +1152,12 @@ def against_densified(label, cfg, serving, dense, prompts_t, toks_t,
     return agree
 
 
-def main_path_c(kern, power: str) -> dict:
-    """phi3-mini at full width, 4 of 32 layers: 4-bit k=16 on each
-    layer's w_gate/w_up, 8-bit k=64 on its attention and ℓ0 on its
-    w_down (the fused bisection and K3), served by ``serve_path`` and
-    checked by ``check_served``. Returns the path's launches and what
-    path D and the profile phase need."""
+def c_tasks() -> list:
+    """Path C's tasks: per layer, 4-bit k=16 on w_gate|w_up, 8-bit k=64
+    on the attention, ℓ0 on w_down."""
     from repro_torch.core import AsVector, CompressionTask
     from repro_torch.core.schemes import (
         AdaptiveQuantization, ConstraintL0Pruning)
-    cfg = serving_config()
     tasks = []
     for i in range(LM_LAYERS):
         pre = rf"^stages/s0/pos{i}/"
@@ -1138,7 +1168,17 @@ def main_path_c(kern, power: str) -> dict:
                             AsVector(), AdaptiveQuantization(k=64, iters=10)),
             CompressionTask(f"down{i}", pre + r"ffn/w_down$", AsVector(),
                             ConstraintL0Pruning(kappa=W_DOWN_KAPPA))]
-    run = serve_path(kern, "C", cfg, tasks, SERVE_PROMPT, power,
+    return tasks
+
+
+def main_path_c(kern, power: str) -> dict:
+    """phi3-mini at full width, 4 of 32 layers: 4-bit k=16 on each
+    layer's w_gate/w_up, 8-bit k=64 on its attention and ℓ0 on its
+    w_down (the fused bisection and K3), served by ``serve_path`` and
+    checked by ``check_served``. Returns the path's launches and what
+    path D and the profile phase need."""
+    cfg = serving_config()
+    run = serve_path(kern, "C", cfg, c_tasks(), SERVE_PROMPT, power,
                      seeds=(2, 4))
     check(run["kinds"] == {"quant4": 2 * LM_LAYERS, "quant8": 4 * LM_LAYERS,
                            "sparse": LM_LAYERS},
@@ -1154,6 +1194,8 @@ def main_path_c(kern, power: str) -> dict:
           f"path C launches {run['launches']} != {want}")
     del run["state"], run["lc"]
     check_served("path C", cfg, run, power)
+    server_against_eager("path C", cfg, run["serving"], run["prompts"],
+                         power)
     out = {k: run[k] for k in ("launches", "serving", "prompts", "tokens")}
     del run
     torch.cuda.empty_cache()
@@ -2403,6 +2445,17 @@ def serve_path(kern, label: str, cfg, tasks, prompt_len: int,
     t_gen = time.time() - t0
     n = launches(kern)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    progs = server.programs
+    check(progs.graphs and progs.captured == 2,
+          f"{label}: generate captured {progs.captured} graphs")
+    captured = (f"captured {progs.captured} graphs in "
+                f"{progs.capture_s:.3f} s, graph_pool_gib="
+                f"{progs.pool_bytes() / 2**30:.3f}")
+    # the graph pool keeps the prefill's temporaries: freed before the
+    # checks' eager forwards
+    del server, progs
+    gc.collect()
+    torch.cuda.empty_cache()
     toks = res.tokens
     check(toks.shape == (SERVE_BATCH, SERVE_GEN) and toks.min() >= 0
           and toks.max() < cfg.vocab_size, f"{label} tokens {toks.shape}")
@@ -2410,7 +2463,8 @@ def serve_path(kern, label: str, cfg, tasks, prompt_len: int,
           f"layers, {n_params:,} params): init_s={t_init:.2f} "
           f"c_step_s={t_cstep:.3f} bridge_s={t_bridge:.3f} "
           f"generate_s={t_gen:.3f} ({SERVE_BATCH}x{prompt_len} prompt, "
-          f"{SERVE_GEN} new tokens) init_peak_memory_gib={init_peak:.2f} "
+          f"{SERVE_GEN} new tokens; CUDA graphs: {captured}) "
+          f"init_peak_memory_gib={init_peak:.2f} "
           f"peak_memory_gib={peak:.2f} (held before the path: {held:.2f}) "
           f"launches={ {k: v for k, v in n.items() if v} } [{power}]",
           flush=True)
@@ -2567,6 +2621,25 @@ def watch_resets(eng, cfg, label: str) -> dict:
     return rec
 
 
+def poisson_requests(cfg, n_req: int, prompts, new, seed: int = 5,
+                     start: float = 0.0, gap: float = 0.02) -> list:
+    """``n_req`` requests arriving as a Poisson process (mean gap ``gap``
+    s; 0: all at once) from ``start``, prompt lengths in ``prompts`` and
+    new tokens in ``new`` (inclusive ranges), tokens from ``seed``."""
+    from repro_torch.runtime import server as srv
+    rng = np.random.default_rng(seed)
+    t, reqs = start, []
+    for i in range(n_req):
+        t += float(rng.exponential(gap))
+        reqs.append(srv.Request(
+            id=i, prompt=rng.integers(1, cfg.vocab_size,
+                                      size=int(rng.integers(prompts[0],
+                                                            prompts[1] + 1)))
+            .astype(np.int32), max_new=int(rng.integers(new[0], new[1] + 1)),
+            arrival=t))
+    return reqs
+
+
 def engine_trace(kern, label: str, cfg, serving, n_req: int, prompts,
                  new, power: str, after=None,
                  kernels=("K4", "K5")) -> dict:
@@ -2577,16 +2650,7 @@ def engine_trace(kern, label: str, cfg, serving, n_req: int, prompts,
     (``watch_resets``). ``after(reqs, finished)`` runs once the launches
     are read."""
     from repro_torch.runtime import server as srv
-    rng = np.random.default_rng(5)
-    t, reqs = 0.0, []
-    for i in range(n_req):
-        t += float(rng.exponential(0.02))
-        reqs.append(srv.Request(
-            id=i, prompt=rng.integers(1, cfg.vocab_size,
-                                      size=int(rng.integers(prompts[0],
-                                                            prompts[1] + 1)))
-            .astype(np.int32), max_new=int(rng.integers(new[0], new[1] + 1)),
-            arrival=t))
+    reqs = poisson_requests(cfg, n_req, prompts, new)
     max_len = prompts[1] + new[1]
     reset(kern)
     torch.cuda.synchronize()
@@ -2608,14 +2672,19 @@ def engine_trace(kern, label: str, cfg, serving, n_req: int, prompts,
           f"{label} launches {n}")
     check(eng.trace_counts == {"decode": 1, "prefill": 1, "reset": 1},
           f"{label} program signatures {eng.trace_counts}")
+    check(eng.programs.graphs and eng.programs.captured == 3,
+          f"{label}: the engine captured {eng.programs.captured} graphs")
     st = out["stats"]
     print(f"main path {label} (ServingEngine, 8 slots, {n_req} requests, "
-          f"prompts {prompts[0]}-{prompts[1]}, max_new {new[0]}-{new[1]}): "
+          f"prompts {prompts[0]}-{prompts[1]}, max_new {new[0]}-{new[1]}; "
+          f"CUDA graphs, capture included): "
           f"tokens={st['tokens']} tokens_per_s={st['tokens_per_sec']:.1f} "
           f"p50_latency_s={st['p50_latency_s']:.3f} "
           f"p99_latency_s={st['p99_latency_s']:.3f} "
           f"p50_ttft_s={st['p50_ttft_s']:.3f} "
           f"p99_ttft_s={st['p99_ttft_s']:.3f} wall_s={wall:.2f} "
+          f"capture_s={eng.programs.capture_s:.3f} graph_pool_gib="
+          f"{eng.programs.pool_bytes() / 2**30:.3f} "
           f"launches={ {k: v for k, v in n.items() if v} } [{power}]",
           flush=True)
     # every request past the first 8 enters a slot used before
@@ -2627,6 +2696,190 @@ def engine_trace(kern, label: str, cfg, serving, n_req: int, prompts,
     if after is not None:
         after(reqs, fin)
     return n
+
+
+MODES = ("eager", "graphs")
+#: the engine comparison's short trace: requests, prompt and new-token
+#: ranges (D's and the SSM paths' main traces take 16–24 requests); all
+#: arrive at once, so that the schedule, and with it each MoE decode's
+#: batch, does not depend on the ticks' times
+SHORT_TRACE = (12, (32, 128), (8, 32))
+#: the busy-share profiles' engine trace (``serving_busy``)
+BUSY_TRACE = (4, (32, 64), (8, 16))
+
+
+def graph_servers(cfg, serving, max_len: int) -> dict:
+    """A ``Server`` of each mode on one model: its programs eager, or
+    CUDA graphs."""
+    from repro_torch.runtime import server as srv
+    return {m: srv.Server(cfg, serving, max_len=max_len, device="cuda",
+                          graphs=m == "graphs") for m in MODES}
+
+
+def server_against_eager(label: str, cfg, serving, prompts,
+                         power: str) -> dict:
+    """``Server.generate`` through CUDA graphs against the same programs
+    run eagerly, on path ``label``'s model and prompts: greedy tokens
+    equal, the logits' max|Δ| printed beside two eager runs'; after a
+    first call of each mode (the graphs' capture), in turns (eager,
+    graphs, graphs, eager): the
+    prefill ms (a generate of 1 token), the decode ms a step ((generate
+    of SERVE_GEN − generate of 1) / (SERVE_GEN − 1), medians) and
+    tokens/s; the capture's seconds and graph-pool bytes."""
+    stamp(f"{label} generate against eager")
+    max_len = prompts.shape[1] + SERVE_GEN
+    servers = graph_servers(cfg, serving, max_len)
+    first = {m: sv.generate(prompts, SERVE_GEN, return_logits=True)
+             for m, sv in servers.items()}
+    check(np.array_equal(first["graphs"].tokens, first["eager"].tokens),
+          f"{label}: greedy tokens through CUDA graphs differ from the "
+          f"eager programs'")
+    dlogit = float((first["graphs"].logits - first["eager"].logits)
+                   .abs().max())
+    # the same for two eager runs: a product whose sums come in another
+    # order on every run (the sparse form's index_add_, by atomics)
+    # shows here too
+    again = servers["eager"].generate(prompts, SERVE_GEN, return_logits=True)
+    d_eager = float((again.logits - first["eager"].logits).abs().max())
+    scale = float(first["eager"].logits.abs().max())
+    del first, again
+    times = {m: {1: [], SERVE_GEN: []} for m in MODES}
+    for m in ("eager", "graphs", "graphs", "eager"):
+        for n in (1, SERVE_GEN):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            servers[m].generate(prompts, n)
+            torch.cuda.synchronize()
+            times[m][n].append(time.perf_counter() - t0)
+    progs = servers["graphs"].programs
+    check(progs.captured == 2, f"{label}: {progs.captured} graphs")
+    out = {}
+    for m, t in times.items():
+        pre, gen = statistics.median(t[1]), statistics.median(t[SERVE_GEN])
+        out[m] = {"prefill_ms": pre * 1e3,
+                  "decode_ms": (gen - pre) / (SERVE_GEN - 1) * 1e3,
+                  "tokens_per_s": prompts.shape[0] * SERVE_GEN / gen}
+    print(f"{label} generate, CUDA graphs against eager "
+          f"({prompts.shape[0]}x{prompts.shape[1]} prompt, {SERVE_GEN} "
+          f"tokens): greedy tokens equal, max|Δlogit|={dlogit:.3g} "
+          f"(two eager runs: {d_eager:.3g}; max|logit| {scale:.3g}); "
+          + " ".join(f"{m}: prefill_ms={r['prefill_ms']:.2f} "
+                     f"decode_ms_per_step={r['decode_ms']:.3f} "
+                     f"tokens_per_s={r['tokens_per_s']:.1f};"
+                     for m, r in out.items())
+          + f" capture_s={progs.capture_s:.3f} graph_pool_gib="
+          f"{progs.pool_bytes() / 2**30:.3f} [{power}]", flush=True)
+    return out
+
+
+def warm_engines(cfg, serving):
+    """A ``ServingEngine`` of each mode (8 slots, chunks of 32), each
+    warmed on two short requests (the graphs' capture: the comparison's
+    clock starts after it)."""
+    from repro_torch.runtime import server as srv
+    _, prompts, new = SHORT_TRACE
+    engines = {}
+    for m in MODES:
+        eng = srv.ServingEngine(cfg, serving, slots=8,
+                                max_len=prompts[1] + new[1],
+                                prefill_chunk=32, device="cuda",
+                                graphs=m == "graphs")
+        eng.run(poisson_requests(cfg, 2, (4, 40), (2, 2), seed=7))
+        engines[m] = eng
+    return engines
+
+
+def engine_against_eager(label: str, cfg, serving, power: str) -> dict:
+    """The engine through CUDA graphs against the same programs run
+    eagerly (``warm_engines``), on SHORT_TRACE in turns (eager, graphs,
+    graphs, eager): every request's greedy tokens equal in every run;
+    each run's tokens/s, p50/p99 latency and TTFT; the capture's seconds
+    and graph-pool bytes. The trace's requests all arrive at once
+    (SHORT_TRACE)."""
+    stamp(f"{label} engine against eager")
+    n_req, prompts, new = SHORT_TRACE
+    engines = warm_engines(cfg, serving)
+    stats, tokens = {m: [] for m in MODES}, []
+    for m in ("eager", "graphs", "graphs", "eager"):
+        eng = engines[m]
+        out = eng.run(poisson_requests(cfg, n_req, prompts, new, seed=6,
+                                       start=eng._now, gap=0.0))
+        check(len(out["finished"]) == n_req, f"{label} engine {m}")
+        tokens.append({f.id: f.tokens.tolist() for f in out["finished"]})
+        stats[m].append(out["stats"])
+    check(all(t == tokens[0] for t in tokens),
+          f"{label} engine: tokens through CUDA graphs differ from the "
+          f"eager programs'")
+    progs = engines["graphs"].programs
+    check(engines["graphs"].trace_counts
+          == {"decode": 1, "prefill": 1, "reset": 1} and progs.captured == 3,
+          f"{label} engine graphs {engines['graphs'].trace_counts}")
+
+    def fmt(st):
+        return (f"tokens_per_s={st['tokens_per_sec']:.1f} "
+                f"p50_latency_s={st['p50_latency_s']:.3f} "
+                f"p99_latency_s={st['p99_latency_s']:.3f} "
+                f"p50_ttft_s={st['p50_ttft_s']:.3f} "
+                f"p99_ttft_s={st['p99_ttft_s']:.3f}")
+
+    print(f"{label} engine, CUDA graphs against eager (8 slots, {n_req} "
+          f"requests, prompts {prompts[0]}-{prompts[1]}, max_new "
+          f"{new[0]}-{new[1]}, after a warm-up; runs in turns eager, "
+          f"graphs, graphs, eager): greedy tokens equal; "
+          + " ".join(f"{m}: " + " | ".join(fmt(st) for st in sts) + ";"
+                     for m, sts in stats.items())
+          + f" capture_s={progs.capture_s:.3f} graph_pool_gib="
+          f"{progs.pool_bytes() / 2**30:.3f} [{power}]", flush=True)
+    return stats
+
+
+def serving_busy(kern, label: str, cfg, serving, prompts, toks,
+                 power: str) -> None:
+    """The device's busy share under ``torch.profiler`` (``device_profile``)
+    of ``Server``'s decode program, 8 steps after an eager prefill of
+    ``prompts`` (fed ``toks``' first column), and of a warmed engine on
+    BUSY_TRACE, each through CUDA graphs (captured before the session)
+    and then eagerly, each profile taken up to 3 times until it holds
+    every counted launch. ``main`` runs this for each model in a process
+    of its own (``--busy``): a profiler session after an eager engine's
+    (~50k kernel events) traced 43 of 50 K9 launches."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime import server as srv
+    stamp(f"path {label} busy shares")
+    b, s = prompts.shape
+    with torch.inference_mode():
+        _, _, caches = tf.forward_hidden(serving, prompts, cfg,
+                                         return_caches=True)
+        caches = srv.pad_caches_to(caches, cfg, s, s + SERVE_GEN)
+    servers = graph_servers(cfg, serving, s + SERVE_GEN)
+    for m in MODES[::-1]:
+        server = servers[m]
+        @torch.inference_mode()
+        def steps(server=server):
+            tok = toks[:, 0].clone()
+            pos = torch.full((b,), s, dtype=torch.int64, device="cuda")
+            for _ in range(8):
+                tok, pos, _, _ = server._decode(caches, tok, pos, None,
+                                                0.0)
+
+        steps()                                  # the capture
+        device_profile(steps, f"path {label} 8 decode steps ({m})", power,
+                       kern, tries=3)
+    del caches, server, servers
+    n_req, p_range, new = BUSY_TRACE
+    engines = warm_engines(cfg, serving)
+    for m in MODES[::-1]:
+        eng = engines[m]
+        reqs = poisson_requests(cfg, n_req, p_range, new, seed=6,
+                                start=eng._now, gap=0.0)
+
+        def run(eng=eng, reqs=reqs):
+            check(len(eng.run(reqs)["finished"]) == n_req,
+                  f"{label} busy-share trace")
+
+        device_profile(run, f"path {label} engine, {n_req} requests ({m})",
+                       power, kern, tries=3)
+        stamp(f"path {label} engine busy share ({m}) taken")
 
 
 def topk_at(k2, calls, theta, kappa: int, label: str, power: str) -> dict:
@@ -2853,31 +3106,64 @@ def ssm_config(arch: str):
     return cfg
 
 
+class AloneDecoder:
+    """Token-by-token decode from an empty cache through ``Server``'s
+    decode program (a CUDA graph, captured once: the cache is one set of
+    tensors, reset to ``init_cache``'s values before each sequence):
+    ``run(prompt (B, S) int32, n_new)`` feeds the prompt one token a step,
+    then ``n_new − 1`` greedy tokens, and returns (the logits after the
+    prompt's last token, the ``n_new`` greedy tokens)."""
+
+    def __init__(self, cfg, serving, batch: int, max_len: int):
+        from repro_torch.models import transformer as tf
+        from repro_torch.runtime import server as srv
+        from repro_torch.tree import tree_leaves
+        self.server = srv.Server(cfg, serving, max_len=max_len,
+                                 device="cuda")
+        self.cache = tf.init_cache(cfg, batch, max_len, device="cuda")
+        self.pairs = list(zip(tree_leaves(self.cache), tree_leaves(
+            tf.init_cache(cfg, batch, max_len, device="cuda"))))
+
+    @torch.inference_mode()
+    def run(self, prompt, n_new: int):
+        for dst, src in self.pairs:
+            dst.copy_(src)
+        decode = self.server._decode
+        pos = torch.zeros(prompt.shape[0], dtype=torch.int64, device="cuda")
+        for t in range(prompt.shape[1]):
+            tok, pos, _, logits = decode(self.cache, prompt[:, t], pos, None,
+                                         0.0)
+        first = logits.clone()
+        toks = [tok.clone()]
+        for _ in range(n_new - 1):
+            tok, pos, _, _ = decode(self.cache, tok, pos, None, 0.0)
+            toks.append(tok.clone())
+        return first, torch.stack(toks, 1)
+
+
 def prefill_against_decode(label: str, cfg, serving, power: str,
                            seed: int, chunk: int) -> None:
     """The prefill's last logits on 2 prompts of two scan chunks
-    (``chunk`` tokens each) against ``decode_step`` token by token from
-    an empty cache, within the reference's rtol 2e-3 / atol 2e-3
-    (``tests/test_models.py``): the chunked scans, the state carried
+    (``chunk`` tokens each) against decode token by token from an empty
+    cache (``AloneDecoder``), within the reference's rtol 2e-3 / atol
+    2e-3 (``tests/test_models.py``): the chunked scans, the state carried
     from one chunk to the next included, against their recurrences at
     full width."""
     from repro_torch.models import transformer as tf
     from repro_torch.models.layers import unembed
     n = 2 * chunk
     p = torch.as_tensor(np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (2, n)), device="cuda")
+        0, cfg.vocab_size, (2, n)), dtype=torch.int32, device="cuda")
     with torch.inference_mode():
         hidden, _ = tf.forward_hidden(serving, p, cfg)
         want = unembed(serving["embed"], hidden[:, -1:], cfg)[:, 0]
-        cache = tf.init_cache(cfg, 2, n, device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.time()
-        for i in range(n):
-            logits, cache = tf.decode_step(serving, cache, p[:, i:i + 1], i,
-                                           cfg)
-        torch.cuda.synchronize()
-        step_ms = (time.time() - t0) / n * 1e3
-    got = logits[:, 0]
+    alone = AloneDecoder(cfg, serving, 2, n)
+    alone.run(p[:, :1], 1)                  # the capture
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got, _ = alone.run(p, 1)
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) / n * 1e3
     err = (got - want).abs()
     check(bool((err <= 2e-3 + 2e-3 * want.abs()).all()),
           f"{label} prefill vs token-by-token decode: max|Δ|="
@@ -2886,7 +3172,8 @@ def prefill_against_decode(label: str, cfg, serving, power: str,
           f"token-by-token decode from an empty cache: "
           f"max|Δlogit|={float(err.max()):.3g} "
           f"max|logit|={float(want.abs().max()):.3g} (rtol 2e-3, atol 2e-3) "
-          f"decode_ms_per_step={step_ms:.2f} [{power}]", flush=True)
+          f"decode_ms_per_step={step_ms:.2f} (CUDA graph) [{power}]",
+          flush=True)
 
 
 def k_tasks() -> list:
@@ -2985,6 +3272,11 @@ def main_path_k(kern, k1, k2, power: str) -> dict:
     out["engine"] = engine_trace(kern, "K engine", cfg, serving, 16,
                                  (32, 384), (16, 64), power)
     torch.cuda.empty_cache()
+    server_against_eager("path K", cfg, serving, out["served"][3], power)
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine_against_eager("path K", cfg, serving, power)
+    torch.cuda.empty_cache()
     out["lloyd"] = check_lloyd_at(k1, lloyd, "K", power)
     del lloyd
     torch.cuda.empty_cache()
@@ -2997,30 +3289,21 @@ def main_path_k(kern, k1, k2, power: str) -> dict:
 def single_slot_agreement(cfg, serving, power: str):
     """The ``after`` of path L1's engine trace: each request again alone,
     token by token from an empty one-slot cache (its prompt, then greedy
-    decode), and its greedy agreement with the engine's tokens; printed,
-    not asserted (a batch of 8 against a batch of 1 may flip a near-tied
-    argmax at full width; the CPU tests hold the engine to scalar decode
-    token for token)."""
-    from repro_torch.models import transformer as tf
+    decode; ``AloneDecoder``), and its greedy agreement with the engine's
+    tokens; printed, not asserted (a batch of 8 against a batch of 1 may
+    flip a near-tied argmax at full width; the CPU tests hold the engine
+    to scalar decode token for token)."""
 
     def after(reqs, fin):
+        alone = AloneDecoder(cfg, serving, 1, max(
+            len(r.prompt) + r.max_new for r in reqs))
         agree = []
-        with torch.inference_mode():
-            for r in reqs:
-                cache = tf.init_cache(cfg, 1, len(r.prompt) + r.max_new,
-                                      device="cuda")
-                p = torch.as_tensor(r.prompt, device="cuda")[None]
-                for t in range(p.shape[1]):
-                    logits, cache = tf.decode_step(serving, cache,
-                                                   p[:, t:t + 1], t, cfg)
-                toks = [torch.argmax(logits[:, 0], dim=-1)]
-                for i in range(r.max_new - 1):
-                    logits, cache = tf.decode_step(
-                        serving, cache, toks[-1][:, None],
-                        len(r.prompt) + i, cfg)
-                    toks.append(torch.argmax(logits[:, 0], dim=-1))
-                alone = torch.cat(toks).cpu().numpy()
-                agree.append(float(np.mean(alone == fin[r.id].tokens)))
+        for r in reqs:
+            _, toks = alone.run(torch.as_tensor(r.prompt, dtype=torch.int32,
+                                                device="cuda")[None],
+                                r.max_new)
+            agree.append(float(np.mean(toks[0].cpu().numpy()
+                                       == fin[r.id].tokens)))
         print(f"path L1 engine against each request decoded alone (one "
               f"slot, token by token): greedy agreement per request "
               f"{[round(a, 4) for a in agree]} mean={np.mean(agree):.4f} "
@@ -3068,6 +3351,9 @@ def main_path_l1(kern, k1, power: str) -> dict:
     out["engine"] = engine_trace(
         kern, "L1 engine", cfg, serving, 16, (32, 384), (16, 64), power,
         after=single_slot_agreement(cfg, serving, power), kernels=("K4",))
+    torch.cuda.empty_cache()
+    server_against_eager("path L1", cfg, serving, out["served"][3], power)
+    engine_against_eager("path L1", cfg, serving, power)
     torch.cuda.empty_cache()
     out["lloyd"] = check_lloyd_at(k1, lloyd, "L1", power)
     del lloyd
@@ -3265,6 +3551,30 @@ def profile_ssm(kern, served: list, power: str) -> None:
                   + f" [{power}]", flush=True)
 
 
+def busy_path(kern, label: str, power: str) -> None:
+    """``python3 chip_smoke.py --busy C|K|L1``: path ``label``'s served
+    model made again (``serve_path``), then ``serving_busy`` on it, in a
+    process with no earlier profiler session."""
+    if label == "C":
+        cfg, tasks, prompt_len, seeds = (serving_config(), c_tasks(),
+                                         SERVE_PROMPT, (2, 4))
+    elif label == "K":
+        cfg, tasks, prompt_len, seeds = (ssm_config("jamba-v0.1-52b"),
+                                         k_tasks(), SSM_PROMPT, K_SEEDS)
+    else:
+        cfg = ssm_config("xlstm-125m")
+        tasks, prompt_len, seeds = l1_tasks(cfg), SSM_PROMPT, L1_SEEDS
+    run = serve_path(kern, f"{label} (busy shares)", cfg, tasks, prompt_len,
+                     power, seeds)
+    serving = run["serving"]
+    prompts, toks = run["prompts"], run["tokens"]
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving_busy(kern, label, cfg, serving, prompts, toks, power)
+    stamp("done")
+
+
 def ssm_paths(kern, k1, k2, power: str) -> None:
     """``python3 chip_smoke.py --ssm``: paths L1 and K, then one profile
     over both served models (``profile_ssm``), each model built once; L1
@@ -3273,9 +3583,13 @@ def ssm_paths(kern, k1, k2, power: str) -> None:
     session after the SSM profile saw 47 of 50 K9 launches, and the
     profiler slows every later launch of its process. The paths'
     launches end the output as the line ``ssm_launches {json}``."""
+    stamp("path L1")
     path_l1 = main_path_l1(kern, k1, power)
+    stamp("path K")
     path_k = main_path_k(kern, k1, k2, power)
+    stamp("profile of paths K and L1")
     profile_ssm(kern, [path_k.pop("served"), path_l1.pop("served")], power)
+    stamp("done")
     print(SSM_LAUNCHES, json.dumps({
         "K": path_k["launches"], "K engine": path_k["engine"],
         "L1": path_l1["launches"], "L1 engine": path_l1["engine"]}),
@@ -3334,31 +3648,48 @@ def main() -> int:
     if sys.argv[1:] == ["--ssm"]:
         ssm_paths(kern, k1, k2, power)
         return 0
+    if sys.argv[1:2] == ["--busy"]:
+        busy_path(kern, sys.argv[2], power)
+        return 0
     t_start = time.time()
+    stamp('kernel phase')
     rec = kernel_phase(k1, k2, power)
     frec = fused_phase(k1, k2, power)
     paths = {"A": main_path_a(kern), "B": main_path_b(kern),
              "LM": lm_phase(kern)}
+    stamp('serving kernels')
     srec = serve_kernel_phase(k45, k6, power)
+    stamp('path C')
     path_c = main_path_c(kern, power)
     paths["C"] = path_c["launches"]
     # D: the engine on path C's model, 24 requests
+    stamp('path D')
     paths["D"] = engine_trace(kern, "D", path_c["cfg"], path_c["serving"],
                               24, (32, 384), (16, 64), power)
+    stamp('path D against eager')
+    engine_against_eager("path D", path_c["cfg"], path_c["serving"], power)
+    stamp('mask and count kernels')
     mrec = mask_count_phase(k1, k2, power)
     path_e = main_path_e(kern, power)
     paths["E"] = path_e["launches"]
     paths["G"] = main_path_g(kern, k1, path_e["problem"], power)
     host_launch_cost(k1, k2, card)
+    stamp('path F')
     paths["F"] = main_path_f(kern, power)
+    stamp('path H')
     paths.update(main_path_h(kern, k1, k2, power))
+    stamp('path I1')
     i1 = main_path_i1(kern, k1, power)
+    stamp('path I2')
     i2 = main_path_i2(kern, k1, k2, power)
+    stamp('path J')
     path_j = main_path_j(kern, k1, power)
     paths.update({"I1": i1["launches"], "I2": i2["launches"],
                   "I2 engine": i2["engine"], "J": path_j["launches"],
                   "J engine": path_j["engine"]})
+    stamp('path L2')
     paths["L2"] = main_path_l2(kern, k1, power)
+    stamp('profiles')
     profile_phase(kern, path_c, power)
     device_times(k2, k6, mrec["K9"][0], srec["K6"][0], card)
     quant_device_times(k45, srec, card)
@@ -3367,6 +3698,7 @@ def main() -> int:
           f"{jacobi_kernels_per_round():.1f}", flush=True)
     # last: sessions after the overlapped one missed their first kernel
     # event before ``profiled`` opened each with an uncounted fill
+    stamp('profile of path H')
     profile_path_h(kern, power)
     profile_after_overlap(k45, card)
     # paths K and L1 and their profile in a process of its own, which
@@ -3374,6 +3706,7 @@ def main() -> int:
     del path_c
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("paths K and L1")
     child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                             "--ssm"], stdout=subprocess.PIPE, text=True,
                            timeout=900)
@@ -3384,6 +3717,17 @@ def main() -> int:
             if x.startswith(SSM_LAUNCHES + " ")]
     check(len(mark) == 1, "paths K and L1 reported no launches")
     paths.update(json.loads(mark[0][len(SSM_LAUNCHES) + 1:]))
+    # the busy shares of serving, eager and through CUDA graphs, each
+    # model in a fresh process (``serving_busy``)
+    for label in ("C", "K", "L1"):
+        stamp(f"busy shares of path {label}")
+        child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                                "--busy", label], stdout=subprocess.PIPE,
+                               text=True, timeout=600)
+        print(child.stdout, end="", flush=True)
+        check(child.returncode == 0, f"the busy-share process of path "
+              f"{label} exited with {child.returncode}")
+    stamp("the kernels line")
     total = {n: sum(p[n] for p in paths.values()) for n in kern}
     print(f"launches per path: {paths}", flush=True)
     print(f"phases_s={time.time() - t_start:.1f}", flush=True)

@@ -11,7 +11,11 @@ back to another implementation.
 :func:`on_card` and :func:`raw_stream` keep a launch's host work small:
 the device switch only when the card is not the current one, and
 PyTorch's current stream as a plain handle, without building a
-``torch.cuda.Stream``.
+``torch.cuda.Stream``. :func:`stream_buffer` keeps the workspaces and
+counters that launches on one stream share; :func:`stream_buffers` lists
+a stream's buffers for a CUDA graph captured on it (``graphs.py``).
+Every :class:`LaunchCounter` is registered, so that a capture can take
+its own counts back out (:func:`launch_counts`).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import os
 import shutil
 import subprocess
 import threading
+import weakref
 from contextlib import nullcontext
 from pathlib import Path
 
@@ -99,19 +104,43 @@ def raw_stream(device_index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(device_index)
 
 
-def stream_buffer(store: dict, device_index: int, stream: int, n: int,
+_BUFFERS: dict[tuple[str, int, int], torch.Tensor] = {}
+
+
+def stream_buffer(name: str, device_index: int, stream: int, n: int,
                   dtype: torch.dtype, zeroed: bool) -> torch.Tensor:
-    """Card ``device_index``'s buffer for stream ``stream`` (a raw handle)
-    in ``store``, grown to at least ``n`` elements (``zeroed``: filled
+    """The buffer ``name`` of card ``device_index`` for stream ``stream``
+    (a raw handle), grown to at least ``n`` elements (``zeroed``: filled
     with zeros when made). One stream's launches run in order, so they
     can share a workspace that each launch overwrites before it reads it,
-    or counters that each launch leaves zero; two streams get two."""
-    buf = store.get((device_index, stream))
+    or counters that each launch leaves zero; two streams get two.
+
+    A CUDA graph's kernels keep the buffers of the stream they were
+    captured on, so a capture stream's buffers are made before its
+    capture begins (``graphs.py`` runs each program once eagerly on that
+    stream first): one made during the capture would come from the
+    graph's pool while this dict held it, so that raises. A graph holds
+    the buffers it was captured with (:func:`stream_buffers`), and a
+    buffer grown later for the same stream is a new one."""
+    key = (name, device_index, stream)
+    buf = _BUFFERS.get(key)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"stream_buffer: {name} of stream {stream:#x} would be made "
+                f"during a CUDA graph capture; run the program once on the "
+                f"capture stream before capturing it")
         make = torch.zeros if zeroed else torch.empty
         buf = make(n, dtype=dtype, device=torch.device("cuda", device_index))
-        store[(device_index, stream)] = buf
+        _BUFFERS[key] = buf
     return buf
+
+
+def stream_buffers(device_index: int, stream: int) -> list[torch.Tensor]:
+    """Every buffer that :func:`stream_buffer` holds for card
+    ``device_index``'s stream ``stream``."""
+    return [b for (_, d, s), b in _BUFFERS.items()
+            if (d, s) == (device_index, stream)]
 
 
 def blocks_per_item(n_items: int, p: int, grid: int,
@@ -125,13 +154,23 @@ def blocks_per_item(n_items: int, p: int, grid: int,
     return max(1, min(grid // n_items, -(-p // min_per_block)))
 
 
+_COUNTERS: weakref.WeakSet = weakref.WeakSet()
+
+
 class LaunchCounter:
     """The launch count of one wrapper. A kernel is its own counter; a
     wrapper that shares another's kernel (K7 and K8 launch the K1 and K2
-    entry points at I = 1) passes its own to :meth:`CudaKernel.__call__`."""
+    entry points at I = 1) passes its own to :meth:`CudaKernel.__call__`.
+    Every counter made is registered for :func:`launch_counts`."""
 
     def __init__(self):
         self.launches = 0
+        _COUNTERS.add(self)
+
+
+def launch_counts() -> dict[LaunchCounter, int]:
+    """Every live counter's launches."""
+    return {c: c.launches for c in list(_COUNTERS)}
 
 
 class CudaKernel(LaunchCounter):

@@ -48,10 +48,6 @@ LLOYD = CudaKernel(
     [_p, _p, _ll, _ll, _i, _i, _i, _i, _p, _p, _p, _ll, _p])
 SINGLE = LaunchCounter()
 
-_workspaces: dict[tuple[int, int], torch.Tensor] = {}
-_tickets: dict[tuple[int, int], torch.Tensor] = {}
-
-
 def _padded_k(k: int) -> int:
     """The kernel instance's cluster capacity (KP in the source)."""
     return 4 if k <= 4 else 16 if k <= 16 else 64 if k <= 64 else 256
@@ -167,7 +163,7 @@ def kmeans_lloyd_batched(w: torch.Tensor, codebooks: torch.Tensor,
     grid = _grid(dev, k)
     bpi = _blocks_per_item(n_items, p, grid)
     stream = raw_stream(dev)
-    ws = stream_buffer(_workspaces, dev, stream,
+    ws = stream_buffer("kmeans workspace", dev, stream,
                        2 * n_items * bpi * _padded_k(k) * 8, torch.uint8,
                        False)
     cb = torch.empty((n_items, k), dtype=_F32, device=w.device)
@@ -188,10 +184,10 @@ def _moments(w: torch.Tensor, codebooks: torch.Tensor, n_items: int,
     dev = w.get_device()
     bpi = _blocks_per_item(n_items, p, _grid(dev, k))
     stream = raw_stream(dev)
-    ws = stream_buffer(_workspaces, dev, stream,
+    ws = stream_buffer("kmeans workspace", dev, stream,
                        n_items * bpi * _padded_k(k) * 8, torch.uint8, False)
-    tickets = stream_buffer(_tickets, dev, stream, n_items, torch.int32,
-                            True)
+    tickets = stream_buffer("kmeans tickets", dev, stream, n_items,
+                            torch.int32, True)
     assign = torch.empty(w.shape, dtype=torch.int32, device=w.device)
     sums = torch.empty(codebooks.shape, dtype=_F32, device=w.device)
     counts = torch.empty(codebooks.shape, dtype=torch.int32, device=w.device)

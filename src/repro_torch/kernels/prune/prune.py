@@ -83,11 +83,6 @@ def _checked(name: str, w: torch.Tensor, t: torch.Tensor,
     raise ValueError(f"{name} needs contiguous operands")
 
 
-_workspaces: dict[tuple[int, int], torch.Tensor] = {}
-_tickets: dict[tuple[int, int], torch.Tensor] = {}
-_counters: dict[tuple[int, int], torch.Tensor] = {}
-
-
 @lru_cache(maxsize=None)
 def _grid(dev: int) -> int:
     """The bisection's largest grid on card ``dev``: the blocks of the
@@ -117,7 +112,8 @@ def _count(w, t, n_items: int, strict: bool,
     dev = w.get_device()
     bpi = _blocks_per_item(n_items, p, _grid(dev))
     stream = raw_stream(dev)
-    tickets = stream_buffer(_tickets, dev, stream, 2 * n_items, _I32, True)
+    tickets = stream_buffer("count tickets", dev, stream, 2 * n_items, _I32,
+                            True)
     counts = torch.empty(w.shape[:-1], dtype=_I32, device=w.device)
     with on_card(dev):
         KERNEL(w.data_ptr(), t.data_ptr(), n_items, p, int(bool(strict)),
@@ -196,11 +192,11 @@ def topk_threshold_batched(w: torch.Tensor, kappa: torch.Tensor,
     grid = _grid(dev)
     bpi = _blocks_per_item(n_items, p, grid)
     stream = raw_stream(dev)
-    ws = stream_buffer(_workspaces, dev, stream,
+    ws = stream_buffer("topk workspace", dev, stream,
                        _workspace_bytes(n_items, p, iters, bpi),
                        torch.uint8, False)
-    ctr = stream_buffer(_counters, dev, stream, n_items * max(iters, 1),
-                        _I32, True)
+    ctr = stream_buffer("topk counters", dev, stream,
+                        n_items * max(iters, 1), _I32, True)
     out = torch.empty((7, n_items), dtype=_I32, device=w.device)
     with on_card(dev):
         TOPK(w.data_ptr(), kappa.data_ptr(), n_items, p, int(iters),

@@ -10,11 +10,11 @@ Two regimes, picked by M inside the launch:
 * M ≤ ``GEMV_MAX_M`` (decode): a GEMV bound by the weight's bytes, its
   K range split over several blocks per column tile so that every SM
   has work (:func:`gemv_slices`). The wrapper allocates the slices'
-  workspace and keeps, per card and stream, the zeroed per-tile
+  workspace and takes, per card and stream, the zeroed per-tile
   counters by which the last block of a tile sums the slices in order
-  (one launch, no float atomics, same bits on a rerun). Launches on one
-  stream run in order, so they can share counters; two streams get two
-  sets, so GEMVs on concurrent streams never take each other's tickets;
+  (one launch, no float atomics, same bits on a rerun; each launch
+  leaves them zero). They are ``build.stream_buffer``'s, so GEMVs on
+  concurrent streams never take each other's tickets;
 * M > ``GEMV_MAX_M`` (prefill): the product on the tensor cores, TF32
   ``mma.sync`` with the 3-pass split for f32 accuracy.
 
@@ -30,7 +30,8 @@ from functools import lru_cache
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel, on_card, raw_stream
+from repro_torch.kernels.build import (
+    CudaKernel, on_card, raw_stream, stream_buffer)
 from repro_torch.kernels.quant_matmul.ref import (
     quant_matmul_packed_ref as quant_matmul_packed_plain,
     quant_matmul_ref as quant_matmul_plain)
@@ -47,9 +48,6 @@ _ARGS = [_p, _p, _p, ctypes.c_int, _p, ctypes.c_longlong,
          ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _p, _p, _p]
 KERNEL_U8 = CudaKernel("quant_matmul.cu", "quant_matmul_u8", _ARGS)
 KERNEL_PACKED4 = CudaKernel("quant_matmul.cu", "quant_matmul_packed4", _ARGS)
-
-_counters: dict[tuple[int, int], torch.Tensor] = {}
-
 
 @lru_cache(maxsize=None)
 def _sm_count(dev: int) -> int:
@@ -71,19 +69,6 @@ def gemv_slices(rows: int, n: int, dev: int = 0) -> int:
     take two blocks' registers; fewer, longer slices measured faster),
     each slice whole groups of 64 rows, at most ``GEMV_MAX_SLICE``."""
     return _slices(rows, n, _sm_count(dev))
-
-
-def _tile_counters(dev: int, stream: int, tiles: int) -> torch.Tensor:
-    """The zeroed split-K counters of card ``dev``'s stream ``stream`` (a
-    raw handle), one per column tile. Each launch leaves them 0, and one
-    stream's launches run in order, so every launch on that stream finds
-    them 0."""
-    c = _counters.get((dev, stream))
-    if c is None or c.numel() < tiles:
-        c = torch.zeros(max(tiles, 1024), dtype=torch.int32,
-                        device=torch.device("cuda", dev))
-        _counters[(dev, stream)] = c
-    return c
 
 
 def _refuse(name: str, x, w, codebook, k: int, max_codes: int):
@@ -132,7 +117,9 @@ def _launch(kernel: CudaKernel, name: str, x, w, codebook, k: int,
     if m <= GEMV_MAX_M:
         slices = _slices(w.shape[0], n, _sm_count(dev))
         if slices > 1:
-            counters = _tile_counters(dev, stream, -(-n // GEMV_COLS))
+            counters = stream_buffer("gemv tickets", dev, stream,
+                                     max(-(-n // GEMV_COLS), 1024),
+                                     torch.int32, True)
             # held until the launch is queued, so that no allocation in
             # between takes its memory
             ws = torch.empty((slices, m, n), dtype=torch.float32,

@@ -10,18 +10,27 @@ Port of ``src/repro/runtime/server.py``. Two layers:
   traffic: a queue with admission and rejection, chunked prefill into
   free slots, per-slot positions and ring-cache bookkeeping, and exactly
   three device programs (decode tick, prefill tick, slot reset) whose
-  input shapes never change across a mixed-length trace. The
-  reference's three jitted programs become plain functions;
-  ``trace_counts`` counts the distinct input signatures each has seen,
-  and stays at 1 per program after the first tick.
+  input shapes never change across a mixed-length trace.
+  ``trace_counts`` counts each program's graphs (distinct keys), the
+  reference's count of jit cache misses, and stays at 1 per program
+  after the first tick.
+
+Where the reference jits its programs, the port runs them as CUDA graphs
+on the card (``repro_torch/graphs.py``): the engine's three programs,
+``Server``'s prefill per (B, S) and its decode step with its sampling.
+``graphs=False`` runs the same programs eagerly, one launch at a time,
+as they always run on the CPU; ``graphs=True`` on the CPU raises.
 
 Everything runs under ``torch.inference_mode`` on ``device`` (``None``
 means the card). Caches are updated in place: where the reference's
 programs select per slot between the updated and the old cache, the
 port's decode writes only the rows of active slots (``decode_step(...,
 active=)``), which leaves inactive slots' caches bit for bit as they
-were. Temperature sampling draws from a ``torch.Generator``, so only
-greedy decoding is comparable with the reference token for token.
+were, and every program returns the very cache tensors it was given.
+Temperature sampling is Gumbel-max over uniform noise that the caller's
+or the engine's ``torch.Generator`` draws outside the programs, in the
+same order with graphs or without, so only greedy decoding is comparable
+with the reference token for token.
 
 :func:`load_compressed_for_serving` maps an LC state's Θ (codebooks,
 factors, masks) straight into the serving forms of
@@ -29,6 +38,7 @@ factors, masks) straight into the serving forms of
 """
 from __future__ import annotations
 
+import functools
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -36,6 +46,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.graphs import Programs
 from repro_torch.interop import resolve_device
 from repro_torch.models.layers import unembed
 from repro_torch.models.transformer import (
@@ -104,59 +115,127 @@ def pad_caches_to(cache, cfg, cur_len: int, max_len: int):
     return out
 
 
-def sample_tokens(logits, generator, temperature: float):
-    """Greedy (temperature ≤ 0; ties to the lowest index) or temperature
-    sampling over the vocab axis. logits: (B, V) → (B,) int32. Sampling
-    is Gumbel-max with noise from ``generator``, on the device."""
+def pick_tokens(logits, noise, temperature: float):
+    """Greedy (temperature ≤ 0; ties to the lowest index; ``noise`` is
+    not read) or temperature sampling over the vocab axis: Gumbel-max
+    with ``noise``, uniform draws of the logits' shape. logits: (B, V) →
+    (B,) int32."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
-    gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
+    gumbel = -torch.log(-torch.log(noise.clamp_min(1e-20)))
     return torch.argmax(logits.float() / temperature + gumbel,
                         dim=-1).to(torch.int32)
+
+
+def sample_tokens(logits, generator, temperature: float):
+    """:func:`pick_tokens` with its noise drawn from ``generator`` on the
+    logits' device (nothing is drawn when greedy)."""
+    noise = None
+    if temperature > 0.0:
+        noise = torch.rand(logits.shape, generator=generator,
+                           device=logits.device)
+    return pick_tokens(logits, noise, temperature)
 
 
 @dataclass
 class GenerationResult:
     tokens: np.ndarray          # (B, n_generated)
     prefill_len: int
+    #: (B, n_generated, V) logits each token was picked from, on the
+    #: server's device; only with ``generate(..., return_logits=True)``
+    logits: torch.Tensor | None = None
+
+
+def _prefill_program(cfg, max_len, params, prompts, noise, temperature):
+    """Server's prefill: the prompt's caches, grown to ``max_len``, and
+    the first token, with the logits it was picked from."""
+    hidden, _, caches = forward_hidden(params, prompts, cfg,
+                                       return_caches=True)
+    logits = unembed(params["embed"], hidden[:, -1:], cfg)[:, 0]
+    caches = pad_caches_to(caches, cfg, prompts.shape[1], max_len)
+    return pick_tokens(logits, noise, temperature), caches, logits
+
+
+def _decode_program(cfg, params, caches, tok, pos, noise, temperature):
+    """Server's decode step: feeds ``tok`` (B,) at positions ``pos`` (B,),
+    then advances both in place (the next token, pos + 1) and returns
+    them with ``noise`` and the logits."""
+    logits, _ = decode_step(params, caches, tok[:, None], pos, cfg)
+    logits = logits[:, 0]
+    tok.copy_(pick_tokens(logits, noise, temperature))
+    pos.add_(1)
+    return tok, pos, noise, logits
 
 
 class Server:
     """Equal-length batch serving: prefill once, then one decode step per
-    token with sampling on the device (no per-token host sync)."""
+    token with sampling on the device (no per-token host sync).
 
-    def __init__(self, cfg, params, max_len: int = 512, device=None):
+    On the card both run as CUDA graphs (``graphs``, default True
+    there): the prefill one per prompt shape (B, S), as the reference
+    jits it per shape, and the decode step, replayed n − 1 times, one per
+    prefill graph. ``programs`` has their capture seconds and pool bytes.
+    """
+
+    def __init__(self, cfg, params, max_len: int = 512, device=None,
+                 graphs: bool | None = None):
         self.cfg = cfg
         self.max_len = max_len
         self.device = resolve_device(device)
         _check_device(params, self.device)
         self.params = params
+        self.programs = Programs(self.device, graphs)
+        # the programs read this server's params (bound here: a per-call
+        # key need not walk them)
+        self._prefill = self.programs.program(
+            functools.partial(_prefill_program, cfg, max_len, params),
+            name="prefill")
+        self._decode = self.programs.program(
+            functools.partial(_decode_program, cfg, params), held=(0,),
+            name="decode")
 
     @torch.inference_mode()
     def generate(self, prompts, n_tokens: int, temperature: float = 0.0,
-                 generator: torch.Generator | None = None
-                 ) -> GenerationResult:
+                 generator: torch.Generator | None = None,
+                 return_logits: bool = False) -> GenerationResult:
         """prompts: (B, S) token batch (equal-length; for mixed-length
-        traffic use :class:`ServingEngine`). ``generator`` feeds
-        temperature sampling (default: seeded 0 on the device)."""
-        cfg = self.cfg
-        prompts = torch.as_tensor(prompts, device=self.device)
-        s = prompts.shape[1]
+        traffic use :class:`ServingEngine`), on the host or the device.
+        ``generator`` feeds temperature sampling (default: seeded 0 on
+        the device): one (B, V) uniform draw per token, in order."""
+        temperature = float(temperature)
+        prompts = torch.as_tensor(prompts)
+        b, s = prompts.shape
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        hidden, _, caches = forward_hidden(self.params, prompts, cfg,
-                                           return_caches=True)
-        logits = unembed(self.params["embed"], hidden[:, -1:], cfg)
-        caches = pad_caches_to(caches, cfg, s, self.max_len)
-        tok = sample_tokens(logits[:, 0], generator, temperature)[:, None]
-        toks = [tok]
-        for i in range(int(n_tokens) - 1):
-            logits, caches = decode_step(self.params, caches, tok, s + i, cfg)
-            tok = sample_tokens(logits[:, 0], generator, temperature)[:, None]
-            toks.append(tok)
-        out = torch.cat(toks, dim=1)                       # (B, n_tokens)
-        return GenerationResult(tokens=out.cpu().numpy(), prefill_len=s)
+        noise = None
+        if temperature > 0.0:
+            noise = torch.empty((b, self.cfg.vocab_size),
+                                device=self.device)
+
+        def draw(noise):
+            # in place: after the first decode step ``noise`` is the
+            # decode graph's own buffer
+            return None if noise is None else noise.uniform_(
+                generator=generator)
+
+        n = int(n_tokens)
+        tok, caches, logits = self._prefill(prompts, draw(noise),
+                                            temperature)
+        toks = torch.empty((b, n), dtype=torch.int32, device=self.device)
+        toks[:, 0] = tok
+        kept = None
+        if return_logits:
+            kept = torch.empty((b, n, logits.shape[-1]), device=self.device)
+            kept[:, 0] = logits
+        pos = torch.full((b,), s, dtype=torch.int64, device=self.device)
+        for i in range(1, n):
+            tok, pos, noise, logits = self._decode(
+                caches, tok, pos, draw(noise), temperature)
+            toks[:, i] = tok
+            if kept is not None:
+                kept[:, i] = logits
+        return GenerationResult(tokens=toks.cpu().numpy(), prefill_len=s,
+                                logits=kept)
 
 
 # ======================================================================
@@ -195,48 +274,35 @@ class FinishedRequest:
 _FREE, _PREFILL, _DECODE = "free", "prefill", "decode"
 
 
-def _signature(x):
-    """What a jit cache would key on: shapes, dtypes and devices of
-    tensors, the structure around them, and plain values by value."""
-    if isinstance(x, torch.Tensor):
-        return ("tensor", tuple(x.shape), x.dtype, x.device)
-    if isinstance(x, dict):
-        return tuple((k, _signature(v)) for k, v in x.items())
-    if isinstance(x, (list, tuple)):
-        return tuple(_signature(v) for v in x)
-    if isinstance(x, (int, float, str, bool, type(None))):
-        return x
-    if isinstance(x, torch.Generator):
-        return ("generator", x.device)
-    return (type(x).__name__, _signature(vars(x)))
-
-
-def engine_programs(cfg, slots: int, max_len: int, temperature: float,
-                    trace_counts: dict, device=None):
-    """The engine's three device programs.
+def engine_programs(cfg, params, slots: int, max_len: int,
+                    temperature: float, trace_counts: dict,
+                    programs: Programs):
+    """The engine's three device programs on ``params``, made by
+    ``programs`` (CUDA graphs on the card, or eager).
 
     Returns ``(decode, prefill, reset)``; see :class:`ServingEngine` for
-    their signatures. Every call records its input signature, and
-    ``trace_counts[name]`` holds the number of distinct signatures the
-    program has seen (the reference's count of jit cache misses)."""
-    device = resolve_device(device)
+    their signatures. ``trace_counts[name]`` holds the number of keys
+    (graphs, or eager signatures) the program has seen: the reference's
+    count of jit cache misses."""
+    device = programs.device
     axes = cache_axes(cfg)
 
-    def decode_impl(params, cache, tok, pos, active, generator):
+    def decode_impl(cache, tok, pos, active, noise):
         logits, cache = decode_step(params, cache, tok[:, None], pos, cfg,
                                     active=active)
-        nxt = sample_tokens(logits[:, 0], generator, temperature)
+        nxt = pick_tokens(logits[:, 0], noise, temperature)
         return torch.where(active, nxt, tok), cache
 
-    def prefill_impl(params, cache, chunk, pos0, n_valid, active,
-                     generator):
+    def prefill_impl(cache, chunk, pos0, n_valid, active, noise):
         b, c = chunk.shape
         tok = torch.zeros((b,), dtype=torch.int32, device=device)
         for t in range(c):
             step_active = active & (t < n_valid)
             logits, cache = decode_step(params, cache, chunk[:, t:t + 1],
                                         pos0 + t, cfg, active=step_active)
-            sampled = sample_tokens(logits[:, 0], generator, temperature)
+            sampled = pick_tokens(logits[:, 0],
+                                  None if noise is None else noise[t],
+                                  temperature)
             tok = torch.where(step_active & (t == n_valid - 1), sampled, tok)
         return tok, cache
 
@@ -244,17 +310,12 @@ def engine_programs(cfg, slots: int, max_len: int, temperature: float,
         fresh = init_cache(cfg, slots, max_len, device=device)
         return _merge(axes, fresh, cache, mask)
 
-    def counted(name, fn):
-        seen = set()
+    def program(name, fn, held):
+        return programs.program(fn, held, name, trace_counts)
 
-        def run(*args):
-            seen.add(_signature(args))
-            trace_counts[name] = len(seen)
-            return fn(*args)
-        return run
-
-    return (counted("decode", decode_impl), counted("prefill", prefill_impl),
-            counted("reset", reset_impl))
+    return (program("decode", decode_impl, (0, 4)),
+            program("prefill", prefill_impl, (0, 5)),
+            program("reset", reset_impl, (0,)))
 
 
 def _merge(axes, new, old, mask):
@@ -281,26 +342,33 @@ class ServingEngine:
     decoding slots for more than one tick. All device work runs through
     three programs with fixed input shapes:
 
-    * ``_decode(params, cache, tok (B,), pos (B,), active (B,),
-      generator)`` → (next_tok, cache): one token for every active slot,
+    * ``_decode(cache, tok (B,), pos (B,), active (B,), noise)`` →
+      (next_tok, cache): one token for every active slot,
       per-slot positions, sampling on the device; inactive slots' caches
       are left unchanged.
-    * ``_prefill(params, cache, chunk (B, C), pos0, n_valid, active,
-      generator)`` → (first_tok, cache): C decode sub-steps feeding
+    * ``_prefill(cache, chunk (B, C), pos0, n_valid, active, noise)`` →
+      (first_tok, cache): C decode sub-steps feeding
       prompt tokens; slot b consumes ``n_valid[b]`` of them; the token
       sampled where ``t == n_valid-1`` seeds decode when the prompt ends
       this tick.
     * ``_reset(cache, mask)``: admitted slots restored to ``init_cache``
       values.
 
-    ``trace_counts`` holds, per program, the number of distinct input
-    signatures seen: after the first tick every value stays at 1 across
-    mixed-length traffic.
+    On the card they run as CUDA graphs (``graphs``, default True
+    there; ``programs`` has their capture seconds and pool bytes). The
+    per-tick inputs go from the host into the graphs' own buffers, one
+    host-to-device copy each. ``noise`` is None when greedy, else the
+    engine's (B, V) and (C, B, V) buffers of uniform draws, refilled from
+    its generator before each tick (one draw per tick, in tick order).
+
+    ``trace_counts`` holds, per program, the number of graphs captured
+    (the distinct signatures seen, with ``graphs=False``): after the
+    first tick every value stays at 1 across mixed-length traffic.
     """
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
                  prefill_chunk: int = 8, temperature: float = 0.0,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, graphs: bool | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         _check_device(params, self.device)
@@ -311,14 +379,22 @@ class ServingEngine:
         self.temperature = float(temperature)
         self.trace_counts = {"decode": 0, "prefill": 0, "reset": 0}
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.programs = Programs(self.device, graphs)
         self._decode, self._prefill, self._reset = engine_programs(
-            cfg, self.slots, self.max_len, self.temperature,
-            self.trace_counts, device=self.device)
+            cfg, params, self.slots, self.max_len, self.temperature,
+            self.trace_counts, self.programs)
 
         # host-side slot state
         with torch.inference_mode():
             self._cache = init_cache(cfg, self.slots, self.max_len,
                                      device=self.device)
+            self._noise = (None, None)
+            if self.temperature > 0.0:
+                v = cfg.vocab_size
+                self._noise = (
+                    torch.empty((self.slots, v), device=self.device),
+                    torch.empty((self.prefill_chunk, self.slots, v),
+                                device=self.device))
         self._phase = [_FREE] * self.slots
         self._req: list[Request | None] = [None] * self.slots
         self._fed = np.zeros(self.slots, np.int64)   # prompt tokens fed
@@ -329,8 +405,13 @@ class ServingEngine:
         self._now = 0.0
 
     # ------------------------------------------------------------------
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(a, device=self.device)
+    def _draw(self, noise):
+        """``noise`` refilled from the engine's generator (None stays
+        None)."""
+        if noise is not None:
+            with torch.inference_mode():
+                noise.uniform_(generator=self._gen)
+        return noise
 
     def _timed(self, fn, *args):
         t0 = time.perf_counter()
@@ -364,7 +445,7 @@ class ServingEngine:
             newly[b] = True
         if newly.any():
             self._cache = self._timed(self._reset, self._cache,
-                                      self._dev(newly))
+                                      torch.from_numpy(newly))
 
     def _prefill_tick(self):
         b = self.slots
@@ -383,9 +464,9 @@ class ServingEngine:
             n_valid[i] = take
             active[i] = True
         tok, self._cache = self._timed(
-            self._prefill, self.params, self._cache, self._dev(chunk),
-            self._dev(pos0), self._dev(n_valid), self._dev(active),
-            self._gen)
+            self._prefill, self._cache, torch.from_numpy(chunk),
+            torch.from_numpy(pos0), torch.from_numpy(n_valid),
+            torch.from_numpy(active), self._draw(self._noise[1]))
         tok = tok.cpu().numpy()
         for i in range(b):
             if not active[i]:
@@ -401,8 +482,9 @@ class ServingEngine:
     def _decode_tick(self, finished):
         active = np.array([p == _DECODE for p in self._phase])
         nxt, self._cache = self._timed(
-            self._decode, self.params, self._cache, self._dev(self._tok),
-            self._dev(self._pos), self._dev(active), self._gen)
+            self._decode, self._cache,
+            torch.from_numpy(self._tok), torch.from_numpy(self._pos),
+            torch.from_numpy(active), self._draw(self._noise[0]))
         nxt = nxt.cpu().numpy()
         for i in range(self.slots):
             if not active[i]:

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and serving
+through CUDA graphs against the eager programs, on the card.
 
 Every test here needs an NVIDIA GPU and nvcc and skips elsewhere. The
 file imports only torch and the port, so it runs on a machine without
@@ -814,3 +815,144 @@ def test_moe_and_mla_models_on_card_match_cpu(gen, arch):
     want = Server(cfg, cpu, max_len=32, device="cpu").generate(toks, 6)
     got = Server(cfg, card, max_len=32, device="cuda").generate(toks, 6)
     assert (got.tokens == want.tokens).all()
+
+
+# ----------------------------------------------------------------------
+# serving through CUDA graphs, held to the eager programs
+# ----------------------------------------------------------------------
+SERVED = ["phi3-mini-3.8b", "mixtral-8x7b", "deepseek-moe-16b",
+          "minicpm3-4b", "jamba-v0.1-52b", "xlstm-125m"]
+
+
+def _served(arch):
+    """A reduced model on the card, unrolled, every 2-D matrix it
+    applies as a product in 4-bit form (K4), fused attention (K6) where
+    its head dims are the kernel's."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.serve import compress_for_form
+    from repro_torch.models.transformer import init_params
+    cfg = reduced_config(get_config(arch)).with_(dtype="float32")
+    cfg = cfg.with_(pattern=cfg.pattern * cfg.pattern_reps, pattern_reps=1)
+    dims = ((cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim, cfg.mla.v_head_dim)
+            if cfg.mla is not None else (cfg.head_dim, cfg.head_dim))
+    cfg = cfg.with_(fused_attention=dims in k6.HEAD_DIM_PAIRS)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    return cfg, compress_for_form(cfg, params, "quant4", "cuda")
+
+
+def _counted(run):
+    """(run's result, the launches of every kernel it made)."""
+    kernels = (k45.KERNEL_PACKED4, k45.KERNEL_U8, k6.KERNEL)
+    before = [k.launches for k in kernels]
+    out = run()
+    torch.cuda.synchronize()
+    return out, [k.launches - b for k, b in zip(kernels, before)]
+
+
+def _engine_run(cfg, params, graphs, temperature, seed=0):
+    """A short mixed-length trace on a 3-slot engine; every slot admitted
+    a second time holds ``init_cache``'s values right after its reset.
+    Returns ({id: tokens}, trace_counts, slots checked)."""
+    import numpy as np
+    from repro_torch.core import flatten_params
+    from repro_torch.models.transformer import cache_axes, init_cache
+    from repro_torch.runtime import server as srv
+    rng = np.random.default_rng(seed)
+    reqs = [srv.Request(i, rng.integers(1, cfg.vocab_size, size=int(n))
+                        .astype(np.int32), int(m), 0.0)
+            for i, (n, m) in enumerate(rng.integers(2, 12, size=(7, 2)))]
+    eng = srv.ServingEngine(cfg, params, slots=3, max_len=32,
+                            prefill_chunk=4, temperature=temperature,
+                            seed=seed, device="cuda", graphs=graphs)
+    fresh = flatten_params(init_cache(cfg, 3, 32, device="cuda"))
+    axes = flatten_params(cache_axes(cfg))
+    admitted, checked = [0, 0, 0], []
+    reset = eng._reset
+
+    def watched(cache, mask):
+        out = reset(cache, mask)
+        for slot in torch.nonzero(mask).flatten().tolist():
+            admitted[slot] += 1
+            if admitted[slot] > 1:
+                for k, v in flatten_params(out).items():
+                    ax = axes[k].index("batch")
+                    assert torch.equal(v.select(ax, slot),
+                                       fresh[k].select(ax, slot)), k
+                checked.append(slot)
+        return out
+
+    eng._reset = watched
+    out = eng.run(reqs)
+    assert len(out["finished"]) == len(reqs)
+    return ({f.id: f.tokens.tolist() for f in out["finished"]},
+            dict(eng.trace_counts), len(checked))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", SERVED)
+def test_graphs_match_the_eager_programs_on_card(gen, arch):
+    """``Server.generate`` and a ``ServingEngine`` trace through CUDA
+    graphs against the same programs run eagerly on the card: greedy
+    tokens equal, and at temperature 0.8 with the same seed; the kernels'
+    launch counts equal; the engine's programs one graph each after the
+    first tick; re-admitted slots equal to ``init_cache``; a second
+    ``generate`` at the same shape replays its prefill and captures
+    nothing new."""
+    import numpy as np
+    from repro_torch.runtime.server import Server
+    cfg, params = _served(arch)
+    prompts = np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (2, 16)).astype(np.int32)
+    servers = {g: Server(cfg, params, max_len=32, device="cuda", graphs=g)
+               for g in (False, True)}
+    for temperature in (0.0, 0.8):
+        got = {g: _counted(lambda s=s: s.generate(
+                   prompts, 8, temperature,
+                   torch.Generator(device="cuda").manual_seed(5)))
+               for g, s in servers.items()}
+        assert (got[True][0].tokens == got[False][0].tokens).all()
+        assert got[True][1] == got[False][1]
+        assert sum(got[True][1]) > 0
+    graphed = servers[True]
+    captured = graphed.programs.captured
+    again = graphed.generate(prompts, 8, 0.8, torch.Generator(
+        device="cuda").manual_seed(5))
+    assert graphed.programs.captured == captured
+    assert (again.tokens == got[True][0].tokens).all()
+    for temperature in (0.0, 0.8):
+        runs = {g: _counted(lambda g=g: _engine_run(cfg, params, g,
+                                                    temperature))
+                for g in (False, True)}
+        (eager, eager_n), (graph, graph_n) = runs[False], runs[True]
+        assert graph[0] == eager[0] and graph_n == eager_n
+        assert graph[1] == {"decode": 1, "prefill": 1, "reset": 1}
+        assert graph[2] == eager[2] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+def test_two_replays_equal_two_eager_calls_on_card(gen, bits):
+    """A captured decode GEMV (split K, whose tickets each launch leaves
+    zero) replayed twice in a row on two inputs equals two eager calls
+    bit for bit, and counts one launch a replay."""
+    from repro_torch.graphs import Programs
+    m, k, n = 2, 3072, 1024
+    assert k45.gemv_slices(k // (2 if bits == 4 else 1), n) > 1
+    _, w, cb = _gemm_operands(gen, m, k, n, 16, bits)
+    fn = _k45(bits)[0]
+    xs = [torch.randn((m, k), device="cuda", generator=gen)
+          for _ in range(3)]
+    want = [fn(xi, w, cb) for xi in xs[1:]]
+    prog = Programs(torch.device("cuda", 0)).program(
+        lambda w, x: fn(x, w, cb), held=(0,), name="gemv")
+    kern = k45.KERNEL_PACKED4 if bits == 4 else k45.KERNEL_U8
+    prog(w, xs[0])
+    n0 = kern.launches
+    got = [prog(w, xi).clone() for xi in xs[1:]]
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    # the capture stream's tickets, which the graph's launches use
+    (tickets,) = prog.owner.stream_buffers()
+    assert not tickets.any()
