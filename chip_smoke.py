@@ -6,12 +6,14 @@
     python3 chip_smoke.py --ssm         # paths K and L1 and their profile
     python3 chip_smoke.py --busy C      # serving's busy shares, eager and
                                         # through CUDA graphs (C, K or L1)
+    python3 chip_smoke.py --chunks      # chunked groups against one launch
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit (nvcc). Every ``Server`` and ``ServingEngine`` serves
 through CUDA graphs (``repro_torch/graphs.py``), and the launch counts
-count what ran on the card, replays included. Phases, each of which
-fails the run:
+count what ran on the card, replays included. Every C step runs through
+the group planner (``planner="on"``, ``repro_torch/analysis/cost.py``).
+Phases, each of which fails the run:
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile every CUDA source of the main path (``build.SOURCES``
@@ -29,14 +31,20 @@ fails the run:
    iterated loop, the plain loop, the bound and the design's floor;
 4. main path A — the quickstart (``repro_torch.quickstart.main``):
    LeNet300, per-layer K=4 quantization, 20 LC steps × 40 SGD steps;
-   LC ≤ DC and exactly 20 × 3 fused Lloyd loop launches;
+   LC ≤ DC and exactly 20 × 3 fused Lloyd loop launches; then one C step
+   from the final state with the planner on and off (``planner_on_off``:
+   Θ and Δ(Θ) bit for bit, the same launches);
 5. main path B — ℓ0 pruning of all LeNet300 weights at κ = 5% (13,310):
    exactly κ nonzeros after every C step, the §7 monitor, 20 fused
-   bisections and 20 K3 launches;
+   bisections and 20 K3 launches; planner on against off as in A;
 6. the C step at LM width: phi3-mini-3.8b's FFN stacks (d_model 3072,
    d_ff 8192) with 4 of its 32 layers; K=16 quantization of w_gate|w_up
    (one group of 8 items × 25,165,824 weights) and ℓ0 pruning at 5% per
-   item of w_down; init, then 2 × (C step + multiplier step);
+   item of w_down; init, then 2 × (C step + multiplier step), each C
+   step beside one with the planner off; then the k-means group and the
+   top-κ task each captured as a CUDA graph (``compile_group``) and held
+   to the eager solve at two μ (``captured_against_eager``: Θ and Δ(Θ)
+   bit for bit, one capture then cache hits, eager and replay seconds);
 7. K4, K5 and K6 (the serving kernels) against their plain versions on
    the card at the serving paths' shapes (paths I, J, K and L1's too: K6 at
    MLA's qk 96 / v 64 and at mixtral's 4096 window over 4608 tokens),
@@ -86,7 +94,10 @@ fails the run:
     w_down) in four groups, LC init, one C step, a multiplier step, the
     bridge (24 low-rank and 4 dense forms) and ``Server.generate``;
     selected ranks against the exact spectrum, distortion against the
-    exact SVD, logits against the densified model, 4 K6 launches;
+    exact SVD, logits against the densified model, 4 K6 launches; then
+    each group re-run alone with the planner off and on (bit for bit),
+    and each low-rank group captured (``compile_group``, the Jacobi
+    rounds in one CUDA graph) against its eager runs at two μ;
 14. main path H — LC training of phi3-mini-3.8b at full width (4 of 32
     layers, float32, remat, plain attention) with ``LCTrainer``: AdamW L
     steps on the port's ``TokenStream`` (8 × 1024 tokens a step), the
@@ -109,11 +120,14 @@ fails the run:
     and one C step, the bridge, ``Server.generate`` of 32 tokens for 2
     prompts, logits against the densified model, greedy agreement 1.0,
     fused attention against the plain loop, exact launch counts, peak
-    memory). I1: mixtral-8x7b, 2 of 32 layers, 4-bit on the w_gate and
-    w_up expert stacks (one fused Lloyd loop over 4 items of
-    469,762,048, held against the iterated and plain loops), 8-bit
-    attention, prompts of 4608 past the 4096 window (K6 masks real keys,
-    the ring buffer wraps). I2: deepseek-moe-16b, its dense lead layer
+    memory). I1: mixtral-8x7b, 2 of 32 layers, 4-bit on all 6 expert
+    stacks (w_gate, w_up and w_down of both layers: one group of 6 items
+    of 469,762,048, which the planner splits into chunks that fit a
+    quarter of the card's memory, one fused Lloyd loop a chunk, each
+    held against the iterated and plain loops in its group's partition;
+    the plan and the peak memory printed), 8-bit attention, prompts of
+    4608 past the 4096 window (K6 masks real keys, the ring buffer
+    wraps). I2: deepseek-moe-16b, its dense lead layer
     and 3 MoE layers, ℓ0 at 5% on the 3 w_down expert stacks as one
     vector of 553,648,128 (the bisection and K3 held against their
     plain versions, exactly κ nonzeros, Θ the exact top-κ), 4-bit lead
@@ -168,7 +182,16 @@ fails the run:
     shapes; last, path H's trainer (one L step and boundary serial,
     two overlapped): the device's busy share, each stream's busy time
     and the time both streams ran at once;
-18. one JSON line listing every ported kernel, then the result line.
+18. in a process of its own (``--chunks``), after paths K and L1: I1's
+    former 4 expert items (4 × 469,762,048) with ``CHUNK_BUDGET_BYTES``
+    forced to 4 launches against one launch, Θ and Δ(Θ) bit for bit; the
+    Lloyd loop over them timed in one launch, in 2 chunks in the group's
+    partition (what the planner runs) and in 2 chunks in their own; a
+    top-κ group chunked against one launch, and a low-rank group, which
+    the planner keeps in one launch (its batched products' bits depend
+    on the batch: the gap of 4 launches forced past the planner is
+    printed);
+19. one JSON line listing every ported kernel, then the result line.
 
 Tolerances: assignments, masks and integer counts must be equal; K1/K7
 cluster sums may differ from the plain version's by the summation order
@@ -339,7 +362,7 @@ H_WEIGHTS = sum(i * p for i, p in H_GROUPS)           # 452,984,832
 # 1408 × 2048 each, as one vector) and minicpm3-4b (4 of 62 layers)
 MIX_LAYERS, MIX_PROMPT = 2, 4608
 MIX_ITEM = 8 * 4096 * 14336                          # 469,762,048
-I1_MATRICES = ("w_gate", "w_up")
+I1_MATRICES = ("w_gate", "w_up", "w_down")
 DS_MOE_LAYERS = 3
 DS_ITEM = 64 * 1408 * 2048                           # 184,549,376
 DS_KAPPA = int(0.05 * DS_MOE_LAYERS * DS_ITEM)       # 27,682,406
@@ -741,6 +764,115 @@ def monitor_ok(history) -> bool:
                for before, after in m.c_step_shifted_distortion.values())
 
 
+def planner_on_off(label: str, lc, params, state, kern) -> dict:
+    """One C step of ``lc`` from ``state`` with the group planner on and
+    off (``c_step_async``: nothing of ``state`` is written): Θ and Δ(Θ)
+    bit for bit, and the same launches. Returns the planner-on run's
+    launches."""
+    from repro_torch.tree import tree_leaves
+    runs = {}
+    for planner in ("off", "on"):
+        lc.set_planner(planner)
+        before = launches(kern)
+        out = lc.c_step_async(params, state)
+        torch.cuda.synchronize()
+        runs[planner] = (out["tasks"], {
+            k: v - before[k] for k, v in launches(kern).items()})
+    planned = [g for g in lc.group_summary(params) if g["plan"]]
+    for name in state["tasks"]:
+        on, off = (tree_leaves(runs[p][0][name]) for p in ("on", "off"))
+        check(len(on) == len(off) and all(
+            torch.equal(a, b) for a, b in zip(on, off)),
+            f"{label}: planner on and off differ on {name}")
+    check(runs["on"][1] == runs["off"][1],
+          f"{label}: launches with the planner on {runs['on'][1]}, off "
+          f"{runs['off'][1]}")
+    print(f"{label}: planner on against off: Θ and Δ(Θ) bit for bit over "
+          f"{len(state['tasks'])} tasks, launches equal "
+          f"{ {k: v for k, v in runs['on'][1].items() if v} }; planned "
+          f"groups {[(g['items'], g['plan']['backend'], g['plan']['n_chunks']) for g in planned]}",
+          flush=True)
+    return runs["on"][1]
+
+
+def _packed_like(group, counts, out, results) -> None:
+    """Hold a group's packed (Θ, Δ items) ``out`` against the per-task
+    ``results`` of ``grouped_compress``, bit for bit."""
+    from repro_torch.core.schemes.base import (add_leading_axis,
+                                               slice_theta_like)
+    from repro_torch.tree import tree_leaves, tree_map
+    theta, a = out
+    off = 0
+    for t, n in zip(group, counts):
+        th, a_arr = results[t.name]
+        if not t.view.stacked:
+            th = add_leading_axis(th)
+        mine = slice_theta_like(
+            tree_map(lambda x, o=off, n=n: x[o:o + n], theta), th)
+        same = all(torch.equal(x, y) for x, y in
+                   zip(tree_leaves(mine), tree_leaves(th)))
+        check(same and torch.equal(a[off:off + n], t.view.to_items(a_arr)),
+              f"{t.name}: the captured solve differs from the eager one")
+        off += n
+
+
+def captured_against_eager(label: str, group, xs, thetas, mus,
+                           power: str) -> dict:
+    """``compile_group``'s solve of ``group`` (a CUDA graph, captured at
+    its first call) against ``grouped_compress`` run eagerly, at each μ
+    of ``mus`` (0-d tensors, as the LC driver passes them): Θ and Δ(Θ)
+    bit for bit; one capture, then cache hits and replays only; eager
+    and captured seconds."""
+    from repro_torch.analysis import cost
+    from repro_torch.core.grouping import compile_group, grouped_compress
+    counts = [t.view.item_count(xs[t.name]) for t in group]
+    eager, t_eager = [], []
+    for mu in mus:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager.append(grouped_compress(group, xs, thetas, mu, backend="auto",
+                                      device="cuda", planner="on"))
+        torch.cuda.synchronize()
+        t_eager.append(time.perf_counter() - t0)
+    before = cost.cache_stats()
+    exe, arrays = compile_group(group, xs, thetas, backend="auto",
+                                device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [exe(mus[0], *arrays)]
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    t_replay = []
+    for mu in list(mus[1:]) + [mus[0]]:
+        t0 = time.perf_counter()
+        outs.append(exe(mu, *arrays))
+        torch.cuda.synchronize()
+        t_replay.append(time.perf_counter() - t0)
+    again, _ = compile_group(group, xs, thetas, backend="auto",
+                             device="cuda")
+    after = cost.cache_stats()
+    check(again is exe and after["exec_misses"] - before["exec_misses"] == 1
+          and after["exec_hits"] - before["exec_hits"] == 1
+          and exe.programs.captured == 1,
+          f"{label}: {exe.programs.captured} captures, exec stats "
+          f"{before} -> {after}")
+    for out, res in zip(outs, eager + [eager[0]]):
+        _packed_like(group, counts, out, res)
+    pool_gib = exe.programs.pool_bytes() / 2**30
+    # drop the executable, and its graph's memory pool, from the cache
+    del exe, again
+    cost.clear_caches()
+    print(f"{label}: compile_group captured against eager at mu="
+          f"{[float(m) for m in mus]}: Θ and Δ(Θ) bit for bit; 1 capture, "
+          f"then cache hits; eager_s={[round(t, 4) for t in t_eager]} "
+          f"capture_call_s={t_capture:.3f} (an eager run and the capture) "
+          f"replay_s={[round(t, 4) for t in t_replay]} "
+          f"graph_pool_gib={pool_gib:.3f} "
+          f"[{power}]", flush=True)
+    return {"eager_s": t_eager, "capture_s": t_capture,
+            "replay_s": t_replay}
+
+
 def main_path_a(kern) -> dict:
     from repro_torch import quickstart
     reset(kern)
@@ -759,6 +891,8 @@ def main_path_a(kern) -> dict:
           f"ratio={lc['ratio']:.1f}x lc_wall_s={lc['wall_s']:.2f} "
           f"total_wall_s={wall:.2f} Lloyd_loop_launches={n['K1loop']}",
           flush=True)
+    planner_on_off("path A", lc["lc"], lc["state"].tree(), lc["lc_state"],
+                   kern)
     return n
 
 
@@ -799,6 +933,8 @@ def main_path_b(kern) -> dict:
           f"lc_wall_s={lc['wall_s']:.2f} total_wall_s={wall:.2f} "
           f"bisection_launches={n['K2loop']} K3_launches={n['K3']}",
           flush=True)
+    planner_on_off("path B", lc["lc"], lc["state"].tree(), lc["lc_state"],
+                   kern)
     return n
 
 
@@ -822,7 +958,7 @@ def lm_problem(g):
     return params, LCAlgorithm(tasks, [1e-4, 1.3e-4], device="cuda")
 
 
-def lm_phase(kern) -> dict:
+def lm_phase(kern, power: str) -> dict:
     g = torch.Generator(device="cuda").manual_seed(1)
     torch.cuda.reset_peak_memory_stats()
     params, lc = lm_problem(g)
@@ -844,6 +980,7 @@ def lm_phase(kern) -> dict:
         state = lc.set_mu(state, mu, step)
         pre = {n: float(v) for n, v in lc.shifted_distortion(params,
                                                              state).items()}
+        planner_on_off(f"LM C step {step}", lc, params, state, kern)
         reset(kern)
         torch.cuda.synchronize()
         t0 = time.time()
@@ -875,7 +1012,18 @@ def lm_phase(kern) -> dict:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"LM peak_memory_gib={peak:.2f}", flush=True)
-    del params, state
+    # the k-means group and the top-κ task, each captured as a CUDA graph
+    from repro_torch.core.grouping import build_groups
+    xs = {t.name: t.shifted_compressible(params, state["tasks"][t.name],
+                                         state["mu"]) for t in lc.tasks}
+    thetas = {t.name: state["tasks"][t.name]["theta"] for t in lc.tasks}
+    groups = build_groups(lc.tasks, xs, backend="auto", device="cuda")
+    check(sorted(len(g) for g in groups) == [1, 2], "LM groups")
+    for group in groups:
+        captured_against_eager(
+            f"LM {group[0].scheme.solver} group {[t.name for t in group]}",
+            group, xs, thetas, (state["mu"], state["mu"] * 1.3), power)
+    del params, state, xs, thetas
     torch.cuda.empty_cache()
     return total
 
@@ -1693,21 +1841,42 @@ def main_path_f(kern, power: str) -> dict:
     del dense, serving, server
 
     # per-group solver seconds, each group re-run alone from the same
-    # state (its C-step input and warm start)
+    # state (its C-step input and warm start), with the planner off and
+    # on (Θ bit for bit); then each low-rank group captured as a CUDA
+    # graph (compile_group) against its eager runs at two μ
+    from repro_torch.tree import tree_leaves
     xs = {t.name: t.shifted_compressible(params, state["tasks"][t.name],
                                          state["mu"]) for t in lc.tasks}
     thetas = {t.name: state["tasks"][t.name]["theta"] for t in lc.tasks}
-    times = []
+    times, captured = [], []
     for group in build_groups(lc.tasks, xs, backend="auto", device="cuda"):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        grouped_compress(group, xs, thetas, state["mu"], backend="auto",
-                         device="cuda")
-        torch.cuda.synchronize()
+        res = {}
+        for planner in (None, "on"):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res[planner] = grouped_compress(group, xs, thetas, state["mu"],
+                                            backend="auto", device="cuda",
+                                            planner=planner)
+            torch.cuda.synchronize()
         times.append((group[0].scheme.name, len(group),
                       round(time.time() - t0, 3)))
-    print(f"path F solver seconds per group (re-run alone): {times} "
-          f"[{power}]", flush=True)
+        check(all(torch.equal(a, b) for t in group for a, b in zip(
+            tree_leaves(res[None][t.name]), tree_leaves(res["on"][t.name]))),
+            f"path F {group[0].scheme.name}: planner on and off differ")
+        del res
+        if group[0].scheme.solver in ("lowrank_rsvd", "rank_select"):
+            captured.append(captured_against_eager(
+                f"path F {group[0].scheme.name} group of {len(group)}",
+                group, xs, thetas, (state["mu"], state["mu"] * 2.0), power))
+    print(f"path F solver seconds per group (re-run alone, planner on; "
+          f"Θ bit for bit with the planner off): {times} [{power}]",
+          flush=True)
+    eager = sum(c["eager_s"][0] for c in captured)
+    replay = sum(c["replay_s"][-1] for c in captured)
+    print(f"path F low-rank groups, C-step seconds at mu={float(state['mu'])}:"
+          f" eager {eager:.3f} against captured {replay:.3f} (capture "
+          f"calls {sum(c['capture_s'] for c in captured):.3f}) [{power}]",
+          flush=True)
     del params, state, xs, thetas
     torch.cuda.empty_cache()
     return n
@@ -2029,20 +2198,46 @@ def quant_ratio() -> float:
     return 32.0 * H_WEIGHTS / sum(i * (p * 4 + 16 * 32) for i, p in H_GROUPS)
 
 
+class Calls(list):
+    """Captured calls ``(args, kw, result)``, with the item count that
+    partitioned each (``build.partition_items``: a chunk of a planned
+    group launches with its group's partition) and the seconds spent
+    copying them to the host."""
+
+    def __init__(self):
+        super().__init__()
+        self.partitions: list[int] = []
+        self.copy_s = 0.0
+
+
+def _host(x):
+    return x.cpu() if isinstance(x, torch.Tensor) else x
+
+
 @contextlib.contextmanager
-def calls_of(module, name: str, first: int):
+def calls_of(module, name: str, first: int, to_host: bool = False):
     """Route ``module.name`` through a wrapper that keeps the arguments
     and the result of its calls from the ``first``-th (0-based) on, as
     references: the C step writes none of its solvers' operands or
-    results in place (only ``a``), so they hold what the kernel saw."""
+    results in place (only ``a``), so they hold what the kernel saw.
+    ``to_host`` keeps host copies instead, so that the card does not
+    hold every chunk's operands through the C step."""
+    from repro_torch.kernels.build import partition_items
     fn = getattr(module, name)
-    calls: list = []
+    calls = Calls()
     seen = [0]
 
     def wrapped(*args, **kw):
         out = fn(*args, **kw)
         if seen[0] >= first:
-            calls.append((args, kw, out))
+            calls.partitions.append(partition_items(args[0].shape[0]))
+            kept_args, kept = args, out
+            if to_host:
+                t0 = time.perf_counter()
+                kept_args = tuple(_host(a) for a in args)
+                kept = tuple(_host(o) for o in out)
+                calls.copy_s += time.perf_counter() - t0
+            calls.append((kept_args, kw, kept))
         seen[0] += 1
         return out
 
@@ -2388,19 +2583,15 @@ def moe_mla_config(arch: str, layers: int):
     return cfg
 
 
-def kmeans_groups(lc, params) -> int:
-    """The C step's k-means groups: one fused Lloyd loop each."""
-    return sum(g["solver"] == "kmeans_lloyd"
-               for g in lc.group_summary(params))
-
-
 def serve_path(kern, label: str, cfg, tasks, prompt_len: int,
-               power: str, seeds: tuple[int, int], capture=()):
+               power: str, seeds: tuple[int, int], capture=(),
+               to_host: bool = False):
     """LC init + one C step → bridge → ``Server.generate`` (2 prompts of
     ``prompt_len``, SERVE_GEN new tokens) with every kernel launch
     counted from 0; returns the run's record. ``seeds`` seed the weights
     and the prompts; ``capture`` lists (module, name) of kernel wrappers
-    whose calls in the C step are kept for the checks."""
+    whose calls in the C step are kept for the checks (on the host with
+    ``to_host``)."""
     from repro_torch.core import LCAlgorithm, flatten_params
     from repro_torch.models import transformer as tf
     from repro_torch.runtime import server as srv
@@ -2428,7 +2619,8 @@ def serve_path(kern, label: str, cfg, tasks, prompt_len: int,
     t_init = time.time() - t0
     init_peak = torch.cuda.max_memory_allocated() / 2**30
     with contextlib.ExitStack() as stack:
-        calls = [stack.enter_context(calls_of(m, n, 0)) for m, n in capture]
+        calls = [stack.enter_context(calls_of(m, n, 0, to_host))
+                 for m, n in capture]
         t0 = time.time()
         state = lc.c_step(params, state)
         torch.cuda.synchronize()
@@ -2473,14 +2665,16 @@ def serve_path(kern, label: str, cfg, tasks, prompt_len: int,
         for f in forms.values():
             kinds[f.split("(")[0]] = kinds.get(f.split("(")[0], 0) + 1
     dense = srv.densified_for_serving(params, state, lc.tasks)
-    groups = kmeans_groups(lc, params)
+    summary = lc.group_summary(params)
+    groups = sum(g["solver"] == "kmeans_lloyd" for g in summary)
     del params
     prompts_t = torch.as_tensor(prompts, device="cuda")
     toks_t = torch.as_tensor(toks, device="cuda")
     return {"launches": n, "kinds": kinds, "state": state, "lc": lc,
             "serving": serving, "dense": dense, "prompts": prompts_t,
             "tokens": toks_t, "max_len": max_len, "calls": calls,
-            "kmeans_groups": groups, "peak_gib": peak}
+            "kmeans_groups": groups, "summary": summary, "peak_gib": peak,
+            "c_step_s": t_cstep}
 
 
 def check_served(label: str, cfg, run: dict, power: str) -> None:
@@ -2508,40 +2702,62 @@ def check_lloyd_at(k1, calls, label: str, power: str) -> dict:
     """The C step's fused Lloyd loops (``calls``) held against the
     iterated and plain loops on their own operands (``check_lloyd``),
     the fused loop timed (3 turns) beside the plain loop (one run) and
-    its bound; returns the largest item stack's row."""
+    its bound; returns the largest item stack's row. Each loop is
+    checked and timed in the partition it was launched with (a chunk of
+    a planned group: its group's, ``build.group_partition``)."""
+    from repro_torch.kernels.build import group_partition
     rows = []
-    for (w, cb, iters), _, got in calls:
-        err, moved = check_lloyd(k1, w, cb, iters, got,
-                                 f"{label} Lloyd loop {tuple(w.shape)}")
-        k = cb.shape[1]
-        ms = timed_turns([lambda: k1.kmeans_lloyd_batched(w, cb, iters)],
-                         3)[0]
+    for ((w, cb, iters), _, got), part in zip(calls, calls.partitions):
+        w, cb = w.to("cuda"), cb.to("cuda")
+        got = tuple(g.to("cuda") for g in got)
+        with group_partition(part):
+            err, moved = check_lloyd(k1, w, cb, iters, got,
+                                     f"{label} Lloyd loop {tuple(w.shape)}")
+            ms = timed_turns(
+                [lambda: k1.kmeans_lloyd_batched(w, cb, iters)], 3)[0]
+            k = cb.shape[1]
+            b_ms, b_by, floor = lloyd_bound(k1, w, k, iters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         k1.kmeans_lloyd_batched_plain(w, cb, iters)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        b_ms, b_by, floor = lloyd_bound(k1, w, k, iters)
         rows.append({"shape": list(w.shape), "k": k, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "max_abs_err": err})
-        print(f"path {label}: Lloyd loop I={w.shape[0]} P={w.shape[1]} "
+        del w, cb, got
+        print(f"path {label}: Lloyd loop I={rows[-1]['shape'][0]} "
+              f"P={rows[-1]['shape'][1]} (partitioned as {part} items) "
               f"K={k} iters={iters} of the C step bit-identical to the "
               f"iterated loop, max|Δcb| vs plain loop={err:.3g}, "
               f"assignments differing from the plain loop's={moved}; "
               f"ms={ms:.3f} plain_ms={plain_ms:.1f} bound_ms={b_ms:.3f} "
               f"({b_by}) design_floor_ms={floor:.3f} [{power}]", flush=True)
+        rows[-1]["partition"] = part
+    chunked = [r for r in rows if r["partition"] > r["shape"][0]]
+    if chunked:
+        print(f"path {label}: the chunked group's Lloyd loops: "
+              f"{len(chunked)} launches over "
+              f"{sum(r['shape'][0] for r in chunked)} items, ms sum="
+              f"{sum(r['ms'] for r in chunked):.3f} bound_ms sum="
+              f"{sum(r['bound_ms'] for r in chunked):.3f} plain_ms sum="
+              f"{sum(r['plain_ms'] for r in chunked):.1f} [{power}]",
+              flush=True)
     return max(rows, key=lambda r: r["shape"][0] * r["shape"][1])
 
 
 def main_path_i1(kern, k1, power: str) -> dict:
-    """mixtral-8x7b at full width, 2 of 32 layers: 4-bit k=16 on the
-    expert stacks I1_MATRICES of both layers (one AsVector task a matrix
-    and layer: one fused Lloyd loop over items of 469,762,048 weights),
-    8-bit k=64 on each layer's attention; ``Server.generate`` on 2
-    prompts of 4608 > the 4096 window (K6 masks real keys, the ring
-    buffer wraps in decode)."""
+    """mixtral-8x7b at full width, 2 of 32 layers: 4-bit k=16 on all 6
+    expert stacks (I1_MATRICES of both layers, one AsVector task a matrix
+    and layer: one group of 6 items of 469,762,048 weights, which the
+    planner splits into launches that fit its budget, one fused Lloyd
+    loop each), 8-bit k=64 on each layer's attention; ``Server.generate``
+    on 2 prompts of 4608 > the 4096 window (K6 masks real keys, the ring
+    buffer wraps in decode). The Lloyd loops' operands are kept on the
+    host for the checks, which run each loop in its launch's
+    partition."""
     from repro_torch.core import AsVector, CompressionTask
+    from repro_torch.core.grouping import _chunk_bounds
     from repro_torch.core.schemes import AdaptiveQuantization
     from repro_torch.kernels.kmeans import ops as kops
     cfg = moe_mla_config("mixtral-8x7b", MIX_LAYERS)
@@ -2555,24 +2771,48 @@ def main_path_i1(kern, k1, power: str) -> dict:
         tasks.append(CompressionTask(
             f"attn{i}", pre + r"mixer/(wq|wk|wv|wo)$", AsVector(),
             AdaptiveQuantization(k=64, iters=10)))
+    from repro_torch.analysis import cost
+    n_experts = len(I1_MATRICES) * MIX_LAYERS
+    gib = 2**30
+    budget = cost.chunk_budget(cost.detect_hardware("cuda"))
+    print(f"path I1 plan budget: {budget / gib:.2f} GiB (a quarter of the "
+          f"card's memory)", flush=True)
     run = serve_path(kern, "I1", cfg, tasks, MIX_PROMPT, power,
                      seeds=(21, 21),
-                     capture=[(kops, "kmeans_lloyd_batched")])
-    n_experts = len(I1_MATRICES) * MIX_LAYERS
+                     capture=[(kops, "kmeans_lloyd_batched")], to_host=True)
     check(run["kinds"] == {"dense": n_experts, "quant8": 4 * MIX_LAYERS},
           f"I1 bridged forms {run['kinds']}")
-    # the C step: one Lloyd loop for the expert stacks, one for the
-    # attention; generate: every attention matrix once a token, K6 once a
-    # layer at prefill (the expert stacks stay dense: batched GEMMs)
-    want = only(kern, K1loop=2, K5=4 * MIX_LAYERS * SERVE_GEN,
-                K6=MIX_LAYERS)
+    (experts,) = [g for g in run["summary"] if g["items"] == n_experts]
+    plan = experts["plan"]
+    check(plan is not None and plan["n_chunks"] > 1
+          and plan["backend"] == "cuda", f"I1 expert plan {plan}")
+    bounds = _chunk_bounds(n_experts, plan["n_chunks"])
+    print(f"path I1 expert group plan: items={n_experts} x {MIX_ITEM:,} "
+          f"n_chunks={plan['n_chunks']} chunks={bounds} working_set_gib="
+          f"{plan['working_set_bytes'] / gib:.2f} budget_gib="
+          f"{budget / gib:.2f} modeled_ms={plan['modeled_ms']:.3f} "
+          f"bottleneck={plan['bottleneck']} fallbacks={plan['fallbacks']}",
+          flush=True)
+    # the C step: one Lloyd loop a chunk of the expert stacks, one for
+    # the attention; generate: every attention matrix once a token, K6
+    # once a layer at prefill (the expert stacks stay dense: batched GEMMs)
+    want = only(kern, K1loop=plan["n_chunks"] + 1,
+                K5=4 * MIX_LAYERS * SERVE_GEN, K6=MIX_LAYERS)
     check(run["kmeans_groups"] == 2 and run["launches"] == want,
           f"I1 launches {run['launches']} != {want}")
     (lloyd,) = run.pop("calls")
     shapes = sorted(tuple(a[0].shape) for a, _, _ in lloyd)
     attn = 2 * cfg.d_model * (cfg.q_dim + cfg.kv_dim)
-    check(shapes == sorted([(n_experts, MIX_ITEM), (MIX_LAYERS, attn)]),
+    check(shapes == sorted([(hi - lo, MIX_ITEM) for lo, hi in bounds]
+                           + [(MIX_LAYERS, attn)]),
           f"I1 Lloyd loops {shapes}")
+    check(sorted(lloyd.partitions) == sorted(
+        [n_experts] * len(bounds) + [MIX_LAYERS]),
+        f"I1 Lloyd loops' partitions {lloyd.partitions}")
+    print(f"path I1: C step {run['c_step_s']:.3f} s, of which "
+          f"{lloyd.copy_s:.3f} s copy the checked loops' operands to the "
+          f"host; peak_memory_gib={run['peak_gib']:.2f} [{power}]",
+          flush=True)
     del run["state"], run["lc"]
     check_served("path I1", cfg, run, power)
     out = {"launches": run["launches"], "peak_gib": run["peak_gib"]}
@@ -3551,6 +3791,178 @@ def profile_ssm(kern, served: list, power: str) -> None:
                   + f" [{power}]", flush=True)
 
 
+def _chunked_against_one(label: str, tasks, xs, thetas, n_chunks: int,
+                         kern) -> dict:
+    """``grouped_compress`` of one group in one launch (planner off) and
+    with the planner on, ``CHUNK_BUDGET_BYTES`` forced so that the plan
+    has ``n_chunks`` launches: Θ and Δ(Θ) bit for bit. Returns each
+    run's seconds and launches."""
+    from repro_torch.analysis import cost
+    from repro_torch.core.grouping import (
+        _plan_multi_group, _task_solver, grouped_compress)
+    from repro_torch.tree import tree_leaves
+    mu = torch.tensor(1e-4, device="cuda")
+    counts = [t.view.item_count(xs[t.name]) for t in tasks]
+    solver_fn, _ = _task_solver(tasks[0].scheme, "auto", "cuda")
+    plan = _plan_multi_group(tasks, xs, thetas, counts, solver_fn, "auto",
+                             "cuda")
+    cost.CHUNK_BUDGET_BYTES = plan.working_set_bytes // n_chunks + 1
+    cost.clear_caches()
+    forced = _plan_multi_group(tasks, xs, thetas, counts, solver_fn, "auto",
+                               "cuda")
+    cost.CHUNK_BUDGET_BYTES = None
+    cost.clear_caches()
+    if forced.n_chunks != n_chunks:
+        return _not_chunked(label, tasks, xs, thetas, counts, solver_fn,
+                            n_chunks, forced, mu)
+    runs = {}
+    for name, budget in (("one", None),
+                         ("chunked", plan.working_set_bytes // n_chunks + 1)):
+        cost.CHUNK_BUDGET_BYTES = budget
+        cost.clear_caches()
+        reset(kern)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = grouped_compress(tasks, xs, thetas, mu, backend="auto",
+                               device="cuda",
+                               planner="on" if budget else None)
+        torch.cuda.synchronize()
+        runs[name] = (out, time.perf_counter() - t0, {
+            k: v for k, v in launches(kern).items() if v})
+    cost.CHUNK_BUDGET_BYTES = None
+    cost.clear_caches()
+    for t in tasks:
+        one, chunked = (tree_leaves(runs[r][0][t.name]) for r in
+                        ("one", "chunked"))
+        check(all(torch.equal(a, b) for a, b in zip(one, chunked)),
+              f"{label}: {t.name} chunked differs from one launch")
+    print(f"{label}: {len(tasks)} tasks, {sum(counts)} items; "
+          f"{n_chunks} launches (CHUNK_BUDGET_BYTES forced) against one: "
+          f"Θ and Δ(Θ) bit for bit; seconds {runs['chunked'][1]:.3f} "
+          f"against {runs['one'][1]:.3f}; launches {runs['chunked'][2]} "
+          f"against {runs['one'][2]}", flush=True)
+    return {r: runs[r][1:] for r in runs}
+
+
+def _not_chunked(label: str, tasks, xs, thetas, counts, solver_fn,
+                 n_chunks: int, plan, mu) -> dict:
+    """A group that the planner keeps in one launch over the budget (its
+    solver's bits depend on the batch): the plan's fallback, and how far
+    ``n_chunks`` launches forced past the planner are from one launch."""
+    from repro_torch.core.grouping import (
+        _group_solve, _item_packer, _pack_warm, _run_group_solve)
+    check(plan.n_chunks == 1 and any(f.startswith("chunking-disabled:")
+                                     for f in plan.fallbacks),
+          f"{label}: plan {plan}")
+    warm, _ = _pack_warm(tasks, thetas, counts, solver_fn, "cuda")
+    solve = _group_solve(tasks[0].scheme, solver_fn, mu)
+    a = [torch.cat([p[2][1] for p in _run_group_solve(
+        solve, (_item_packer(tasks, xs, counts),) + warm, sum(counts), n)])
+        for n in (1, n_chunks)]
+    print(f"{label}: the planner keeps one launch over the budget "
+          f"({[f for f in plan.fallbacks if 'chunking' in f]}); "
+          f"{n_chunks} launches forced past it against one: Δ(Θ) "
+          f"bit for bit={torch.equal(a[0], a[1])}, max|Δ|="
+          f"{float((a[0] - a[1]).abs().max()):.3g}", flush=True)
+    return {}
+
+
+def chunks_path(kern, k1, power: str) -> None:
+    """A chunked group against its one launch, in a process of its own
+    (``--chunks``): I1's former 4 expert items (4 × 469,762,048, K=16,
+    10 Lloyd steps) split into 4 launches by a forced chunk budget, Θ
+    (codebooks, assignments) and Δ(Θ) bit for bit; the Lloyd loop over
+    those 4 items timed in one launch, in 2 chunks with the group's
+    partition (what the planner runs) and in 2 chunks with their own
+    (not bit-identical; the time of the other design); then a top-κ
+    group (4 × 25,165,824, κ = 5%) chunked against one launch, and a
+    low-rank group (4 × 3072², rank 128), which the planner keeps in one
+    launch because cuBLAS's batched products change bits with the batch:
+    how far 4 forced launches land from one is printed."""
+    from repro_torch.core import AsIs, AsVector, CompressionTask
+    from repro_torch.core.grouping import _chunk_bounds
+    from repro_torch.core.schemes import (
+        AdaptiveQuantization, ConstraintL0Pruning, LowRank)
+    from repro_torch.core.schemes.quantize import QuantTheta, quantile_init
+    from repro_torch.kernels.build import group_partition
+    g = torch.Generator(device="cuda").manual_seed(22)
+    stamp("chunked against one launch: I1's 4 expert items")
+    tasks = [CompressionTask(f"e{i}", ".", AsVector(),
+                             AdaptiveQuantization(k=16, iters=10))
+             for i in range(4)]
+    xs = {t.name: 0.02 * torch.randn(MIX_ITEM, device="cuda", generator=g)
+          for t in tasks}
+    thetas = {t.name: QuantTheta(
+        quantile_init(xs[t.name], 16),
+        torch.zeros(MIX_ITEM, dtype=torch.int32, device="cuda"))
+        for t in tasks}
+    torch.cuda.reset_peak_memory_stats()
+    _chunked_against_one("chunks I1 experts", tasks, xs, thetas, 4, kern)
+    print(f"chunks I1 experts: peak_memory_gib="
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", flush=True)
+    w = torch.stack([xs[t.name] for t in tasks])
+    cb = torch.stack([torch.sort(thetas[t.name].codebook).values
+                      for t in tasks])
+    del xs, thetas
+    halves = _chunk_bounds(4, 2)
+
+    def chunks(partition):
+        with group_partition(partition):
+            for lo, hi in halves:
+                k1.kmeans_lloyd_batched(w[lo:hi], cb[lo:hi], 10)
+
+    one, group_part, own_part = timed_turns(
+        [lambda: k1.kmeans_lloyd_batched(w, cb, 10),
+         lambda: chunks(4), lambda: chunks(0)], 3)
+    b_ms, b_by, _ = lloyd_bound(k1, w, 16, 10)
+    print(f"chunks I1 Lloyd loop I=4 P={MIX_ITEM} K=16 iters=10: one launch "
+          f"ms={one:.3f}; 2 chunks of 2 in the group's partition (the "
+          f"planner's, bit for bit) ms={group_part:.3f}; 2 chunks in their "
+          f"own partition ms={own_part:.3f}; bound_ms={b_ms:.3f} ({b_by}) "
+          f"[{power}]", flush=True)
+    del w, cb
+    torch.cuda.empty_cache()
+
+    stamp("chunked against one launch: low rank and top-κ")
+    tasks = [CompressionTask(f"lr{i}", ".", AsIs(), LowRank(128))
+             for i in range(4)]
+    xs = {t.name: torch.randn((LM_D_MODEL, LM_D_MODEL), device="cuda",
+                              generator=g) / LM_D_MODEL ** 0.5
+          for t in tasks}
+    thetas = {t.name: {"u": torch.zeros((LM_D_MODEL, 128), device="cuda"),
+                       "v": torch.zeros((LM_D_MODEL, 128), device="cuda")}
+              for t in tasks}
+    _chunked_against_one("chunks low rank", tasks, xs, thetas, 4, kern)
+    kappa = int(0.05 * LM_ITEM)
+    tasks = [CompressionTask(f"p{i}", ".", AsVector(),
+                             ConstraintL0Pruning(kappa=kappa))
+             for i in range(4)]
+    xs = {t.name: torch.randn(LM_ITEM, device="cuda", generator=g)
+          for t in tasks}
+    thetas = {t.name: {"theta": torch.zeros(LM_ITEM, device="cuda")}
+              for t in tasks}
+    _chunked_against_one("chunks top-κ", tasks, xs, thetas, 4, kern)
+    del xs, thetas
+    # the item-by-item path (path F's w_down scheme, at 1M weights an
+    # item): does its solve take a capture?
+    stamp("compile_group on the item-by-item path")
+    from repro_torch.core.grouping import CaptureError
+    from repro_torch.core.schemes import AdditiveCombination
+    tasks = [CompressionTask(f"a{i}", ".", AsVector(), AdditiveCombination(
+        [ConstraintL0Pruning(10_000), AdaptiveQuantization(k=16)], iters=2))
+        for i in range(2)]
+    xs = {t.name: torch.randn(1 << 20, device="cuda", generator=g)
+          for t in tasks}
+    thetas = {t.name: t.scheme_init(xs[t.name]) for t in tasks}
+    mu = torch.tensor(1e-4, device="cuda")
+    try:
+        captured_against_eager("chunks additive group (item by item)", tasks,
+                               xs, thetas, (mu, mu * 2.0), power)
+    except CaptureError as e:
+        print(f"chunks additive group (item by item): {e}", flush=True)
+    stamp("done")
+
+
 def busy_path(kern, label: str, power: str) -> None:
     """``python3 chip_smoke.py --busy C|K|L1``: path ``label``'s served
     model made again (``serve_path``), then ``serving_busy`` on it, in a
@@ -3651,12 +4063,15 @@ def main() -> int:
     if sys.argv[1:2] == ["--busy"]:
         busy_path(kern, sys.argv[2], power)
         return 0
+    if sys.argv[1:] == ["--chunks"]:
+        chunks_path(kern, k1, power)
+        return 0
     t_start = time.time()
     stamp('kernel phase')
     rec = kernel_phase(k1, k2, power)
     frec = fused_phase(k1, k2, power)
     paths = {"A": main_path_a(kern), "B": main_path_b(kern),
-             "LM": lm_phase(kern)}
+             "LM": lm_phase(kern, power)}
     stamp('serving kernels')
     srec = serve_kernel_phase(k45, k6, power)
     stamp('path C')
@@ -3717,6 +4132,15 @@ def main() -> int:
             if x.startswith(SSM_LAUNCHES + " ")]
     check(len(mark) == 1, "paths K and L1 reported no launches")
     paths.update(json.loads(mark[0][len(SSM_LAUNCHES) + 1:]))
+    # a chunked group against its one launch, in a fresh process
+    stamp("chunked groups")
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--chunks"], stdout=subprocess.PIPE, text=True,
+                           timeout=600)
+    print(child.stdout, end="", flush=True)
+    check(child.returncode == 0,
+          f"the process of the chunked groups exited with "
+          f"{child.returncode}")
     # the busy shares of serving, eager and through CUDA graphs, each
     # model in a fresh process (``serving_busy``)
     for label in ("C", "K", "L1"):

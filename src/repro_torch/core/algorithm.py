@@ -16,7 +16,11 @@ steps, the port updates the state's ``a`` and ``λ`` tensors in place:
 a step consumes the state it is given and returns the new one. The
 ``*_async`` entry points, which the trainer's overlapped pipeline queues
 on a second CUDA stream, write nothing in place (see ``core/state.py``).
-The mesh, sharding rules and planner of the JAX driver are not ported.
+The C step runs through the group planner by default (``planner="on"``,
+``repro_torch.analysis.cost``), as the JAX driver's does; its inputs
+w − λ/μ are made group by group (chunk by chunk where the planner splits
+a group), never for every task at once. The mesh and sharding rules of
+the JAX driver are not ported.
 
 Everything runs on ``device``: ``None`` means the card, and the
 constructor raises when CUDA is absent. Parameters handed in must live
@@ -24,6 +28,7 @@ on that device; nothing is moved or falls back.
 """
 from __future__ import annotations
 
+from collections.abc import Mapping
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
 
@@ -59,6 +64,29 @@ class LCMetrics:
         field(default_factory=dict)
 
 
+class _ShiftedInputs(Mapping):
+    """The C step's inputs w − λ/μ by task name, each made when it is
+    read and not kept: the grouped C step reads a task's input for its
+    shape and again where it packs the task's items, so only the group
+    (or the planner's chunk) being packed holds its inputs, not every
+    task at once (at mixtral's width, 1.75 GiB an expert stack)."""
+
+    def __init__(self, tasks, params, lc):
+        self._tasks = {t.name: t for t in tasks}
+        self._params = params
+        self._lc = lc
+
+    def __getitem__(self, name):
+        return self._tasks[name].shifted_compressible(
+            self._params, self._lc["tasks"][name], self._lc["mu"])
+
+    def __iter__(self):
+        return iter(self._tasks)
+
+    def __len__(self):
+        return len(self._tasks)
+
+
 class LCAlgorithm:
     """Orchestrates L/C/multiplier steps over a params tree."""
 
@@ -67,6 +95,7 @@ class LCAlgorithm:
                  l_step: Callable | None = None,
                  group_tasks: bool = True,
                  cstep_backend: str | None = "auto",
+                 planner: str | None = "on",
                  device=None):
         self.tasks = list(tasks)
         self.mu_schedule = list(mu_schedule)
@@ -76,6 +105,9 @@ class LCAlgorithm:
         # ("auto" | "torch" | "cuda" | "off"), resolved per group by
         # repro_torch.kernels.dispatch
         self.cstep_backend = self._check_backend(cstep_backend)
+        # roofline group planner ("on" | "off" | None ≡ "off"): backend
+        # and chunking per group, memoized (repro_torch.analysis.cost)
+        self.planner = self._check_planner(planner)
         self.device = resolve_device(device)
         self._resolved = False
         self._last_lc = None
@@ -90,6 +122,20 @@ class LCAlgorithm:
     def set_backend(self, backend: str | None) -> "LCAlgorithm":
         """Select the kernel dispatch backend of the C step."""
         self.cstep_backend = self._check_backend(backend)
+        return self
+
+    @staticmethod
+    def _check_planner(planner):
+        valid = ("on", "off", None)
+        if planner not in valid:
+            raise ValueError(
+                f"planner must be one of {valid}, got {planner!r}")
+        return planner
+
+    def set_planner(self, planner: str | None) -> "LCAlgorithm":
+        """Turn the C step's group planner on or off. The result is the
+        same bit for bit either way; the plan decides how it is run."""
+        self.planner = self._check_planner(planner)
         return self
 
     def _check_device(self, params):
@@ -146,15 +192,14 @@ class LCAlgorithm:
     def _solve(self, params, lc) -> dict:
         """{task name: (Θ, Δ(Θ) in the task's view)} of Π(w − λ/μ)."""
         mu = lc["mu"]
-        xs = {t.name: t.shifted_compressible(params, lc["tasks"][t.name],
-                                             mu)
-              for t in self.tasks}
+        xs = _ShiftedInputs(self.tasks, params, lc)
         if self.group_tasks:
             thetas = {t.name: lc["tasks"][t.name]["theta"]
                       for t in self.tasks}
             results = grouped_compress(self.tasks, xs, thetas, mu,
                                        backend=self.cstep_backend,
-                                       device=self.device)
+                                       device=self.device,
+                                       planner=self.planner)
         else:
             results = {}
             for t in self.tasks:
@@ -199,13 +244,14 @@ class LCAlgorithm:
 
     def group_summary(self, params) -> list[dict]:
         """The grouping the C step will use, from shapes only (the views
-        run on meta tensors: no compute, no device memory)."""
+        run on meta tensors: no compute, no device memory), with each
+        multi-task group's plan when the planner is on."""
         self.resolve(params)
         xs = {t.name: t.view.to_compressible(
                   [l.detach().to("meta") for l in t.leaves(params)])
               for t in self.tasks}
         return describe_groups(self.tasks, xs, backend=self.cstep_backend,
-                               device=self.device)
+                               device=self.device, planner=self.planner)
 
     @torch.no_grad()
     def multiplier_step(self, params, lc) -> dict:

@@ -39,7 +39,9 @@ def randomized_svd(w: torch.Tensor, r: int, key, oversample: int = 8,
     m, n = w.shape
     k = min(r + oversample, min(m, n))
     w = w.float()
-    gen = torch.Generator(device=w.device).manual_seed(int(key))
+    # a meta w (the planner's shapes) has no generator to draw from
+    gen = None if w.is_meta else torch.Generator(
+        device=w.device).manual_seed(int(key))
     omega = torch.randn((n, k), generator=gen, dtype=torch.float32,
                         device=w.device)
     y = w @ omega

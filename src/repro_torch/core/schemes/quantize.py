@@ -156,7 +156,11 @@ class AdaptiveQuantization(CompressionScheme):
         return QuantTheta(cb, assign)
 
     def decompress(self, theta: QuantTheta):
-        return theta.codebook[theta.assign.long()]
+        # index_select takes the int32 assignment as it is: no int64 copy
+        # of it (8 B a weight) beside the output
+        return torch.index_select(theta.codebook, 0,
+                                  theta.assign.reshape(-1)).reshape(
+                                      theta.assign.shape)
 
     def warm_start(self, theta: QuantTheta) -> QuantTheta:
         # the Lloyd loop starts from the codebook; the assignment (as

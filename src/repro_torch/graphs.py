@@ -12,7 +12,8 @@ stream. :meth:`Programs.program` turns a function into a
   cache keys on) plus the addresses of the tensors of its *held*
   arguments (params, caches), which the graph reads and writes in place
   where it found them at capture. The program keeps a reference to them;
-* every other argument is a tensor, ``None`` or a plain value. A tensor
+* every other argument is a tensor, ``None``, a plain value or a tuple of
+  plain values (keyed by value, as a jit's static arguments). A tensor
   there is *fed*: each call copies it into a buffer of the graph's own
   (a host tensor with one host-to-device copy), unless it is that buffer
   already, so a program that advances an input in place and returns it
@@ -50,6 +51,9 @@ import time
 import torch
 
 from repro_torch.kernels import build
+
+
+_PLAIN = (int, float, str, bool, type(None))
 
 
 def signature(x):
@@ -161,13 +165,14 @@ class Program:
                     key.append(signature(a))
             elif isinstance(a, torch.Tensor):
                 key.append((tuple(a.shape), a.dtype))
-            elif isinstance(a, (int, float, str, bool, type(None))):
+            elif isinstance(a, _PLAIN) or (isinstance(a, tuple) and all(
+                    isinstance(v, _PLAIN) for v in a)):
                 key.append(a)
             else:
                 raise TypeError(
                     f"{self.name}: argument {i} is a {type(a).__name__}; "
-                    f"an argument that is not held must be a tensor, None "
-                    f"or a plain value")
+                    f"an argument that is not held must be a tensor, None, "
+                    f"a plain value or a tuple of plain values")
         return tuple(key)
 
     def __call__(self, *args):

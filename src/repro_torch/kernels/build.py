@@ -15,7 +15,9 @@ PyTorch's current stream as a plain handle, without building a
 counters that launches on one stream share; :func:`stream_buffers` lists
 a stream's buffers for a CUDA graph captured on it (``graphs.py``).
 Every :class:`LaunchCounter` is registered, so that a capture can take
-its own counts back out (:func:`launch_counts`).
+its own counts back out (:func:`launch_counts`). :func:`group_partition`
+lets a chunk of a planned group launch with its whole group's partition
+(``core/grouping.py:_run_group_solve``).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import shutil
 import subprocess
 import threading
 import weakref
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import torch
@@ -141,6 +143,30 @@ def stream_buffers(device_index: int, stream: int) -> list[torch.Tensor]:
     ``device_index``'s stream ``stream``."""
     return [b for (_, d, s), b in _BUFFERS.items()
             if (d, s) == (device_index, stream)]
+
+
+_PARTITION = threading.local()
+
+
+@contextmanager
+def group_partition(n_items: int):
+    """Within this context, a kernel whose bits depend on its partition
+    (K1: each item's moments are summed over its slices in slice order)
+    partitions its items as a launch of ``n_items`` items would: a chunk
+    of a group that the planner splits gives the bits of the group's one
+    launch (:func:`partition_items`)."""
+    old = getattr(_PARTITION, "n", 0)
+    _PARTITION.n = int(n_items)
+    try:
+        yield
+    finally:
+        _PARTITION.n = old
+
+
+def partition_items(n_items: int) -> int:
+    """The item count that partitions a launch of ``n_items`` items: the
+    enclosing :func:`group_partition`'s where it is larger."""
+    return max(n_items, getattr(_PARTITION, "n", 0))
 
 
 def blocks_per_item(n_items: int, p: int, grid: int,

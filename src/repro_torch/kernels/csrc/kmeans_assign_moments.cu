@@ -59,6 +59,17 @@
 // to finish, found by a ticket, sums the partials with the same code.
 // No float atomics: a rerun gives the same bits.
 //
+// Chunked groups. The partition (slices an item, bpi) is the wrapper's
+// function of I, so a planned group split into chunks would sum each
+// item over more slices than the group's one launch. The wrapper gives a
+// chunk the whole group's bpi instead (kernels/build.py:group_partition):
+// the chunk's launch is the group's launch restricted to its items, bit
+// for bit, with no change here, and uses n_chunk/n_group of the grid.
+// A partition that depends on P alone would keep every chunk on the
+// whole grid, but would put small groups past the grid (I·bpi > grid),
+// off their resident slices; the groups that chunk at all are the large
+// ones, memory-bound with slices far past shared memory.
+//
 // Branches, each with the card test (tests/test_torch_cuda.py) that
 // reaches it:
 //   single pass, plain launch, the ticket's last block reduces:

@@ -35,6 +35,15 @@ Solver calling conventions (packed leading item axis ``I``):
 
 ``keys`` are the per-item sketch seeds (``CompressionTask.item_keys``),
 a CPU tensor whatever device the items are on.
+
+An implementation is *chunk-exact* (:func:`chunk_exact`) when a call on
+a slice of the items gives those items the bits of the call on all of
+them, so that the planner may split its group into several launches
+(``core/grouping.py:_run_group_solve``). Float reductions and cuBLAS's
+batched products are not: their order depends on the batch (on the
+H100, ``torch.bmm`` of the low-rank solvers' Gram products and
+``torch.cumsum``/``sum`` over f32 rows change bits with the batch size,
+PERF.md, PR 22); the planner keeps such groups in one launch.
 """
 from __future__ import annotations
 
@@ -49,12 +58,26 @@ BACKENDS = ("torch", "cuda")
 REQUESTS = ("auto", "torch", "cuda", "off")
 
 _REGISTRY: dict[str, dict[str, Callable]] = {}
+_CHUNK_EXACT: set[tuple[str, str]] = set()
 
 
-def register(solver: str, backend: str, fn: Callable) -> None:
-    """Register ``fn`` as the ``backend`` implementation of ``solver``."""
+def register(solver: str, backend: str, fn: Callable,
+             chunk_exact: bool = False) -> None:
+    """Register ``fn`` as the ``backend`` implementation of ``solver``;
+    ``chunk_exact`` declares it per-item exact under any batch."""
     assert backend in BACKENDS, backend
     _REGISTRY.setdefault(solver, {})[backend] = fn
+    if chunk_exact:
+        _CHUNK_EXACT.add((solver, backend))
+    else:
+        _CHUNK_EXACT.discard((solver, backend))
+
+
+def chunk_exact(solver: str | None, backend: str) -> bool:
+    """Whether the ``backend`` implementation of ``solver`` gives each
+    item the same bits whatever the other items of its call. The
+    item-by-item path (``solver`` None) solves each item alone."""
+    return solver is None or (solver, backend) in _CHUNK_EXACT
 
 
 def resolve_backend(requested: str | None, device) -> str | None:
@@ -125,12 +148,20 @@ from repro_torch.kernels.kmeans import ops as _kops    # noqa: E402
 from repro_torch.kernels.lowrank import ops as _lops   # noqa: E402
 from repro_torch.kernels.prune import ops as _pops     # noqa: E402
 
+# chunk-exact: K1 with its group's partition (build.group_partition; on
+# CPU tensors the plain version, whose float sums are held to that only
+# at the tests' sizes), K2's integer counts, K3 and elementwise maps, a
+# stable argsort; not: float sums and scans over rows, batched matmuls
 register("kmeans_lloyd", "torch", partial(_kops.kmeans_batched, impl="torch"))
-register("kmeans_lloyd", "cuda", partial(_kops.kmeans_batched, impl="kernel"))
-register("topk_mask", "torch", partial(_pops.topk_mask_batched, impl="torch"))
-register("topk_mask", "cuda", partial(_pops.topk_mask_batched, impl="kernel"))
+register("kmeans_lloyd", "cuda", partial(_kops.kmeans_batched, impl="kernel"),
+         chunk_exact=True)
+register("topk_mask", "torch", partial(_pops.topk_mask_batched, impl="torch"),
+         chunk_exact=True)
+register("topk_mask", "cuda", partial(_pops.topk_mask_batched, impl="kernel"),
+         chunk_exact=True)
 # plain tensor programs only: the backend-gap rule serves `cuda` requests
 register("project_l1_ball", "torch", _pops.project_l1_ball_batched)
-register("soft_threshold", "torch", _pops.soft_threshold_batched)
+register("soft_threshold", "torch", _pops.soft_threshold_batched,
+         chunk_exact=True)
 register("lowrank_rsvd", "torch", _lops.lowrank_rsvd_batched)
 register("rank_select", "torch", _lops.rank_select_batched)

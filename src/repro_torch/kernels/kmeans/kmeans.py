@@ -14,7 +14,15 @@ for the loop at any I).
 
 The wrapper fixes the partition that the single pass and the loop share
 (:func:`_blocks_per_item`, from the card's grid, queried once per card
-and kernel instance). The partials workspace and the single pass's
+and kernel instance). Each item's slices are summed in slice order, so
+the bits depend on the partition, and the partition on the item count:
+a chunk of a planned group partitions its items as the group's one
+launch would (``build.group_partition``). That keeps a chunked solve
+equal to one launch bit for bit, without a change to the kernel, at the
+price of a chunk using its share of the grid only (PERF.md, PR 22).
+A partition that depends on P alone would keep chunks on the whole grid,
+but would push small groups past the grid, off their resident slices
+(:func:`_slice_resident`). The partials workspace and the single pass's
 tickets (zeroed, left zero by every launch) are kept per card and
 stream, so a launch allocates only its outputs.
 """
@@ -26,8 +34,8 @@ from functools import lru_cache
 import torch
 
 from repro_torch.kernels.build import (
-    CudaKernel, LaunchCounter, blocks_per_item, on_card, raw_stream,
-    stream_buffer)
+    CudaKernel, LaunchCounter, blocks_per_item, on_card, partition_items,
+    raw_stream, stream_buffer)
 from repro_torch.kernels.kmeans.ref import (  # noqa: F401  (the plain versions)
     kmeans_assign_moments_batched_plain, kmeans_assign_moments_plain,
     kmeans_lloyd_batched_plain)
@@ -70,7 +78,7 @@ def _grid(dev: int, k: int) -> int:
 
 
 def _blocks_per_item(n_items: int, p: int, grid: int) -> int:
-    return blocks_per_item(n_items, p, grid, MIN_PER_BLOCK)
+    return blocks_per_item(partition_items(n_items), p, grid, MIN_PER_BLOCK)
 
 
 def _slice_resident(w: torch.Tensor, k: int) -> bool:

@@ -18,6 +18,12 @@ elementwise kernels:
   item), power iteration, Rayleigh–Ritz and the Jacobi finisher; the
   exact Gram path when the sketch reaches ``min(m, n)``.
 
+A CUDA graph can take all of it (``core/grouping.py:compile_group``):
+the Jacobi schedule is made on the device once per size and device, and
+within :func:`held_sketches` each sketch is drawn once, by its seeds, and
+held, so a capture reads the sketch its eager run drew (a capture cannot
+seed a generator).
+
 The Jacobi loop keeps the reference's semantics: ``sign(0) = 0`` (equal
 diagonals give no rotation), rotations guarded to the identity where the
 off-diagonal is zero, symmetrisation after each round, and a stable
@@ -28,7 +34,9 @@ exact-zero factors, never NaN.
 """
 from __future__ import annotations
 
-from functools import partial
+import threading
+from contextlib import contextmanager
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
@@ -45,6 +53,13 @@ def _round_robin_schedule(k: int) -> np.ndarray:
         rounds.append(sorted((min(p, q), max(p, q)) for p, q in pairs))
         players = [players[0], players[-1]] + players[1:-1]
     return np.asarray(rounds, dtype=np.int64)       # (k-1, k/2, 2)
+
+
+@lru_cache(maxsize=None)
+def _schedule(k: int, device: torch.device) -> torch.Tensor:
+    """:func:`_round_robin_schedule` on ``device``, made once (a host
+    copy, which a CUDA graph capture cannot take)."""
+    return torch.as_tensor(_round_robin_schedule(k), device=device)
 
 
 def _gram(y: torch.Tensor) -> torch.Tensor:
@@ -68,7 +83,7 @@ def jacobi_eigh_batched(a: torch.Tensor, sweeps: int = 10):
         # the padded row/col stays exactly zero: its off-diagonals are
         # zero, so every rotation touching it is guarded to identity
         a = torch.nn.functional.pad(a, (0, 1, 0, 1))
-    sched = torch.as_tensor(_round_robin_schedule(kp), device=a.device)
+    sched = _schedule(kp, a.device)
     n_rounds = kp - 1
     eye = torch.eye(kp, dtype=torch.float32, device=a.device)
     v = eye.expand(a.shape).clone()
@@ -150,17 +165,44 @@ def _safe_inv(s: torch.Tensor) -> torch.Tensor:
     return torch.where(keep, 1.0 / torch.where(keep, s, 1.0), 0.0)
 
 
+_HELD = threading.local()
+
+
+@contextmanager
+def held_sketches(store: dict):
+    """Within this context :func:`gaussian_sketch` keeps each sketch it
+    draws in ``store``, by its seeds, shape and device, and hands the
+    held one back for the same seeds: the sketch that a captured solve
+    reads at every replay (the seeds of an item are fixed across LC
+    boundaries). Outside a capture it saves the draws."""
+    old = getattr(_HELD, "store", None)
+    _HELD.store = store
+    try:
+        yield
+    finally:
+        _HELD.store = old
+
+
 def gaussian_sketch(keys: torch.Tensor, n: int, k: int,
                     device) -> torch.Tensor:
     """(I, n, k) standard normal sketch, item i drawn from its own
     ``torch.Generator`` seeded with ``keys[i]`` (an (I,) int64 tensor of
-    seeds, ``CompressionTask.item_keys``): no two items share a sketch
-    and a rerun draws the same one."""
-    out = torch.empty((len(keys), n, k), dtype=torch.float32, device=device)
-    for i, seed in enumerate(keys.tolist()):
+    seeds on the CPU, ``CompressionTask.item_keys``): no two items share
+    a sketch and a rerun draws the same one. Within
+    :func:`held_sketches` a sketch drawn before is handed back."""
+    seeds = tuple(keys.tolist())
+    store = getattr(_HELD, "store", None)
+    key = (seeds, n, k, torch.device(device))
+    if store is not None and key in store:
+        return store[key]
+    out = torch.empty((len(seeds), n, k), dtype=torch.float32,
+                      device=device)
+    for i, seed in enumerate(seeds):
         gen = torch.Generator(device=device).manual_seed(int(seed))
         out[i] = torch.randn((n, k), generator=gen, dtype=torch.float32,
                              device=device)
+    if store is not None:
+        store[key] = out
     return out
 
 

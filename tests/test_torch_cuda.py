@@ -752,6 +752,118 @@ def test_side_stream_c_step_equals_serial_on_card(gen):
     assert int(state["step"]) == 9
 
 
+def _planner_group(family, gen):
+    """A 2-task group of 3 items each on the card, its inputs and Θ."""
+    from repro_torch.core import AsStacked, CompressionTask
+    from repro_torch.core import schemes as ts
+    make, shape = {
+        "quant": (lambda: ts.AdaptiveQuantization(k=16, iters=10),
+                  (3, 300_007)),
+        "l0": (lambda: ts.ConstraintL0Pruning(kappa=5_000), (3, 300_007)),
+        "lowrank": (lambda: ts.LowRank(24), (3, 384, 256)),
+        "rank-selection": (lambda: ts.RankSelection(alpha=1e-4,
+                                                    max_rank=32),
+                           (3, 256, 192)),
+    }[family]
+    domain = "matrix" if len(shape) == 3 else "vector"
+    group = [CompressionTask(f"{family}{i}", ".", AsStacked(domain), make())
+             for i in range(2)]
+    xs = {t.name: torch.randn(shape, device="cuda", generator=gen)
+          for t in group}
+    thetas = {t.name: t.scheme_init(xs[t.name]) for t in group}
+    return group, xs, thetas
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["quant", "l0", "lowrank",
+                                    "rank-selection"])
+def test_chunked_group_equals_one_launch_on_card(gen, family):
+    """The planner's chunks (one item a launch; 4 launches across the
+    tasks' boundary) equal the one launch bit for bit on the card: the
+    K1 loop takes its group's partition and K2's counts are exact. The
+    low-rank solvers' batched ``torch.bmm`` gives bits that depend on
+    the batch on the card (cuBLAS picks its kernel by the batch): their
+    groups stay in one launch, and the plan says why."""
+    from repro_torch.analysis import cost
+    from repro_torch.core.grouping import (
+        _plan_multi_group, _task_solver, grouped_compress)
+    from repro_torch.tree import tree_leaves
+    group, xs, thetas = _planner_group(family, gen)
+    mu = torch.tensor(1e-3, device="cuda")
+    one = grouped_compress(group, xs, thetas, mu, backend="auto",
+                           device="cuda")
+    solver_fn, _ = _task_solver(group[0].scheme, "auto", "cuda")
+    ws = _plan_multi_group(group, xs, thetas, [3, 3], solver_fn, "auto",
+                           "cuda").working_set_bytes
+    try:
+        for budget, n_chunks in ((1, 6), (ws // 4 + 1, 4)):
+            cost.CHUNK_BUDGET_BYTES = budget
+            cost.clear_caches()
+            plan = _plan_multi_group(group, xs, thetas, [3, 3], solver_fn,
+                                     "auto", "cuda")
+            if family in ("quant", "l0"):
+                assert plan.n_chunks == n_chunks
+            else:
+                assert plan.n_chunks == 1 and any(
+                    f.startswith("chunking-disabled:")
+                    for f in plan.fallbacks)
+            before = k1.LLOYD.launches
+            chunked = grouped_compress(group, xs, thetas, mu,
+                                       backend="auto", device="cuda",
+                                       planner="on")
+            if family == "quant":
+                assert k1.LLOYD.launches - before == n_chunks
+            for t in group:
+                for a, b in zip(tree_leaves(one[t.name]),
+                                tree_leaves(chunked[t.name])):
+                    assert torch.equal(a, b), (family, n_chunks, t.name)
+    finally:
+        cost.CHUNK_BUDGET_BYTES = None
+        cost.clear_caches()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["quant", "l0", "lowrank",
+                                    "rank-selection"])
+def test_compile_group_captured_equals_eager_on_card(gen, family):
+    """``compile_group`` captures the group's solve as a CUDA graph (the
+    K1 and K2 loops' cooperative launches, the Jacobi rounds, the held
+    sketches); its replays at two μ equal the eager ``grouped_compress``
+    bit for bit, and count their launches."""
+    from repro_torch.analysis import cost
+    from repro_torch.core.grouping import compile_group, grouped_compress
+    from repro_torch.core.schemes.base import slice_theta_like
+    from repro_torch.tree import tree_leaves, tree_map
+    group, xs, thetas = _planner_group(family, gen)
+    cost.clear_caches()
+    exe, arrays = compile_group(group, xs, thetas, backend="auto",
+                                device="cuda")
+    assert exe.programs.graphs
+    mus = [torch.tensor(m, device="cuda") for m in (1e-3, 3e-2, 1e-3)]
+    for i, mu in enumerate(mus):
+        counted = (k1.LLOYD.launches, k2.TOPK.launches)
+        theta, a = exe(mu, *arrays)
+        torch.cuda.synchronize()
+        if family in ("quant", "l0"):
+            got = (k1.LLOYD.launches - counted[0],
+                   k2.TOPK.launches - counted[1])
+            assert got == ((1, 0) if family == "quant" else (0, 1)), got
+        want = grouped_compress(group, xs, thetas, mu, backend="auto",
+                                device="cuda")
+        for j, t in enumerate(group):
+            th = slice_theta_like(
+                tree_map(lambda x, j=j: x[3 * j:3 * j + 3], theta),
+                want[t.name][0])
+            for x, y in zip(tree_leaves(th), tree_leaves(want[t.name][0])):
+                assert torch.equal(x, y), (family, i, t.name)
+            assert torch.equal(a[3 * j:3 * j + 3], want[t.name][1])
+    assert exe.programs.captured == 1
+    assert compile_group(group, xs, thetas, backend="auto",
+                         device="cuda")[0] is exe
+    assert cost.cache_stats()["exec_misses"] == 1
+    cost.clear_caches()
+
+
 @pytest.mark.cuda
 def test_flash_attention_refused_under_autograd_on_card(gen):
     """K6 has no backward: through autograd it raises on the card too."""
@@ -953,6 +1065,11 @@ def test_two_replays_equal_two_eager_calls_on_card(gen, bits):
     assert kern.launches == n0 + 2
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    # the capture stream's tickets, which the graph's launches use
-    (tickets,) = prog.owner.stream_buffers()
+    # the capture stream's tickets, which the graph's launches use (the
+    # stream comes from PyTorch's stream pool, so other kernels' buffers,
+    # such as a captured C step's, may sit beside them on it)
+    from repro_torch.kernels import build
+    tickets = build._BUFFERS[("gemv tickets", 0,
+                              prog.owner.stream.cuda_stream)]
+    assert any(b is tickets for b in prog.owner.stream_buffers())
     assert not tickets.any()
