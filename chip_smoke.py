@@ -3,16 +3,24 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --host-cost   # phase 12's launch-path times only
-    python3 chip_smoke.py --ssm         # paths K and L1 and their profile
+    python3 chip_smoke.py --ssm         # the chunked groups, paths K and L1
+                                        # and their profile
     python3 chip_smoke.py --busy C      # serving's busy shares, eager and
                                         # through CUDA graphs (C, K or L1)
     python3 chip_smoke.py --chunks      # chunked groups against one launch
+    python3 chip_smoke.py --lc          # the compiled LC driver's paths only
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit (nvcc). Every ``Server`` and ``ServingEngine`` serves
 through CUDA graphs (``repro_torch/graphs.py``), and the launch counts
 count what ran on the card, replays included. Every C step runs through
-the group planner (``planner="on"``, ``repro_torch/analysis/cost.py``).
+the group planner (``planner="on"``, ``repro_torch/analysis/cost.py``),
+and every LC driver is the compiled one (``LCAlgorithm(jit_c_step=True)``:
+C step 1 eager, C step 2 an eager run and its capture, then replays).
+On paths A, B, LM, E, F, H and L2 each driver runs beside an eager twin
+(``EagerTwin``: ``jit_c_step=False`` on the same inputs, Θ, ``a``, λ and
+the monitors bit for bit, the same launches a C step; the launch counts
+print both parts); the serving paths' one C step captures nothing.
 Phases, each of which fails the run:
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
@@ -31,20 +39,19 @@ Phases, each of which fails the run:
    iterated loop, the plain loop, the bound and the design's floor;
 4. main path A — the quickstart (``repro_torch.quickstart.main``):
    LeNet300, per-layer K=4 quantization, 20 LC steps × 40 SGD steps;
-   LC ≤ DC and exactly 20 × 3 fused Lloyd loop launches; then one C step
-   from the final state with the planner on and off (``planner_on_off``:
-   Θ and Δ(Θ) bit for bit, the same launches);
+   LC ≤ DC and exactly 20 × 3 fused Lloyd loop launches (and as many of
+   the eager twin); then one C step of the twin from the final state
+   with the planner on and off (``planner_on_off``: Θ and Δ(Θ) bit for
+   bit, the same launches);
 5. main path B — ℓ0 pruning of all LeNet300 weights at κ = 5% (13,310):
    exactly κ nonzeros after every C step, the §7 monitor, 20 fused
    bisections and 20 K3 launches; planner on against off as in A;
 6. the C step at LM width: phi3-mini-3.8b's FFN stacks (d_model 3072,
    d_ff 8192) with 4 of its 32 layers; K=16 quantization of w_gate|w_up
    (one group of 8 items × 25,165,824 weights) and ℓ0 pruning at 5% per
-   item of w_down; init, then 2 × (C step + multiplier step), each C
-   step beside one with the planner off; then the k-means group and the
-   top-κ task each captured as a CUDA graph (``compile_group``) and held
-   to the eager solve at two μ (``captured_against_eager``: Θ and Δ(Θ)
-   bit for bit, one capture then cache hits, eager and replay seconds);
+   item of w_down; init, then 3 × (C step + multiplier step), the
+   third on replays, each C step beside its eager twin and one of the
+   twin with the planner off;
 7. K4, K5 and K6 (the serving kernels) against their plain versions on
    the card at the serving paths' shapes (paths I, J, K and L1's too: K6 at
    MLA's qk 96 / v 64 and at mixtral's 4096 window over 4608 tokens),
@@ -95,18 +102,20 @@ Phases, each of which fails the run:
     bridge (24 low-rank and 4 dense forms) and ``Server.generate``;
     selected ranks against the exact spectrum, distortion against the
     exact SVD, logits against the densified model, 4 K6 launches; then
-    each group re-run alone with the planner off and on (bit for bit),
-    and each low-rank group captured (``compile_group``, the Jacobi
-    rounds in one CUDA graph) against its eager runs at two μ;
+    C steps 2 and 3 (the capture of every group's solve, the Jacobi
+    rounds and the item-by-item additive group included, then a
+    replay), each beside its eager twin (with the planner off: planner
+    on against off too), eager against replayed seconds;
 14. main path H — LC training of phi3-mini-3.8b at full width (4 of 32
     layers, float32, remat, plain attention) with ``LCTrainer``: AdamW L
     steps on the port's ``TokenStream`` (8 × 1024 tokens a step), the
     tasks and defaults of ``launch/train.py``. H1: per-layer K=16
-    quantization of every matrix (28 items in two groups), 3 μ × 5 L
+    quantization of every matrix (28 items in two groups), 3 μ × 3 L
     steps, serial; H2: the same overlapped (C step on a second stream),
     its first boundary's Θ equal bit for bit to a serial C step on the
-    same snapshot; H3: ℓ0 pruning of all matrices at κ = 5%, 2 × 2,
-    exactly κ nonzeros after every C step; H4 (1 layer): a hard failure
+    same snapshot (a replay); H3: ℓ0 pruning of all matrices at κ = 5%,
+    3 × 2, exactly κ nonzeros after every C step; H4 (1 layer, 3 × 3): a
+    hard failure
     that outlasts the retries, restored from a checkpoint, ending equal
     bit for bit to an uninterrupted run, and a mid-run checkpoint
     restored onto the card. Each run checks its records (§7 monitor,
@@ -157,8 +166,8 @@ Phases, each of which fails the run:
     ``init_cache``'s values right after its reset. K and L1 run last, in
     a process of their own (``--ssm``), with phase 17's profile of their
     served models. L2: LC training of xlstm-125m
-    (``train_lm_compress.make_trainer``, 4 × 1024 tokens a step, 2 μ × 3
-    L steps): finite losses, CE falling, the §7 monitor, the reference's
+    (``train_lm_compress.make_trainer``, 4 × 1024 tokens a step, 3 μ × 1
+    L step): finite losses, CE falling, the §7 monitor, the reference's
     compression ratio, one fused Lloyd loop a k-means group each C step,
     the groups derived from the widths, the last C step's loops held
     against the iterated and plain loops; the train step's ms,
@@ -182,15 +191,16 @@ Phases, each of which fails the run:
     shapes; last, path H's trainer (one L step and boundary serial,
     two overlapped): the device's busy share, each stream's busy time
     and the time both streams ran at once;
-18. in a process of its own (``--chunks``), after paths K and L1: I1's
-    former 4 expert items (4 × 469,762,048) with ``CHUNK_BUDGET_BYTES``
-    forced to 4 launches against one launch, Θ and Δ(Θ) bit for bit; the
-    Lloyd loop over them timed in one launch, in 2 chunks in the group's
-    partition (what the planner runs) and in 2 chunks in their own; a
-    top-κ group chunked against one launch, and a low-rank group, which
-    the planner keeps in one launch (its batched products' bits depend
-    on the batch: the gap of 4 launches forced past the planner is
-    printed);
+18. in the ``--ssm`` process, before paths L1 and K (alone:
+    ``--chunks``): I1's former 4 expert items (4 × 469,762,048) with
+    ``CHUNK_BUDGET_BYTES`` forced to 4 launches against one launch, Θ
+    and Δ(Θ) bit for bit; the Lloyd loop over them timed in one launch,
+    in 2 chunks in the group's partition (what the planner runs) and in
+    2 chunks in their own; a top-κ group chunked against one launch,
+    and a low-rank group, which the planner keeps in one launch (its
+    batched products' bits depend on the batch: the gap of 4 launches
+    forced past the planner is printed). ``--lc`` runs only paths A, B,
+    LM, E, F, H and L2;
 19. one JSON line listing every ported kernel, then the result line.
 
 Tolerances: assignments, masks and integer counts must be equal; K1/K7
@@ -232,15 +242,24 @@ import math
 import re
 import statistics
 import subprocess
+import os
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
-import torch.nn.functional as F
-
 ROOT = Path(__file__).resolve().parent
+if (ROOT / "src" / "repro_torch").is_dir():
+    # the compiled bytecode of every module imported (torch's included)
+    # kept under build/ for the child processes: where site-packages
+    # holds no bytecode, each process would compile torch's sources again
+    sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"] = str(
+        ROOT / "build" / "pycache")
+    sys.dont_write_bytecode = False
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
@@ -249,6 +268,7 @@ QUICKSTART_SHAPES = [(1, 235_200, 4), (1, 30_000, 4), (1, 1_000, 4)]
 LM_D_MODEL, LM_D_FF, LM_LAYERS = 3072, 8192, 4
 LM_ITEM = LM_D_MODEL * LM_D_FF                       # 25,165,824
 LM_K1_SHAPE = (2 * LM_LAYERS, LM_ITEM, 16)
+LM_MUS = (1e-4, 1.3e-4, 1.69e-4)     # C steps: eager, the capture, a replay
 MIXED_K = (3, 100_003, 16, [16, 5, 9])               # +inf codebook tails
 # K2 on the main path: all LeNet300 weights as one item, w_down's 4
 # items; checked and timed on K1's shapes too
@@ -343,6 +363,7 @@ F_RANKS = {"wq": 128, "wk": 128, "wv": 128, "w_gate": 256, "w_up": 192}
 F_WO_STEPS, F_WO_MAX_RANK = (24, 48), 128
 F_DOWN_KAPPA = LM_ITEM // 100                     # 251,658
 F_MU = 1e-4
+F_MUS = (F_MU, 1.3 * F_MU, 1.69 * F_MU)   # C steps 2 and 3: capture, replay
 
 # path H: LC training of phi3-mini-3.8b at full width, 4 of 32 layers
 # (H4: 1), batches of 8 × 1024 tokens; the CLI defaults of
@@ -379,7 +400,7 @@ SSM_LAUNCHES = "ssm_launches"          # the line ``--ssm`` reports on
 JAMBA_PARAMS, XLSTM_PARAMS = 3_960_418_304, 155_651_408
 JAMBA_FFN = 4096 * 14336                               # 58,720,256
 JAMBA_KAPPA = int(0.05 * 2 * JAMBA_FFN)                # 5,872,025
-L2_BATCH, L2_SEQ, L2_LC, L2_STEPS = 4, 1024, 2, 3
+L2_BATCH, L2_SEQ, L2_LC, L2_STEPS = 4, 1024, 3, 1
 K_SEEDS, L1_SEEDS = (24, 24), (26, 26)
 
 
@@ -795,108 +816,204 @@ def planner_on_off(label: str, lc, params, state, kern) -> dict:
     return runs["on"][1]
 
 
-def _packed_like(group, counts, out, results) -> None:
-    """Hold a group's packed (Θ, Δ items) ``out`` against the per-task
-    ``results`` of ``grouped_compress``, bit for bit."""
-    from repro_torch.core.schemes.base import (add_leading_axis,
-                                               slice_theta_like)
-    from repro_torch.tree import tree_leaves, tree_map
-    theta, a = out
-    off = 0
-    for t, n in zip(group, counts):
-        th, a_arr = results[t.name]
-        if not t.view.stacked:
-            th = add_leading_axis(th)
-        mine = slice_theta_like(
-            tree_map(lambda x, o=off, n=n: x[o:o + n], theta), th)
-        same = all(torch.equal(x, y) for x, y in
-                   zip(tree_leaves(mine), tree_leaves(th)))
-        check(same and torch.equal(a[off:off + n], t.view.to_items(a_arr)),
-              f"{t.name}: the captured solve differs from the eager one")
-        off += n
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """A tensor's bits as integers, for comparisons bit for bit."""
+    if x.is_floating_point():
+        return x.view({2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[x.element_size()])
+    return x
 
 
-def captured_against_eager(label: str, group, xs, thetas, mus,
-                           power: str) -> dict:
-    """``compile_group``'s solve of ``group`` (a CUDA graph, captured at
-    its first call) against ``grouped_compress`` run eagerly, at each μ
-    of ``mus`` (0-d tensors, as the LC driver passes them): Θ and Δ(Θ)
-    bit for bit; one capture, then cache hits and replays only; eager
-    and captured seconds."""
-    from repro_torch.analysis import cost
-    from repro_torch.core.grouping import compile_group, grouped_compress
-    counts = [t.view.item_count(xs[t.name]) for t in group]
-    eager, t_eager = [], []
-    for mu in mus:
+class EagerTwin:
+    """The eager twin of a compiled LC driver ``lc`` (``jit_c_step=True``):
+    each C step, multiplier step and distortion of ``lc`` runs first on
+    an ``LCAlgorithm(jit_c_step=False)`` over the same tasks and the same
+    inputs (its async steps: nothing of the input is written), then on
+    ``lc``; the two results are compared bit for bit on the card, as
+    counts of differing elements queued on the current stream and read
+    at :meth:`report` (an overlapped boundary stays asynchronous). Each
+    compiled C step must count the launches of its twin's; the twin's
+    launches are kept apart (``launches``), and each C step's stream
+    time, the twin's against the compiled one's (CUDA events; the first
+    two C steps of ``lc`` run eagerly and then capture, the later ones
+    replay). :meth:`close` unhooks it (the hooks are a reference cycle
+    through ``lc``)."""
+
+    STEPS = ("c_step", "c_step_async", "multiplier_step",
+             "multiplier_step_async", "distortion", "shifted_distortion")
+
+    def __init__(self, lc, kern, planner="same"):
+        self.lc, self.kern = lc, kern
+        self.planner = lc.planner if planner == "same" else planner
+        self.twin = None
+        self.diffs: list = []
+        self.launches = {n: 0 for n in kern}
+        self.events: list = []
+        self.c_steps = 0             # the twin's, counted as they begin
+        self.in_c_step = False       # inside one of the twin's C steps
+        for name in self.STEPS:
+            setattr(lc, name, self._hooked(name, getattr(lc, name)))
+
+    def in_step(self, k: int):
+        """A predicate: inside the twin's C step number ``k``."""
+        return lambda: self.in_c_step and self.c_steps == k
+
+    def eager(self, params):
+        """The twin (made at the first step, once ``lc`` resolved)."""
+        from repro_torch.core import LCAlgorithm
+        if self.twin is None:
+            lc = self.lc
+            self.twin = LCAlgorithm(
+                lc.tasks, lc.mu_schedule, group_tasks=lc.group_tasks,
+                cstep_backend=lc.cstep_backend, planner=self.planner,
+                device=lc.device, jit_c_step=False)
+            # the tasks are resolved already (resolving splits a
+            # multi-leaf task again)
+            self.twin._resolved = True
+        return self.twin
+
+    def _hooked(self, name: str, compiled):
+        eager_name = {"c_step": "c_step_async",
+                      "multiplier_step": "multiplier_step_async"}.get(
+                          name, name)
+        c_step = name.startswith("c_step")
+
+        def run(params, lc_state):
+            twin = getattr(self.eager(params), eager_name)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            before = launches(self.kern)
+            ev[0].record()
+            if c_step:
+                self.c_steps += 1
+                self.in_c_step = True
+            want = twin(params, lc_state)
+            self.in_c_step = False
+            ev[1].record()
+            mid = launches(self.kern)
+            ev[2].record()
+            got = compiled(params, lc_state)
+            ev[3].record()
+            after = launches(self.kern)
+            eager_n = {n: mid[n] - before[n] for n in mid}
+            for n, v in eager_n.items():
+                self.launches[n] += v
+            if c_step:
+                comp_n = {n: after[n] - mid[n] for n in mid}
+                check(comp_n == eager_n, f"a compiled C step launched "
+                      f"{comp_n}, its eager twin {eager_n}")
+                self.events.append(ev)
+            self._compare(name, got, want)
+            return got
+        return run
+
+    def _compare(self, name, got, want) -> None:
+        from repro_torch.tree import tree_leaves
+        if isinstance(got, dict) and "tasks" in got:
+            got, want = got["tasks"], want["tasks"]
+        g, w = tree_leaves(got), tree_leaves(want)
+        check(len(g) == len(w) and all(
+            x.shape == y.shape and x.dtype == y.dtype for x, y in zip(g, w)),
+            f"{name}: the compiled and the eager results differ in shape")
+        self.diffs.append((name, sum(
+            (_bits(x) != _bits(y)).sum() for x, y in zip(g, w))))
+
+    def report(self, label: str, power: str) -> dict:
+        """Check that every result was equal bit for bit, print the C
+        steps' seconds (eager twin against compiled), the graphs, their
+        capture seconds and pool; returns those numbers."""
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eager.append(grouped_compress(group, xs, thetas, mu, backend="auto",
-                                      device="cuda", planner="on"))
-        torch.cuda.synchronize()
-        t_eager.append(time.perf_counter() - t0)
-    before = cost.cache_stats()
-    exe, arrays = compile_group(group, xs, thetas, backend="auto",
-                                device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    outs = [exe(mus[0], *arrays)]
-    torch.cuda.synchronize()
-    t_capture = time.perf_counter() - t0
-    t_replay = []
-    for mu in list(mus[1:]) + [mus[0]]:
-        t0 = time.perf_counter()
-        outs.append(exe(mu, *arrays))
-        torch.cuda.synchronize()
-        t_replay.append(time.perf_counter() - t0)
-    again, _ = compile_group(group, xs, thetas, backend="auto",
-                             device="cuda")
-    after = cost.cache_stats()
-    check(again is exe and after["exec_misses"] - before["exec_misses"] == 1
-          and after["exec_hits"] - before["exec_hits"] == 1
-          and exe.programs.captured == 1,
-          f"{label}: {exe.programs.captured} captures, exec stats "
-          f"{before} -> {after}")
-    for out, res in zip(outs, eager + [eager[0]]):
-        _packed_like(group, counts, out, res)
-    pool_gib = exe.programs.pool_bytes() / 2**30
-    # drop the executable, and its graph's memory pool, from the cache
-    del exe, again
-    cost.clear_caches()
-    print(f"{label}: compile_group captured against eager at mu="
-          f"{[float(m) for m in mus]}: Θ and Δ(Θ) bit for bit; 1 capture, "
-          f"then cache hits; eager_s={[round(t, 4) for t in t_eager]} "
-          f"capture_call_s={t_capture:.3f} (an eager run and the capture) "
-          f"replay_s={[round(t, 4) for t in t_replay]} "
-          f"graph_pool_gib={pool_gib:.3f} "
-          f"[{power}]", flush=True)
-    return {"eager_s": t_eager, "capture_s": t_capture,
-            "replay_s": t_replay}
+        bad = [(n, int(d)) for n, d in self.diffs if int(d)]
+        check(not bad, f"{label}: the compiled driver differs from "
+              f"jit_c_step=False: {bad[:5]}")
+        progs = self.lc.programs
+        eager_s = [a.elapsed_time(b) / 1e3 for a, b, _, _ in self.events]
+        comp_s = [c.elapsed_time(d) / 1e3 for _, _, c, d in self.events]
+        rec = {"eager_s": eager_s, "compiled_s": comp_s,
+               "captured": progs.captured, "capture_s": progs.capture_s,
+               "pool_gib": progs.pool_bytes() / 2**30,
+               "twin_launches": {k: v for k, v in self.launches.items()
+                                 if v}}
+        kinds = sorted({n for n, _ in self.diffs})
+        print(f"{label}: compiled driver against jit_c_step=False, bit for "
+              f"bit over {len(self.diffs)} results ({', '.join(kinds)}); "
+              f"C step s eager {[round(t, 4) for t in eager_s]} against "
+              f"compiled {[round(t, 4) for t in comp_s]} (C step 1 "
+              f"eager, C step 2 an eager run and the capture, then "
+              f"replays); graphs captured "
+              f"{rec['captured']} in {rec['capture_s']:.3f} s (eager run "
+              f"and capture), graph_pool_gib={rec['pool_gib']:.3f}; the "
+              f"eager twin's launches {rec['twin_launches']} [{power}]",
+              flush=True)
+        return rec
+
+    def close(self) -> None:
+        for name in self.STEPS:
+            self.lc.__dict__.pop(name, None)
+        self.twin = None
+        self.diffs.clear()
 
 
-def main_path_a(kern) -> dict:
+@contextlib.contextmanager
+def twinned(kern, planner="same"):
+    """Every compiled ``LCAlgorithm`` made inside gets an
+    :class:`EagerTwin` (the entry points make their drivers inside; the
+    twin's planner ``planner``, by default the driver's); yields the list
+    of them, closed and their graphs released on exit."""
+    from repro_torch.core import algorithm
+    made: list = []
+    init = algorithm.LCAlgorithm.__init__
+
+    def patched(self, *args, **kw):
+        init(self, *args, **kw)
+        if self.jit_c_step:
+            made.append(EagerTwin(self, kern, planner))
+
+    algorithm.LCAlgorithm.__init__ = patched
+    try:
+        yield made
+    finally:
+        algorithm.LCAlgorithm.__init__ = init
+        for tw in made:
+            tw.close()
+            tw.lc.release_graphs()
+        made.clear()
+        gc.collect()
+
+
+def minus(a: dict, b: dict) -> dict:
+    return {k: a[k] - b.get(k, 0) for k in a}
+
+
+def main_path_a(kern, power: str) -> dict:
     from repro_torch import quickstart
     reset(kern)
     t0 = time.time()
-    out = quickstart.main(device="cuda")        # raises if LC > DC
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    n = launches(kern)
-    lc, dc = out["lc"], out["dc"]
-    check(lc["test_err"] <= dc["test_err"] + 1e-6, "quickstart LC > DC")
-    # one fused Lloyd loop per layer and C step
-    check(n == only(kern, K1loop=20 * 3), f"quickstart launches {n}")
-    check(monitor_ok(lc["history"]), "quickstart §7 monitor")
-    print(f"main path A (quickstart): ref_err={out['ref']:.4f} "
-          f"dc_err={dc['test_err']:.4f} lc_err={lc['test_err']:.4f} "
-          f"ratio={lc['ratio']:.1f}x lc_wall_s={lc['wall_s']:.2f} "
-          f"total_wall_s={wall:.2f} Lloyd_loop_launches={n['K1loop']}",
-          flush=True)
-    planner_on_off("path A", lc["lc"], lc["state"].tree(), lc["lc_state"],
-                   kern)
+    with twinned(kern) as twins:
+        out = quickstart.main(device="cuda")        # raises if LC > DC
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        n = launches(kern)
+        (tw,) = [t for t in twins if t.twin is not None]
+        tw.report("path A", power)
+        lc, dc = out["lc"], out["dc"]
+        check(lc["test_err"] <= dc["test_err"] + 1e-6, "quickstart LC > DC")
+        # one fused Lloyd loop per layer and C step, and the eager twin's
+        check(minus(n, tw.launches) == only(kern, K1loop=20 * 3)
+              and tw.launches == only(kern, K1loop=20 * 3),
+              f"quickstart launches {n} (eager twin {tw.launches})")
+        check(monitor_ok(lc["history"]), "quickstart §7 monitor")
+        print(f"main path A (quickstart): ref_err={out['ref']:.4f} "
+              f"dc_err={dc['test_err']:.4f} lc_err={lc['test_err']:.4f} "
+              f"ratio={lc['ratio']:.1f}x lc_wall_s={lc['wall_s']:.2f} "
+              f"total_wall_s={wall:.2f} Lloyd_loop_launches={n['K1loop']} "
+              f"(compiled {n['K1loop'] - tw.launches['K1loop']}, eager twin "
+              f"{tw.launches['K1loop']})", flush=True)
+        planner_on_off("path A", tw.twin, lc["state"].tree(),
+                       lc["lc_state"], kern)
     return n
 
 
-def main_path_b(kern) -> dict:
+def main_path_b(kern, power: str) -> dict:
     from repro_torch.core import AsVector, CompressionTask
     from repro_torch.core.schemes import ConstraintL0Pruning
     from repro_torch.showcase import (
@@ -917,24 +1034,29 @@ def main_path_b(kern) -> dict:
 
     reset(kern)
     t0 = time.time()
-    prob = reference_problem(device="cuda")
-    dc = direct_compress(prob, tasks(), device="cuda")
-    lc = run_lc(prob, tasks(), n_steps=20, iters_per_l=40,
-                callbacks=[count_nnz], device="cuda")
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    n = launches(kern)
-    check(nnz == [kappa] * 20, f"ℓ0 nonzeros per C step {nnz}")
-    check(monitor_ok(lc["history"]), "ℓ0 §7 monitor")
-    # per C step: one fused bisection, one mask (K3)
-    check(n == only(kern, K2loop=20, K3=20), f"ℓ0 launches {n}")
-    print(f"main path B (ℓ0 κ={kappa}): dc_err={dc['test_err']:.4f} "
-          f"lc_err={lc['test_err']:.4f} ratio={lc['ratio']:.1f}x "
-          f"lc_wall_s={lc['wall_s']:.2f} total_wall_s={wall:.2f} "
-          f"bisection_launches={n['K2loop']} K3_launches={n['K3']}",
-          flush=True)
-    planner_on_off("path B", lc["lc"], lc["state"].tree(), lc["lc_state"],
-                   kern)
+    with twinned(kern) as twins:
+        prob = reference_problem(device="cuda")
+        dc = direct_compress(prob, tasks(), device="cuda")
+        lc = run_lc(prob, tasks(), n_steps=20, iters_per_l=40,
+                    callbacks=[count_nnz], device="cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        n = launches(kern)
+        (tw,) = [t for t in twins if t.twin is not None]
+        tw.report("path B", power)
+        check(nnz == [kappa] * 20, f"ℓ0 nonzeros per C step {nnz}")
+        check(monitor_ok(lc["history"]), "ℓ0 §7 monitor")
+        # per C step: one fused bisection, one mask (K3), and the twin's
+        want = only(kern, K2loop=20, K3=20)
+        check(minus(n, tw.launches) == want and tw.launches == want,
+              f"ℓ0 launches {n} (eager twin {tw.launches})")
+        print(f"main path B (ℓ0 κ={kappa}): dc_err={dc['test_err']:.4f} "
+              f"lc_err={lc['test_err']:.4f} ratio={lc['ratio']:.1f}x "
+              f"lc_wall_s={lc['wall_s']:.2f} total_wall_s={wall:.2f} "
+              f"bisection_launches={n['K2loop']} K3_launches={n['K3']} "
+              f"(half each the eager twin's)", flush=True)
+        planner_on_off("path B", tw.twin, lc["state"].tree(),
+                       lc["lc_state"], kern)
     return n
 
 
@@ -955,75 +1077,74 @@ def lm_problem(g):
         CompressionTask("prune", r"ffn/w_down$", AsStacked("vector"),
                         ConstraintL0Pruning(kappa=int(0.05 * LM_ITEM))),
     ]
-    return params, LCAlgorithm(tasks, [1e-4, 1.3e-4], device="cuda")
+    return params, LCAlgorithm(tasks, LM_MUS, device="cuda")
 
 
 def lm_phase(kern, power: str) -> dict:
     g = torch.Generator(device="cuda").manual_seed(1)
     torch.cuda.reset_peak_memory_stats()
-    params, lc = lm_problem(g)
     kappa = int(0.05 * LM_ITEM)
-    mus = [1e-4, 1.3e-4]
-    groups = lc.group_summary(params)
-    print("LM groups:", [(g_["tasks"], g_["items"], g_["solver"],
-                          g_["backend"]) for g_ in groups], flush=True)
-    check(any(g_["items"] == 2 * LM_LAYERS and g_["backend"] == "cuda"
-              for g_ in groups), "LM quantization group of 8 items")
-    t0 = time.time()
-    state = lc.init(params)
-    torch.cuda.synchronize()
-    print(f"LM init_s={time.time() - t0:.2f}", flush=True)
-    total = only(kern)
-    for step, mu in enumerate(mus):
-        for w in params["ffn"].values():           # stand-in for an L step
-            w.add_(1e-3 * torch.randn(w.shape, device="cuda", generator=g))
-        state = lc.set_mu(state, mu, step)
-        pre = {n: float(v) for n, v in lc.shifted_distortion(params,
-                                                             state).items()}
-        planner_on_off(f"LM C step {step}", lc, params, state, kern)
-        reset(kern)
-        torch.cuda.synchronize()
+    with twinned(kern) as twins:
+        params, lc = lm_problem(g)
+        (tw,) = twins
+        groups = lc.group_summary(params)
+        print("LM groups:", [(g_["tasks"], g_["items"], g_["solver"],
+                              g_["backend"]) for g_ in groups], flush=True)
+        check(any(g_["items"] == 2 * LM_LAYERS and g_["backend"] == "cuda"
+                  for g_ in groups), "LM quantization group of 8 items")
         t0 = time.time()
-        state = lc.c_step(params, state)
+        state = lc.init(params)
         torch.cuda.synchronize()
-        c_s = time.time() - t0
-        step_n = launches(kern)
-        check(step_n == only(kern, K1loop=1, K2loop=1, K3=1),
-              f"LM C-step launches {step_n}")
-        total = {k: total[k] + step_n[k] for k in total}
-        post = lc.shifted_distortion(params, state)
-        for n, before in pre.items():
-            check(float(post[n]) <= before * (1 + 1e-5) + 1e-6,
-                  f"LM §7 monitor {n}: {before} -> {float(post[n])}")
-        th = state["tasks"]["prune"]["theta"]["theta"]
-        nnz = torch.count_nonzero(th.reshape(LM_LAYERS, -1), dim=1)
-        check(nnz.tolist() == [kappa] * LM_LAYERS, f"LM κ per item {nnz}")
-        for name in ("quant[0]", "quant[1]"):
-            cb = state["tasks"][name]["theta"].codebook
-            check(bool(torch.isfinite(cb).all()) and cb.shape == (4, 16),
-                  f"LM codebooks {name}")
-        state = lc.multiplier_step(params, state)
-        print(f"LM C step {step} (mu={mu:g}): c_step_s={c_s:.3f} "
-              f"Lloyd_loop={step_n['K1loop']} bisection="
-              f"{step_n['K2loop']} K3={step_n['K3']} "
-              f"shifted_distortion="
-              f"{ {n: (round(pre[n], 3), round(float(post[n]), 3)) for n in pre} }",
-              flush=True)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"LM peak_memory_gib={peak:.2f}", flush=True)
-    # the k-means group and the top-κ task, each captured as a CUDA graph
-    from repro_torch.core.grouping import build_groups
-    xs = {t.name: t.shifted_compressible(params, state["tasks"][t.name],
-                                         state["mu"]) for t in lc.tasks}
-    thetas = {t.name: state["tasks"][t.name]["theta"] for t in lc.tasks}
-    groups = build_groups(lc.tasks, xs, backend="auto", device="cuda")
-    check(sorted(len(g) for g in groups) == [1, 2], "LM groups")
-    for group in groups:
-        captured_against_eager(
-            f"LM {group[0].scheme.solver} group {[t.name for t in group]}",
-            group, xs, thetas, (state["mu"], state["mu"] * 1.3), power)
-    del params, state, xs, thetas
+        print(f"LM init_s={time.time() - t0:.2f}", flush=True)
+        total = only(kern)
+        for step, mu in enumerate(LM_MUS):
+            for w in params["ffn"].values():       # stand-in for an L step
+                w.add_(1e-3 * torch.randn(w.shape, device="cuda",
+                                          generator=g))
+            state = lc.set_mu(state, mu, step)
+            pre = {n: float(v) for n, v in
+                   lc.shifted_distortion(params, state).items()}
+            planner_on_off(f"LM C step {step}", tw.eager(params), params,
+                           state, kern)
+            reset(kern)
+            twin_before = dict(tw.launches)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            state = lc.c_step(params, state)
+            torch.cuda.synchronize()
+            c_s = time.time() - t0
+            step_n = launches(kern)
+            twin_n = minus(tw.launches, twin_before)
+            one = only(kern, K1loop=1, K2loop=1, K3=1)
+            check(minus(step_n, twin_n) == one and twin_n == one,
+                  f"LM C-step launches {step_n} (eager twin {twin_n})")
+            total = {k: total[k] + step_n[k] for k in total}
+            post = lc.shifted_distortion(params, state)
+            for n, before in pre.items():
+                check(float(post[n]) <= before * (1 + 1e-5) + 1e-6,
+                      f"LM §7 monitor {n}: {before} -> {float(post[n])}")
+            th = state["tasks"]["prune"]["theta"]["theta"]
+            nnz = torch.count_nonzero(th.reshape(LM_LAYERS, -1), dim=1)
+            check(nnz.tolist() == [kappa] * LM_LAYERS,
+                  f"LM κ per item {nnz}")
+            for name in ("quant[0]", "quant[1]"):
+                cb = state["tasks"][name]["theta"].codebook
+                check(bool(torch.isfinite(cb).all())
+                      and cb.shape == (4, 16), f"LM codebooks {name}")
+            state = lc.multiplier_step(params, state)
+            lc.distortion(params, state)
+            print(f"LM C step {step} (mu={mu:g}): c_step_s={c_s:.3f} (the "
+                  f"compiled C step and its eager twin) Lloyd_loop="
+                  f"{step_n['K1loop']} bisection={step_n['K2loop']} "
+                  f"K3={step_n['K3']} (half each the twin's) "
+                  f"shifted_distortion="
+                  f"{ {n: (round(pre[n], 3), round(float(post[n]), 3)) for n in pre} }",
+                  flush=True)
+        tw.report("LM C step", power)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"LM peak_memory_gib={peak:.2f}", flush=True)
+        del params, state
     torch.cuda.empty_cache()
     return total
 
@@ -1491,14 +1612,20 @@ def host_launch_cost(k1, k2, card: str, n: int = 1000,
 
 def main_path_e(kern, power: str) -> dict:
     """``repro_torch.mixed_compression.main`` on the card: both runs, 20
-    LC steps each, checked after every C step."""
+    LC steps each, checked after every C step, each compiled LC driver
+    beside its eager twin."""
     from repro_torch import mixed_compression
     seen = []
 
+    def twin_launches():
+        return {n: sum(t.launches[n] for t in twins) for n in kern}
+
     def after_c_step(model, lc, m):
-        now = launches(kern)
-        step = {n: now[n] - last[n] for n in now}
+        now, tw_now = launches(kern), twin_launches()
+        step = minus(minus(now, last), minus(tw_now, tw_last))
+        twin_step = minus(tw_now, tw_last)
         last.update(now)
+        tw_last.update(tw_now)
         tasks = lc["tasks"]
         if "p1" in tasks:             # Table 2 last row
             nnz = int(torch.count_nonzero(tasks["p1"]["theta"]["theta"]))
@@ -1508,26 +1635,36 @@ def main_path_e(kern, power: str) -> dict:
                   and th["u"].shape == (300, 10)
                   and th["v"].shape == (100, 10)
                   # one fused bisection and K3; one fused Lloyd loop
-                  and step == only(kern, K1loop=1, K2loop=1, K3=1))
+                  and step == twin_step
+                  == only(kern, K1loop=1, K2loop=1, K3=1))
             seen.append(("mixed", nnz, rank, step))
         else:                         # row 5: the additive combination
             nnz = int(torch.count_nonzero(
                 tasks["pq"]["theta"]["parts"][0]["theta"]))
-            ok = nnz == 2662 and step == only(kern)
+            ok = nnz == 2662 and step == twin_step == only(kern)
             seen.append(("additive", nnz, None, step))
         check(ok, f"path E after C step {m.step}: {seen[-1]}")
 
     reset(kern)
     last = launches(kern)
     t0 = time.time()
-    out = mixed_compression.main(device="cuda", callbacks=[after_c_step])
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    check([s[0] for s in seen] == ["mixed"] * 20 + ["additive"] * 20,
-          f"path E C steps {[s[0] for s in seen]}")
+    with twinned(kern) as twins:
+        tw_last = twin_launches()
+        out = mixed_compression.main(device="cuda",
+                                     callbacks=[after_c_step])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        ran = [t for t in twins if t.twin is not None]
+        check(len(ran) == 2, f"path E: {len(ran)} LC runs")
+        for tw, run in zip(ran, out["runs"]):
+            tw.report(f"path E {run['name']}", power)
+        twin_total = twin_launches()
+    check([s_[0] for s_ in seen] == ["mixed"] * 20 + ["additive"] * 20,
+          f"path E C steps {[s_[0] for s_ in seen]}")
     total = launches(kern)
-    check(total == only(kern, K1loop=20, K2loop=20, K3=20),
-          f"path E launches {total}")
+    want = only(kern, K1loop=20, K2loop=20, K3=20)
+    check(minus(total, twin_total) == want and twin_total == want,
+          f"path E launches {total} (eager twins {twin_total})")
     for run, (j_err, j_ratio) in zip(out["runs"], JAX_CPU_MIXED["runs"]):
         lc, dc = run["lc"], run["dc"]
         check(monitor_ok(lc["history"]), f"path E §7 monitor {run['name']}")
@@ -1542,7 +1679,7 @@ def main_path_e(kern, power: str) -> dict:
               f"{JAX_CPU_MIXED['ref']:.4f} lc_err={j_err:.4f} "
               f"ratio={j_ratio}x) [{power}]", flush=True)
     print(f"main path E: ref_err={out['ref']:.4f} total_wall_s={wall:.2f} "
-          f"launches={total} [{power}]", flush=True)
+          f"launches={total} (half the eager twins') [{power}]", flush=True)
     return {"launches": total, "problem": out["problem"]}
 
 
@@ -1632,7 +1769,7 @@ def lowrank_model(cfg, seed: int):
     params = tf.init_params(gen, cfg)
     spectra = {}
     with torch.no_grad():
-        for i in range(LM_LAYERS):
+        for i in range(cfg.n_layers):
             for name in ("mixer/wq", "mixer/wk", "mixer/wv", "mixer/wo",
                          "ffn/w_gate", "ffn/w_up"):
                 path = f"stages/s0/pos{i}/{name}"
@@ -1676,14 +1813,15 @@ def jacobi_kernels_per_round() -> float:
 
 
 def main_path_f(kern, power: str) -> dict:
-    """Low-rank serving of phi3-mini at full width: LC init, one C step
+    """Low-rank serving of phi3-mini at full width: LC init, a C step
     and a multiplier step over 28 per-matrix tasks in four groups, the
-    bridge, ``Server.generate``; then the checks against the exact SVD
-    and the densified model."""
+    bridge, ``Server.generate``; the checks against the exact SVD and
+    the densified model; then two more C steps (the compiled driver's
+    capture and a replay), every step beside its eager twin, which runs
+    with the planner off (so the planner on is held against off too)."""
     from repro_torch.core import (
         AsIs, AsVector, CompressionTask, LCAlgorithm, flatten_params,
         get_path)
-    from repro_torch.core.grouping import build_groups, grouped_compress
     from repro_torch.core.schemes import (
         AdaptiveQuantization, AdditiveCombination, ConstraintL0Pruning,
         LowRank, RankSelection)
@@ -1730,14 +1868,19 @@ def main_path_f(kern, power: str) -> dict:
     prompts = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
                            dtype=np.int64).astype(np.int32)
 
-    lc = LCAlgorithm(tasks, [F_MU], device="cuda")
+    # the eager twin runs with the planner off: the compiled C steps
+    # (planner on) equal to it bit for bit hold both at once
+    stack = contextlib.ExitStack()
+    twins = stack.enter_context(twinned(kern, planner="off"))
+    lc = LCAlgorithm(tasks, F_MUS, device="cuda")
+    (tw,) = twins
     groups = lc.group_summary(params)
     summary = [(g["solver"], g["items"], tuple(g["item_shape"]))
                for g in groups]
-    want = [("lowrank_rsvd", 12, (LM_D_MODEL, LM_D_MODEL)),
-            ("rank_select", 4, (LM_D_MODEL, LM_D_MODEL)),
-            ("lowrank_rsvd", 8, (LM_D_MODEL, LM_D_FF)),
-            (None, 4, (LM_D_FF * LM_D_MODEL,))]
+    want = [("lowrank_rsvd", 3 * LM_LAYERS, (LM_D_MODEL, LM_D_MODEL)),
+            ("rank_select", LM_LAYERS, (LM_D_MODEL, LM_D_MODEL)),
+            ("lowrank_rsvd", 2 * LM_LAYERS, (LM_D_MODEL, LM_D_FF)),
+            (None, LM_LAYERS, (LM_D_FF * LM_D_MODEL,))]
     check(summary == want and all(g["grouped"] for g in groups),
           f"path F groups {summary}")
     print("path F groups:", [(g["scheme"], g["solver"], g["backend"],
@@ -1750,10 +1893,13 @@ def main_path_f(kern, power: str) -> dict:
     state = lc.init(params)
     torch.cuda.synchronize()
     t_init = time.time() - t0
+    state = lc.set_mu(state, F_MUS[0], 0)
     t0 = time.time()
     state = lc.c_step(params, state)
     torch.cuda.synchronize()
     t_cstep = time.time() - t0
+    # the first C step's Θ (its input w − λ/μ is w: λ = 0), for the checks
+    thetas_1 = {t.name: state["tasks"][t.name]["theta"] for t in lc.tasks}
     state = lc.multiplier_step(params, state)
     t0 = time.time()
     serving, report = srv.load_compressed_for_serving(params, state,
@@ -1803,7 +1949,7 @@ def main_path_f(kern, power: str) -> dict:
             continue
         (path,) = t.paths
         w = get_path(params, path).float()     # λ = 0: the C step's input
-        th = state["tasks"][t.name]["theta"]
+        th = thetas_1[t.name]
         s = torch.linalg.svdvals(w)
         if t.name.startswith("wo"):
             r = int(th["rank"])
@@ -1832,6 +1978,7 @@ def main_path_f(kern, power: str) -> dict:
           f"each) worst distortion excess={worst:.3g} (tol 1e-4)",
           flush=True)
 
+    del thetas_1
     dense = srv.densified_for_serving(params, state, lc.tasks)
     prompts_t = torch.as_tensor(prompts, device="cuda")
     toks_t = torch.as_tensor(toks, device="cuda")
@@ -1840,56 +1987,44 @@ def main_path_f(kern, power: str) -> dict:
     check(agree == 1.0, f"path F token agreement {agree}")
     del dense, serving, server
 
-    # per-group solver seconds, each group re-run alone from the same
-    # state (its C-step input and warm start), with the planner off and
-    # on (Θ bit for bit); then each low-rank group captured as a CUDA
-    # graph (compile_group) against its eager runs at two μ
-    from repro_torch.tree import tree_leaves
-    xs = {t.name: t.shifted_compressible(params, state["tasks"][t.name],
-                                         state["mu"]) for t in lc.tasks}
-    thetas = {t.name: state["tasks"][t.name]["theta"] for t in lc.tasks}
-    times, captured = [], []
-    for group in build_groups(lc.tasks, xs, backend="auto", device="cuda"):
-        res = {}
-        for planner in (None, "on"):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            res[planner] = grouped_compress(group, xs, thetas, state["mu"],
-                                            backend="auto", device="cuda",
-                                            planner=planner)
-            torch.cuda.synchronize()
-        times.append((group[0].scheme.name, len(group),
-                      round(time.time() - t0, 3)))
-        check(all(torch.equal(a, b) for t in group for a, b in zip(
-            tree_leaves(res[None][t.name]), tree_leaves(res["on"][t.name]))),
-            f"path F {group[0].scheme.name}: planner on and off differ")
-        del res
-        if group[0].scheme.solver in ("lowrank_rsvd", "rank_select"):
-            captured.append(captured_against_eager(
-                f"path F {group[0].scheme.name} group of {len(group)}",
-                group, xs, thetas, (state["mu"], state["mu"] * 2.0), power))
-    print(f"path F solver seconds per group (re-run alone, planner on; "
-          f"Θ bit for bit with the planner off): {times} [{power}]",
-          flush=True)
-    eager = sum(c["eager_s"][0] for c in captured)
-    replay = sum(c["replay_s"][-1] for c in captured)
-    print(f"path F low-rank groups, C-step seconds at mu={float(state['mu'])}:"
-          f" eager {eager:.3f} against captured {replay:.3f} (capture "
-          f"calls {sum(c['capture_s'] for c in captured):.3f}) [{power}]",
-          flush=True)
-    del params, state, xs, thetas
+    # C steps 2 and 3 (the capture, a replay), each beside its eager
+    # twin: Θ, a, λ and the monitors bit for bit, the same launches
+    for k, mu in enumerate(F_MUS[1:], 1):
+        state = lc.set_mu(state, mu, k)
+        pre = lc.shifted_distortion(params, state)
+        state = lc.c_step(params, state)
+        post = lc.shifted_distortion(params, state)
+        for name in pre:
+            check(float(post[name]) <= float(pre[name]) * (1 + 1e-5) + 1e-6,
+                  f"path F §7 monitor {name} at C step {k + 1}")
+        state = lc.multiplier_step(params, state)
+        lc.distortion(params, state)
+    frec = tw.report("path F (eager twin: planner off)", power)
+    stack.close()
+    del params, state, lc, tw, twins
     torch.cuda.empty_cache()
+    print(f"path F C step ({7 * LM_LAYERS} tasks, 3 groups and the additive "
+          f"group, mu="
+          f"{list(F_MUS)}): eager {[round(t, 3) for t in frec['eager_s']]} "
+          f"s against compiled {[round(t, 3) for t in frec['compiled_s']]} "
+          f"s; {frec['captured']} graphs captured in "
+          f"{frec['capture_s']:.3f} s, pool {frec['pool_gib']:.3f} GiB "
+          f"[{power}]", flush=True)
     return n
 
 
 def profile_phase(kern, path_c: dict, power: str) -> None:
     """Device busy share and top kernels of an LM C step (the LM phase's
-    problem made again, after one warm C step), of path C's prefill and
-    of 8 of its decode steps, under ``torch.profiler``; run after the
-    timed paths so that the profiler's hooks touch none of their
-    numbers."""
+    problem made again, after two warm C steps: the profiled one replays
+    the compiled driver's graphs, captured before the session), of path
+    C's prefill and of 8 of its decode steps, under ``torch.profiler``;
+    run after the timed paths so that the profiler's hooks touch none of
+    their numbers."""
     params, lc = lm_problem(torch.Generator(device="cuda").manual_seed(1))
     state = lc.c_step(params, lc.init(params))
+    state = lc.c_step(params, state)
+    check(lc.programs.captured == 2, f"LM C step graphs "
+          f"{lc.programs.captured}")
     device_profile(lambda: lc.c_step(params, state), "LM C step", power,
                    kern)
     del params, lc, state
@@ -2215,13 +2350,17 @@ def _host(x):
 
 
 @contextlib.contextmanager
-def calls_of(module, name: str, first: int, to_host: bool = False):
+def calls_of(module, name: str, first: int, to_host: bool = False,
+             when=None):
     """Route ``module.name`` through a wrapper that keeps the arguments
     and the result of its calls from the ``first``-th (0-based) on, as
     references: the C step writes none of its solvers' operands or
     results in place (only ``a``), so they hold what the kernel saw.
     ``to_host`` keeps host copies instead, so that the card does not
-    hold every chunk's operands through the C step."""
+    hold every chunk's operands through the C step. ``when`` (instead of
+    ``first``) keeps the calls made while it is true: a replayed C step
+    calls no wrapper, so the checks of a compiled driver's last C step
+    read its eager twin's (``EagerTwin.in_step``), equal bit for bit."""
     from repro_torch.kernels.build import partition_items
     fn = getattr(module, name)
     calls = Calls()
@@ -2229,7 +2368,7 @@ def calls_of(module, name: str, first: int, to_host: bool = False):
 
     def wrapped(*args, **kw):
         out = fn(*args, **kw)
-        if seen[0] >= first:
+        if when() if when is not None else seen[0] >= first:
             calls.partitions.append(partition_items(args[0].shape[0]))
             kept_args, kept = args, out
             if to_host:
@@ -2264,12 +2403,13 @@ def check_h_lloyd(k1, calls, label: str, power: str) -> None:
               f"loop's={moved} [{power}]", flush=True)
 
 
-def h_prune_run(kern, trainer, label: str, power: str) -> dict:
+def h_prune_run(kern, trainer, tw, label: str, power: str) -> dict:
     """``h_run`` of a pruning trainer with Θ's count of nonzeros after
-    every C step (``nnz``), and the last C step's bisection, K3 and Θ
-    kept (``last``) for ``check_h_prune``."""
+    every C step (``nnz``), and the last C step's bisection, K3 (its
+    eager twin ``tw``'s, equal bit for bit) and Θ kept (``last``) for
+    ``check_h_prune``."""
     from repro_torch.kernels.prune import ops as pops
-    first = len(trainer.lc.mu_schedule) - 1
+    last = tw.in_step(len(trainer.lc.mu_schedule))
     nnz, theta = [], []
     c_step = trainer.lc.c_step
 
@@ -2280,9 +2420,10 @@ def h_prune_run(kern, trainer, label: str, power: str) -> dict:
         return out
 
     trainer.lc.c_step = counted
-    with calls_of(pops, "topk_threshold_batched", first) as bis, \
-            calls_of(pops, "mask_apply_batched", first) as masks:
+    with calls_of(pops, "topk_threshold_batched", 0, when=last) as bis, \
+            calls_of(pops, "mask_apply_batched", 0, when=last) as masks:
         r = h_run(kern, trainer, label, power)
+    tw.report(f"path H {label}", power)
     del trainer.lc.c_step           # the wrapper's cycle would keep Θ
     r.update(nnz=nnz, last=(bis, masks, theta[0]))
     return r
@@ -2318,7 +2459,8 @@ def check_h_prune(k2, last, kappa: int, label: str, power: str) -> None:
 
 def main_path_h(kern, k1, k2, power: str) -> dict:
     """H1–H4: the LC trainer (``repro_torch.runtime.LCTrainer``) with
-    AdamW L steps on phi3-mini-3.8b at full width."""
+    AdamW L steps on phi3-mini-3.8b at full width, its compiled LC
+    driver beside an eager twin (``EagerTwin``) in every run."""
     from repro_torch.kernels.kmeans import ops as kops
     from repro_torch.tree import tree_leaves, tree_map
     cfg = h_config()
@@ -2335,28 +2477,34 @@ def main_path_h(kern, k1, k2, power: str) -> dict:
     # H1: quantization, serial; one fused Lloyd loop a group at every C
     # step (the direct compression at init runs the scheme's own init,
     # the plain loop, as the reference's grouped_init does)
-    trainer = h_trainer(cfg, "quantize", 3, 5)
-    with calls_of(kops, "kmeans_lloyd_batched",
-                  len(H_GROUPS) * (len(trainer.lc.mu_schedule) - 1)) as lloyd:
-        r1 = h_run(kern, trainer, "H1 quantize serial", power)
-    groups = trainer.lc.group_summary(r1["state"]["params"])
-    got = sorted((g["items"], math.prod(g["item_shape"]), g["backend"])
-                 for g in groups)
-    check(got == sorted((i, p, "cuda") for i, p in H_GROUPS),
-          f"H1 groups {got}")
-    hist = r1["history"]
-    check(hist[-1]["ce"] < hist[0]["ce"], f"H1 ce {hist[0]['ce']} -> "
-          f"{hist[-1]['ce']}")
-    check(all(abs(h["compression_ratio"] / quant_ratio() - 1) < 1e-12
-              for h in hist), f"H1 ratio {hist[-1]['compression_ratio']}")
-    want = len(H_GROUPS) * len(hist)
-    check(r1["launches"] == only(kern, K1loop=want),
-          f"H1 launches {r1['launches']} (want {want} Lloyd loops)")
-    print(f"path H H1: groups {got}; launches as derived from the code: "
-          f"{want} fused Lloyd loops ({len(H_GROUPS)} groups × "
-          f"{len(hist)} C steps; none at init)", flush=True)
-    paths["H1"] = r1["launches"]
-    del trainer, r1
+    with twinned(kern) as twins:
+        trainer = h_trainer(cfg, "quantize", 3, 3)
+        (tw,) = twins
+        with calls_of(kops, "kmeans_lloyd_batched", 0,
+                      when=tw.in_step(3)) as lloyd:
+            r1 = h_run(kern, trainer, "H1 quantize serial", power)
+        tw.report("path H H1", power)
+        groups = trainer.lc.group_summary(r1["state"]["params"])
+        got = sorted((g["items"], math.prod(g["item_shape"]), g["backend"])
+                     for g in groups)
+        check(got == sorted((i, p, "cuda") for i, p in H_GROUPS),
+              f"H1 groups {got}")
+        hist = r1["history"]
+        check(hist[-1]["ce"] < hist[0]["ce"], f"H1 ce {hist[0]['ce']} -> "
+              f"{hist[-1]['ce']}")
+        check(all(abs(h["compression_ratio"] / quant_ratio() - 1) < 1e-12
+                  for h in hist), f"H1 ratio {hist[-1]['compression_ratio']}")
+        want = len(H_GROUPS) * len(hist)
+        check(minus(r1["launches"], tw.launches) == only(kern, K1loop=want)
+              and tw.launches == only(kern, K1loop=want),
+              f"H1 launches {r1['launches']} (want {want} Lloyd loops and "
+              f"the eager twin's {tw.launches})")
+        print(f"path H H1: groups {got}; launches as derived from the "
+              f"code: {want} fused Lloyd loops ({len(H_GROUPS)} groups × "
+              f"{len(hist)} C steps; none at init), and as many of the "
+              f"eager twin", flush=True)
+        paths["H1"] = r1["launches"]
+        del trainer, r1
     torch.cuda.empty_cache()
     check_h_lloyd(k1, lloyd, "H1", power)
     del lloyd
@@ -2364,69 +2512,83 @@ def main_path_h(kern, k1, k2, power: str) -> dict:
 
     # H2: the same run, overlapped: the C step on the side stream; the
     # first boundary's inputs and Θ kept for the equality check
-    trainer = h_trainer(cfg, "quantize", 3, 5, overlap="on")
-    lc = trainer.lc
-    captured = []
-    c_step_async = lc.c_step_async
+    with twinned(kern) as twins:
+        trainer = h_trainer(cfg, "quantize", 3, 3, overlap="on")
+        lc = trainer.lc
+        (tw,) = twins
+        captured = []
+        c_step_async = lc.c_step_async
 
-    def capture(params, lc_in):
-        out = c_step_async(params, lc_in)
-        if not captured:
-            captured.append((params, lc_in, out))
-        return out
+        def capture(params, lc_in):
+            out = c_step_async(params, lc_in)
+            if not captured:
+                captured.append((params, lc_in, out))
+            return out
 
-    lc.c_step_async = capture
-    r2 = h_run(kern, trainer, "H2 quantize overlapped", power)
-    hist = r2["history"]
-    check(hist[-1]["ce"] < hist[0]["ce"], "H2 ce")
-    check(all(abs(h["compression_ratio"] / quant_ratio() - 1) < 1e-12
-              for h in hist), "H2 ratio")
-    check(r2["launches"] == only(kern, K1loop=len(H_GROUPS) * len(hist)),
-          f"H2 launches {r2['launches']}")
-    print(f"path H H2: swap_after_microbatches="
-          f"{[h['swap_after_microbatches'] for h in hist]} "
-          f"dispatch_to_ready_ms={[round(h['c_step_ms'], 2) for h in hist]}"
-          f" [{power}]", flush=True)
-    params, lc_in, side = captured[0]
-    held = {x.data_ptr(): x.numel() * x.element_size()
-            for x in tree_leaves((params, lc_in)) if x.is_cuda}
-    print(f"path H H2: the check's hold on boundary 0's params and LC "
-          f"state during the run: {sum(held.values()) / 2**30:.2f} GiB of "
-          f"the peak", flush=True)
-    serial = lc.c_step(params, tree_map(
-        lambda x: x.clone() if isinstance(x, torch.Tensor) else x, lc_in))
-    for name in side["tasks"]:
-        got, want_ = (tree_leaves((st["tasks"][name]["theta"],
-                                   st["tasks"][name]["a"]))
-                      for st in (side, serial))
-        check(all(torch.equal(a, b) for a, b in zip(got, want_)),
-              f"H2 side-stream Θ of {name} differs from the serial C step")
-    print(f"path H H2: the side stream's C step at boundary 0 equals the "
-          f"serial C step on its snapshot bit for bit "
-          f"({len(side['tasks'])} tasks)", flush=True)
-    paths["H2"] = r2["launches"]
-    del trainer, lc, r2, captured, params, lc_in, side, serial
+        lc.c_step_async = capture
+        r2 = h_run(kern, trainer, "H2 quantize overlapped", power)
+        tw.report("path H H2 (overlapped: each boundary on the side "
+                  "stream)", power)
+        hist = r2["history"]
+        check(hist[-1]["ce"] < hist[0]["ce"], "H2 ce")
+        check(all(abs(h["compression_ratio"] / quant_ratio() - 1) < 1e-12
+                  for h in hist), "H2 ratio")
+        want = only(kern, K1loop=len(H_GROUPS) * len(hist))
+        check(minus(r2["launches"], tw.launches) == want
+              and tw.launches == want,
+              f"H2 launches {r2['launches']} (eager twin {tw.launches})")
+        print(f"path H H2: swap_after_microbatches="
+              f"{[h['swap_after_microbatches'] for h in hist]} "
+              f"dispatch_to_ready_ms="
+              f"{[round(h['c_step_ms'], 2) for h in hist]} (the compiled "
+              f"boundary and its eager twin) [{power}]", flush=True)
+        params, lc_in, side = captured[0]
+        held = {x.data_ptr(): x.numel() * x.element_size()
+                for x in tree_leaves((params, lc_in)) if x.is_cuda}
+        print(f"path H H2: the check's hold on boundary 0's params and LC "
+              f"state during the run: {sum(held.values()) / 2**30:.2f} GiB "
+              f"of the peak", flush=True)
+        # a replay of the serial C step on boundary 0's snapshot
+        serial = lc.c_step(params, tree_map(
+            lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
+            lc_in))
+        for name in side["tasks"]:
+            got, want_ = (tree_leaves((st["tasks"][name]["theta"],
+                                       st["tasks"][name]["a"]))
+                          for st in (side, serial))
+            check(all(torch.equal(a, b) for a, b in zip(got, want_)),
+                  f"H2 side-stream Θ of {name} differs from the serial C "
+                  f"step")
+        print(f"path H H2: the side stream's C step at boundary 0 equals "
+              f"the serial C step (replayed) on its snapshot bit for bit "
+              f"({len(side['tasks'])} tasks)", flush=True)
+        paths["H2"] = r2["launches"]
+        del trainer, lc, r2, captured, params, lc_in, side, serial
     torch.cuda.empty_cache()
 
     # H3: pruning, serial: κ = 5% of the selected weights as one vector;
     # one fused bisection and one K3 a C step (none at init: the scheme's
     # own init, as for H1)
-    trainer = h_trainer(cfg, "prune", 2, 2)
-    kappa = trainer.lc.tasks[0].scheme.kappa
-    check(kappa == int(0.05 * H_WEIGHTS), f"H3 κ {kappa}")
-    r3 = h_prune_run(kern, trainer, "H3 prune serial", power)
-    nnz = r3["nnz"]
-    check(nnz == [kappa] * 2, f"H3 nonzeros per C step {nnz}")
-    ratio = 32.0 * H_WEIGHTS / (kappa * (32 + math.ceil(math.log2(
-        H_WEIGHTS))))
-    check(abs(r3["history"][-1]["compression_ratio"] / ratio - 1) < 1e-12,
-          "H3 ratio")
-    check(r3["launches"] == only(kern, K2loop=2, K3=2),
-          f"H3 launches {r3['launches']}")
-    print(f"path H H3: kappa={kappa} nonzeros={nnz}", flush=True)
-    paths["H3"] = r3["launches"]
-    last = r3["last"]
-    del trainer, r3
+    with twinned(kern) as twins:
+        trainer = h_trainer(cfg, "prune", 3, 2)
+        (tw,) = twins
+        kappa = trainer.lc.tasks[0].scheme.kappa
+        check(kappa == int(0.05 * H_WEIGHTS), f"H3 κ {kappa}")
+        r3 = h_prune_run(kern, trainer, tw, "H3 prune serial", power)
+        nnz = r3["nnz"]
+        check(nnz == [kappa] * 3, f"H3 nonzeros per C step {nnz}")
+        ratio = 32.0 * H_WEIGHTS / (kappa * (32 + math.ceil(math.log2(
+            H_WEIGHTS))))
+        check(abs(r3["history"][-1]["compression_ratio"] / ratio - 1)
+              < 1e-12, "H3 ratio")
+        want = only(kern, K2loop=3, K3=3)
+        check(minus(r3["launches"], tw.launches) == want
+              and tw.launches == want,
+              f"H3 launches {r3['launches']} (eager twin {tw.launches})")
+        print(f"path H H3: kappa={kappa} nonzeros={nnz}", flush=True)
+        paths["H3"] = r3["launches"]
+        last = r3["last"]
+        del trainer, r3
     torch.cuda.empty_cache()
     check_h_prune(k2, last, kappa, "H3", power)
     del last
@@ -2438,13 +2600,12 @@ def main_path_h(kern, k1, k2, power: str) -> dict:
 
 def path_h4(kern, k2, power: str) -> dict:
     """H4: checkpoints and faults at 1 layer (short disk I/O), pruning
-    (the quantization tasks stack layers): a hard failure at step 4
-    outlasts the retries, the trainer restores the step-2 checkpoint and
-    replays from step 3; the run ends equal, bit for bit, to an
-    uninterrupted one (deterministic algorithms on: the embedding's
+    (the quantization tasks stack layers), 3 μ × 3 L steps: a hard
+    failure at step 4 outlasts the retries, the trainer restores the
+    step-2 checkpoint and replays from step 3; the run ends equal, bit
+    for bit, to an uninterrupted one (deterministic algorithms on: the embedding's
     gradient otherwise sums by atomics), and its mid-run checkpoint
     restores onto the card."""
-    import os
     import tempfile
     from repro_torch.runtime import FaultInjector
     from repro_torch.tree import tree_leaves
@@ -2453,10 +2614,12 @@ def path_h4(kern, k2, power: str) -> dict:
     torch.use_deterministic_algorithms(True)
     try:
         (ROOT / "build").mkdir(exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
-            trainer = h_trainer(cfg, "prune", 2, 3, ckpt_dir=d,
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d, \
+                twinned(kern) as twins:
+            trainer = h_trainer(cfg, "prune", 3, 3, ckpt_dir=d,
                                 ckpt_every=2,
                                 faults=FaultInjector({4: 5}))
+            (tw,) = twins
             restores = []
             restore = trainer._restore_state
 
@@ -2467,27 +2630,33 @@ def path_h4(kern, k2, power: str) -> dict:
 
             trainer._restore_state = rec
             r4 = h_run(kern, trainer, "H4 faults + checkpoints", power)
+            tw.report("path H H4 (faults + checkpoints)", power)
             state = r4["state"]
             check(trainer.faults.injected == 5, "H4 faults injected")
             check(restores == [(4, 3)], f"H4 restore (from, to) {restores}")
-            check(int(state["step"]) == 6, "H4 final step")
+            check(int(state["step"]) == 9, "H4 final step")
             steps = trainer.ckpt.steps()
-            check(steps == [2, 4, 6], f"H4 checkpoints {steps}")
+            check(steps == [6, 8, 9], f"H4 checkpoints {steps}")
             t0 = time.time()
-            mid, label = trainer.ckpt.restore(state, step=4)
+            mid, label = trainer.ckpt.restore(state, step=6)
             torch.cuda.synchronize()
             check(all(x.is_cuda for x in tree_leaves(mid)), "H4 on card")
-            check(int(mid["step"]) == 5, f"H4 mid step {int(mid['step'])}")
+            check(int(mid["step"]) == 7, f"H4 mid step {int(mid['step'])}")
             restore_s = time.time() - t0
             n = r4["launches"]
-        clean = h_trainer(cfg, "prune", 2, 3)
-        kappa = clean.lc.tasks[0].scheme.kappa
-        r_clean = h_prune_run(kern, clean, "H4 uninterrupted", power)
+            want = only(kern, K2loop=3, K3=3)
+            check(minus(n, tw.launches) == want and tw.launches == want,
+                  f"H4 launches {n} (eager twin {tw.launches})")
+        with twinned(kern) as twins:
+            clean = h_trainer(cfg, "prune", 3, 3)
+            kappa = clean.lc.tasks[0].scheme.kappa
+            r_clean = h_prune_run(kern, clean, twins[0], "H4 uninterrupted",
+                                  power)
         same = all(torch.equal(a, b) for a, b in zip(
             tree_leaves(state["params"]),
             tree_leaves(r_clean["state"]["params"])))
         check(same, "H4 params differ from the uninterrupted run's")
-        check(r_clean["nnz"] == [kappa] * 2,
+        check(r_clean["nnz"] == [kappa] * 3,
               f"H4 nonzeros per C step {r_clean['nnz']}")
     finally:
         torch.use_deterministic_algorithms(False)
@@ -2511,11 +2680,21 @@ def profile_path_h(kern, power: str) -> None:
     cfg = h_config()
     for overlap, n_lc in (("off", 1), ("on", 2)):
         trainer = h_trainer(cfg, "quantize", n_lc, 1, overlap=overlap)
-        state = trainer.init_state(0)
-        trainer._train_step(state, trainer._batch(0))   # warm
-        state = trainer.init_state(0)
         run = (trainer._run_serial if overlap == "off"
                else trainer._run_overlapped)
+        # warm: the train step, and the compiled driver's captures (two
+        # boundaries of its steps), which a profiler session must not hold
+        state = trainer.init_state(0)
+        trainer._train_step(state, trainer._batch(0))
+        lc, params = trainer.lc, state["params"]
+        lc_state = lc.set_mu(trainer._lc_state, lc.mu_schedule[0], 0)
+        for _ in range(2):
+            lc.shifted_distortion(params, lc_state)
+            new = lc.c_step_async(params, lc_state)
+            lc.shifted_distortion(params, new)
+            lc.distortion(params, lc.multiplier_step_async(params, new))
+        del lc, params, lc_state, new
+        state = trainer.init_state(0)
         device_profile(lambda: run(state, trainer.lc.mu_schedule, 0),
                        f"path H overlap={overlap} ({n_lc} L step(s) of one "
                        f"microbatch, {n_lc} boundary(ies))", power, kern)
@@ -2585,13 +2764,15 @@ def moe_mla_config(arch: str, layers: int):
 
 def serve_path(kern, label: str, cfg, tasks, prompt_len: int,
                power: str, seeds: tuple[int, int], capture=(),
-               to_host: bool = False):
+               to_host: bool = False, for_checks: bool = True):
     """LC init + one C step → bridge → ``Server.generate`` (2 prompts of
     ``prompt_len``, SERVE_GEN new tokens) with every kernel launch
     counted from 0; returns the run's record. ``seeds`` seed the weights
     and the prompts; ``capture`` lists (module, name) of kernel wrappers
     whose calls in the C step are kept for the checks (on the host with
-    ``to_host``)."""
+    ``to_host``). Without ``for_checks`` (the busy shares' processes)
+    the densified model and the group summary that the checks read are
+    not made."""
     from repro_torch.core import LCAlgorithm, flatten_params
     from repro_torch.models import transformer as tf
     from repro_torch.runtime import server as srv
@@ -2603,6 +2784,9 @@ def serve_path(kern, label: str, cfg, tasks, prompt_len: int,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 2**30
+    from repro_torch.kernels import build
+    held_buffers = sum(b.numel() * b.element_size()
+                       for b in build._BUFFERS.values()) / 2**30
     params = tf.init_params(
         torch.Generator(device="cuda").manual_seed(seeds[0]), cfg)
     n_params = sum(t.numel() for t in flatten_params(params).values())
@@ -2613,7 +2797,7 @@ def serve_path(kern, label: str, cfg, tasks, prompt_len: int,
     reset(kern)
     torch.cuda.synchronize()
     t0 = time.time()
-    lc = LCAlgorithm(tasks, [1e-4], device="cuda")
+    lc = LCAlgorithm(tasks, [1e-4], device="cuda")    # jit_c_step=True
     state = lc.init(params)
     torch.cuda.synchronize()
     t_init = time.time() - t0
@@ -2625,6 +2809,10 @@ def serve_path(kern, label: str, cfg, tasks, prompt_len: int,
         state = lc.c_step(params, state)
         torch.cuda.synchronize()
         t_cstep = time.time() - t0
+    # a run with one C step pays for no capture and keeps no graph pool
+    check(lc.programs.graphs and lc.programs.captured == 0
+          and lc.programs.pool_bytes() == 0 and not lc._staged,
+          f"{label}: the one C step captured {lc.programs.captured} graphs")
     t0 = time.time()
     serving, report = srv.load_compressed_for_serving(params, state,
                                                       lc.tasks)
@@ -2655,18 +2843,22 @@ def serve_path(kern, label: str, cfg, tasks, prompt_len: int,
           f"layers, {n_params:,} params): init_s={t_init:.2f} "
           f"c_step_s={t_cstep:.3f} bridge_s={t_bridge:.3f} "
           f"generate_s={t_gen:.3f} ({SERVE_BATCH}x{prompt_len} prompt, "
-          f"{SERVE_GEN} new tokens; CUDA graphs: {captured}) "
+          f"{SERVE_GEN} new tokens; CUDA graphs: {captured}; the LC "
+          f"driver's one C step: no capture) "
           f"init_peak_memory_gib={init_peak:.2f} "
-          f"peak_memory_gib={peak:.2f} (held before the path: {held:.2f}) "
+          f"peak_memory_gib={peak:.2f} (held before the path: {held:.2f}, "
+          f"the kernels' stream buffers {held_buffers:.2f}) "
           f"launches={ {k: v for k, v in n.items() if v} } [{power}]",
           flush=True)
     kinds = {}
     for forms in report.values():
         for f in forms.values():
             kinds[f.split("(")[0]] = kinds.get(f.split("(")[0], 0) + 1
-    dense = srv.densified_for_serving(params, state, lc.tasks)
-    summary = lc.group_summary(params)
-    groups = sum(g["solver"] == "kmeans_lloyd" for g in summary)
+    dense = summary = groups = None
+    if for_checks:
+        dense = srv.densified_for_serving(params, state, lc.tasks)
+        summary = lc.group_summary(params)
+        groups = sum(g["solver"] == "kmeans_lloyd" for g in summary)
     del params
     prompts_t = torch.as_tensor(prompts, device="cuda")
     toks_t = torch.as_tensor(toks, device="cuda")
@@ -2945,7 +3137,7 @@ MODES = ("eager", "graphs")
 #: batch, does not depend on the ticks' times
 SHORT_TRACE = (12, (32, 128), (8, 32))
 #: the busy-share profiles' engine trace (``serving_busy``)
-BUSY_TRACE = (4, (32, 64), (8, 16))
+BUSY_TRACE = (2, (16, 32), (2, 4))
 
 
 def graph_servers(cfg, serving, max_len: int) -> dict:
@@ -3617,7 +3809,7 @@ def main_path_l2(kern, k1, power: str) -> dict:
     """LC training of xlstm-125m on the card: the twin of
     ``examples/train_lm_compress.py`` (``train_lm_compress.make_trainer``
     on the published config, float32, remat): AdamW on ``TokenStream``
-    at 4 × 1024 tokens a step, 2 μ × 3 L steps, serial; per-layer K=16
+    at 4 × 1024 tokens a step, 3 μ × 1 L step, serial; per-layer K=16
     codebooks on wq|wk|wv|up_proj|down_proj|w. Checks the records (finite
     losses, CE falling, the §7 monitor, the reference's compression
     ratio) and exactly one fused Lloyd loop a k-means group each C step,
@@ -3633,8 +3825,11 @@ def main_path_l2(kern, k1, power: str) -> dict:
     check((cfg.name, cfg.d_model, cfg.n_layers, cfg.dtype, cfg.remat)
           == ("xlstm-125m", 768, 12, "float32", True), "L2 config")
     want_groups = l2_groups(cfg)
+    twins_cm = twinned(kern)
+    twins = twins_cm.__enter__()
     trainer = twin.make_trainer(cfg, lc_steps=L2_LC, steps_per_l=L2_STEPS,
                                 batch=L2_BATCH, seq=L2_SEQ, device="cuda")
+    (tw,) = twins
     events = []
     step = trainer._train_step
 
@@ -3652,12 +3847,14 @@ def main_path_l2(kern, k1, power: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset(kern)
     t0 = time.time()
-    with calls_of(kops, "kmeans_lloyd_batched",
-                  len(want_groups) * (L2_LC - 1)) as lloyd:
+    with calls_of(kops, "kmeans_lloyd_batched", 0,
+                  when=tw.in_step(L2_LC)) as lloyd:
         state, _ = trainer.run(0)
     torch.cuda.synchronize()
     wall = time.time() - t0
     n = launches(kern)
+    tw.report("path L2", power)
+    twin_n = dict(tw.launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
     step_ms = [a.elapsed_time(b) for a, b in events]
     hist = trainer.history
@@ -3675,8 +3872,10 @@ def main_path_l2(kern, k1, power: str) -> dict:
     loops = sorted(tuple(a[0].shape) for a, _, _ in lloyd)
     check(loops == want_groups, f"L2 Lloyd loops of the last C step "
           f"{loops} != {want_groups}")
-    check(n == only(kern, K1loop=n_groups * L2_LC),
-          f"L2 launches {n} (want {n_groups} Lloyd loops a C step)")
+    want = only(kern, K1loop=n_groups * L2_LC)
+    check(minus(n, twin_n) == want and twin_n == want,
+          f"L2 launches {n} (want {n_groups} Lloyd loops a C step, and as "
+          f"many of the eager twin: {twin_n})")
     # the reference's ratio: 32 bits a weight against 4-bit indices and a
     # 16-entry f32 codebook an item (one item a layer and matrix stack)
     sizes = [g["items"] * math.prod(g["item_shape"]) for g in groups]
@@ -3698,7 +3897,8 @@ def main_path_l2(kern, k1, power: str) -> dict:
           f"({items} items, {weights:,} weights) peak_memory_gib={peak:.2f} "
           f"launches={ {k: v for k, v in n.items() if v} } [{power}]",
           flush=True)
-    del trainer, state
+    del trainer, state, tw, twins
+    twins_cm.__exit__(None, None, None)
     torch.cuda.empty_cache()
     check_lloyd_at(k1, lloyd, "L2", power)
     return n
@@ -3943,23 +4143,6 @@ def chunks_path(kern, k1, power: str) -> None:
               for t in tasks}
     _chunked_against_one("chunks top-κ", tasks, xs, thetas, 4, kern)
     del xs, thetas
-    # the item-by-item path (path F's w_down scheme, at 1M weights an
-    # item): does its solve take a capture?
-    stamp("compile_group on the item-by-item path")
-    from repro_torch.core.grouping import CaptureError
-    from repro_torch.core.schemes import AdditiveCombination
-    tasks = [CompressionTask(f"a{i}", ".", AsVector(), AdditiveCombination(
-        [ConstraintL0Pruning(10_000), AdaptiveQuantization(k=16)], iters=2))
-        for i in range(2)]
-    xs = {t.name: torch.randn(1 << 20, device="cuda", generator=g)
-          for t in tasks}
-    thetas = {t.name: t.scheme_init(xs[t.name]) for t in tasks}
-    mu = torch.tensor(1e-4, device="cuda")
-    try:
-        captured_against_eager("chunks additive group (item by item)", tasks,
-                               xs, thetas, (mu, mu * 2.0), power)
-    except CaptureError as e:
-        print(f"chunks additive group (item by item): {e}", flush=True)
     stamp("done")
 
 
@@ -3977,7 +4160,7 @@ def busy_path(kern, label: str, power: str) -> None:
         cfg = ssm_config("xlstm-125m")
         tasks, prompt_len, seeds = l1_tasks(cfg), SSM_PROMPT, L1_SEEDS
     run = serve_path(kern, f"{label} (busy shares)", cfg, tasks, prompt_len,
-                     power, seeds)
+                     power, seeds, for_checks=False)
     serving = run["serving"]
     prompts, toks = run["prompts"], run["tokens"]
     del run
@@ -3994,7 +4177,13 @@ def ssm_paths(kern, k1, k2, power: str) -> None:
     peak. ``main`` runs this in a process of its own, last: a profiler
     session after the SSM profile saw 47 of 50 K9 launches, and the
     profiler slows every later launch of its process. The paths'
-    launches end the output as the line ``ssm_launches {json}``."""
+    launches end the output as the line ``ssm_launches {json}``. The
+    chunked groups (``chunks_path``) run first in the same process,
+    before any profiler session."""
+    stamp("chunked groups")
+    chunks_path(kern, k1, power)
+    gc.collect()
+    torch.cuda.empty_cache()
     stamp("path L1")
     path_l1 = main_path_l1(kern, k1, power)
     stamp("path K")
@@ -4006,6 +4195,24 @@ def ssm_paths(kern, k1, k2, power: str) -> None:
         "K": path_k["launches"], "K engine": path_k["engine"],
         "L1": path_l1["launches"], "L1 engine": path_l1["engine"]}),
         flush=True)
+
+
+def lc_paths(kern, k1, k2, power: str) -> None:
+    """``python3 chip_smoke.py --lc``: only the paths whose compiled LC
+    driver runs beside its eager twin (A, B, the LM C step, E, F, H and
+    L2), each as in the full run, with their checks."""
+    for label, run in (("A", lambda: main_path_a(kern, power)),
+                       ("B", lambda: main_path_b(kern, power)),
+                       ("LM", lambda: lm_phase(kern, power)),
+                       ("E", lambda: main_path_e(kern, power)),
+                       ("F", lambda: main_path_f(kern, power)),
+                       ("H", lambda: main_path_h(kern, k1, k2, power)),
+                       ("L2", lambda: main_path_l2(kern, k1, power))):
+        stamp(f"path {label}")
+        run()
+        gc.collect()
+        torch.cuda.empty_cache()
+    stamp("done")
 
 
 def main() -> int:
@@ -4066,11 +4273,14 @@ def main() -> int:
     if sys.argv[1:] == ["--chunks"]:
         chunks_path(kern, k1, power)
         return 0
+    if sys.argv[1:] == ["--lc"]:
+        lc_paths(kern, k1, k2, power)
+        return 0
     t_start = time.time()
     stamp('kernel phase')
     rec = kernel_phase(k1, k2, power)
     frec = fused_phase(k1, k2, power)
-    paths = {"A": main_path_a(kern), "B": main_path_b(kern),
+    paths = {"A": main_path_a(kern, power), "B": main_path_b(kern, power),
              "LM": lm_phase(kern, power)}
     stamp('serving kernels')
     srec = serve_kernel_phase(k45, k6, power)
@@ -4121,7 +4331,7 @@ def main() -> int:
     del path_c
     gc.collect()
     torch.cuda.empty_cache()
-    stamp("paths K and L1")
+    stamp("chunked groups, paths K and L1")
     child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                             "--ssm"], stdout=subprocess.PIPE, text=True,
                            timeout=900)
@@ -4132,15 +4342,6 @@ def main() -> int:
             if x.startswith(SSM_LAUNCHES + " ")]
     check(len(mark) == 1, "paths K and L1 reported no launches")
     paths.update(json.loads(mark[0][len(SSM_LAUNCHES) + 1:]))
-    # a chunked group against its one launch, in a fresh process
-    stamp("chunked groups")
-    child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                            "--chunks"], stdout=subprocess.PIPE, text=True,
-                           timeout=600)
-    print(child.stdout, end="", flush=True)
-    check(child.returncode == 0,
-          f"the process of the chunked groups exited with "
-          f"{child.returncode}")
     # the busy shares of serving, eager and through CUDA graphs, each
     # model in a fresh process (``serving_busy``)
     for label in ("C", "K", "L1"):

@@ -390,15 +390,19 @@ def plan_group(signature, n_items, arrays, out_shapes, *,
 # Executable cache
 # ---------------------------------------------------------------------------
 
-def get_executable(key: tuple, build: Callable[[], Any]):
+def get_executable(key: tuple, build: Callable[[], Any],
+                   cache: dict | None = None):
     """Fetch (or build and insert) the executable for ``key``: ``build``
     runs once per key (``grouping.compile_group``'s captured solve), so
-    repeated LC boundaries hit the cache."""
-    exe = _EXEC_CACHE.get(key)
+    repeated LC boundaries hit the cache. ``cache`` is an owner's own
+    (the LC driver's, whose graphs go with it); the module's by
+    default. Hits and misses are counted either way."""
+    cache = _EXEC_CACHE if cache is None else cache
+    exe = cache.get(key)
     if exe is not None:
         _STATS["exec_hits"] += 1
         return exe
     _STATS["exec_misses"] += 1
     exe = build()
-    _EXEC_CACHE[key] = exe
+    cache[key] = exe
     return exe

@@ -10,12 +10,37 @@ Port of ``src/repro/core/algorithm.py``:
         Θ ← argmin_Θ ‖w − λ/μ − Δ(Θ)‖²                 (C step — schemes)
         λ ← λ − μ(w − Δ(Θ))                            (multipliers)
 
-PyTorch runs eagerly: there is no ``jit`` counterpart and no
-``torch.compile``. Where JAX donates the LC state to the C and multiplier
-steps, the port updates the state's ``a`` and ``λ`` tensors in place:
-a step consumes the state it is given and returns the new one. The
-``*_async`` entry points, which the trainer's overlapped pipeline queues
-on a second CUDA stream, write nothing in place (see ``core/state.py``).
+The JAX driver jits its C step, multiplier step and distortions
+(``jit_c_step=True``, the default of both). The port's counterpart runs
+them as programs of ``repro_torch.graphs`` on one owner a driver (one
+graph pool, one capture stream): CUDA graphs on the card, the same
+programs run eagerly on the CPU. The C step runs each group's packed
+solve through ``core/grouping.py:compile_group`` (one executable a
+group, μ fed as the 0-d tensor ``lc["mu"]``) and each singleton's or
+per-task solve as a program of its own (``CompiledSolves``); packing
+w − λ/μ and scattering Δ(Θ) into ``a`` stay eager. The multiplier step
+and the two distortions are one program each, over the driver's own
+copies of w, λ and ``a`` (written by one multi-tensor copy a call), so
+one graph serves every boundary of a run, serial or overlapped.
+
+Unlike ``jax.jit``, which compiles at the first call, the driver runs
+everything eagerly until its second C step begins (the code of
+``jit_c_step=False``, nothing kept); from then on each solve and step
+runs as its program, captured at its first call (an eager run and the
+capture) and replayed after. A run with one C step (init, a C step,
+then serving) pays for no capture and keeps no graph pool. ``init``
+runs eagerly (once a run: its graph would never be replayed). Results
+equal ``jit_c_step=False`` bit for bit; a solve that a graph cannot take
+raises ``grouping.CaptureError``, nothing falls back.
+
+Where JAX donates the LC state to the C and multiplier steps, the port
+updates the state's ``a`` and ``λ`` tensors in place: a step consumes
+the state it is given and returns the new one. The ``*_async`` entry
+points, which the trainer's overlapped pipeline queues on a second CUDA
+stream, write nothing in place and return new tensors (see
+``core/state.py``); sync and async share their programs, and a
+program's outputs are copied before they are returned.
+
 The C step runs through the group planner by default (``planner="on"``,
 ``repro_torch.analysis.cost``), as the JAX driver's does; its inputs
 w − λ/μ are made group by group (chunk by chunk where the planner splits
@@ -36,11 +61,13 @@ import torch
 
 from repro_torch.core import state as lcstate
 from repro_torch.core.grouping import (
-    describe_groups, grouped_compress, grouped_init, solve_task)
+    CompiledSolves, describe_groups, grouped_compress, grouped_init,
+    solve_and_decompress)
 from repro_torch.core.penalty import lc_penalty
 from repro_torch.core.tasks import (
     CompressionTask, check_disjoint, flatten_params, get_path, set_path)
 from repro_torch.core.views import AsVector
+from repro_torch.graphs import Programs
 from repro_torch.interop import resolve_device
 from repro_torch.kernels.dispatch import REQUESTS
 from repro_torch.tree import tree_leaves, tree_map
@@ -96,7 +123,7 @@ class LCAlgorithm:
                  group_tasks: bool = True,
                  cstep_backend: str | None = "auto",
                  planner: str | None = "on",
-                 device=None):
+                 device=None, jit_c_step: bool = True):
         self.tasks = list(tasks)
         self.mu_schedule = list(mu_schedule)
         self.l_step = l_step
@@ -111,6 +138,24 @@ class LCAlgorithm:
         self.device = resolve_device(device)
         self._resolved = False
         self._last_lc = None
+        # the compiled steps (see the module's note); None: eager
+        self.jit_c_step = bool(jit_c_step)
+        self.release_graphs()
+
+    def release_graphs(self) -> "LCAlgorithm":
+        """Drop every program of the compiled steps, their graphs and
+        their pool (a trainer done with its LC run, before serving); the
+        next calls start the capture policy afresh."""
+        if getattr(self, "programs", None) is not None:
+            self.programs.release_stream_buffers()
+        self.programs = self._compiled = None
+        self._steps: dict = {}
+        self._staged: dict = {}
+        if self.jit_c_step:
+            self.programs = Programs(self.device,
+                                     graphs=self.device.type == "cuda")
+            self._compiled = CompiledSolves(self.programs)
+        return self
 
     @staticmethod
     def _check_backend(backend):
@@ -193,22 +238,21 @@ class LCAlgorithm:
         """{task name: (Θ, Δ(Θ) in the task's view)} of Π(w − λ/μ)."""
         mu = lc["mu"]
         xs = _ShiftedInputs(self.tasks, params, lc)
+        if self._compiled is not None:
+            self._compiled.c_steps += 1
         if self.group_tasks:
             thetas = {t.name: lc["tasks"][t.name]["theta"]
                       for t in self.tasks}
-            results = grouped_compress(self.tasks, xs, thetas, mu,
-                                       backend=self.cstep_backend,
-                                       device=self.device,
-                                       planner=self.planner)
-        else:
-            results = {}
-            for t in self.tasks:
-                theta = solve_task(t, xs[t.name],
-                                   lc["tasks"][t.name]["theta"], mu,
-                                   backend=self.cstep_backend,
-                                   device=self.device)
-                results[t.name] = (theta, t.scheme_decompress(theta))
-        return results
+            return grouped_compress(self.tasks, xs, thetas, mu,
+                                    backend=self.cstep_backend,
+                                    device=self.device,
+                                    planner=self.planner,
+                                    compiled=self._compiled)
+        return {t.name: solve_and_decompress(
+                    t, xs[t.name], lc["tasks"][t.name]["theta"], mu,
+                    backend=self.cstep_backend, device=self.device,
+                    compiled=self._compiled)
+                for t in self.tasks}
 
     @torch.no_grad()
     def c_step(self, params, lc) -> dict:
@@ -256,6 +300,11 @@ class LCAlgorithm:
     @torch.no_grad()
     def multiplier_step(self, params, lc) -> dict:
         """λ ← λ − μ(w − Δ(Θ)) (augmented Lagrangian), λ in place."""
+        new = self._program("multipliers", params, lc)
+        if new is not None:
+            torch._foreach_copy_([lc["tasks"][t.name]["lam"][p]
+                                  for t in self.tasks for p in t.paths], new)
+            return lcstate.with_tasks(lc, lc["tasks"])
         mu = lc["mu"]
         for t in self.tasks:
             ts = lc["tasks"][t.name]
@@ -268,16 +317,46 @@ class LCAlgorithm:
     def multiplier_step_async(self, params, lc) -> dict:
         """:meth:`multiplier_step` into new λ tensors (the old λ is still
         read by the L step in flight), the same values bit for bit."""
-        mu = lc["mu"]
+        new = self._program("multipliers", params, lc)
+        if new is None:
+            new = _multipliers(self.tasks, _by_path(self.tasks, params, lc),
+                               lc["mu"])
+        else:
+            new = _copies(new)
+        it = iter(new)
         new_tasks = {}
         for t in self.tasks:
             ts = lc["tasks"][t.name]
-            lam = {p: ts["lam"][p]
-                   - mu * (get_path(params, p).float() - ts["a"][p])
-                   for p in t.paths}
-            new_tasks[t.name] = lcstate.task_state(ts["theta"], lam,
-                                                   ts["a"])
+            new_tasks[t.name] = lcstate.task_state(
+                ts["theta"], {p: next(it) for p in t.paths}, ts["a"])
         return lcstate.with_tasks(lc, new_tasks)
+
+    def _program(self, name: str, params, lc):
+        """The outputs of the compiled step ``name`` (a graph's own
+        tensors, rewritten at its next replay) on the driver's copies of
+        w, λ and ``a``, or None where the step runs eagerly: with
+        ``jit_c_step=False``, and before the driver's second C step (the
+        capture policy, ``grouping.CompiledSolves``)."""
+        if self._compiled is None or not self._compiled.due():
+            return None
+        prog = self._steps.get(name)
+        if prog is None:
+            prog = self._steps[name] = self.programs.program(
+                _STEPS[name](self.tasks, self.device), held=(1,),
+                name=name)
+        staged = {}
+        by_path = _by_path(self.tasks, params, lc)
+        for kind in _READS[name]:
+            leaves = by_path[kind]
+            bufs = self._staged.setdefault(kind, {})
+            for p, x in leaves.items():
+                if p not in bufs:
+                    bufs[p] = torch.empty(x.shape, dtype=x.dtype,
+                                          device=self.device)
+            torch._foreach_copy_([bufs[p] for p in leaves],
+                                 list(leaves.values()))
+            staged[kind] = bufs
+        return prog(lc["mu"], staged)
 
     def set_mu(self, lc, mu: float, k: int) -> dict:
         return {"tasks": lc["tasks"],
@@ -294,29 +373,23 @@ class LCAlgorithm:
     @torch.no_grad()
     def distortion(self, params, lc) -> dict[str, torch.Tensor]:
         """‖w − Δ(Θ)‖² per task."""
-        out = {}
-        for t in self.tasks:
-            ts = lc["tasks"][t.name]
-            d = torch.zeros((), dtype=torch.float32, device=self.device)
-            for p in t.paths:
-                diff = get_path(params, p).float() - ts["a"][p]
-                d = d + torch.sum(diff * diff)
-            out[t.name] = d
-        return out
+        return self._per_task("distortion", params, lc)
 
     @torch.no_grad()
     def shifted_distortion(self, params, lc) -> dict[str, torch.Tensor]:
         """‖(w − λ/μ) − Δ(Θ)‖² per task — the exact C-step objective. A
         warm-started C step never increases it at fixed (w, λ, μ): the
         paper §7 monitor."""
-        out = {}
-        mu = lc["mu"]
-        for t in self.tasks:
-            ts = lc["tasks"][t.name]
-            x = t.shifted_compressible(params, ts, mu).float()
-            a = t.view.to_compressible([ts["a"][p] for p in t.paths])
-            out[t.name] = torch.sum((x - a) ** 2)
-        return out
+        return self._per_task("shifted distortion", params, lc)
+
+    def _per_task(self, name: str, params, lc) -> dict[str, torch.Tensor]:
+        out = self._program(name, params, lc)
+        if out is None:
+            out = _STEPS[name](self.tasks, self.device)(
+                lc["mu"], _by_path(self.tasks, params, lc))
+        else:
+            out = out.clone()
+        return {t.name: out[i] for i, t in enumerate(self.tasks)}
 
     def constraint_violation(self, params, lc) -> torch.Tensor:
         """‖w − Δ(Θ)‖ over all tasks — the convergence monitor."""
@@ -390,3 +463,69 @@ class LCAlgorithm:
                     self.constraint_violation(params, lc)) < tol:
                 break
         return train_state, lc, history
+
+
+# ----------------------------------------------------------------------
+# the steps after the C step, as functions of w, λ and a by path: the
+# eager methods call them on the caller's tensors, the compiled ones on
+# the driver's copies (closures over the tasks, never over the driver,
+# so that dropping the driver frees its graphs at once)
+# ----------------------------------------------------------------------
+def _by_path(tasks, params, lc) -> dict:
+    """{"w": …, "lam": …, "a": …}, each {param path: tensor}."""
+    out = {"w": {}, "lam": {}, "a": {}}
+    for t in tasks:
+        ts = lc["tasks"][t.name]
+        for p in t.paths:
+            out["w"][p] = get_path(params, p)
+            out["lam"][p] = ts["lam"][p]
+            out["a"][p] = ts["a"][p]
+    return out
+
+
+def _multipliers(tasks, x: dict, mu) -> list[torch.Tensor]:
+    """λ − μ(w − Δ(Θ)) for every path, in task and path order."""
+    return [x["lam"][p] - mu * (x["w"][p].float() - x["a"][p])
+            for t in tasks for p in t.paths]
+
+
+def _distortions(tasks, device):
+    def run(mu, x):
+        out = []
+        for t in tasks:
+            d = torch.zeros((), dtype=torch.float32, device=device)
+            for p in t.paths:
+                diff = x["w"][p].float() - x["a"][p]
+                d = d + torch.sum(diff * diff)
+            out.append(d)
+        return torch.stack(out)
+    return run
+
+
+def _shifted_distortions(tasks, device):
+    def run(mu, x):
+        out = []
+        for t in tasks:
+            w = t.shifted_of([x["w"][p] for p in t.paths], x["lam"],
+                             mu).float()
+            a = t.view.to_compressible([x["a"][p] for p in t.paths])
+            out.append(torch.sum((w - a) ** 2))
+        return torch.stack(out)
+    return run
+
+
+def _copies(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    out = [torch.empty_like(x) for x in tensors]
+    torch._foreach_copy_(out, tensors)
+    return out
+
+
+#: what each compiled step reads of w, λ and a
+_READS = {"multipliers": ("w", "lam", "a"), "distortion": ("w", "a"),
+          "shifted distortion": ("w", "lam", "a")}
+_STEPS = {
+    "multipliers": lambda tasks, device: (
+        lambda mu, x: _multipliers(tasks, x, mu)),
+    "distortion": _distortions,
+    "shifted distortion": _shifted_distortions,
+}

@@ -40,8 +40,10 @@ transient working set is a chunk's. Each chunk launches with its group's
 partition (``kernels/build.py:group_partition``), so a chunked solve
 equals the one launch bit for bit. :func:`compile_group` captures a
 group's packed solve as a CUDA graph, once per group signature
-(``cost.get_executable``), μ fed as a 0-d device tensor. The JAX
-package's mesh sharding is not ported.
+(``cost.get_executable``), μ fed as a 0-d device tensor; the LC driver's
+compiled C step (``LCAlgorithm(jit_c_step=True)``) runs its groups so,
+and its singletons and per-task solves as programs of their own, through
+:class:`CompiledSolves`. The JAX package's mesh sharding is not ported.
 """
 from __future__ import annotations
 
@@ -50,7 +52,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.core.schemes.base import (
-    add_leading_axis, drop_leading_axis, map_items, pack_thetas,
+    add_leading_axis, cat_items, drop_leading_axis, map_items, pack_thetas,
     pack_thetas_padded, slice_theta_like, unpack_thetas)
 from repro_torch.core.tasks import CompressionTask
 from repro_torch.tree import tree_leaves, tree_map
@@ -290,7 +292,7 @@ def _group_operands(group: Sequence[CompressionTask], counts: list[int],
     operand."""
     per_task = [t.scheme.batch_operands(n, device)
                 for t, n in zip(group, counts)]
-    operands = tuple(torch.cat(parts, dim=0) for parts in zip(*per_task))
+    operands = tuple(cat_items(parts) for parts in zip(*per_task))
     if group[0].scheme.wants_key:
         operands = operands + (_packed_keys(group, counts),)
     return operands
@@ -389,7 +391,8 @@ def solve_task(task: CompressionTask, x, theta, mu,
 
 def grouped_compress(tasks: Sequence[CompressionTask], xs: dict,
                      thetas: dict, mu, backend: str | None = None,
-                     device=None, planner: str | None = None) -> dict:
+                     device=None, planner: str | None = None,
+                     compiled: "CompiledSolves | None" = None) -> dict:
     """One C step over all tasks with grouped dispatch → ``{task_name:
     (new_theta, a_arr)}``, ``a_arr`` the decompressed Δ(Θ) in the task's
     compressible shape.
@@ -403,7 +406,9 @@ def grouped_compress(tasks: Sequence[CompressionTask], xs: dict,
     implementations, oversized groups split into launches over item
     slices. Results are bit-identical to ``planner=None`` (the planner
     resolves the static rule's backend, and chunks equal the one
-    launch); plans are cached, so repeated boundaries replan nothing."""
+    launch); plans are cached, so repeated boundaries replan nothing.
+    ``compiled`` (the LC driver's :class:`CompiledSolves`) runs each
+    solve as a program once it is due, with the same result."""
     shapes = {t.name: _meta(xs[t.name]) for t in tasks}
     out = {}
     for group in build_groups(tasks, shapes, backend=backend, device=device):
@@ -411,9 +416,9 @@ def grouped_compress(tasks: Sequence[CompressionTask], xs: dict,
             # singleton: per-task path (also the non-groupable fallback),
             # kernel-dispatched when the scheme opts in
             t = group[0]
-            theta = solve_task(t, xs[t.name], thetas[t.name], mu,
-                               backend=backend, device=device)
-            out[t.name] = (theta, t.scheme_decompress(theta))
+            out[t.name] = solve_and_decompress(t, xs[t.name],
+                                               thetas[t.name], mu, backend,
+                                               device, compiled)
             continue
 
         # equal batched signature ⇒ same class and batch_key; operand-
@@ -430,10 +435,16 @@ def grouped_compress(tasks: Sequence[CompressionTask], xs: dict,
             solver_fn = _apply_plan(scheme, solver_fn, plan, dev)
         warm, thetas_lead = _pack_warm(group, thetas, counts, solver_fn,
                                        dev)
-        parts = _run_group_solve(
-            _group_solve(scheme, solver_fn, mu),
-            (_item_packer(group, xs, counts),) + warm, sum(counts),
-            n_chunks)
+        items, n_items = _item_packer(group, xs, counts), sum(counts)
+        exe = None if compiled is None else compiled.group(
+            group, shapes, counts, warm, solver_fn, n_chunks, backend, dev)
+        if exe is not None:
+            arrays = (items(0, n_items),) + warm
+            parts = [(0, n_items, exe(mu, *arrays))]
+            del arrays
+        else:
+            parts = _run_group_solve(_group_solve(scheme, solver_fn, mu),
+                                     (items,) + warm, n_items, n_chunks)
         for t, (th, a), old in zip(group, _task_results(parts, counts),
                                    thetas_lead):
             if solver_fn is not None:
@@ -448,14 +459,39 @@ def grouped_compress(tasks: Sequence[CompressionTask], xs: dict,
 
 
 class CaptureError(RuntimeError):
-    """A group solve that a CUDA graph cannot take (a host sync, a
-    generator seeded inside the solve, a host-to-device copy)."""
+    """A solve that a CUDA graph cannot take (a host sync, a generator
+    seeded inside the solve, a host-to-device copy)."""
+
+
+#: the capture policy of :class:`CompiledSolves`: the driver's C step
+#: from which its solves and steps run as programs (before it, eagerly)
+CAPTURE_AT = 2
+
+
+def _run_program(programs, program, args, what: str):
+    """``program(*args)`` with its outputs copied when they are a graph's
+    (a replay rewrites them in place); a failed capture raises
+    :class:`CaptureError` naming ``what``."""
+    first = program._key(args) not in program._graphs
+    try:
+        out = program(*args)
+    except RuntimeError as e:
+        if programs.graphs and first:
+            raise CaptureError(f"{what}: its solve cannot be captured as a "
+                               f"CUDA graph: {e}") from e
+        raise
+    if programs.graphs:
+        # one copy a tensor (pruning's Θ is its Δ(Θ))
+        copies: dict = {}
+        out = tree_map(lambda x: copies.setdefault(id(x), x.clone()), out)
+    return out
 
 
 class GroupExecutable:
     """:func:`compile_group`'s executable: one group's packed solve as a
     program of ``repro_torch.graphs`` (a CUDA graph on the card, captured
-    at the first call and replayed after; eager on the CPU).
+    at the first call and replayed after; eager on the CPU), on
+    ``programs`` (its own when None).
 
     ``exe(mu, *arrays)`` → ``(packed Θ, packed Δ items)``, new tensors,
     equal bit for bit to :func:`grouped_compress` at the same μ (a 0-d
@@ -469,12 +505,13 @@ class GroupExecutable:
     nothing falls back to the eager path."""
 
     def __init__(self, scheme, solver_fn, n_items: int, n_chunks: int,
-                 device):
+                 device, programs=None):
         from repro_torch.graphs import Programs
         from repro_torch.kernels.lowrank.lowrank import held_sketches
         self.scheme = scheme
         self.device = torch.device(device)
-        self.programs = Programs(self.device)
+        self.programs = (programs if programs is not None
+                         else Programs(self.device))
         self.sketches: dict = {}
         template = self._template = []
         sketches = self.sketches
@@ -504,21 +541,64 @@ class GroupExecutable:
             seeds, arrays = tuple(arrays[-1].tolist()), arrays[:-1]
         self._template[:] = [tree_map(lambda _: None, arrays)]
         mu = torch.as_tensor(mu, dtype=torch.float32, device=self.device)
-        args = (mu, seeds, *tree_leaves(arrays))
-        first = self.program._key(args) not in self.program._graphs
-        try:
-            out = self.program(*args)
-        except RuntimeError as e:
-            if self.programs.graphs and first:
-                solver = self.scheme.solver or "item-by-item"
-                raise CaptureError(
-                    f"{self.scheme.name} ({solver}): its group solve cannot "
-                    f"be captured as a CUDA graph: {e}") from e
-            raise
-        if self.programs.graphs:
-            # a replay rewrites the graph's outputs in place
-            out = tree_map(torch.clone, out)
-        return out
+        what = f"{self.scheme.name} ({self.scheme.solver or 'item-by-item'})"
+        return _run_program(self.programs, self.program,
+                            (mu, seeds, *tree_leaves(arrays)), what)
+
+
+class TaskExecutable:
+    """One task's C solve as a program on ``programs``: ``exe(x, Θ, mu)``
+    → ``(Θ, Δ(Θ))``, new tensors, equal bit for bit to
+    :func:`solve_task` and ``scheme_decompress`` on the same inputs. The
+    input, the part of Θ its solve reads (``scheme.warm_start``) and μ
+    are fed; sketches are held as in :class:`GroupExecutable`."""
+
+    def __init__(self, task: CompressionTask, backend, device, programs):
+        from repro_torch.kernels.lowrank.lowrank import held_sketches
+        self.task = task
+        self.device = torch.device(device)
+        self.programs = programs
+        template = self._template = []
+        sketches: dict = {}
+
+        def run(mu, x, *leaves):
+            it = iter(leaves)
+            theta = tree_map(lambda _: next(it), template[0])
+            with held_sketches(sketches):
+                theta = solve_task(task, x, theta, mu, backend=backend,
+                                   device=device)
+                return theta, task.scheme_decompress(theta)
+
+        self.program = programs.program(run, name=f"task solve {task.name}")
+
+    def __call__(self, x, theta, mu):
+        warm = self.task.scheme.warm_start(theta)
+        self._template[:] = [tree_map(lambda _: None, warm)]
+        mu = torch.as_tensor(mu, dtype=torch.float32, device=self.device)
+        scheme = self.task.scheme
+        what = (f"{self.task.name}: {scheme.name} "
+                f"({scheme.solver or 'item-by-item'})")
+        return _run_program(self.programs, self.program,
+                            (mu, x, *tree_leaves(warm)), what)
+
+
+def _solver_id(solver_fn) -> str | None:
+    if solver_fn is None:
+        return None
+    return getattr(solver_fn, "__qualname__", None) or repr(solver_fn)
+
+
+def _exec_key(group, shapes: dict, arrays, solver_fn, n_chunks: int,
+              backend, dev) -> tuple:
+    """An executable's cache key: its plan key (the packed shapes) with
+    the solver implementation and the chunks it runs."""
+    from repro_torch.analysis import cost
+    t0 = group[0]
+    sig = t0.group_signature(shapes[t0.name], batched=solver_fn is not None)
+    return (("exec",) + cost.plan_key(sig, int(arrays[0].shape[0]), arrays,
+                                      str(backend),
+                                      cost.detect_hardware(dev))
+            + (_solver_id(solver_fn), int(n_chunks)))
 
 
 def compile_group(group: Sequence[CompressionTask], xs: dict,
@@ -530,32 +610,95 @@ def compile_group(group: Sequence[CompressionTask], xs: dict,
     tensor (not baked into the program), so ONE capture serves every LC
     boundary; call the returned :class:`GroupExecutable` as
     ``exe(mu, *arrays)`` → ``(packed_theta, packed_items)``. Executables
-    are cached in ``repro_torch.analysis.cost`` on the same key as plans
-    (``cost.cache_stats()`` counts ``exec_hits`` / ``exec_misses``).
-    ``plan`` (a ``GroupPlan``) runs the planner's choices: its backend
-    and its chunks. A singleton group runs as a 1-task group.
+    are cached in ``repro_torch.analysis.cost`` on the plan key with the
+    solver and its chunks (``cost.cache_stats()`` counts ``exec_hits`` /
+    ``exec_misses``). ``plan`` (a ``GroupPlan``) runs the planner's
+    choices: its backend and its chunks. A singleton group runs as a
+    1-task group.
 
     ``xs``/``thetas`` hold the group's tensors (packing runs eagerly).
     Returns ``(executable, arrays)``.
     """
     from repro_torch.analysis import cost
-    t0 = group[0]
-    scheme = t0.scheme
+    scheme = group[0].scheme
     dev = _device_of(xs, group, device)
     solver_fn, _ = _task_solver(scheme, backend, dev)
     n_chunks = 1
     if plan is not None:
         n_chunks = plan.n_chunks
         solver_fn = _apply_plan(scheme, solver_fn, plan, dev)
-    sig = t0.group_signature(xs[t0.name], batched=solver_fn is not None)
     counts = [t.view.item_count(xs[t.name]) for t in group]
-    n_items = sum(counts)
     arrays = _pack_group(group, xs, thetas, counts, solver_fn, dev)[0]
-    key = ("exec",) + cost.plan_key(sig, n_items, arrays, str(backend),
-                                    cost.detect_hardware(dev))
+    key = _exec_key(group, xs, arrays, solver_fn, n_chunks, backend, dev)
     exe = cost.get_executable(key, lambda: GroupExecutable(
-        scheme, solver_fn, n_items, n_chunks, dev))
+        scheme, solver_fn, sum(counts), n_chunks, dev))
     return exe, arrays
+
+
+class CompiledSolves:
+    """The C-step solves of one LC driver as programs on its ``programs``
+    (``LCAlgorithm(jit_c_step=True)``): a multi-task group's packed solve
+    as a :class:`GroupExecutable` (one a group, cached on its
+    :func:`compile_group` key in ``executables``), a singleton's or a
+    per-task solve (``group_tasks=False``) as a
+    :class:`TaskExecutable`.
+
+    The capture policy: until the driver's C step number
+    :data:`CAPTURE_AT` begins (``c_steps`` counts them), its solves and
+    steps run eagerly, as ``jit_c_step=False`` runs them (nothing is
+    packed whole, nothing captured); from then on each runs as its
+    program, which on the card runs it eagerly and captures it at its
+    first call (the call's result is the eager run's) and replays it
+    after. A run with one C step captures nothing."""
+
+    def __init__(self, programs):
+        self.programs = programs
+        self.c_steps = 0
+        self.executables: dict = {}
+        self.tasks: dict = {}
+
+    def due(self) -> bool:
+        """Whether the solves and steps run as programs now."""
+        return self.c_steps >= CAPTURE_AT
+
+    def group(self, group, shapes: dict, counts: list[int], warm: tuple,
+              solver_fn, n_chunks: int, backend, dev):
+        """The group's executable when its solve is due to run as a
+        program, else None (the caller runs it eagerly)."""
+        from repro_torch.analysis import cost
+        if not self.due():
+            return None
+        items = _item_packer(group, shapes, counts)(0, sum(counts))
+        key = _exec_key(group, shapes, (items,) + warm, solver_fn,
+                        n_chunks, backend, dev)
+        return cost.get_executable(key, lambda: GroupExecutable(
+            group[0].scheme, solver_fn, sum(counts), n_chunks, dev,
+            programs=self.programs), cache=self.executables)
+
+    def task(self, task: CompressionTask, backend, device):
+        """The task's executable when its solve is due to run as a
+        program, else None."""
+        if not self.due():
+            return None
+        key = (task.name, str(backend))
+        exe = self.tasks.get(key)
+        if exe is None:
+            exe = self.tasks[key] = TaskExecutable(task, backend, device,
+                                                   self.programs)
+        return exe
+
+
+def solve_and_decompress(task: CompressionTask, x, theta, mu,
+                         backend: str | None = None, device=None,
+                         compiled: CompiledSolves | None = None):
+    """``(Θ, Δ(Θ))`` of one task's C solve (:func:`solve_task`), through
+    ``compiled``'s program once it is due."""
+    exe = None if compiled is None else compiled.task(task, backend,
+                                                      device)
+    if exe is not None:
+        return exe(x, theta, mu)
+    theta = solve_task(task, x, theta, mu, backend=backend, device=device)
+    return theta, task.scheme_decompress(theta)
 
 
 def grouped_init(tasks: Sequence[CompressionTask], xs: dict) -> dict:

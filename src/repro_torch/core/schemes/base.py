@@ -150,9 +150,21 @@ def drop_leading_axis(theta: Theta) -> Theta:
     return tree_map(lambda x: x[0], theta)
 
 
+def cat_items(xs, trail=None) -> torch.Tensor:
+    """``torch.cat`` along axis 0, or for meta tensors (the planner's
+    shapes) the empty result directly: the meta ``cat`` is a Python
+    decomposition whose first call imports ``torch._dynamo`` (seconds
+    in a fresh process)."""
+    if xs[0].is_meta:
+        trail = tuple(xs[0].shape[1:]) if trail is None else trail
+        return torch.empty((sum(x.shape[0] for x in xs), *trail),
+                           dtype=xs[0].dtype, device="meta")
+    return torch.cat(xs, dim=0)
+
+
 def pack_thetas(thetas: list[Theta]) -> Theta:
     """Concatenate Θ trees (each with a leading item axis) along axis 0."""
-    return tree_map(lambda *xs: torch.cat(xs, dim=0), *thetas)
+    return tree_map(lambda *xs: cat_items(xs), *thetas)
 
 
 def pack_thetas_padded(thetas: list[Theta]) -> Theta:
@@ -164,6 +176,8 @@ def pack_thetas_padded(thetas: list[Theta]) -> Theta:
     def cat(*xs):
         trail = tuple(max(x.shape[1 + d] for x in xs)
                       for d in range(xs[0].ndim - 1))
+        if xs[0].is_meta:
+            return cat_items(xs, trail)
 
         def pad(x):
             widths = [t - s for s, t in zip(x.shape[1:], trail)]

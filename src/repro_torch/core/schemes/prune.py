@@ -23,9 +23,10 @@ def topk_magnitude_mask(w: torch.Tensor, kappa: int) -> torch.Tensor:
     unstable, so neither is used."""
     a = w.reshape(-1).float().abs()
     idx = torch.argsort(-a, stable=True)[:min(int(kappa), a.numel())]
+    # index_fill_ takes its value as a scalar argument: no host tensor
+    # is copied to the device (which a CUDA graph cannot capture)
     mask = torch.zeros(a.shape, dtype=torch.bool, device=w.device)
-    mask[idx] = True
-    return mask.reshape(w.shape)
+    return mask.index_fill_(0, idx, True).reshape(w.shape)
 
 
 def project_l1_ball(w: torch.Tensor, radius: float) -> torch.Tensor:
@@ -50,6 +51,12 @@ def _threshold(num: float, mu) -> torch.Tensor | float:
     if isinstance(mu, torch.Tensor):
         return torch.full_like(mu, num, dtype=torch.float32) / mu
     return num / mu
+
+
+def _cut_warm_start(self, theta):
+    """Pruning's solves read nothing of the previous Θ: the dense θ, as
+    large as the weights, is not packed (cut to zero width)."""
+    return {k: v[..., :0] for k, v in theta.items()}
 
 
 class ConstraintL0Pruning(CompressionScheme):
@@ -87,6 +94,8 @@ class ConstraintL0Pruning(CompressionScheme):
     def compress_batched(self, solve, w, theta, operands, mu=None):
         (kappa,) = operands
         return {"theta": solve(w, kappa)}
+
+    warm_start = _cut_warm_start
 
     def decompress(self, theta):
         return theta["theta"]
@@ -127,6 +136,8 @@ class ConstraintL1Pruning(CompressionScheme):
         (radius,) = operands
         return {"theta": solve(w, radius)}
 
+    warm_start = _cut_warm_start
+
     def decompress(self, theta):
         return theta["theta"]
 
@@ -155,6 +166,8 @@ class PenaltyL0Pruning(CompressionScheme):
         t = _threshold(2.0 * self.alpha, mu)
         t = torch.sqrt(t) if isinstance(t, torch.Tensor) else math.sqrt(t)
         return {"theta": torch.where(w.abs() > t, w, 0.0)}
+
+    warm_start = _cut_warm_start
 
     def decompress(self, theta):
         return theta["theta"]
@@ -196,6 +209,8 @@ class PenaltyL1Pruning(CompressionScheme):
         assert mu is not None, "penalty pruning needs μ"
         (alpha,) = operands
         return {"theta": solve(w, alpha, mu)}
+
+    warm_start = _cut_warm_start
 
     def decompress(self, theta):
         return theta["theta"]

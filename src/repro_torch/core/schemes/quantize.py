@@ -88,8 +88,8 @@ def quantile_init(w: torch.Tensor, k: int) -> torch.Tensor:
     Computed from a sort: ``torch.quantile`` refuses inputs of more than
     2^24 elements, and LM items hold more."""
     a = torch.sort(w.float(), dim=-1).values
-    n = torch.tensor(float(a.shape[-1]), dtype=torch.float32,
-                     device=a.device)
+    n = torch.full((), float(a.shape[-1]), dtype=torch.float32,
+                   device=a.device)
     q = (torch.arange(k, dtype=torch.float32, device=a.device) + 0.5) / k
     q = q * (n - 1)
     low, high = torch.floor(q), torch.ceil(q)
@@ -190,7 +190,7 @@ class Binarize(CompressionScheme):
         w = w.float()
         sign = torch.where(w >= 0, 1, -1).to(torch.int8)
         scale = (w.abs().mean() if self.scaled
-                 else torch.tensor(1.0, device=w.device))
+                 else torch.ones((), device=w.device))
         return {"sign": sign, "scale": scale}
 
     def decompress(self, theta):
@@ -222,8 +222,12 @@ class Ternarize(CompressionScheme):
                                device=w.device)
         gain = csum ** 2 / s_range
         s_star = torch.argmax(gain)
-        c = csum[s_star] / (s_star.float() + 1.0)
-        thresh = a_sorted[s_star]  # keep |w| >= a_sorted[s*] (s*+1 items)
+        # gathered on the device: indexing by a 0-d tensor reads it on
+        # the host, which a CUDA graph cannot capture
+        at = s_star.reshape(1)
+        c = csum.index_select(0, at)[0] / (s_star.float() + 1.0)
+        # keep |w| >= a_sorted[s*] (s*+1 items)
+        thresh = a_sorted.index_select(0, at)[0]
         sign = torch.where(a >= thresh, torch.where(w >= 0, 1, -1), 0)
         return {"sign": sign.to(torch.int8), "scale": c}
 
@@ -276,7 +280,7 @@ def optimal_codebook_dp(w: torch.Tensor, k: int, bins: int = 2048):
         args.append(tot.argmin(dim=0))
 
     # backtrack the split points from j = B (tensor indices: no host sync)
-    j = torch.tensor(bins, device=dev)
+    j = torch.full((), bins, dtype=torch.int64, device=dev)
     js = [j]
     for lvl in range(k - 2, -1, -1):
         j = args[lvl][j]

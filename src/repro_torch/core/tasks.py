@@ -87,8 +87,12 @@ class CompressionTask:
 
     def shifted_compressible(self, params, task_state, mu):
         """x = view(w − λ/μ) — the C-step input (paper Fig. 2)."""
-        leaves = self.leaves(params)
-        shifted = [l.float() - task_state["lam"][p] / mu
+        return self.shifted_of(self.leaves(params), task_state["lam"], mu)
+
+    def shifted_of(self, leaves: list, lam: dict, mu):
+        """:meth:`shifted_compressible` of the task's parameter
+        ``leaves`` (in path order) and multipliers ``lam`` by path."""
+        shifted = [l.float() - lam[p] / mu
                    for p, l in zip(self.paths, leaves)]
         return self.view.to_compressible(
             [s.to(l.dtype) for s, l in zip(shifted, leaves)])

@@ -271,6 +271,13 @@ class Programs:
         return build.stream_buffers(self.device.index,
                                     self.stream.cuda_stream)
 
+    def release_stream_buffers(self) -> None:
+        """Let go of the kernels' buffers of the capture stream (the
+        graphs keep theirs): an owner done with its graphs."""
+        if self.graphs:
+            build.drop_stream_buffers(self.device.index,
+                                      self.stream.cuda_stream)
+
     def pool_bytes(self) -> int:
         """Bytes that the caching allocator holds in this owner's graph
         pool (``torch.cuda.memory_snapshot``'s segments of the pool)."""

@@ -138,6 +138,14 @@ def stream_buffer(name: str, device_index: int, stream: int, n: int,
     return buf
 
 
+def drop_stream_buffers(device_index: int, stream: int) -> None:
+    """Let go of every buffer held for card ``device_index``'s stream
+    ``stream`` (an owner done with its capture stream): a graph captured
+    on it keeps its own; the next launch on the stream makes new ones."""
+    for key in [k for k in _BUFFERS if k[1:] == (device_index, stream)]:
+        del _BUFFERS[key]
+
+
 def stream_buffers(device_index: int, stream: int) -> list[torch.Tensor]:
     """Every buffer that :func:`stream_buffer` holds for card
     ``device_index``'s stream ``stream``."""

@@ -368,7 +368,10 @@ class LCTrainer:
                 state = self._apply_pending(
                     state, block=True, done=self.tcfg.steps_per_l)
 
-            # ---- LC boundary k: queue everything, wait for nothing
+            # ---- LC boundary k: queue everything, wait for nothing. One
+            # boundary at a time: the driver's compiled steps replay the
+            # graphs of one owner, which never run twice at once
+            assert self._pending is None, "two LC boundaries in flight"
             params = state["params"]
             t_dispatch = time.time()
             with self._on_side():

@@ -1073,3 +1073,158 @@ def test_two_replays_equal_two_eager_calls_on_card(gen, bits):
                               prog.owner.stream.cuda_stream)]
     assert any(b is tickets for b in prog.owner.stream_buffers())
     assert not tickets.any()
+
+
+# ----------------------------------------------------------------------
+# the compiled LC driver (LCAlgorithm(jit_c_step=True)) on the card
+# ----------------------------------------------------------------------
+def _all_families():
+    """Two tasks of every scheme family (the item-by-item Binarize,
+    Ternarize, PenaltyL0Pruning and AdditiveCombination included) and two
+    singletons, with their weights: the CPU file
+    ``tests/test_torch_lc_compiled.py`` holds the same families to the
+    JAX package."""
+    from repro_torch.core import AsIs, AsStacked, CompressionTask
+    from repro_torch.core import schemes as ts
+    families = {
+        "quant": (lambda i: ts.AdaptiveQuantization(k=(16, 4)[i],
+                                                    iters=10), "vector"),
+        "l0": (lambda i: ts.ConstraintL0Pruning(kappa=(2_000, 500)[i]),
+               "vector"),
+        "l1": (lambda i: ts.ConstraintL1Pruning(kappa=40.0), "vector"),
+        "l1-penalty": (lambda i: ts.PenaltyL1Pruning(alpha=2e-4),
+                       "vector"),
+        "lowrank": (lambda i: ts.LowRank(target_rank=8), "matrix"),
+        "rank-selection": (lambda i: ts.RankSelection(alpha=1e-4,
+                                                      max_rank=16),
+                           "matrix"),
+        "binarize": (lambda i: ts.Binarize(), "vector"),
+        "ternarize": (lambda i: ts.Ternarize(), "vector"),
+        "l0-penalty": (lambda i: ts.PenaltyL0Pruning(alpha=1e-4),
+                       "vector"),
+        "additive": (lambda i: ts.AdditiveCombination(
+            [ts.ConstraintL0Pruning(kappa=1_000),
+             ts.AdaptiveQuantization(k=4, iters=5)], iters=2), "vector"),
+    }
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tasks, params = [], {}
+    for f, (make, domain) in families.items():
+        shape = (3, 128, 96) if domain == "matrix" else (3, 20_000)
+        for i in range(2):
+            tasks.append(CompressionTask(f"{f}{i}", f"^{f}{i}$",
+                                         AsStacked(domain), make(i)))
+            params[f"{f}{i}"] = torch.randn(shape, device="cuda",
+                                            generator=g)
+    tasks.append(CompressionTask("solo-quant", "^solo-quant$",
+                                 AsStacked("vector"),
+                                 ts.AdaptiveQuantization(k=8, iters=10)))
+    params["solo-quant"] = torch.randn((2, 7_000), device="cuda",
+                                       generator=g)
+    tasks.append(CompressionTask("solo-lowrank", "^solo-lowrank$", AsIs(),
+                                 ts.LowRank(target_rank=12)))
+    params["solo-lowrank"] = torch.randn((160, 96), device="cuda",
+                                         generator=g)
+    return tasks, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group_tasks", [True, False],
+                         ids=["grouped", "per-task"])
+def test_compiled_driver_captures_every_family_on_card(gen, group_tasks):
+    """Four boundaries of every family's C step, multiplier step and
+    distortions through the compiled driver against ``jit_c_step=False``
+    bit for bit: the first eager, the second captured, the third and
+    fourth (two μ) replayed; one graph a solve and a step, none after the
+    second boundary; the same launches."""
+    from repro_torch.analysis import cost
+    from repro_torch.core import LCAlgorithm
+    from repro_torch.tree import tree_leaves
+    cost.clear_caches()
+    tasks, params = _all_families()
+    mus = [1e-3, 2e-3, 4e-3, 8e-3]
+    runs = {}
+    for jit in (True, False):
+        algo = LCAlgorithm(tasks, mus, group_tasks=group_tasks,
+                           device="cuda", jit_c_step=jit)
+        lc = algo.init(params)
+        rec, captured = [], []
+        for k, mu in enumerate(mus):
+            lc = algo.set_mu(lc, mu, k)
+            before = (k1.LLOYD.launches, k2.TOPK.launches)
+            pre = algo.shifted_distortion(params, lc)
+            lc = algo.c_step(params, lc)
+            post = algo.shifted_distortion(params, lc)
+            lc = algo.multiplier_step(params, lc)
+            dist = algo.distortion(params, lc)
+            torch.cuda.synchronize()
+            rec.append(([x.clone() for x in tree_leaves(
+                (pre, post, dist, lc["tasks"]))],
+                (k1.LLOYD.launches - before[0],
+                 k2.TOPK.launches - before[1])))
+            if jit:
+                captured.append(algo.programs.captured)
+        runs[jit] = (rec, captured, algo)
+    (got, captured, algo), (want, _, _) = runs[True], runs[False]
+    for k, ((g, gn), (w, wn)) in enumerate(zip(got, want)):
+        assert gn == wn, (k, gn, wn)
+        assert len(g) == len(w)
+        for x, y in zip(g, w):
+            assert torch.equal(x, y), k
+    assert captured[0] == 0 and captured[1] > 3
+    assert captured[1] == captured[2] == captured[3]
+    assert algo.programs.graphs and algo.programs.pool_bytes() > 0
+    cost.clear_caches()
+
+
+@pytest.mark.cuda
+def test_overlapped_trainer_replays_its_boundary_on_the_side_stream(
+        gen, monkeypatch):
+    """The overlapped trainer with the compiled driver: every graph
+    replay of its boundaries runs on the trainer's side stream, and each
+    boundary's C step and multipliers equal an eager driver's on the same
+    inputs bit for bit."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core import (AsVector, CompressionTask, LCAlgorithm,
+                                  exponential_mu_schedule)
+    from repro_torch.core import schemes as ts
+    from repro_torch.data import TokenStream
+    from repro_torch.runtime import LCTrainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+    cfg = reduced_config(get_config("phi3-mini-3.8b")).with_(
+        pattern_reps=1, dtype="float32", fused_attention=False)
+
+    def tasks():
+        return [CompressionTask("qg", r"stages/.*/w_gate$", AsVector(),
+                                ts.AdaptiveQuantization(k=4, iters=5)),
+                CompressionTask("pd", r"stages/.*/w_down$", AsVector(),
+                                ts.ConstraintL0Pruning(kappa=200))]
+
+    mus = exponential_mu_schedule(1e-4, 1.5, 4)
+    lc = LCAlgorithm(tasks(), mus, device="cuda")
+    eager = LCAlgorithm(tasks(), mus, device="cuda", jit_c_step=False)
+    trainer = LCTrainer(cfg, lc, TokenStream(cfg.vocab_size, 2, 16),
+                        tcfg=TrainerConfig(steps_per_l=2, overlap="on",
+                                           lr=3e-4), device="cuda")
+    streams = []
+    replay = torch.cuda.CUDAGraph.replay
+
+    def recorded(self):
+        streams.append(torch.cuda.current_stream())
+        return replay(self)
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", recorded)
+    compared = []
+    for name in ("c_step_async", "multiplier_step_async"):
+        def both(params, lc_in, name=name, fn=getattr(lc, name)):
+            eager.resolve(params)
+            want = getattr(eager, name)(params, lc_in)
+            got = fn(params, lc_in)
+            compared.append(all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(got["tasks"]), tree_leaves(want["tasks"]))))
+            return got
+        setattr(lc, name, both)
+    trainer.run(0)
+    assert len(compared) == 8 and all(compared)
+    assert streams and all(s == trainer._side for s in streams)
+    assert lc.programs.captured > 0
+    assert all(h["c_step_violations"] == [] for h in trainer.history)

@@ -34,6 +34,18 @@ from repro_torch.runtime import compressed as tforms
 from repro_torch.runtime import server as tserver
 from repro_torch.tree import tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small eager ops: with several test workers on the machine, torch's
+    intra-op thread pool only adds contention (tens of times the run
+    time under load), so the module runs them on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FORMS = ("quant4", "quant8", "sparse")
 CASES = [f"phi3-mini-3.8b/{f}" for f in FORMS] + [
     "mixtral-8x7b", "deepseek-moe-16b", "minicpm3-4b", "jamba-v0.1-52b",

@@ -32,6 +32,18 @@ from repro_torch.kernels.kmeans import ops as kops
 from repro_torch.kernels.prune import ops as pops
 from repro_torch.kernels.prune import prune as k2
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small eager ops: with several test workers on the machine, torch's
+    intra-op thread pool only adds contention (tens of times the run
+    time under load), so the module runs them on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the package exports the Lloyd loop ``kmeans`` (as the JAX package does),
 # which shadows the kernel module of the same name
 k1 = importlib.import_module("repro_torch.kernels.kmeans.kmeans")

@@ -27,6 +27,18 @@ from repro_torch import interop
 from repro_torch.core import flatten_params
 from repro_torch.models import attention as tattn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small eager ops: with several test workers on the machine, torch's
+    intra-op thread pool only adds contention (tens of times the run
+    time under load), so the module runs them on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MM = dict(rtol=1e-5, atol=2e-5)
 FUSED = dict(rtol=2e-4, atol=2e-4)
 ARCH = "minicpm3-4b"

@@ -42,6 +42,18 @@ from repro_torch.kernels import build
 from repro_torch.kernels.lowrank import lowrank
 from repro_torch.tree import tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small eager ops: with several test workers on the machine, torch's
+    intra-op thread pool only adds contention (tens of times the run
+    time under load), so the module runs them on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 k1 = importlib.import_module("repro_torch.kernels.kmeans.kmeans")
 
 KMEANS_CB_ATOL = 1e-3
@@ -426,13 +438,20 @@ def test_planner_argument_validation_and_group_summary():
         assert plan["shard_mode"] == "none" and plan["hardware"] == "cpu"
         assert plan["bottleneck"] in ("compute", "memory", "collective")
         assert plan["modeled_ms"] > 0.0 and plan["fallbacks"]
-    # an init that reads values (ternary thresholds) has no shapes-only
-    # run: its group is planned from the items, and the plan says so
+    # an init that reads values (the DP warm start's histogram) has no
+    # shapes-only run: its group is planned from the items, and the plan
+    # says so; Ternarize's init gathers its threshold on the device (no
+    # host read, so that a CUDA graph can take it) and is planned from Θ
+    dp = [CompressionTask(n, n, AsStacked("vector"),
+                          ts.AdaptiveQuantization(k=2, use_dp_init=True))
+          for n in ("qa", "qb")]
     tern = [CompressionTask(n, n, AsStacked("vector"), ts.Ternarize())
             for n in ("qa", "qb")]
-    (row,) = LCAlgorithm(tern, [1e-3], device="cpu").group_summary(params)
-    assert any(f.startswith("theta-shapes-unknown")
-               for f in row["plan"]["fallbacks"])
+    for tasks, unknown in ((dp, True), (tern, False)):
+        (row,) = LCAlgorithm(tasks, [1e-3],
+                             device="cpu").group_summary(params)
+        assert unknown == any(f.startswith("theta-shapes-unknown")
+                              for f in row["plan"]["fallbacks"])
 
 
 def test_full_lc_loop_with_the_planner_matches_the_reference():

@@ -31,6 +31,18 @@ from repro_torch.kernels.prune import serve as prune
 from repro_torch.kernels.quant_matmul import ops as qops
 from repro_torch.kernels.quant_matmul import quant_matmul as k45
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small eager ops: with several test workers on the machine, torch's
+    intra-op thread pool only adds contention (tens of times the run
+    time under load), so the module runs them on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GEMM = dict(rtol=1e-5, atol=1e-4)
 ATTN = dict(rtol=2e-4, atol=2e-4)
 

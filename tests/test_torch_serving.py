@@ -37,6 +37,17 @@ from repro_torch.runtime import compressed as tforms
 from repro_torch.runtime import server as tserver
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small eager ops: with several test workers on the machine, torch's
+    intra-op thread pool only adds contention (tens of times the run
+    time under load), so the module runs them on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)

@@ -40,6 +40,18 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as ttf
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small eager ops: with several test workers on the machine, torch's
+    intra-op thread pool only adds contention (tens of times the run
+    time under load), so the module runs them on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MM = dict(rtol=1e-5, atol=2e-5)       # matrix products / reductions
 SCAN = dict(rtol=1e-6, atol=1e-6)     # the mirrored associative scan
 OWN = dict(rtol=2e-3, atol=2e-3)      # prefill against own decode

@@ -34,6 +34,18 @@ from repro_torch.launch import steps as tsteps
 from repro_torch.models import transformer as ttf
 from repro_torch.optim import AdamW
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small eager ops: with several test workers on the machine, torch's
+    intra-op thread pool only adds contention (tens of times the run
+    time under load), so the module runs them on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GRAD = dict(rtol=1e-4, atol=1e-6)
 PARAMS = dict(rtol=1e-5, atol=1e-5)
 ARCHS = ["jamba-v0.1-52b", "xlstm-125m"]
@@ -108,9 +120,10 @@ def test_loss_and_gradients_match_jax(arch):
     jp, tp = _params(jcfg)
     batch = _batch(jcfg)
     jb = jax.tree_util.tree_map(jnp.asarray, batch)
-    jl, jm = jtf.loss_fn(jp, jb, jcfg)
-    jg = jax.grad(lambda p: jtf.loss_fn(p, jb, jcfg)[0])(
-        jax.tree_util.tree_map(jnp.asarray, jp))
+    # the loss and its gradient from one forward pass of the reference
+    (jl, _), jg = jax.value_and_grad(
+        lambda p: jtf.loss_fn(p, jb, jcfg), has_aux=True)(
+            jax.tree_util.tree_map(jnp.asarray, jp))
     loss, grads = _grads(tp, batch, tcfg)
     np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-5)
     _assert_tree(_nest(grads), jg, normwise=GRAD["rtol"], **GRAD)

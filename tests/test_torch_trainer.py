@@ -40,6 +40,18 @@ from repro_torch.launch import train as ttrain
 from repro_torch.runtime import FaultInjector, LCTrainer, TrainerConfig
 from repro_torch.tree import tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small eager ops: with several test workers on the machine, torch's
+    intra-op thread pool only adds contention (tens of times the run
+    time under load), so the module runs them on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KEY = 0
 ARCH = "phi3-mini-3.8b"
 CFG = reduced_config(get_config(ARCH)).with_(pattern_reps=1,
