@@ -9,6 +9,8 @@
                                         # through CUDA graphs (C, K or L1)
     python3 chip_smoke.py --chunks      # chunked groups against one launch
     python3 chip_smoke.py --lc          # the compiled LC driver's paths only
+    python3 chip_smoke.py --lc-memory   # path H1's peak memory and the LM
+                                        # steps' times, eager and compiled
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit (nvcc). Every ``Server`` and ``ServingEngine`` serves
@@ -836,8 +838,9 @@ class EagerTwin:
     launches are kept apart (``launches``), and each C step's stream
     time, the twin's against the compiled one's (CUDA events; the first
     two C steps of ``lc`` run eagerly and then capture, the later ones
-    replay). :meth:`close` unhooks it (the hooks are a reference cycle
-    through ``lc``)."""
+    replay). The graphs' numbers are kept when ``lc`` lets its graphs go
+    (``LCTrainer`` does at the end of its run). :meth:`close` unhooks it
+    (the hooks are a reference cycle through ``lc``)."""
 
     STEPS = ("c_step", "c_step_async", "multiplier_step",
              "multiplier_step_async", "distortion", "shifted_distortion")
@@ -851,8 +854,21 @@ class EagerTwin:
         self.events: list = []
         self.c_steps = 0             # the twin's, counted as they begin
         self.in_c_step = False       # inside one of the twin's C steps
+        self.released: list = []     # the graphs' numbers at each release
         for name in self.STEPS:
             setattr(lc, name, self._hooked(name, getattr(lc, name)))
+        release = lc.release_graphs
+
+        def released():
+            self.released.append(self._graphs())
+            return release()
+
+        lc.release_graphs = released
+
+    def _graphs(self) -> dict:
+        progs = self.lc.programs
+        return {"captured": progs.captured, "capture_s": progs.capture_s,
+                "pool_gib": progs.pool_bytes() / 2**30}
 
     def in_step(self, k: int):
         """A predicate: inside the twin's C step number ``k``."""
@@ -925,12 +941,13 @@ class EagerTwin:
         bad = [(n, int(d)) for n, d in self.diffs if int(d)]
         check(not bad, f"{label}: the compiled driver differs from "
               f"jit_c_step=False: {bad[:5]}")
-        progs = self.lc.programs
+        graphs = self.released + [self._graphs()]
         eager_s = [a.elapsed_time(b) / 1e3 for a, b, _, _ in self.events]
         comp_s = [c.elapsed_time(d) / 1e3 for _, _, c, d in self.events]
         rec = {"eager_s": eager_s, "compiled_s": comp_s,
-               "captured": progs.captured, "capture_s": progs.capture_s,
-               "pool_gib": progs.pool_bytes() / 2**30,
+               "captured": sum(g["captured"] for g in graphs),
+               "capture_s": sum(g["capture_s"] for g in graphs),
+               "pool_gib": max(g["pool_gib"] for g in graphs),
                "twin_launches": {k: v for k, v in self.launches.items()
                                  if v}}
         kinds = sorted({n for n, _ in self.diffs})
@@ -947,7 +964,7 @@ class EagerTwin:
         return rec
 
     def close(self) -> None:
-        for name in self.STEPS:
+        for name in self.STEPS + ("release_graphs",):
             self.lc.__dict__.pop(name, None)
         self.twin = None
         self.diffs.clear()
@@ -2249,7 +2266,7 @@ def h_config(layers: int = LM_LAYERS):
 
 
 def h_trainer(cfg, compression: str, n_lc: int, steps_per_l: int,
-              faults=None, **tcfg):
+              faults=None, jit_c_step=True, **tcfg):
     """``launch/train.py``'s tasks and defaults on the card: an LCTrainer
     over the port's TokenStream (batches of H_BATCH × H_SEQ)."""
     from repro_torch.core import LCAlgorithm, exponential_mu_schedule
@@ -2258,7 +2275,7 @@ def h_trainer(cfg, compression: str, n_lc: int, steps_per_l: int,
     from repro_torch.runtime import LCTrainer, TrainerConfig
     lc = LCAlgorithm(default_tasks(cfg, compression),
                      exponential_mu_schedule(H_MU0, H_MU_A, n_lc),
-                     device="cuda")
+                     device="cuda", jit_c_step=jit_c_step)
     return LCTrainer(cfg, lc, TokenStream(cfg.vocab_size, H_BATCH, H_SEQ),
                      tcfg=TrainerConfig(steps_per_l=steps_per_l, lr=H_LR,
                                         **tcfg),
@@ -2323,7 +2340,8 @@ def h_run(kern, trainer, label: str, power: str) -> dict:
           f"peak_memory_gib={peak:.2f} launches="
           f"{ {k: v for k, v in n.items() if v} } [{power}]", flush=True)
     return {"state": state, "lc_state": lc_state, "launches": n,
-            "history": hist, "wall_s": wall, "step_ms": step_ms}
+            "history": hist, "wall_s": wall, "step_ms": step_ms,
+            "peak_gib": peak}
 
 
 def quant_ratio() -> float:
@@ -3137,7 +3155,7 @@ MODES = ("eager", "graphs")
 #: batch, does not depend on the ticks' times
 SHORT_TRACE = (12, (32, 128), (8, 32))
 #: the busy-share profiles' engine trace (``serving_busy``)
-BUSY_TRACE = (2, (16, 32), (2, 4))
+BUSY_TRACE = (4, (16, 32), (8, 8))
 
 
 def graph_servers(cfg, serving, max_len: int) -> dict:
@@ -4143,7 +4161,74 @@ def chunks_path(kern, k1, power: str) -> None:
               for t in tasks}
     _chunked_against_one("chunks top-κ", tasks, xs, thetas, 4, kern)
     del xs, thetas
+    torch.cuda.empty_cache()
+    chunks_compiled(power)
     stamp("done")
+
+
+def chunks_compiled(power: str) -> None:
+    """Three C steps of a chunked group through the compiled driver and
+    through ``jit_c_step=False``, in turns: two of I1's former expert
+    items (2 × 469,762,048, K=16, 10 Lloyd steps) split into 2 launches
+    by a forced chunk budget; Θ, λ and ``a`` bit for bit after each C
+    step, and each C step's seconds and memory above its start (the peak
+    of live tensors; the compiled driver's graph pool beside it)."""
+    from repro_torch.analysis import cost
+    from repro_torch.core import AsVector, CompressionTask, LCAlgorithm
+    from repro_torch.core.schemes import AdaptiveQuantization
+    from repro_torch.tree import tree_leaves
+    stamp("chunked group: compiled driver against eager, 3 C steps")
+    g = torch.Generator(device="cuda").manual_seed(23)
+    params = {f"e{i}": 0.02 * torch.randn(MIX_ITEM, device="cuda",
+                                          generator=g) for i in range(2)}
+    tasks = [CompressionTask(f"e{i}", f"^e{i}$", AsVector(),
+                             AdaptiveQuantization(k=16, iters=10))
+             for i in range(2)]
+    mus = [1e-3, 2e-3, 4e-3]
+    cost.CHUNK_BUDGET_BYTES = 1
+    cost.clear_caches()
+    drivers = {jit: LCAlgorithm(tasks, mus, device="cuda", jit_c_step=jit)
+               for jit in (False, True)}
+    states = {jit: d.init(params) for jit, d in drivers.items()}
+    plans = [r["plan"] for r in drivers[True].group_summary(params)]
+    check([p["n_chunks"] for p in plans] == [2],
+          f"chunked group plans {plans}")
+    secs = {jit: [] for jit in drivers}
+    over = {jit: [] for jit in drivers}
+    for k, mu in enumerate(mus):
+        for jit, d in drivers.items():
+            state = d.set_mu(states[jit], mu, k)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            states[jit] = d.c_step(params, state)
+            torch.cuda.synchronize()
+            secs[jit].append(time.perf_counter() - t0)
+            over[jit].append((torch.cuda.max_memory_allocated() - base)
+                             / 2**30)
+            del state
+        diff = sum(int((_bits(x) != _bits(y)).sum()) for x, y in zip(
+            tree_leaves(states[True]["tasks"]),
+            tree_leaves(states[False]["tasks"])))
+        check(diff == 0, f"chunked group, C step {k + 1}: the compiled "
+              f"driver differs from jit_c_step=False in {diff} elements")
+    progs = drivers[True].programs
+    pool = progs.pool_bytes() / 2**30
+    cost.CHUNK_BUDGET_BYTES = None
+    cost.clear_caches()
+    check(progs.captured == 1, f"chunked group graphs {progs.captured}")
+    print(f"chunks compiled: 3 C steps of a 2-chunk group (2 × {MIX_ITEM}, "
+          f"K=16), compiled driver against jit_c_step=False: Θ, λ and a bit "
+          f"for bit; C step s eager {[round(t, 4) for t in secs[False]]} "
+          f"compiled {[round(t, 4) for t in secs[True]]}; GiB above the "
+          f"step's start eager {[round(x, 2) for x in over[False]]} "
+          f"compiled {[round(x, 2) for x in over[True]]}, graph pool "
+          f"{pool:.2f} GiB, {progs.captured} graph (one a chunk size) "
+          f"[{power}]", flush=True)
+    del drivers, states, params, progs
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def busy_path(kern, label: str, power: str) -> None:
@@ -4215,6 +4300,61 @@ def lc_paths(kern, k1, k2, power: str) -> None:
     stamp("done")
 
 
+def lc_memory(kern, power: str) -> None:
+    """``python3 chip_smoke.py --lc-memory`` (not part of the default
+    run): path H1's trainer (quantization, serial, 3 μ × 3 L steps) alone
+    with ``jit_c_step=False`` and then with the compiled driver, each
+    run's peak memory and C-step milliseconds, and the compiled run's
+    graph pool at its end; then the LM problem's steps after the C step
+    (``multiplier_step``, ``distortion``, ``shifted_distortion``) and its
+    C step, eager against replayed, median ms of 10 in turns."""
+    from repro_torch.core import LCAlgorithm
+    cfg = h_config()
+    for jit in (False, True):
+        stamp(f"path H1 alone, jit_c_step={jit}")
+        trainer = h_trainer(cfg, "quantize", 3, 3, jit_c_step=jit)
+        pools = []
+        release = trainer.lc.release_graphs
+
+        def released(lc=trainer.lc, release=release):
+            if lc.programs is not None:
+                pools.append(lc.programs.pool_bytes() / 2**30)
+            return release()
+
+        trainer.lc.release_graphs = released
+        r = h_run(kern, trainer, f"H1 alone, jit_c_step={jit}", power)
+        reserved = torch.cuda.max_memory_reserved() / 2**30
+        print(f"path H1 alone, jit_c_step={jit}: peak_memory_gib="
+              f"{r['peak_gib']:.2f} c_step_ms="
+              f"{[round(h['c_step_ms'], 2) for h in r['history']]} graph "
+              f"pool at the run's end {pools} GiB, max reserved "
+              f"{reserved:.2f} GiB [{power}]", flush=True)
+        del trainer, r, released
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    stamp("LM steps, eager against replayed")
+    params, lc = lm_problem(torch.Generator(device="cuda").manual_seed(1))
+    eager = LCAlgorithm(lc.tasks, lc.mu_schedule, device="cuda",
+                        jit_c_step=False)
+    state = lc.init(params)
+    eager.resolve(params)
+    state = lc.set_mu(state, lc.mu_schedule[0], 0)
+    for _ in range(2):                     # the capture policy: C step 2
+        state = lc.c_step(params, state)
+    names = ("c_step", "multiplier_step", "distortion", "shifted_distortion")
+    fns = [getattr(d, n) for n in names for d in (eager, lc)]
+    ms = timed_turns([lambda f=f: f(params, state) for f in fns], 10)
+    check(lc.programs.captured == 5, f"LM step graphs {lc.programs.captured}")
+    print("LM steps ms, eager against replayed: " + "; ".join(
+        f"{n} {ms[2 * i]:.3f} against {ms[2 * i + 1]:.3f}"
+        for i, n in enumerate(names)) + f" (the driver's copies of w, λ, a "
+        f"{sum(x[0].numel() * x[0].element_size() for b in lc._staged.values() for x in b.values()) / 2**30:.2f}"
+        f" GiB, graph pool {lc.programs.pool_bytes() / 2**30:.2f} GiB) "
+        f"[{power}]", flush=True)
+    stamp("done")
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -4275,6 +4415,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--lc"]:
         lc_paths(kern, k1, k2, power)
+        return 0
+    if sys.argv[1:] == ["--lc-memory"]:
+        lc_memory(kern, power)
         return 0
     t_start = time.time()
     stamp('kernel phase')

@@ -16,12 +16,17 @@ them as programs of ``repro_torch.graphs`` on one owner a driver (one
 graph pool, one capture stream): CUDA graphs on the card, the same
 programs run eagerly on the CPU. The C step runs each group's packed
 solve through ``core/grouping.py:compile_group`` (one executable a
-group, μ fed as the 0-d tensor ``lc["mu"]``) and each singleton's or
-per-task solve as a program of its own (``CompiledSolves``); packing
-w − λ/μ and scattering Δ(Θ) into ``a`` stay eager. The multiplier step
-and the two distortions are one program each, over the driver's own
-copies of w, λ and ``a`` (written by one multi-tensor copy a call), so
-one graph serves every boundary of a run, serial or overlapped.
+group, one graph a chunk size where the planner splits it, μ fed as the
+0-d tensor ``lc["mu"]``) and each singleton's or per-task solve as a
+program of its own (``CompiledSolves``). Making w − λ/μ stays eager;
+its items are packed straight into the graphs' fed buffers, and the
+sync ``c_step`` scatters Δ(Θ) into ``a`` from an unchunked graph's own
+output (no copy). The multiplier step and the two distortions are one
+program each, over the driver's own copies of w, λ and ``a`` (shared by
+the three; one multi-tensor copy a call brings them up to date, and a
+tensor copied before and not written since, by its version counter, is
+not copied again), so one graph serves every boundary of a run, serial
+or overlapped; the multiplier step updates the copy of λ in place.
 
 Unlike ``jax.jit``, which compiles at the first call, the driver runs
 everything eagerly until its second C step begins (the code of
@@ -53,6 +58,7 @@ on that device; nothing is moved or falls back.
 """
 from __future__ import annotations
 
+import weakref
 from collections.abc import Mapping
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
@@ -143,10 +149,14 @@ class LCAlgorithm:
         self.release_graphs()
 
     def release_graphs(self) -> "LCAlgorithm":
-        """Drop every program of the compiled steps, their graphs and
-        their pool (a trainer done with its LC run, before serving); the
-        next calls start the capture policy afresh."""
+        """Drop every program of the compiled steps, their graphs, their
+        pool and the driver's copies of w, λ and ``a`` (``LCTrainer``
+        calls it when its LC run ends); the next calls start the capture
+        policy afresh."""
         if getattr(self, "programs", None) is not None:
+            if self.programs.graphs:
+                # replays still queued must not outlive their graphs
+                torch.cuda.synchronize(self.device)
             self.programs.release_stream_buffers()
         self.programs = self._compiled = None
         self._steps: dict = {}
@@ -234,12 +244,15 @@ class LCAlgorithm:
                                 self.device)
 
     # ------------------------------------------------------------------
-    def _solve(self, params, lc) -> dict:
-        """{task name: (Θ, Δ(Θ) in the task's view)} of Π(w − λ/μ)."""
+    def _solve(self, params, lc, lend: bool = False) -> dict:
+        """{task name: (Θ, Δ(Θ) in the task's view)} of Π(w − λ/μ);
+        ``lend``: Δ(Θ) may be a graph's own output, read before the next
+        C step (``grouping.CompiledSolves``)."""
         mu = lc["mu"]
         xs = _ShiftedInputs(self.tasks, params, lc)
         if self._compiled is not None:
             self._compiled.c_steps += 1
+            self._compiled.lend = lend
         if self.group_tasks:
             thetas = {t.name: lc["tasks"][t.name]["theta"]
                       for t in self.tasks}
@@ -261,7 +274,7 @@ class LCAlgorithm:
         With ``group_tasks`` the tasks are solved in groups (one kernel
         launch per solver step per group on the card); otherwise task by
         task. Kernel dispatch applies on both paths."""
-        results = self._solve(params, lc)
+        results = self._solve(params, lc, lend=True)
         new_tasks = {}
         for t in self.tasks:
             ts = lc["tasks"][t.name]
@@ -301,16 +314,14 @@ class LCAlgorithm:
     def multiplier_step(self, params, lc) -> dict:
         """λ ← λ − μ(w − Δ(Θ)) (augmented Lagrangian), λ in place."""
         new = self._program("multipliers", params, lc)
-        if new is not None:
-            torch._foreach_copy_([lc["tasks"][t.name]["lam"][p]
-                                  for t in self.tasks for p in t.paths], new)
-            return lcstate.with_tasks(lc, lc["tasks"])
-        mu = lc["mu"]
-        for t in self.tasks:
-            ts = lc["tasks"][t.name]
-            for p in t.paths:
-                ts["lam"][p].sub_(
-                    mu * (get_path(params, p).float() - ts["a"][p]))
+        if new is None:
+            _multipliers(self.tasks, _by_path(self.tasks, params, lc),
+                         lc["mu"], in_place=True)
+        else:
+            lam = {p: lc["tasks"][t.name]["lam"][p]
+                   for t in self.tasks for p in t.paths}
+            torch._foreach_copy_(list(lam.values()), new)
+            self._restamp_lam(lam)
         return lcstate.with_tasks(lc, lc["tasks"])
 
     @torch.no_grad()
@@ -323,6 +334,8 @@ class LCAlgorithm:
                                lc["mu"])
         else:
             new = _copies(new)
+            self._restamp_lam(dict(zip(
+                (p for t in self.tasks for p in t.paths), new)))
         it = iter(new)
         new_tasks = {}
         for t in self.tasks:
@@ -333,30 +346,41 @@ class LCAlgorithm:
 
     def _program(self, name: str, params, lc):
         """The outputs of the compiled step ``name`` (a graph's own
-        tensors, rewritten at its next replay) on the driver's copies of
+        tensors, or the driver's copy of λ, rewritten at the step's next
+        call) on the driver's copies of
         w, λ and ``a``, or None where the step runs eagerly: with
         ``jit_c_step=False``, and before the driver's second C step (the
         capture policy, ``grouping.CompiledSolves``)."""
         if self._compiled is None or not self._compiled.due():
             return None
+        make, reads = _STEPS[name]
         prog = self._steps.get(name)
         if prog is None:
             prog = self._steps[name] = self.programs.program(
-                _STEPS[name](self.tasks, self.device), held=(1,),
-                name=name)
-        staged = {}
+                make(self.tasks, self.device), held=(1,), name=name)
         by_path = _by_path(self.tasks, params, lc)
-        for kind in _READS[name]:
-            leaves = by_path[kind]
+        dst, src = [], []
+        for kind in reads:
             bufs = self._staged.setdefault(kind, {})
-            for p, x in leaves.items():
+            for p, x in by_path[kind].items():
                 if p not in bufs:
-                    bufs[p] = torch.empty(x.shape, dtype=x.dtype,
-                                          device=self.device)
-            torch._foreach_copy_([bufs[p] for p in leaves],
-                                 list(leaves.values()))
-            staged[kind] = bufs
-        return prog(lc["mu"], staged)
+                    bufs[p] = [torch.empty(x.shape, dtype=x.dtype,
+                                           device=self.device), None]
+                if not _unchanged(bufs[p][1], x):
+                    dst.append(bufs[p][0])
+                    src.append(x)
+                    bufs[p][1] = _stamp(x)
+        if dst:
+            torch._foreach_copy_(dst, src)
+        return prog(lc["mu"], {kind: {p: b[0] for p, b in
+                                      self._staged[kind].items()}
+                               for kind in reads})
+
+    def _restamp_lam(self, lam: dict) -> None:
+        """The driver's copy of λ, which the multiplier step wrote, now
+        equals ``lam``'s tensors (the caller's λ, just written from it)."""
+        for p, x in lam.items():
+            self._staged["lam"][p][1] = _stamp(x)
 
     def set_mu(self, lc, mu: float, k: int) -> dict:
         return {"tasks": lc["tasks"],
@@ -385,7 +409,7 @@ class LCAlgorithm:
     def _per_task(self, name: str, params, lc) -> dict[str, torch.Tensor]:
         out = self._program(name, params, lc)
         if out is None:
-            out = _STEPS[name](self.tasks, self.device)(
+            out = _STEPS[name][0](self.tasks, self.device)(
                 lc["mu"], _by_path(self.tasks, params, lc))
         else:
             out = out.clone()
@@ -483,8 +507,13 @@ def _by_path(tasks, params, lc) -> dict:
     return out
 
 
-def _multipliers(tasks, x: dict, mu) -> list[torch.Tensor]:
-    """λ − μ(w − Δ(Θ)) for every path, in task and path order."""
+def _multipliers(tasks, x: dict, mu,
+                 in_place: bool = False) -> list[torch.Tensor]:
+    """λ − μ(w − Δ(Θ)) for every path, in task and path order (into
+    ``x``'s λ tensors with ``in_place``)."""
+    if in_place:
+        return [x["lam"][p].sub_(mu * (x["w"][p].float() - x["a"][p]))
+                for t in tasks for p in t.paths]
     return [x["lam"][p] - mu * (x["w"][p].float() - x["a"][p])
             for t in tasks for p in t.paths]
 
@@ -514,18 +543,33 @@ def _shifted_distortions(tasks, device):
     return run
 
 
+def _stamp(x: torch.Tensor):
+    """What a copy of ``x`` was made from: the tensor (weakly) and its
+    version counter, which every in-place write bumps (an inference
+    tensor has none: always copied)."""
+    return None if x.is_inference() else (weakref.ref(x), x._version)
+
+
+def _unchanged(stamp, x: torch.Tensor) -> bool:
+    """Whether a copy stamped ``stamp`` still equals ``x``: made from this
+    very tensor, not written since."""
+    return (stamp is not None and stamp[0]() is x
+            and stamp[1] == x._version)
+
+
 def _copies(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
     out = [torch.empty_like(x) for x in tensors]
     torch._foreach_copy_(out, tensors)
     return out
 
 
-#: what each compiled step reads of w, λ and a
-_READS = {"multipliers": ("w", "lam", "a"), "distortion": ("w", "a"),
-          "shifted distortion": ("w", "lam", "a")}
+#: each compiled step: ``make(tasks, device)`` → its function of μ and
+#: of w, λ and a by path, and what it reads of them. The multiplier step
+#: writes the driver's copy of λ in place
 _STEPS = {
-    "multipliers": lambda tasks, device: (
-        lambda mu, x: _multipliers(tasks, x, mu)),
-    "distortion": _distortions,
-    "shifted distortion": _shifted_distortions,
+    "multipliers": (lambda tasks, device: (
+        lambda mu, x: _multipliers(tasks, x, mu, in_place=True)),
+        ("w", "lam", "a")),
+    "distortion": (_distortions, ("w", "a")),
+    "shifted distortion": (_shifted_distortions, ("w", "lam", "a")),
 }

@@ -39,8 +39,9 @@ group's trailing-dim padding), the items chunk by chunk, so the group's
 transient working set is a chunk's. Each chunk launches with its group's
 partition (``kernels/build.py:group_partition``), so a chunked solve
 equals the one launch bit for bit. :func:`compile_group` captures a
-group's packed solve as a CUDA graph, once per group signature
-(``cost.get_executable``), μ fed as a 0-d device tensor; the LC driver's
+group's packed solve as CUDA graphs, one a chunk size, once per group
+signature (``cost.get_executable``), μ fed as a 0-d device tensor, each
+chunk's items packed straight into its graph's buffer; the LC driver's
 compiled C step (``LCAlgorithm(jit_c_step=True)``) runs its groups so,
 and its singletons and per-task solves as programs of their own, through
 :class:`CompiledSolves`. The JAX package's mesh sharding is not ported.
@@ -318,16 +319,17 @@ def _group_solve(scheme, solver_fn, mu):
 
 def _item_packer(group: Sequence[CompressionTask], xs: dict,
                  counts: list[int]):
-    """``items(lo, hi)``: the packed items ``lo:hi`` of the group, each
-    task's input read from ``xs`` while its rows are copied in (a slice
-    that lies in one task is that task's own items, not a copy)."""
-    def items(lo, hi):
-        out, off = None, 0
+    """``items(lo, hi, out=None)``: the packed items ``lo:hi`` of the
+    group, each task's input read from ``xs`` while its rows are copied
+    in (into ``out`` when given; else a slice that lies in one task is
+    that task's own items, not a copy)."""
+    def items(lo, hi, out=None):
+        off = 0
         for t, n in zip(group, counts):
             a, b = max(lo, off), min(hi, off + n)
             if a < b:
                 x = t.view.to_items(xs[t.name])[a - off:b - off]
-                if b - a == hi - lo:
+                if out is None and b - a == hi - lo:
                     return x
                 if out is None:
                     out = x.new_empty((hi - lo, *x.shape[1:]))
@@ -436,12 +438,13 @@ def grouped_compress(tasks: Sequence[CompressionTask], xs: dict,
         warm, thetas_lead = _pack_warm(group, thetas, counts, solver_fn,
                                        dev)
         items, n_items = _item_packer(group, xs, counts), sum(counts)
-        exe = None if compiled is None else compiled.group(
-            group, shapes, counts, warm, solver_fn, n_chunks, backend, dev)
+        exe = like = None
+        if compiled is not None and compiled.due():
+            like = _item_packer(group, shapes, counts)(0, n_items)
+            exe = compiled.group(group, shapes, (like,) + warm, solver_fn,
+                                 n_chunks, backend, dev)
         if exe is not None:
-            arrays = (items(0, n_items),) + warm
-            parts = [(0, n_items, exe(mu, *arrays))]
-            del arrays
+            parts = exe.parts(mu, items, like, warm, lend=compiled.lend)
         else:
             parts = _run_group_solve(_group_solve(scheme, solver_fn, mu),
                                      (items,) + warm, n_items, n_chunks)
@@ -468,10 +471,11 @@ class CaptureError(RuntimeError):
 CAPTURE_AT = 2
 
 
-def _run_program(programs, program, args, what: str):
-    """``program(*args)`` with its outputs copied when they are a graph's
-    (a replay rewrites them in place); a failed capture raises
-    :class:`CaptureError` naming ``what``."""
+def _run_program(programs, program, args, what: str, lend: bool = False):
+    """``program(*args)`` → ``(Θ, Δ)``, copied where they are a graph's
+    outputs (a replay rewrites them in place): Θ always, Δ unless
+    ``lend`` (the caller reads it before the program's next call); a
+    failed capture raises :class:`CaptureError` naming ``what``."""
     first = program._key(args) not in program._graphs
     try:
         out = program(*args)
@@ -483,32 +487,42 @@ def _run_program(programs, program, args, what: str):
     if programs.graphs:
         # one copy a tensor (pruning's Θ is its Δ(Θ))
         copies: dict = {}
-        out = tree_map(lambda x: copies.setdefault(id(x), x.clone()), out)
+        theta, a = out
+        theta = tree_map(lambda x: copies.setdefault(id(x), x.clone()),
+                         theta)
+        out = (theta, copies.get(id(a), a) if lend
+               else copies.setdefault(id(a), a.clone()))
     return out
 
 
 class GroupExecutable:
     """:func:`compile_group`'s executable: one group's packed solve as a
-    program of ``repro_torch.graphs`` (a CUDA graph on the card, captured
+    program of ``repro_torch.graphs`` (CUDA graphs on the card, captured
     at the first call and replayed after; eager on the CPU), on
-    ``programs`` (its own when None).
+    ``programs`` (its own when None), run chunk by chunk as the planner
+    split the group: one graph a chunk size, fed only its chunk's items
+    and per-item operands, so the graph's buffers, outputs and pool hold
+    a chunk's working set, not the group's.
 
-    ``exe(mu, *arrays)`` → ``(packed Θ, packed Δ items)``, new tensors,
-    equal bit for bit to :func:`grouped_compress` at the same μ (a 0-d
-    float32 tensor, as ``LCAlgorithm`` passes it; a float is made one).
-    μ and every packed tensor are fed: one graph serves every LC
-    boundary. The per-item sketch seeds (the last operand of a
-    ``wants_key`` group) key the graph by value; the sketches are drawn
-    by the first (eager) run and held (``lowrank.held_sketches``), which
-    the capture then reads. ``programs.captured`` counts the graphs.
-    A solve that cannot be captured raises :class:`CaptureError`;
-    nothing falls back to the eager path."""
+    :meth:`parts` packs each chunk's items straight into the graph's fed
+    buffer and returns the launches as :func:`_run_group_solve` does,
+    equal bit for bit at the same μ (a 0-d float32 tensor, as
+    ``LCAlgorithm`` passes it; a float is made one). μ and every packed
+    tensor are fed: one graph serves every LC boundary. The per-item
+    sketch seeds (the last operand of a ``wants_key`` group) key the
+    graph by value; the sketches are drawn by the first (eager) run and
+    held (``lowrank.held_sketches``), which the capture then reads.
+    ``programs.captured`` counts the graphs. A solve that cannot be
+    captured raises :class:`CaptureError`; nothing falls back to the
+    eager path."""
 
     def __init__(self, scheme, solver_fn, n_items: int, n_chunks: int,
                  device, programs=None):
         from repro_torch.graphs import Programs
+        from repro_torch.kernels.build import group_partition
         from repro_torch.kernels.lowrank.lowrank import held_sketches
         self.scheme = scheme
+        self.bounds = _chunk_bounds(n_items, n_chunks)
         self.device = torch.device(device)
         self.programs = (programs if programs is not None
                          else Programs(self.device))
@@ -519,31 +533,56 @@ class GroupExecutable:
         # a closure, not a bound method: the program must not hold the
         # executable, so that dropping it frees its graphs at once, never
         # in a garbage collection that could fall inside another capture
-        def run(mu, seeds, *leaves):
+        def run(mu, seeds, xi, *leaves):
             it = iter(leaves)
-            arrays = tree_map(lambda _: next(it), template[0])
+            rest = tree_map(lambda _: next(it), template[0])
             if seeds is not None:
-                arrays = arrays + (torch.tensor(seeds, dtype=torch.int64),)
-            with held_sketches(sketches):
-                parts = _run_group_solve(
-                    _group_solve(scheme, solver_fn, mu), arrays, n_items,
-                    n_chunks)
-            if len(parts) == 1:
-                return parts[0][2]
-            return (pack_thetas([p[2][0] for p in parts]),
-                    torch.cat([p[2][1] for p in parts], dim=0))
+                rest = rest + (torch.tensor(seeds, dtype=torch.int64),)
+            compress, decompress = _group_solve(scheme, solver_fn, mu)
+            # every chunk launches with the whole group's partition
+            with held_sketches(sketches), group_partition(n_items):
+                theta = compress(xi, *rest)
+                return theta, decompress(theta)
 
         self.program = self.programs.program(run, name="group solve")
 
-    def __call__(self, mu, *arrays):
-        seeds = None
-        if self.scheme.wants_key:
-            seeds, arrays = tuple(arrays[-1].tolist()), arrays[:-1]
-        self._template[:] = [tree_map(lambda _: None, arrays)]
+    def parts(self, mu, items, like, warm: tuple,
+              lend: bool = False) -> list:
+        """``[(lo, hi, (Θ, Δ items)), ...]``, one entry a chunk:
+        ``items(lo, hi, out=)`` packs a chunk's items (:func:`_item_packer`),
+        ``like`` is the packed items' meta tensor and ``warm`` the packed
+        ``(Θ, *operands)``. ``lend``: an unchunked group's Δ is the
+        graph's own output (see :func:`_run_program`)."""
         mu = torch.as_tensor(mu, dtype=torch.float32, device=self.device)
         what = f"{self.scheme.name} ({self.scheme.solver or 'item-by-item'})"
-        return _run_program(self.programs, self.program,
-                            (mu, seeds, *tree_leaves(arrays)), what)
+        lend = lend and len(self.bounds) == 1
+        parts = []
+        for lo, hi in self.bounds:
+            chunk = tuple(tree_map(lambda x: x[lo:hi], a) for a in warm)
+            seeds = None
+            if self.scheme.wants_key:
+                seeds, chunk = tuple(chunk[-1].tolist()), chunk[:-1]
+            self._template[:] = [tree_map(lambda _: None, chunk)]
+            args = [mu, seeds, like[lo:hi], *tree_leaves(chunk)]
+            args[2] = items(lo, hi, out=self.program.fed(args, 2))
+            parts.append((lo, hi, _run_program(
+                self.programs, self.program, tuple(args), what, lend)))
+            del args, chunk
+        return parts
+
+    def __call__(self, mu, *arrays):
+        """``exe(mu, items, packed Θ, *operands)`` → ``(packed Θ, packed
+        Δ items)``, new tensors."""
+        items, warm = arrays[0], arrays[1:]
+
+        def packed(lo, hi, out=None):
+            return items[lo:hi] if out is None else out.copy_(items[lo:hi])
+
+        parts = self.parts(mu, packed, _meta(items), warm)
+        if len(parts) == 1:
+            return parts[0][2]
+        return (pack_thetas([p[2][0] for p in parts]),
+                torch.cat([p[2][1] for p in parts], dim=0))
 
 
 class TaskExecutable:
@@ -571,7 +610,7 @@ class TaskExecutable:
 
         self.program = programs.program(run, name=f"task solve {task.name}")
 
-    def __call__(self, x, theta, mu):
+    def __call__(self, x, theta, mu, lend: bool = False):
         warm = self.task.scheme.warm_start(theta)
         self._template[:] = [tree_map(lambda _: None, warm)]
         mu = torch.as_tensor(mu, dtype=torch.float32, device=self.device)
@@ -579,7 +618,7 @@ class TaskExecutable:
         what = (f"{self.task.name}: {scheme.name} "
                 f"({scheme.solver or 'item-by-item'})")
         return _run_program(self.programs, self.program,
-                            (mu, x, *tree_leaves(warm)), what)
+                            (mu, x, *tree_leaves(warm)), what, lend)
 
 
 def _solver_id(solver_fn) -> str | None:
@@ -654,6 +693,9 @@ class CompiledSolves:
     def __init__(self, programs):
         self.programs = programs
         self.c_steps = 0
+        # the C step under way reads Δ(Θ) before the next one runs (the
+        # sync ``c_step``): unchunked solves lend their graphs' Δ(Θ)
+        self.lend = False
         self.executables: dict = {}
         self.tasks: dict = {}
 
@@ -661,19 +703,16 @@ class CompiledSolves:
         """Whether the solves and steps run as programs now."""
         return self.c_steps >= CAPTURE_AT
 
-    def group(self, group, shapes: dict, counts: list[int], warm: tuple,
-              solver_fn, n_chunks: int, backend, dev):
-        """The group's executable when its solve is due to run as a
-        program, else None (the caller runs it eagerly)."""
+    def group(self, group, shapes: dict, arrays: tuple, solver_fn,
+              n_chunks: int, backend, dev) -> GroupExecutable:
+        """The group's executable (``arrays``: its packed items, as a meta
+        tensor, and its packed warm start and operands)."""
         from repro_torch.analysis import cost
-        if not self.due():
-            return None
-        items = _item_packer(group, shapes, counts)(0, sum(counts))
-        key = _exec_key(group, shapes, (items,) + warm, solver_fn,
-                        n_chunks, backend, dev)
+        key = _exec_key(group, shapes, arrays, solver_fn, n_chunks,
+                        backend, dev)
         return cost.get_executable(key, lambda: GroupExecutable(
-            group[0].scheme, solver_fn, sum(counts), n_chunks, dev,
-            programs=self.programs), cache=self.executables)
+            group[0].scheme, solver_fn, int(arrays[0].shape[0]), n_chunks,
+            dev, programs=self.programs), cache=self.executables)
 
     def task(self, task: CompressionTask, backend, device):
         """The task's executable when its solve is due to run as a
@@ -696,7 +735,7 @@ def solve_and_decompress(task: CompressionTask, x, theta, mu,
     exe = None if compiled is None else compiled.task(task, backend,
                                                       device)
     if exe is not None:
-        return exe(x, theta, mu)
+        return exe(x, theta, mu, lend=compiled.lend)
     theta = solve_task(task, x, theta, mu, backend=backend, device=device)
     return theta, task.scheme_decompress(theta)
 

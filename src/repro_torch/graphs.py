@@ -17,7 +17,9 @@ stream. :meth:`Programs.program` turns a function into a
   there is *fed*: each call copies it into a buffer of the graph's own
   (a host tensor with one host-to-device copy), unless it is that buffer
   already, so a program that advances an input in place and returns it
-  (``Server.generate``'s token and position) gets it back for free;
+  (``Server.generate``'s token and position) gets it back for free.
+  :meth:`Program.fed` hands that buffer out before the call, so that a
+  caller can write a large input straight into it;
 * the first call with a key runs the function eagerly on the capture
   stream, and its result is the call's result: that run loads the
   kernel libraries and makes cuBLAS's and the kernels' per-stream
@@ -154,6 +156,7 @@ class Program:
         self.counts = counts if counts is not None else {}
         self.counts[name] = 0
         self._graphs: dict = {}
+        self._ready: dict = {}
 
     def _key(self, args) -> tuple:
         key = []
@@ -175,6 +178,24 @@ class Program:
                     f"a plain value or a tuple of plain values")
         return tuple(key)
 
+    def fed(self, args, i: int):
+        """The buffer that a call with ``args`` copies its fed tensor
+        ``i`` into (made now when that call will capture), or None with
+        ``graphs=False``. A caller that writes the input there and passes
+        the buffer as ``args[i]`` makes the call copy nothing. ``args[i]``
+        may be a meta tensor of the input's shape and dtype."""
+        if not self.owner.graphs:
+            return None
+        key = self._key(args)
+        entry = self._graphs.get(key)
+        if entry is not None:
+            return entry.fed[i]
+        buf = self._ready.get((key, i))
+        if buf is None:
+            buf = self._ready[(key, i)] = torch.empty(
+                args[i].shape, dtype=args[i].dtype, device=self.owner.device)
+        return buf
+
     def __call__(self, *args):
         key = self._key(args)
         entry = self._graphs.get(key)
@@ -187,7 +208,7 @@ class Program:
                              and isinstance(a, torch.Tensor) else a
                              for i, a in enumerate(args)))
         if entry is None:
-            out, self._graphs[key] = self._capture(args)
+            out, self._graphs[key] = self._capture(args, key)
             return out
         for i, buf in entry.fed.items():
             a = args[i]
@@ -198,7 +219,7 @@ class Program:
             c.launches += d
         return entry.out
 
-    def _capture(self, args):
+    def _capture(self, args, key):
         """The first call with a key: the eager run on the capture stream
         (the call's result), then the capture of the same call."""
         owner = self.owner
@@ -208,9 +229,11 @@ class Program:
         args = list(args)
         for i, a in enumerate(args):
             if i not in self.held and isinstance(a, torch.Tensor):
-                fed[i] = torch.empty(a.shape, dtype=a.dtype, device=dev)
-                fed[i].copy_(a)
-                args[i] = fed[i]
+                buf = self._ready.pop((key, i), None)
+                if buf is None or buf.data_ptr() != a.data_ptr():
+                    buf = torch.empty(a.shape, dtype=a.dtype, device=dev)
+                    buf.copy_(a)
+                fed[i] = args[i] = buf
         caller = _current(dev)
         _join(owner.stream, caller)
         with _on(owner.stream):

@@ -314,6 +314,8 @@ class LCTrainer:
             log.info("LC step %d: %s", k, rec)
 
         self._lc_state = lc_state
+        # the run's graphs and the driver's copies are not used again
+        self.lc.release_graphs()
         if self.ckpt:
             self.ckpt.save(state, global_step, blocking=True)
         return state, lc_state
@@ -405,6 +407,8 @@ class LCTrainer:
         if self._pending is not None:
             state = self._apply_pending(state, block=True, done=None)
         self._lc_state = lc_state
+        # the run's graphs and the driver's copies are not used again
+        self.lc.release_graphs()
         if self.ckpt:
             self.ckpt.save(state, global_step, blocking=True)
         return state, lc_state

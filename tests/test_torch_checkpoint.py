@@ -17,17 +17,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import (Prefetcher, TokenStream, embedding_stream,
                               teacher_classification)
 from repro_torch.runtime import FaultInjector, RetryPolicy, StragglerMonitor
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small eager ops: with several test workers on the machine, torch's
-    intra-op thread pool only adds contention (tens of times the run
-    time under load), so the module runs them on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _state(seed=0):

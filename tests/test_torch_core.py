@@ -24,17 +24,7 @@ from repro_torch.core import (
     AsIs, AsMatrix, AsStacked, AsVector, CompressionTask, LCAlgorithm,
     check_disjoint, flatten_params, get_path, lc_penalty, set_path)
 from repro_torch.core import schemes as ts
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small eager ops: with several test workers on the machine, torch's
-    intra-op thread pool only adds contention (tens of times the run
-    time under load), so the module runs them on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 ROOT = Path(__file__).resolve().parent.parent

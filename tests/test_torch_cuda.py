@@ -1177,6 +1177,67 @@ def test_compiled_driver_captures_every_family_on_card(gen, group_tasks):
 
 
 @pytest.mark.cuda
+def test_compiled_chunked_group_holds_a_chunk_not_the_group(gen):
+    """Three C steps of one k-means group that the planner splits into 4
+    chunks (a forced budget), compiled against ``jit_c_step=False``: Θ
+    and ``a`` bit for bit at every μ, and the compiled C steps' memory
+    above the eager ones' (live tensors at their peak, plus the graph
+    pool) under two chunks' working sets (items, Θ and Δ(Θ)), where
+    graphs of the whole group would hold it several times over."""
+    from repro_torch.analysis import cost
+    from repro_torch.core import AsVector, CompressionTask, LCAlgorithm
+    from repro_torch.core import schemes as ts
+    from repro_torch.tree import tree_leaves
+    n, p = 4, 1 << 22
+    params = {f"e{i}": 0.02 * torch.randn(p, device="cuda", generator=gen)
+              for i in range(n)}
+    tasks = [CompressionTask(f"e{i}", f"^e{i}$", AsVector(),
+                             ts.AdaptiveQuantization(k=16, iters=10))
+             for i in range(n)]
+    mus = [1e-3, 2e-3, 4e-3]
+    cost.CHUNK_BUDGET_BYTES = 1
+    cost.clear_caches()
+    try:
+        runs = {}
+        for jit in (False, True):
+            algo = LCAlgorithm(tasks, mus, device="cuda", jit_c_step=jit)
+            lc = algo.init(params)
+            (plan,) = [g["plan"] for g in algo.group_summary(params)]
+            assert plan["n_chunks"] == n
+            states, over = [], []
+            for k, mu in enumerate(mus):
+                lc = algo.set_mu(lc, mu, k)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                lc = algo.c_step(params, lc)
+                torch.cuda.synchronize()
+                pool = algo.programs.pool_bytes() if jit else 0
+                over.append(torch.cuda.max_memory_allocated() - base + pool)
+                states.append([x.clone() for x in tree_leaves(lc["tasks"])])
+            runs[jit] = (states, over)
+            theta = sum(x.numel() * x.element_size() for x in tree_leaves(
+                [s["theta"] for s in lc["tasks"].values()]))
+            if jit:
+                # four chunks of one item: one graph
+                assert algo.programs.captured == 1
+            del algo, lc
+    finally:
+        cost.CHUNK_BUDGET_BYTES = None
+        cost.clear_caches()
+    (want, eager), (got, compiled) = runs[False], runs[True]
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert len(g) == len(w)
+        assert all(torch.equal(x, y) for x, y in zip(g, w)), k
+    chunk = (n * p * 4 * 2 + theta) / n
+    extra = [c - e for c, e in zip(compiled, eager)]
+    print(f"chunked group C steps: eager {eager} B over their start, "
+          f"compiled {compiled} (graph pool included), chunk working "
+          f"set {chunk:.0f} B")
+    assert max(extra) <= 2 * chunk, (extra, chunk)
+
+
+@pytest.mark.cuda
 def test_overlapped_trainer_replays_its_boundary_on_the_side_stream(
         gen, monkeypatch):
     """The overlapped trainer with the compiled driver: every graph
@@ -1213,6 +1274,10 @@ def test_overlapped_trainer_replays_its_boundary_on_the_side_stream(
         return replay(self)
 
     monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", recorded)
+    captured = []
+    release = lc.release_graphs
+    lc.release_graphs = lambda: (captured.append(lc.programs.captured),
+                                 release())[1]
     compared = []
     for name in ("c_step_async", "multiplier_step_async"):
         def both(params, lc_in, name=name, fn=getattr(lc, name)):
@@ -1226,5 +1291,6 @@ def test_overlapped_trainer_replays_its_boundary_on_the_side_stream(
     trainer.run(0)
     assert len(compared) == 8 and all(compared)
     assert streams and all(s == trainer._side for s in streams)
-    assert lc.programs.captured > 0
+    # the run captured its graphs, and the trainer let them go at its end
+    assert captured and captured[0] > 0 and lc.programs.captured == 0
     assert all(h["c_step_violations"] == [] for h in trainer.history)

@@ -31,17 +31,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.kmeans import ops as kops
 from repro_torch.kernels.prune import ops as pops
 from repro_torch.kernels.prune import prune as k2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small eager ops: with several test workers on the machine, torch's
-    intra-op thread pool only adds contention (tens of times the run
-    time under load), so the module runs them on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 # the package exports the Lloyd loop ``kmeans`` (as the JAX package does),

@@ -18,7 +18,8 @@ the CPU: its programs run eagerly here (``graphs.Programs`` with
   sync and async.
 * With stand-ins for the CUDA calls (capture records nothing, replay
   runs nothing): no capture in a run with one C step; after the second
-  boundary one graph a group, a singleton and a step, and none after.
+  boundary one graph a group (a chunk size where the planner splits
+  it), a singleton and a step, and none after.
 * ``LCTrainer``, serial and overlapped, with the compiled driver equal
   to the eager one record by record and state by state.
 """
@@ -43,6 +44,7 @@ from repro_torch.core import schemes as ts
 from repro_torch.data import TokenStream
 from repro_torch.runtime import LCTrainer, TrainerConfig
 from repro_torch.tree import tree_leaves
+from torch_threads import _one_torch_thread  # noqa: F401
 
 MUS = [1e-3, 2e-3, 4e-3]
 KMEANS_CB_ATOL = 1e-3
@@ -92,16 +94,6 @@ def _tasks(pkg: str) -> list:
     tasks.append(T("solo-lowrank", "^solo-lowrank$", I(),
                    SOLOS["solo-lowrank"][0](s)))
     return tasks
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tiny eager ops: with several test workers on the machine, torch's
-    intra-op thread pool only adds contention."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -279,6 +271,31 @@ def test_async_steps_write_nothing_and_sync_steps_keep_their_tensors():
                    zip(tree_leaves(new["tasks"]), tree_leaves(lc["tasks"])))
 
 
+def test_the_drivers_copies_follow_in_place_writes():
+    """The compiled steps read the driver's copies of w, λ and ``a``,
+    copied again only where a tensor is new or was written since: after
+    in-place writes to a weight, to λ and to ``a`` (and with one weight
+    replaced) the three steps still equal the eager driver's."""
+    params = _torch_params()
+    algo, eager = _port(), _port(False)
+    lc, _ = _loop(algo, params, n=2)
+    eager.resolve(params)
+    params["quant0"].mul_(1.5)
+    params["l00"] = params["l00"] + 0.25
+    next(iter(lc["tasks"]["quant1"]["lam"].values())).add_(1e-3)
+    next(iter(lc["tasks"]["l01"]["a"].values())).mul_(0.5)
+    for name in ("distortion", "shifted_distortion"):
+        got, want = (getattr(d, name)(params, lc) for d in (algo, eager))
+        assert all(torch.equal(got[n], want[n]) for n in want), name
+    got = algo.multiplier_step_async(params, lc)
+    want = eager.multiplier_step_async(params, lc)
+    assert all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(got["tasks"]), tree_leaves(want["tasks"])))
+    # the driver's copy of λ now holds the async step's λ, not lc's
+    got, want = (d.shifted_distortion(params, lc) for d in (algo, eager))
+    assert all(torch.equal(got[n], want[n]) for n in want)
+
+
 # ----------------------------------------------------------------------
 # captures, with stand-ins for the CUDA calls
 # ----------------------------------------------------------------------
@@ -332,6 +349,29 @@ def test_one_graph_a_solve_and_a_step_then_replays_only(stand_ins,
     counts = {p.name: p.counts[p.name] for p in algo._steps.values()}
     assert counts == {"shifted distortion": 1, "multipliers": 1,
                       "distortion": 1}
+
+
+def test_a_chunked_group_captures_a_chunk_not_the_group(stand_ins):
+    """Under the planner's chunks, each graph of a group solve is fed one
+    chunk's items (a buffer handed out before the capture and kept by
+    the graph, not a copy of it), and equal chunks share one graph."""
+    params = _torch_params()
+    algo = _captured_driver()
+    _loop(algo, params, n=2)
+    chunked = {tuple(r["tasks"]): r["plan"]["n_chunks"]
+               for r in algo.group_summary(params)
+               if r["plan"] and r["plan"]["n_chunks"] > 1}
+    assert chunked
+    seen = 0
+    for exe in algo._compiled.executables.values():
+        if len(exe.bounds) == 1:
+            continue
+        sizes = {hi - lo for lo, hi in exe.bounds}
+        graphs_ = list(exe.program._graphs.values())
+        assert len(graphs_) == len(sizes) and not exe.program._ready
+        assert {g.fed[2].shape[0] for g in graphs_} == sizes
+        seen += 1
+    assert seen == len(chunked)
 
 
 class _HostReads(TorchDispatchMode):
@@ -410,14 +450,24 @@ def _trainer(jit, overlap):
 
 @pytest.mark.parametrize("overlap", ["off", "on"])
 def test_trainer_with_the_compiled_driver_equals_the_eager_one(overlap):
-    runs = {}
+    runs, steps = {}, []
     for jit in (True, False):
         trainer = _trainer(jit, overlap)
+        release = trainer.lc.release_graphs
+
+        def released(lc=trainer.lc, release=release):
+            steps.append(set(lc._steps))
+            return release()
+
+        trainer.lc.release_graphs = released
         runs[jit] = (trainer.run(0), trainer.history, trainer.lc)
     (state, lc_state), hist, algo = runs[True]
     (e_state, e_lc_state), e_hist, _ = runs[False]
-    assert set(algo._steps) == {"shifted distortion", "multipliers",
-                                "distortion"}
+    # the compiled driver ran its steps as programs, and the trainer let
+    # them go when its run ended
+    assert steps == [{"shifted distortion", "multipliers", "distortion"},
+                     set()]
+    assert not algo._steps and not algo._staged
     for x, y in zip(tree_leaves((state, lc_state)),
                     tree_leaves((e_state, e_lc_state))):
         assert torch.equal(x, y)

@@ -37,19 +37,9 @@ from repro_torch.core.grouping import solve_task
 from repro_torch.kernels.lowrank import lowrank as lk
 from repro_torch.kernels.lowrank import ops as lops
 from repro_torch.kernels.lowrank import ref as lref
+from torch_threads import _one_torch_thread  # noqa: F401
 
 KMEANS_CB_ATOL = 1e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The solvers here run many tiny eager ops; with several test
-    workers on the machine, torch's intra-op thread pool only adds
-    contention, so the module runs them on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(x):

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import _one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT) not in sys.path:
@@ -38,17 +39,6 @@ from repro.core import schemes as js  # noqa: E402
 from repro_torch import interop, mixed_compression, showcase  # noqa: E402
 
 KW = dict(n_steps=3, iters_per_l=5)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The solvers here run many tiny eager ops; with several test
-    workers on the machine, torch's intra-op thread pool only adds
-    contention, so the module runs them on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(x):

@@ -38,17 +38,7 @@ from repro_torch.core import flatten_params as tflatten
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttf
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small eager ops: with several test workers on the machine, torch's
-    intra-op thread pool only adds contention (tens of times the run
-    time under load), so the module runs them on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 MM = dict(rtol=1e-5, atol=2e-5)       # matrix products / softmax

@@ -18,17 +18,7 @@ from repro.optim import (AdamW as JAdamW, SGDM as JSGDM,
 from repro_torch import interop
 from repro_torch.optim import (AdamW, SGDM, clip_by_global_norm,
                                global_norm, schedules)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small eager ops: with several test workers on the machine, torch's
-    intra-op thread pool only adds contention (tens of times the run
-    time under load), so the module runs them on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 TOL = dict(rtol=1e-6, atol=1e-7)

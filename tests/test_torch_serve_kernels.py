@@ -30,17 +30,7 @@ from repro_torch.kernels.lowrank import serve as lowrank
 from repro_torch.kernels.prune import serve as prune
 from repro_torch.kernels.quant_matmul import ops as qops
 from repro_torch.kernels.quant_matmul import quant_matmul as k45
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small eager ops: with several test workers on the machine, torch's
-    intra-op thread pool only adds contention (tens of times the run
-    time under load), so the module runs them on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 GEMM = dict(rtol=1e-5, atol=1e-4)

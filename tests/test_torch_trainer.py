@@ -39,17 +39,7 @@ from repro_torch.data import TokenStream
 from repro_torch.launch import train as ttrain
 from repro_torch.runtime import FaultInjector, LCTrainer, TrainerConfig
 from repro_torch.tree import tree_leaves
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small eager ops: with several test workers on the machine, torch's
-    intra-op thread pool only adds contention (tens of times the run
-    time under load), so the module runs them on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 KEY = 0
