@@ -11,6 +11,9 @@
     python3 chip_smoke.py --lc          # the compiled LC driver's paths only
     python3 chip_smoke.py --lc-memory   # path H1's peak memory and the LM
                                         # steps' times, eager and compiled
+    python3 chip_smoke.py --shard       # path S: the sharding layer's
+                                        # data axis (its ranks run as
+                                        # --shard-rank R)
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit (nvcc). Every ``Server`` and ``ServingEngine`` serves
@@ -203,7 +206,28 @@ Phases, each of which fails the run:
     batched products' bits depend on the batch: the gap of 4 launches
     forced past the planner is printed). ``--lc`` runs only paths A, B,
     LM, E, F, H and L2;
-19. one JSON line listing every ported kernel, then the result line.
+19. path S, the sharding layer's data axis, in a process of its own
+    (``--shard``; ``shard_paths``). S1: world size 1 over NCCL
+    (``make_cstep_mesh``), path S's problem (the LM phase's K=16 group
+    of 8 × 25,165,824 and its w_down as an ℓ0 group of 4 at 5%, plus a
+    K=16 group of 3 × 3072²) under ``LCAlgorithm(mesh=...)`` beside
+    ``mesh=None``, init and 3 C steps of the compiled driver (the third
+    on replays): Θ, ``a`` and λ bit for bit, the same launches (a fused
+    loop or bisection a group, one K3) a C step. S2: 2 ranks on the one
+    card over ``gloo`` (processes of their own, ``--shard-rank R``; NCCL
+    refuses two ranks on one GPU), the same problem, each rank solving
+    its block (the 3-item group pads one lane): every rank's Θ after
+    init and each C step equal to S1's ``mesh=None`` run (fingerprints
+    of the bits), each rank's launches those of one loop or bisection
+    a group a C step; C-step seconds, the gathers' seconds and bytes,
+    peak memory per rank. S3: data-parallel LC training of phi3-mini
+    at full width (2 of 32 layers, ``launch/train.py``'s quantization
+    tasks, 2 L steps and a C step) on the 2 ranks, 4 × 1024 tokens a
+    rank, against a one-process run on the same 8 × 1024: every step's
+    loss within rtol 1e-5, the parameters within 2·lr a step and all
+    but 0.1% within 1e-6 (``tests/test_torch_dp_train.py``); step ms
+    per rank, the gradient all-reduce's ms and share, peak memory;
+20. one JSON line listing every ported kernel, then the result line.
 
 Tolerances: assignments, masks and integer counts must be equal; K1/K7
 cluster sums may differ from the plain version's by the summation order
@@ -403,6 +427,14 @@ JAMBA_PARAMS, XLSTM_PARAMS = 3_960_418_304, 155_651_408
 JAMBA_FFN = 4096 * 14336                               # 58,720,256
 JAMBA_KAPPA = int(0.05 * 2 * JAMBA_FFN)                # 5,872,025
 L2_BATCH, L2_SEQ, L2_LC, L2_STEPS = 4, 1024, 3, 1
+
+# path S: the sharding layer's data axis. S1 and S2 run path S's C-step
+# problem (``s_problem``); S2 and S3 run on S_WORLD ranks over gloo on
+# the one card; S3 trains phi3-mini at full width, 2 of 32 layers, with
+# 4 × 1024 tokens a rank (the one-process run: 8 × 1024)
+S_WORLD, S3_LAYERS, S3_ROWS, S3_STEPS = 2, 2, 4, 2
+SHARD_LAUNCHES = "shard_launches"      # the line ``--shard`` reports on
+SHARD_DIR = ROOT / "build" / "shard"
 K_SEEDS, L1_SEEDS = (24, 24), (26, 26)
 
 
@@ -4355,6 +4387,382 @@ def lc_memory(kern, power: str) -> None:
     stamp("done")
 
 
+# ----------------------------------------------------------------------
+# path S: the sharding layer's data axis (``--shard``, a process of its
+# own, whose ranks are processes of their own: ``--shard-rank R``)
+# ----------------------------------------------------------------------
+def s_problem(g):
+    """Path S's C-step problem at phi3-mini's full width (random, from
+    generator ``g``): K=16 quantization of w_gate|w_up (one group of 8
+    items of 25,165,824), ℓ0 at 5% per item of w_down as two leaves of 2
+    layers (one group of 4), and K=16 quantization of 3 items of 3072²
+    in two leaves (one group of 3: at world size 2 one lane pads)."""
+    from repro_torch.core import AsStacked, CompressionTask
+    from repro_torch.core.schemes import (
+        AdaptiveQuantization, ConstraintL0Pruning)
+    shapes = {"w_gate": (LM_LAYERS, LM_D_MODEL, LM_D_FF),
+              "w_up": (LM_LAYERS, LM_D_MODEL, LM_D_FF),
+              "w_down_a": (2, LM_D_FF, LM_D_MODEL),
+              "w_down_b": (2, LM_D_FF, LM_D_MODEL),
+              "pad_a": (2, LM_D_MODEL, LM_D_MODEL),
+              "pad_b": (1, LM_D_MODEL, LM_D_MODEL)}
+    params = {"ffn": {n: 0.02 * torch.randn(sh, device="cuda", generator=g)
+                      for n, sh in shapes.items()}}
+    tasks = [
+        CompressionTask("quant", r"ffn/(w_gate|w_up)$", AsStacked("vector"),
+                        AdaptiveQuantization(k=16, iters=10)),
+        CompressionTask("prune", r"ffn/w_down_[ab]$", AsStacked("vector"),
+                        ConstraintL0Pruning(kappa=W_DOWN_KAPPA_LM)),
+        CompressionTask("pad", r"ffn/pad_[ab]$", AsStacked("vector"),
+                        AdaptiveQuantization(k=16, iters=10)),
+    ]
+    return params, tasks
+
+
+def s_nudge(params, g) -> None:
+    """The stand-in for an L step before each C step (as the LM phase)."""
+    for w in params["ffn"].values():
+        w.add_(1e-3 * torch.randn(w.shape, device="cuda", generator=g))
+
+
+def digest(x: torch.Tensor) -> str:
+    """A fingerprint of a tensor's bits, on the card: its dtype, shape and
+    two position-weighted sums of its 32-bit words (integer sums, exact
+    in any order)."""
+    b = x.contiguous().reshape(-1).view(torch.uint8)
+    if b.numel() % 4:
+        b = torch.cat([b, b.new_zeros(4 - b.numel() % 4)])
+    words = b.view(torch.int32)
+    h1 = h2 = 0
+    for lo in range(0, words.numel(), 1 << 26):
+        v = words[lo:lo + (1 << 26)].to(torch.int64)
+        i = torch.arange(lo, lo + v.numel(), device=v.device)
+        h1 += int(torch.sum(v * (i % 1_000_003 + 1)))
+        h2 += int(torch.sum(v * ((i * 7919) % 999_983 + 3)))
+    return f"{x.dtype}{tuple(x.shape)}:{h1}:{h2}"
+
+
+def theta_digests(state) -> dict:
+    from repro_torch.tree import tree_leaves
+    return {n: [digest(x) for x in tree_leaves(state["tasks"][n]["theta"])]
+            for n in state["tasks"]}
+
+
+def s_step_launches(kern) -> dict:
+    """A C step of path S's problem: one fused Lloyd loop per k-means
+    group (2), one bisection and one K3 for the ℓ0 group."""
+    return only(kern, K1loop=2, K2loop=1, K3=1)
+
+
+def path_s1(kern, card: str) -> dict:
+    """S1: world size 1 over NCCL (``make_cstep_mesh``): the compiled LC
+    driver over the mesh beside one with ``mesh=None`` on the same
+    inputs, init and 3 C steps (the third on replays): every Θ, ``a`` and
+    λ bit for bit, the same launches a C step. Writes the ``mesh=None``
+    run's Θ fingerprints for S2."""
+    import torch.distributed as dist
+
+    from repro_torch.core import LCAlgorithm
+    from repro_torch.launch.mesh import make_cstep_mesh
+    from repro_torch.tree import tree_leaves
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    mesh = make_cstep_mesh()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for name, m in (("mesh", mesh), ("none", None)):
+        params, tasks = s_problem(torch.Generator(
+            device="cuda").manual_seed(7))
+        lc = LCAlgorithm(tasks, LM_MUS, device="cuda", mesh=m)
+        runs[name] = {"params": params, "lc": lc, "state": lc.init(params),
+                      "noise": torch.Generator(device="cuda").manual_seed(8),
+                      "c_s": [], "launches": []}
+    groups = runs["mesh"]["lc"].group_summary(runs["mesh"]["params"])
+    print("path S1 groups: " + "; ".join(
+        f"{g_['tasks']} {g_['items']} items {g_['solver']} spec "
+        f"{g_['spec']} pad {g_['padding']} {g_['shard_mode']}"
+        for g_ in groups), flush=True)
+    check(sorted((g_["items"], g_["shard_mode"]) for g_ in groups) ==
+          [(3, "sharded"), (4, "sharded"), (2 * LM_LAYERS, "sharded")],
+          "path S1 groups")
+    fingerprints = [theta_digests(runs["none"]["state"])]
+    total = only(kern)
+    for k, mu in enumerate(LM_MUS):
+        for r in runs.values():
+            s_nudge(r["params"], r["noise"])
+            r["state"] = r["lc"].set_mu(r["state"], mu, k)
+            reset(kern)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            r["state"] = r["lc"].c_step(r["params"], r["state"])
+            torch.cuda.synchronize()
+            r["c_s"].append(time.time() - t0)
+            r["launches"].append(launches(kern))
+            total = {n: total[n] + r["launches"][-1][n] for n in total}
+            r["state"] = r["lc"].multiplier_step(r["params"], r["state"])
+        a, b = runs["mesh"]["state"], runs["none"]["state"]
+        same = all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(a["tasks"]), tree_leaves(b["tasks"])))
+        check(same, f"path S1 C step {k}: mesh against mesh=None")
+        want = s_step_launches(kern)
+        check(runs["mesh"]["launches"][-1] == runs["none"]["launches"][-1]
+              == want, f"path S1 C step {k} launches "
+              f"{runs['mesh']['launches'][-1]} (mesh=None "
+              f"{runs['none']['launches'][-1]})")
+        fingerprints.append(theta_digests(b))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"path S1 (NCCL, world size 1, 3 C steps, the third replayed): "
+          f"Θ, a and λ bit for bit against mesh=None at every step; "
+          f"c_step_s mesh {[round(x, 4) for x in runs['mesh']['c_s']]} "
+          f"against mesh=None {[round(x, 4) for x in runs['none']['c_s']]}; "
+          f"launches a C step { {k_: v for k_, v in want.items() if v} }"
+          f" each; graphs {runs['mesh']['lc'].programs.captured} against "
+          f"{runs['none']['lc'].programs.captured}; peak_memory_gib="
+          f"{peak:.2f} [{card}]", flush=True)
+    SHARD_DIR.mkdir(parents=True, exist_ok=True)
+    (SHARD_DIR / "s1_theta.json").write_text(json.dumps(fingerprints))
+    for r in runs.values():
+        r["lc"].release_graphs()
+    runs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return total
+
+
+def s3_trainer(mesh, rows: int):
+    """S3's trainer: phi3-mini at full width, S3_LAYERS of its 32 layers,
+    ``launch/train.py``'s quantization tasks, one μ of 2 L steps and a C
+    step, batches of ``rows`` × 1024 tokens (the global batch)."""
+    from repro_torch.core import LCAlgorithm, exponential_mu_schedule
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.train import default_tasks
+    from repro_torch.runtime import LCTrainer, TrainerConfig
+    cfg = h_config(S3_LAYERS)
+    lc = LCAlgorithm(default_tasks(cfg, "quantize"),
+                     exponential_mu_schedule(H_MU0, H_MU_A, 1),
+                     device="cuda")
+    return LCTrainer(cfg, lc, TokenStream(cfg.vocab_size, rows, H_SEQ),
+                     mesh=mesh, tcfg=TrainerConfig(steps_per_l=S3_STEPS,
+                                                   lr=H_LR),
+                     device="cuda")
+
+
+def s3_run(kern, trainer, label: str, card: str) -> dict:
+    """Run ``trainer`` from seed 0: each train step's loss and wall ms
+    (synchronized), the gradient all-reduce's ms within it
+    (``steps._sum_grads``), the launches and the peak memory."""
+    from repro_torch.launch import steps
+    losses, step_ms, reduce_ms = [], [], []
+    step = trainer._train_step
+    sum_grads = steps._sum_grads
+
+    def timed_sum(grads, group):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = sum_grads(grads, group)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.time() - t0) * 1e3)
+        return out
+
+    def timed(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t0) * 1e3)
+        losses.append(float(out[1]["loss"]))
+        return out
+
+    trainer._train_step = timed
+    steps._sum_grads = timed_sum
+    torch.cuda.reset_peak_memory_stats()
+    reset(kern)
+    try:
+        state, lc_state = trainer.run(0)
+    finally:
+        steps._sum_grads = sum_grads
+    torch.cuda.synchronize()
+    hist = trainer.history
+    check(len(hist) == 1 and hist[0]["c_step_violations"] == []
+          and all(math.isfinite(x) for x in losses),
+          f"path S3 {label} records {hist}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    share = ([round(r / s, 4) for r, s in zip(reduce_ms, step_ms)]
+             if reduce_ms else None)
+    print(f"path S3 {label}: losses {losses} step_ms "
+          f"{[round(x, 2) for x in step_ms]} all_reduce_ms "
+          f"{[round(x, 2) for x in reduce_ms]} share {share} c_step_ms "
+          f"{round(hist[0]['c_step_ms'], 2)} peak_memory_gib={peak:.2f} "
+          f"launches { {k: v for k, v in launches(kern).items() if v} } "
+          f"[{card}]", flush=True)
+    return {"state": state, "losses": losses, "launches": launches(kern)}
+
+
+def shard_rank(kern, rank: int, card: str) -> None:
+    """``python3 chip_smoke.py --shard-rank R``: rank R of S_WORLD over
+    ``gloo`` on the one card. S2: path S1's problem over
+    ``make_cstep_mesh``, init and 3 C steps of the compiled driver, each
+    rank's Θ fingerprints equal to S1's ``mesh=None`` run's, one loop or
+    bisection a group a C step on the rank's block; S3: the data-parallel
+    trainer on the rank's half of the global batch, losses within rtol
+    1e-5 of the one-process run's and parameters within ``2·lr`` a step
+    of them (``tests/test_torch_dp_train.py``'s tolerance)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import LCAlgorithm
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_cstep_mesh, make_debug_mesh
+    from repro_torch.tree import tree_leaves
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{SHARD_DIR / 'store'}", rank=rank,
+        world_size=S_WORLD, timeout=datetime.timedelta(seconds=300))
+    mesh = make_cstep_mesh()
+    gathered = {"s": 0.0, "bytes": 0}
+    gather = sharding.gather_items
+
+    def timed_gather(tree, mesh_, entry):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = gather(tree, mesh_, entry)
+        torch.cuda.synchronize()
+        gathered["s"] += time.time() - t0
+        gathered["bytes"] += sum(x.numel() * x.element_size() for x in
+                                 {id(y): y for y in tree_leaves(out)}
+                                 .values())
+        return out
+
+    sharding.gather_items = timed_gather
+    want = json.loads((SHARD_DIR / "s1_theta.json").read_text())
+    torch.cuda.reset_peak_memory_stats()
+    params, tasks = s_problem(torch.Generator(device="cuda").manual_seed(7))
+    lc = LCAlgorithm(tasks, LM_MUS, device="cuda", mesh=mesh)
+    groups = lc.group_summary(params)
+    check(sorted((g_["items"], g_["padding"], g_["shard_mode"])
+                 for g_ in groups) ==
+          [(3, 1, "sharded"), (4, 0, "sharded"),
+           (2 * LM_LAYERS, 0, "sharded")], f"path S2 groups {groups}")
+    state = lc.init(params)
+    check(theta_digests(state) == want[0], "path S2 Θ^DC against S1")
+    noise = torch.Generator(device="cuda").manual_seed(8)
+    c_s, total = [], only(kern)
+    for k, mu in enumerate(LM_MUS):
+        s_nudge(params, noise)
+        state = lc.set_mu(state, mu, k)
+        reset(kern)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state = lc.c_step(params, state)
+        torch.cuda.synchronize()
+        c_s.append(time.time() - t0)
+        n = launches(kern)
+        total = {k_: total[k_] + n[k_] for k_ in total}
+        check(n == s_step_launches(kern),
+              f"path S2 rank {rank} C step {k} launches {n}")
+        check(theta_digests(state) == want[k + 1],
+              f"path S2 rank {rank} C step {k}: Θ against S1's mesh=None")
+        state = lc.multiplier_step(params, state)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"path S2 rank {rank} of {S_WORLD} (gloo, one card): Θ^DC and 3 "
+          f"C steps bit for bit against S1's mesh=None run; c_step_s "
+          f"{[round(x, 4) for x in c_s]} gather_s (init and C steps)="
+          f"{gathered['s']:.3f} gather_bytes={gathered['bytes']} "
+          f"graphs {lc.programs.captured} peak_memory_gib={peak:.2f} "
+          f"launches a C step "
+          f"{ {k_: v for k_, v in s_step_launches(kern).items() if v} } "
+          f"[{card}]", flush=True)
+    sharding.gather_items = gather
+    lc.release_graphs()
+    del params, state, lc
+    gc.collect()
+    torch.cuda.empty_cache()
+    # S3: data-parallel training, beside the one-process run
+    trainer = s3_trainer(make_debug_mesh((S_WORLD, 1)), S_WORLD * S3_ROWS)
+    run = s3_run(kern, trainer, f"rank {rank} of {S_WORLD} (gloo, "
+                 f"{S3_ROWS} × {H_SEQ} tokens a rank)", card)
+    ref = json.loads((SHARD_DIR / "s3_losses.json").read_text())
+    check(np.allclose(run["losses"], ref, rtol=1e-5, atol=0),
+          f"path S3 rank {rank} losses {run['losses']} against one "
+          f"process {ref}")
+    ref_params = torch.load(SHARD_DIR / "s3_params.pt", map_location="cuda")
+    worst, flipped, n_all = 0.0, 0, 0
+    for x, y in zip(tree_leaves(run["state"]["params"]),
+                    tree_leaves(ref_params)):
+        d = (x - y).abs()
+        worst = max(worst, float(d.max()))
+        flipped += int((d > 1e-6).sum())
+        n_all += d.numel()
+    check(worst <= 2 * H_LR * S3_STEPS * (1 + 1e-4)
+          and flipped <= 1e-3 * n_all,
+          f"path S3 rank {rank} parameters: max|Δ| {worst}, {flipped} of "
+          f"{n_all} past 1e-6")
+    print(f"path S3 rank {rank}: losses within rtol 1e-5 of one process; "
+          f"parameters after {S3_STEPS} L steps and a C step max|Δ|="
+          f"{worst:.3g}, {flipped} of {n_all} past 1e-6 [{card}]",
+          flush=True)
+    dist.destroy_process_group()
+    print(SHARD_LAUNCHES, json.dumps({
+        f"S2 rank {rank}": total, f"S3 rank {rank}": run["launches"]}),
+        flush=True)
+
+
+def shard_paths(kern, card: str) -> None:
+    """``python3 chip_smoke.py --shard``: path S. S1 here (NCCL, world
+    size 1), then the one-process S3 run here, then S_WORLD rank
+    processes (``--shard-rank``) over ``gloo`` on the one card for S2 and
+    S3; every child's check fails the run. The launches end the output as
+    the line ``shard_launches {json}``."""
+    import shutil
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    SHARD_DIR.mkdir(parents=True)
+    stamp("path S1")
+    s1 = path_s1(kern, card)
+    stamp("path S3, one process")
+    trainer = s3_trainer(None, S_WORLD * S3_ROWS)
+    run = s3_run(kern, trainer, f"one process ({S_WORLD * S3_ROWS} × "
+                 f"{H_SEQ} tokens)", card)
+    (SHARD_DIR / "s3_losses.json").write_text(json.dumps(run["losses"]))
+    torch.save(run["state"]["params"], SHARD_DIR / "s3_params.pt")
+    s3 = run["launches"]
+    del trainer, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp(f"paths S2 and S3 on {S_WORLD} ranks")
+    logs = [open(SHARD_DIR / f"rank{r}.log", "w") for r in range(S_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--shard-rank",
+         str(r)], stdout=log, text=True) for r, log in enumerate(logs)]
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    outs = [(SHARD_DIR / f"rank{r}.log").read_text()
+            for r in range(S_WORLD)]
+    found = {"S1": s1, "S3 one process": s3}
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.startswith(SHARD_LAUNCHES + " "):
+                found.update(json.loads(line[len(SHARD_LAUNCHES) + 1:]))
+            elif line.startswith("path S") or "FAILED" in line:
+                print(line, flush=True)
+        check(p.returncode == 0, f"path S rank {r} exited with "
+              f"{p.returncode}")
+    check(all(f"S{i} rank {r}" in found for i in (2, 3)
+              for r in range(S_WORLD)), "path S ranks reported no launches")
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    stamp("done")
+    print(SHARD_LAUNCHES, json.dumps(found), flush=True)
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -4418,6 +4826,12 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--lc-memory"]:
         lc_memory(kern, power)
+        return 0
+    if sys.argv[1:] == ["--shard"]:
+        shard_paths(kern, card)
+        return 0
+    if sys.argv[1:2] == ["--shard-rank"]:
+        shard_rank(kern, int(sys.argv[2]), card)
         return 0
     t_start = time.time()
     stamp('kernel phase')
@@ -4495,6 +4909,19 @@ def main() -> int:
         print(child.stdout, end="", flush=True)
         check(child.returncode == 0, f"the busy-share process of path "
               f"{label} exited with {child.returncode}")
+    # path S: the sharding layer's data axis, in a process of its own
+    # whose ranks are processes of their own (``shard_paths``)
+    stamp("path S")
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--shard"], stdout=subprocess.PIPE, text=True,
+                           timeout=900)
+    print(child.stdout, end="", flush=True)
+    check(child.returncode == 0,
+          f"the process of path S exited with {child.returncode}")
+    mark = [x for x in child.stdout.splitlines()
+            if x.startswith(SHARD_LAUNCHES + " ")]
+    check(len(mark) == 1, "path S reported no launches")
+    paths.update(json.loads(mark[0][len(SHARD_LAUNCHES) + 1:]))
     stamp("the kernels line")
     total = {n: sum(p[n] for p in paths.values()) for n in kern}
     print(f"launches per path: {paths}", flush=True)

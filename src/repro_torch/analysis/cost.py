@@ -30,6 +30,7 @@ The module does not import ``core.grouping`` (grouping imports it).
 from __future__ import annotations
 
 import dataclasses
+import math
 from functools import lru_cache
 from typing import Any, Callable
 
@@ -110,17 +111,21 @@ def detect_hardware(device=None) -> HardwareSpec:
 class GroupPlan:
     """One group's planner decisions plus the cost terms behind them.
 
-    ``block_rows`` is always ``None`` (the kernels size their grids),
-    ``shard_mode`` ``"none"`` (no mesh yet) and ``source``
-    ``"analytic"``; ``fallbacks`` records every decision the planner
-    could not make or apply, with its reason.
+    ``block_rows`` is always ``None`` (the kernels size their grids) and
+    ``source`` ``"analytic"``. ``shard_mode`` is ``"none"`` without a mesh
+    (or where the ``"items"`` rule resolves no axis), ``"sharded"`` where
+    each rank of the mesh's data axis solves its block of the items and
+    the blocks are gathered (``core/grouping.py``), ``"replicated"``
+    where every rank solves the whole group (a solver whose bits depend
+    on the batch). ``fallbacks`` records every decision the planner could
+    not make or apply, with its reason.
     """
 
     backend: str                    # dispatch backend ("torch"/"cuda"/...)
     solver: str | None              # registry solver (None: item by item)
     block_rows: int | None
     n_chunks: int                   # launches the packed group splits into
-    shard_mode: str
+    shard_mode: str                 # "none" | "sharded" | "replicated"
     flops: float                    # modeled FLOPs for the whole group
     bytes: float                    # modeled device-memory traffic
     coll_bytes: float
@@ -190,18 +195,26 @@ def _structure(tree) -> str:
     return "*"
 
 
+def _mesh_fingerprint(mesh) -> tuple:
+    """A mesh's axis names and sizes (``None``: no mesh)."""
+    if mesh is None:
+        return ("no-mesh",)
+    return (tuple(mesh.mesh_dim_names), tuple(int(n) for n in mesh.shape))
+
+
 def plan_key(signature, n_items, arrays, backend,
-             hw: HardwareSpec) -> tuple:
+             hw: HardwareSpec, mesh=None) -> tuple:
     """Cache key of a group's plan and executable: the group signature
     (scheme batch key, item shape and dtype), the item count, the packed
     operands' shapes, dtypes and structure (tensors of any device, meta
-    included), the requested backend and the hardware. The port has no
-    mesh, so no mesh fingerprint."""
+    included), the mesh's axis names and sizes, the requested backend and
+    the hardware."""
     if signature is None:
         signature = ("ungrouped",)
     return (tuple(signature), int(n_items),
             tuple(_leaf_sig(x) for x in tree_leaves(arrays)),
-            _structure(arrays), str(backend), hw.name)
+            _structure(arrays), _mesh_fingerprint(mesh), str(backend),
+            hw.name)
 
 
 # ---------------------------------------------------------------------------
@@ -260,24 +273,37 @@ def _tree_bytes(tree) -> int:
 
 
 def estimate_terms(signature, solver: str | None, arrays, out_shapes,
-                   hw: HardwareSpec) -> dict:
-    """Closed-form roofline terms for one packed group, whole-group (no
-    mesh). ``arrays`` / ``out_shapes`` are trees of tensors, meta tensors
-    included: only shapes and dtypes are read."""
+                   hw: HardwareSpec, mesh=None,
+                   shard_items: bool = False) -> dict:
+    """Closed-form roofline terms for one packed group, as the
+    reference's: per rank when ``shard_items`` (the item axis split over
+    the mesh), else whole-group, with a replicated solve's outputs
+    counted as the collective term. ``arrays`` / ``out_shapes`` are trees
+    of tensors, meta tensors included: only shapes and dtypes are
+    read."""
     in_bytes = _tree_bytes(arrays)
     out_bytes = _tree_bytes(out_shapes)
     n_elems = max(1, in_bytes // 4)
     flops = _solver_flop_factor(solver, signature) * float(n_elems)
     total_bytes = float(in_bytes + out_bytes)
+    chips = 1
+    coll_bytes = 0.0
+    if mesh is not None and math.prod(int(n) for n in mesh.shape) > 1:
+        chips = math.prod(int(n) for n in mesh.shape)
+        if shard_items:
+            flops /= chips
+            total_bytes /= chips
+        else:
+            coll_bytes = float(out_bytes)
     return {
         "flops": flops,
         "bytes": total_bytes,
-        "coll_bytes": 0.0,
+        "coll_bytes": coll_bytes,
         "t_compute": flops / hw.peak_flops,
         "t_memory": total_bytes / hw.hbm_bw,
-        "t_collective": 0.0,
+        "t_collective": coll_bytes / hw.link_bw if coll_bytes else 0.0,
         "working_set_bytes": int(in_bytes + out_bytes),
-        "chips": 1,
+        "chips": chips,
     }
 
 
@@ -348,7 +374,8 @@ def plan_group(signature, n_items, arrays, out_shapes, *,
                registered: tuple[str, ...] = (),
                chunk_exact: tuple[str, ...] = (),
                base_fallbacks: tuple = (),
-               hw: HardwareSpec) -> GroupPlan:
+               hw: HardwareSpec, mesh=None,
+               items_entry=None) -> GroupPlan:
     """Plan one packed group. Cached on :func:`plan_key` (the chunk
     budget is not in the key: :func:`clear_caches` after changing
     ``CHUNK_BUDGET_BYTES``). ``registered`` lists the dispatch backends
@@ -357,8 +384,15 @@ def plan_group(signature, n_items, arrays, out_shapes, *,
     chunk_exact``; the item-by-item path, ``solver`` None, always is): a
     group over the budget on any other backend stays in one launch, and
     the plan says so. ``base_fallbacks`` pre-records caller-side
-    decisions, so that an analytic plan is never silent about why."""
-    key = plan_key(signature, n_items, arrays, requested_backend, hw)
+    decisions, so that an analytic plan is never silent about why.
+
+    Under a ``mesh`` whose ``"items"`` rule resolves ``items_entry`` (not
+    None), a group whose solver is chunk-exact on the chosen backend is
+    ``"sharded"`` (each rank solves its block of the items, as a chunk of
+    the group) and never chunks: the plan records the reference's
+    ``chunking-disabled-under-mesh`` where it would have; any other group
+    is ``"replicated"``, with the reason in ``fallbacks``."""
+    key = plan_key(signature, n_items, arrays, requested_backend, hw, mesh)
     cached = _PLAN_CACHE.get(key)
     if cached is not None:
         _STATS["plan_hits"] += 1
@@ -369,14 +403,26 @@ def plan_group(signature, n_items, arrays, out_shapes, *,
     backend, fallbacks = choose_backend(requested_backend, solver,
                                         registered, terms, hw)
     fallbacks = list(base_fallbacks) + fallbacks + [_NO_HLO]
+    exact = solver is None or backend in chunk_exact
+    shard_mode = "none"
+    if mesh is not None and items_entry is not None:
+        shard_mode = "sharded" if exact else "replicated"
+        if not exact:
+            fallbacks.append(f"replicated-under-mesh:{solver}-on-{backend}-"
+                             f"not-chunk-exact")
+        terms = estimate_terms(signature, solver, arrays, out_shapes, hw,
+                               mesh=mesh, shard_items=exact)
     n_chunks = choose_chunks(terms["working_set_bytes"], n_items, hw)
-    if n_chunks > 1 and solver is not None and backend not in chunk_exact:
+    if n_chunks > 1 and shard_mode == "sharded":
+        fallbacks.append("chunking-disabled-under-mesh")
+        n_chunks = 1
+    if n_chunks > 1 and not exact:
         fallbacks.append(f"chunking-disabled:{solver}-on-{backend}-"
                          f"depends-on-the-batch")
         n_chunks = 1
     plan = GroupPlan(
         backend=backend, solver=solver, block_rows=None,
-        n_chunks=n_chunks, shard_mode="none",
+        n_chunks=n_chunks, shard_mode=shard_mode,
         flops=terms["flops"], bytes=terms["bytes"],
         coll_bytes=terms["coll_bytes"], t_compute=terms["t_compute"],
         t_memory=terms["t_memory"], t_collective=terms["t_collective"],

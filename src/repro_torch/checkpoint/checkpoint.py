@@ -18,6 +18,12 @@ read by the other:
 * ``keep_last`` old checkpoints are pruned after each commit;
 * ``restore(template)`` rebuilds the template's tree and puts every
   leaf on the device of the template leaf it replaces.
+
+Under an initialized ``torch.distributed`` process group of more than one
+rank (data parallelism: every rank holds the same, replicated state),
+rank 0 alone writes; every rank waits at a barrier once the write is
+done (at the next ``save``/``wait``/``restore``, or at once for a
+blocking save), and every rank restores from the same directory.
 """
 from __future__ import annotations
 
@@ -60,6 +66,19 @@ def _unflatten_into(template, flat: dict, prefix: str = ""):
     return arr.to(dev)
 
 
+def _rank_world() -> tuple[int, int]:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _barrier() -> None:
+    if _rank_world()[1] > 1:
+        import torch.distributed as dist
+        dist.barrier()
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep_last: int = 3,
                  async_save: bool = True):
@@ -89,9 +108,13 @@ class CheckpointManager:
     # ------------------------------------------------------------------
     def save(self, state, step: int, blocking: bool = False):
         # snapshot to host memory synchronously, write on the background
-        # thread
-        flat = _flatten(state)
+        # thread (rank 0 alone, under a process group)
         self.wait()
+        if _rank_world()[0] != 0:
+            if blocking:
+                _barrier()
+            return
+        flat = _flatten(state)
 
         def write():
             d = self._step_dir(step)
@@ -124,11 +147,15 @@ class CheckpointManager:
             self._thread.start()
         else:
             write()
+            _barrier()
 
     def wait(self):
+        """Wait for the write in flight (and, under a process group, for
+        every rank to reach this point); raise its failure."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier()
         if self._error is not None:
             e, self._error = self._error, None
             raise RuntimeError(
@@ -144,6 +171,7 @@ class CheckpointManager:
         """Load a checkpoint into the structure of ``template``, each
         leaf on the device of the template leaf it replaces. Returns
         ``(state, step)``."""
+        self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no complete checkpoint in {self.dir}")

@@ -49,8 +49,15 @@ program's outputs are copied before they are returned.
 The C step runs through the group planner by default (``planner="on"``,
 ``repro_torch.analysis.cost``), as the JAX driver's does; its inputs
 w − λ/μ are made group by group (chunk by chunk where the planner splits
-a group), never for every task at once. The mesh and sharding rules of
-the JAX driver are not ported.
+a group), never for every task at once.
+
+With a ``mesh`` (``LCAlgorithm(mesh=...)`` or :meth:`LCAlgorithm.set_mesh`:
+a ``torch.distributed`` ``DeviceMesh`` whose ``"model"`` axis is 1, one
+process a rank, each holding the whole parameters), the grouped C step
+and Θ^DC shard each group's packed items over the mesh's data axis and
+gather them (``core/grouping.py``): every rank's state equals the
+``mesh=None`` state bit for bit. The multiplier step and the
+distortions read only replicated tensors and run whole on every rank.
 
 Everything runs on ``device``: ``None`` means the card, and the
 constructor raises when CUDA is absent. Parameters handed in must live
@@ -129,7 +136,8 @@ class LCAlgorithm:
                  group_tasks: bool = True,
                  cstep_backend: str | None = "auto",
                  planner: str | None = "on",
-                 device=None, jit_c_step: bool = True):
+                 device=None, jit_c_step: bool = True, mesh=None,
+                 sharding_rules: dict | None = None):
         self.tasks = list(tasks)
         self.mu_schedule = list(mu_schedule)
         self.l_step = l_step
@@ -146,7 +154,21 @@ class LCAlgorithm:
         self._last_lc = None
         # the compiled steps (see the module's note); None: eager
         self.jit_c_step = bool(jit_c_step)
-        self.release_graphs()
+        self.mesh = self.sharding_rules = None
+        self.set_mesh(mesh, sharding_rules)
+
+    def set_mesh(self, mesh, rules: dict | None = None) -> "LCAlgorithm":
+        """Bind the device mesh the grouped C step shards over (``None``:
+        none). Every captured program is dropped (:meth:`release_graphs`),
+        as the JAX driver re-jits its steps; plans are keyed by the mesh's
+        axis sizes, so none made under another mesh is read. A mesh whose
+        ``"model"`` axis is larger than 1 raises (the next slice)."""
+        from repro_torch.distributed.sharding import check_model_axis
+        check_model_axis(mesh, "LCAlgorithm")
+        self.mesh = mesh
+        if rules is not None:
+            self.sharding_rules = rules
+        return self.release_graphs()
 
     def release_graphs(self) -> "LCAlgorithm":
         """Drop every program of the compiled steps, their graphs, their
@@ -230,7 +252,8 @@ class LCAlgorithm:
         tasks_state = {}
         if self.group_tasks:
             xs = {t.name: t.compressible(params) for t in self.tasks}
-            results = grouped_init(self.tasks, xs)
+            results = grouped_init(self.tasks, xs, mesh=self.mesh,
+                                   rules=self.sharding_rules)
         for t in self.tasks:
             if self.group_tasks:
                 theta, a_arr = results[t.name]
@@ -257,6 +280,8 @@ class LCAlgorithm:
             thetas = {t.name: lc["tasks"][t.name]["theta"]
                       for t in self.tasks}
             return grouped_compress(self.tasks, xs, thetas, mu,
+                                    mesh=self.mesh,
+                                    rules=self.sharding_rules,
                                     backend=self.cstep_backend,
                                     device=self.device,
                                     planner=self.planner,
@@ -307,7 +332,10 @@ class LCAlgorithm:
         xs = {t.name: t.view.to_compressible(
                   [l.detach().to("meta") for l in t.leaves(params)])
               for t in self.tasks}
-        return describe_groups(self.tasks, xs, backend=self.cstep_backend,
+        return describe_groups(self.tasks, xs,
+                               mesh=self.mesh if self.group_tasks else None,
+                               rules=self.sharding_rules,
+                               backend=self.cstep_backend,
                                device=self.device, planner=self.planner)
 
     @torch.no_grad()

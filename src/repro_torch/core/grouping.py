@@ -1,6 +1,6 @@
 """Grouped C-step dispatch (the paper's "C steps can be run in parallel").
 
-Port of ``src/repro/core/grouping.py`` without a mesh. Grouped dispatch:
+Port of ``src/repro/core/grouping.py``. Grouped dispatch:
 
 1. partitions resolved tasks by ``CompressionTask.group_signature`` —
    (scheme key, view item shape, dtype);
@@ -44,7 +44,27 @@ signature (``cost.get_executable``), μ fed as a 0-d device tensor, each
 chunk's items packed straight into its graph's buffer; the LC driver's
 compiled C step (``LCAlgorithm(jit_c_step=True)``) runs its groups so,
 and its singletons and per-task solves as programs of their own, through
-:class:`CompiledSolves`. The JAX package's mesh sharding is not ported.
+:class:`CompiledSolves`.
+
+With a ``mesh`` (a ``torch.distributed`` ``DeviceMesh``, one process a
+rank, ``distributed/sharding.py``), the packed item axis of a multi-task
+group follows the ``"items"`` rule (by default the mesh's ``"data"``
+axis): the items are padded to a count the axis divides
+(``items_partition``; the pad repeats the group's last item, its Θ and
+its operands, a problem the solver is known to take), each rank solves
+its block (``shard_bounds``) under the whole group's partition
+(``build.group_partition(n_items)``, as a planner chunk does), and Θ and
+the decompressed items are gathered (``gather_items``) and the pad sliced
+off. Every rank then holds the ``mesh=None`` result bit for bit, for
+solvers whose launches over item slices are exact
+(``dispatch.chunk_exact``: K1 on the card, top-κ, soft-threshold, the
+item-by-item path). The others (low rank, rank selection, the ℓ1 ball,
+the torch k-means) change bits with the batch, so their groups run whole
+on every rank (``shard_mode="replicated"``). A sharded group never
+chunks. Under the compiled driver each rank's executable captures its
+local solve only; the gather runs outside the graph. Singletons run
+whole on every rank, as in the reference. A mesh whose ``"model"`` axis
+is larger than 1 raises (the next slice of the port).
 """
 from __future__ import annotations
 
@@ -56,6 +76,8 @@ from repro_torch.core.schemes.base import (
     add_leading_axis, cat_items, drop_leading_axis, map_items, pack_thetas,
     pack_thetas_padded, slice_theta_like, unpack_thetas)
 from repro_torch.core.tasks import CompressionTask
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import items_partition
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -75,7 +97,8 @@ def _meta(x: torch.Tensor) -> torch.Tensor:
 
 
 def _plan_multi_group(group, xs: dict, thetas: dict | None,
-                      counts: list[int], solver_fn, backend, device):
+                      counts: list[int], solver_fn, backend, device,
+                      mesh=None, rules=None):
     """Plan one multi-task group through the cost model, from shapes
     only: ``xs`` and ``thetas`` are read as meta tensors (``thetas``
     None: Θ's shapes unknown, the items alone are planned).
@@ -106,12 +129,15 @@ def _plan_multi_group(group, xs: dict, thetas: dict | None,
         out = (pack_thetas_padded(thetas_lead), arrays[0])
     solver = t0.scheme.solver if batched else None
     registered = solver_table().get(solver, ())
+    entry = (None if mesh is None
+             else items_partition(sum(counts), mesh, rules)[0])
     return cost.plan_group(
         sig, sum(counts), arrays, out,
         requested_backend=str(backend) if backend is not None else "off",
         solver=solver, registered=registered,
         chunk_exact=tuple(b for b in registered if chunk_exact(solver, b)),
-        base_fallbacks=fallbacks, hw=cost.detect_hardware(device))
+        base_fallbacks=fallbacks, hw=cost.detect_hardware(device),
+        mesh=mesh, items_entry=entry)
 
 
 def _apply_plan(scheme, solver_fn, plan, device):
@@ -160,7 +186,28 @@ def build_groups(tasks: Sequence[CompressionTask], xs: dict,
     return [groups[s] for s in order] + solos
 
 
+def _shard_layout(mesh, rules, n_items: int, solver: str | None,
+                  backend: str | None) -> tuple:
+    """``(entry, pad, shard_mode, reason)`` of a multi-task group under
+    ``mesh``: the ``"items"`` rule's entry and pad (the reference's), and
+    whether the group shards (``"sharded"``), runs whole on every rank
+    (``"replicated"``, ``reason`` says why) or has no mesh axis
+    (``None``)."""
+    if mesh is None:
+        return None, 0, None, None
+    entry, pad = items_partition(n_items, mesh, rules)
+    if entry is None:
+        return None, 0, None, None
+    from repro_torch.kernels.dispatch import chunk_exact
+    if chunk_exact(solver, backend):
+        return entry, pad, "sharded", None
+    return entry, pad, "replicated", (
+        f"not chunk-exact: {solver} on {backend} changes bits with the "
+        f"batch")
+
+
 def describe_groups(tasks: Sequence[CompressionTask], xs: dict,
+                    mesh=None, rules: dict | None = None,
                     backend: str | None = None, device=None,
                     planner: str | None = None) -> list[dict]:
     """The grouping a C step would use: per group its scheme, item shape,
@@ -168,12 +215,21 @@ def describe_groups(tasks: Sequence[CompressionTask], xs: dict,
     the registry ``solver`` and resolved ``backend`` that will run
     (``None`` = item-by-item scheme program).
 
+    With a ``mesh``, each multi-task group also reports the layout of its
+    packed item axis, as the reference's: ``spec`` (a 1-tuple of the
+    ``"items"`` rule's entry, ``None`` where the axis resolves none) and
+    ``padding`` (the items appended so that the count divides the
+    entry's ranks); ``shard_mode`` says whether the items shard
+    (``"sharded"``) or every rank solves the whole group
+    (``"replicated"``, with the reason in ``shard_reason``).
+
     ``planner="on"`` attaches each multi-task group's
     :class:`repro_torch.analysis.cost.GroupPlan` as a ``plan`` dict (the
     modeled roofline terms, the chosen backend and chunks, the recorded
     fallbacks): the same cached plan the C step will use, with Θ's
     shapes from the scheme's init on meta tensors (nothing runs). When
     planned, ``backend`` reports the planner's choice."""
+    sharding.check_model_axis(mesh, "describe_groups")
     out = []
     for group in build_groups(tasks, xs, backend=backend, device=device):
         t0 = group[0]
@@ -181,6 +237,7 @@ def describe_groups(tasks: Sequence[CompressionTask], xs: dict,
         grouped = sig is not None and len(group) > 1
         solver_fn, actual = _task_solver(t0.scheme, backend, device)
         counts = [t.view.item_count(xs[t.name]) for t in group]
+        solver = t0.scheme.solver if solver_fn is not None else None
         plan_dict = None
         if planner == "on" and grouped:
             try:
@@ -192,10 +249,14 @@ def describe_groups(tasks: Sequence[CompressionTask], xs: dict,
                 thetas = None
             plan = _plan_multi_group(group, xs, thetas, counts, solver_fn,
                                      backend,
-                                     _device_of(xs, group, device))
+                                     _device_of(xs, group, device),
+                                     mesh, rules)
             plan_dict = plan.as_dict()
             if solver_fn is not None:
                 actual = plan.backend
+        entry, pad, mode, reason = (
+            _shard_layout(mesh, rules, sum(counts), solver, actual)
+            if grouped else (None, 0, None, None))
         out.append({
             "scheme": t0.scheme.name,
             "item_shape": t0.view.item_shape(xs[t0.name]),
@@ -203,7 +264,11 @@ def describe_groups(tasks: Sequence[CompressionTask], xs: dict,
             "items": sum(counts),
             # singleton groups run the per-task path even when groupable
             "grouped": grouped,
-            "solver": t0.scheme.solver if solver_fn is not None else None,
+            "spec": (entry,) if entry is not None else None,
+            "padding": pad,
+            "shard_mode": mode,
+            "shard_reason": reason,
+            "solver": solver,
             "backend": actual,
             "plan": plan_dict,
         })
@@ -224,7 +289,8 @@ def _chunk_bounds(n_items: int, n_chunks: int) -> list[tuple[int, int]]:
 
 
 def _run_group_solve(solve, arrays: tuple, n_items: int,
-                     n_chunks: int = 1) -> list:
+                     n_chunks: int = 1,
+                     partition: int | None = None) -> list:
     """Run a packed-group solve in ``n_chunks`` launches over contiguous
     item slices; returns ``[(lo, hi, (theta, a)), ...]``, one entry a
     launch, ``theta`` and ``a`` holding items ``lo:hi``.
@@ -238,13 +304,15 @@ def _run_group_solve(solve, arrays: tuple, n_items: int,
     group's partition (``build.group_partition``) and the batched solvers
     are per-item exact where the planner chunks them
     (``dispatch.chunk_exact``), so the chunks together equal one launch
-    bit for bit.
+    bit for bit. ``partition``: the item count of the group whose
+    partition the launches take, where ``arrays`` are a rank's block of
+    it (:func:`_shard_of`).
     """
     from repro_torch.kernels.build import group_partition
     compress, decompress = solve
     items, rest = arrays[0], arrays[1:]
     parts = []
-    with group_partition(n_items):
+    with group_partition(partition or n_items):
         for lo, hi in _chunk_bounds(n_items, n_chunks):
             xi = items(lo, hi) if callable(items) else items[lo:hi]
             chunk = tuple(tree_map(lambda x: x[lo:hi], a) for a in rest)
@@ -275,6 +343,49 @@ def _task_results(parts: list, counts: list[int]) -> list:
                         torch.cat([p[1] for p in pieces], dim=0)))
         off += n
     return out
+
+
+def _shard_of(items, warm: tuple, n_items: int, lo: int, hi: int):
+    """A rank's block ``[lo, hi)`` of a group of ``n_items`` padded to a
+    count the mesh divides: ``(block_items, block_warm)``, ``block_items(a,
+    b, out=None)`` packing rows ``a:b`` of the block (as
+    :func:`_item_packer`'s function does for the group), ``block_warm``
+    every packed warm-start and operand leaf's rows of the block. Rows at
+    or past ``n_items`` repeat the group's last item."""
+    def rows(x):
+        if hi <= n_items:
+            return x[lo:hi]
+        idx = torch.arange(lo, hi).clamp_(max=n_items - 1)
+        return x[idx.to(x.device)]
+
+    def block(a, b, out=None):
+        g0, g1 = lo + a, lo + b
+        if g1 <= n_items:
+            return items(g0, g1, out=out)
+        real = max(0, n_items - g0)
+        last = items(n_items - 1, n_items)
+        if out is None:
+            out = last.new_empty((b - a, *last.shape[1:]))
+        if real:
+            items(g0, n_items, out=out[:real])
+        out[real:].copy_(last.expand(b - a - real, *last.shape[1:]))
+        return out
+
+    return block, tuple(tree_map(rows, a) for a in warm)
+
+
+def _gathered(parts: list, mesh, entry, n_items: int) -> list:
+    """A rank's launches over its block put together with every other
+    rank's (``sharding.gather_items``) and the pad sliced off: the one
+    launch ``[(0, n_items, (Θ, Δ items))]`` of the whole group, the same
+    on every rank."""
+    theta = pack_thetas([p[2][0] for p in parts]) if len(parts) > 1 \
+        else parts[0][2][0]
+    a = torch.cat([p[2][1] for p in parts], dim=0) if len(parts) > 1 \
+        else parts[0][2][1]
+    theta, a = sharding.gather_items((theta, a), mesh, entry)
+    return [(0, n_items, (tree_map(lambda x: x[:n_items], theta),
+                          a[:n_items]))]
 
 
 def _packed_keys(group: Sequence[CompressionTask],
@@ -392,8 +503,9 @@ def solve_task(task: CompressionTask, x, theta, mu,
 
 
 def grouped_compress(tasks: Sequence[CompressionTask], xs: dict,
-                     thetas: dict, mu, backend: str | None = None,
-                     device=None, planner: str | None = None,
+                     thetas: dict, mu, mesh=None, rules: dict | None = None,
+                     backend: str | None = None, device=None,
+                     planner: str | None = None,
                      compiled: "CompiledSolves | None" = None) -> dict:
     """One C step over all tasks with grouped dispatch → ``{task_name:
     (new_theta, a_arr)}``, ``a_arr`` the decompressed Δ(Θ) in the task's
@@ -410,7 +522,11 @@ def grouped_compress(tasks: Sequence[CompressionTask], xs: dict,
     resolves the static rule's backend, and chunks equal the one
     launch); plans are cached, so repeated boundaries replan nothing.
     ``compiled`` (the LC driver's :class:`CompiledSolves`) runs each
-    solve as a program once it is due, with the same result."""
+    solve as a program once it is due, with the same result. With a
+    ``mesh``, each chunk-exact multi-task group is solved block by block
+    over the mesh's ranks and gathered (the module's note): every rank
+    gets the ``mesh=None`` result bit for bit."""
+    sharding.check_model_axis(mesh, "grouped_compress")
     shapes = {t.name: _meta(xs[t.name]) for t in tasks}
     out = {}
     for group in build_groups(tasks, shapes, backend=backend, device=device):
@@ -426,28 +542,45 @@ def grouped_compress(tasks: Sequence[CompressionTask], xs: dict,
         # equal batched signature ⇒ same class and batch_key; operand-
         # ized hyperparameters (κ, K) ride in packed per-item tensors
         scheme = group[0].scheme
-        solver_fn, _ = _task_solver(scheme, backend, device)
+        solver_fn, actual = _task_solver(scheme, backend, device)
         counts = [t.view.item_count(shapes[t.name]) for t in group]
         dev = _device_of(xs, group, device)
+        n_items = sum(counts)
         n_chunks = 1
         if planner == "on":
             plan = _plan_multi_group(group, shapes, thetas, counts,
-                                     solver_fn, backend, dev)
+                                     solver_fn, backend, dev, mesh, rules)
             n_chunks = plan.n_chunks
             solver_fn = _apply_plan(scheme, solver_fn, plan, dev)
+            if solver_fn is not None:
+                actual = plan.backend
+        entry, pad, mode, _ = _shard_layout(
+            mesh, rules, n_items,
+            scheme.solver if solver_fn is not None else None, actual)
         warm, thetas_lead = _pack_warm(group, thetas, counts, solver_fn,
                                        dev)
-        items, n_items = _item_packer(group, xs, counts), sum(counts)
+        items = _item_packer(group, xs, counts)
+        size, partition = n_items, None
+        if mode == "sharded":
+            # this rank's block of the padded items, in the group's
+            # partition; never chunked
+            lo, hi = sharding.shard_bounds(n_items + pad, mesh, entry)
+            items, warm = _shard_of(items, warm, n_items, lo, hi)
+            size, partition, n_chunks = hi - lo, n_items, 1
         exe = like = None
         if compiled is not None and compiled.due():
-            like = _item_packer(group, shapes, counts)(0, n_items)
+            one = _item_packer(group, shapes, counts)(0, 1)
+            like = one.new_empty((size, *one.shape[1:]))
             exe = compiled.group(group, shapes, (like,) + warm, solver_fn,
-                                 n_chunks, backend, dev)
+                                 n_chunks, backend, dev, partition)
         if exe is not None:
             parts = exe.parts(mu, items, like, warm, lend=compiled.lend)
         else:
             parts = _run_group_solve(_group_solve(scheme, solver_fn, mu),
-                                     (items,) + warm, n_items, n_chunks)
+                                     (items,) + warm, size, n_chunks,
+                                     partition)
+        if mode == "sharded":
+            parts = _gathered(parts, mesh, entry, n_items)
         for t, (th, a), old in zip(group, _task_results(parts, counts),
                                    thetas_lead):
             if solver_fn is not None:
@@ -502,7 +635,9 @@ class GroupExecutable:
     ``programs`` (its own when None), run chunk by chunk as the planner
     split the group: one graph a chunk size, fed only its chunk's items
     and per-item operands, so the graph's buffers, outputs and pool hold
-    a chunk's working set, not the group's.
+    a chunk's working set, not the group's. Under a mesh it is a rank's
+    block of a group (``n_items`` the block's count, ``partition`` the
+    group's, whose partition every launch takes).
 
     :meth:`parts` packs each chunk's items straight into the graph's fed
     buffer and returns the launches as :func:`_run_group_solve` does,
@@ -517,7 +652,7 @@ class GroupExecutable:
     eager path."""
 
     def __init__(self, scheme, solver_fn, n_items: int, n_chunks: int,
-                 device, programs=None):
+                 device, programs=None, partition: int | None = None):
         from repro_torch.graphs import Programs
         from repro_torch.kernels.build import group_partition
         from repro_torch.kernels.lowrank.lowrank import held_sketches
@@ -529,6 +664,7 @@ class GroupExecutable:
         self.sketches: dict = {}
         template = self._template = []
         sketches = self.sketches
+        partition = partition or n_items
 
         # a closure, not a bound method: the program must not hold the
         # executable, so that dropping it frees its graphs at once, never
@@ -540,7 +676,7 @@ class GroupExecutable:
                 rest = rest + (torch.tensor(seeds, dtype=torch.int64),)
             compress, decompress = _group_solve(scheme, solver_fn, mu)
             # every chunk launches with the whole group's partition
-            with held_sketches(sketches), group_partition(n_items):
+            with held_sketches(sketches), group_partition(partition):
                 theta = compress(xi, *rest)
                 return theta, decompress(theta)
 
@@ -628,16 +764,17 @@ def _solver_id(solver_fn) -> str | None:
 
 
 def _exec_key(group, shapes: dict, arrays, solver_fn, n_chunks: int,
-              backend, dev) -> tuple:
+              backend, dev, partition: int | None = None) -> tuple:
     """An executable's cache key: its plan key (the packed shapes) with
-    the solver implementation and the chunks it runs."""
+    the solver implementation, the chunks it runs and the partition of
+    its launches (a rank's block under a mesh: its group's)."""
     from repro_torch.analysis import cost
     t0 = group[0]
     sig = t0.group_signature(shapes[t0.name], batched=solver_fn is not None)
     return (("exec",) + cost.plan_key(sig, int(arrays[0].shape[0]), arrays,
                                       str(backend),
                                       cost.detect_hardware(dev))
-            + (_solver_id(solver_fn), int(n_chunks)))
+            + (_solver_id(solver_fn), int(n_chunks), partition))
 
 
 def compile_group(group: Sequence[CompressionTask], xs: dict,
@@ -704,15 +841,18 @@ class CompiledSolves:
         return self.c_steps >= CAPTURE_AT
 
     def group(self, group, shapes: dict, arrays: tuple, solver_fn,
-              n_chunks: int, backend, dev) -> GroupExecutable:
+              n_chunks: int, backend, dev,
+              partition: int | None = None) -> GroupExecutable:
         """The group's executable (``arrays``: its packed items, as a meta
-        tensor, and its packed warm start and operands)."""
+        tensor, and its packed warm start and operands; under a mesh the
+        rank's block of them, ``partition`` the group's item count)."""
         from repro_torch.analysis import cost
         key = _exec_key(group, shapes, arrays, solver_fn, n_chunks,
-                        backend, dev)
+                        backend, dev, partition)
         return cost.get_executable(key, lambda: GroupExecutable(
             group[0].scheme, solver_fn, int(arrays[0].shape[0]), n_chunks,
-            dev, programs=self.programs), cache=self.executables)
+            dev, programs=self.programs, partition=partition),
+            cache=self.executables)
 
     def task(self, task: CompressionTask, backend, device):
         """The task's executable when its solve is due to run as a
@@ -740,11 +880,15 @@ def solve_and_decompress(task: CompressionTask, x, theta, mu,
     return theta, task.scheme_decompress(theta)
 
 
-def grouped_init(tasks: Sequence[CompressionTask], xs: dict) -> dict:
+def grouped_init(tasks: Sequence[CompressionTask], xs: dict, mesh=None,
+                 rules: dict | None = None) -> dict:
     """Direct compression Θ^DC = Π(w̄) with grouped dispatch: tasks group
     by their (non-batched) signature extended with ``scheme.init_key()``,
     and each group runs ``scheme.init`` over its packed items. Returns
-    ``{task_name: (theta, a_arr)}``."""
+    ``{task_name: (theta, a_arr)}``. With a ``mesh`` the packed item axis
+    shards as the C step's (each item's init runs alone, so every group
+    shards): every rank gets the ``mesh=None`` result."""
+    sharding.check_model_axis(mesh, "grouped_init")
     out = {}
     for group in build_groups(tasks, xs, for_init=True):
         if len(group) == 1:
@@ -754,16 +898,28 @@ def grouped_init(tasks: Sequence[CompressionTask], xs: dict) -> dict:
             continue
 
         scheme = group[0].scheme  # identical init_key ⇒ same static cfg
-        items = torch.cat([t.view.to_items(xs[t.name]) for t in group],
-                          dim=0)
         counts = [t.view.item_count(xs[t.name]) for t in group]
+        n_items = sum(counts)
+        items = _item_packer(group, xs, counts)
+        keys = (_packed_keys(group, counts),) if scheme.wants_key else ()
+        entry, pad = (None, 0) if mesh is None else items_partition(
+            n_items, mesh, rules)
+        lo, hi = 0, n_items
+        if entry is not None:
+            lo, hi = sharding.shard_bounds(n_items + pad, mesh, entry)
+            items, keys = _shard_of(items, keys, n_items, lo, hi)
+        xi = items(0, hi - lo)
         if scheme.wants_key:
             theta_packed = map_items(
-                lambda x, k: scheme.init(x, key=k), items,
-                _packed_keys(group, counts))
+                lambda x, k: scheme.init(x, key=k), xi, keys[0])
         else:
-            theta_packed = map_items(scheme.init, items)
+            theta_packed = map_items(scheme.init, xi)
+        del xi
         a_packed = map_items(scheme.decompress, theta_packed)
+        if entry is not None:
+            ((_, _, (theta_packed, a_packed)),) = _gathered(
+                [(0, hi - lo, (theta_packed, a_packed))], mesh, entry,
+                n_items)
 
         off = 0
         for t, th, n in zip(group, unpack_thetas(theta_packed, counts),

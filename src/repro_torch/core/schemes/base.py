@@ -39,8 +39,9 @@ class CompressionScheme:
     wants_key: bool = False
 
     #: whether the batched solver partitions under plain sharding
-    #: annotations (matmul/elementwise only). Kept for the contract; the
-    #: port has no mesh yet, so nothing reads it.
+    #: annotations (matmul/elementwise only). Kept for the contract:
+    #: under a mesh the port shards a group by whether its solver is
+    #: chunk-exact (``kernels/dispatch.py``), not by this flag.
     gspmd_safe: bool = False
 
     #: the parameter names, in order, that :meth:`batch_operands` binds

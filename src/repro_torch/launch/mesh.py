@@ -1,0 +1,79 @@
+"""Device meshes over the initialized process group.
+
+Port of ``src/repro/launch/mesh.py``. Each function builds a
+``torch.distributed`` ``DeviceMesh`` (``init_device_mesh``, one process
+a rank) over the default process group, which the caller initializes
+(``torch.distributed.init_process_group``, or ``torchrun``'s
+environment); ``make_debug_mesh`` alone sets up a one-rank group when
+none exists. Meshes are CUDA meshes unless ``device_type`` says
+otherwise (``"cpu"`` for ``gloo`` ranks on the CPU).
+"""
+from __future__ import annotations
+
+import math
+
+
+def _mesh(device_type: str, shape: tuple, axes: tuple):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(
+            f"a mesh of shape {tuple(shape)} needs {math.prod(shape)} "
+            f"ranks; the process group has {world}")
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def _require_group(what: str, device_type: str) -> None:
+    """The device type is usable (a CUDA mesh raises where there is no
+    card, as every entry point does) and a process group exists."""
+    import torch.distributed as dist
+
+    from repro_torch.interop import resolve_device
+    resolve_device(device_type)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"{what}: no process group: call torch.distributed."
+            f"init_process_group first (or launch with torchrun)")
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """16 × 16 = 256 ranks a pod; 2 pods = 512 ranks multi-pod. The "pod"
+    axis is an outer data-parallel axis: the batch shards over ("pod",
+    "data"). Raises when the process group is smaller (or larger) than
+    the mesh."""
+    _require_group("make_production_mesh", device_type)
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh(device_type, shape, axes)
+
+
+def make_debug_mesh(shape=(1, 1), axes=("data", "model"),
+                    device_type: str = "cuda"):
+    """A small mesh for tests and examples. Where no process group exists
+    and the mesh has one rank, this sets one up: a one-rank group in this
+    process (``nccl`` for a CUDA mesh, ``gloo`` otherwise, over an
+    in-memory store), which later calls reuse."""
+    import torch.distributed as dist
+
+    from repro_torch.interop import resolve_device
+    resolve_device(device_type)
+    if not dist.is_initialized() and math.prod(shape) == 1:
+        dist.init_process_group(
+            "nccl" if device_type == "cuda" else "gloo",
+            store=dist.HashStore(), rank=0, world_size=1)
+    _require_group("make_debug_mesh", device_type)
+    return _mesh(device_type, tuple(shape), tuple(axes))
+
+
+def make_cstep_mesh(n_data: int | None = None, device_type: str = "cuda"):
+    """A data-only mesh, ``(n_data, 1)`` over ("data", "model"), for the
+    sharded grouped C step: the packed item axes shard over "data"
+    (``distributed/sharding.py`` rule ``"items"``). ``n_data`` defaults
+    to every rank of the process group."""
+    import torch.distributed as dist
+    _require_group("make_cstep_mesh", device_type)
+    n = n_data if n_data is not None else dist.get_world_size()
+    return _mesh(device_type, (n, 1), ("data", "model"))

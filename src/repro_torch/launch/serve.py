@@ -1,7 +1,8 @@
 """CLI serving driver: batched or continuous-batching generation on
 dense or LC-compressed weights.
 
-Port of ``src/repro/launch/serve.py`` (no mesh). Runs on the card unless
+Port of ``src/repro/launch/serve.py`` (no mesh: ``Server(mesh=)`` and
+the tensor-parallel "model" axis are the next slice). Runs on the card unless
 ``--device`` says otherwise:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \

@@ -10,6 +10,18 @@ multipliers ``λ`` ride in the train state beside the params:
 
 The step is functional, as the reference's jitted one: it returns a new
 state and writes nothing of the state it is given.
+
+Under an active mesh (``distributed.sharding.use_mesh``, a ``"model"``
+axis of 1) whose batch axes divide the global batch (the "batch" rule),
+the step is data-parallel: every rank is handed the whole global batch
+and takes its own rows; the loss is the global mean, each rank's token
+sum over the global token count (the MoE load-balance terms averaged
+over the ranks, ``models/moe.py``); the gradients are summed over the
+batch's ranks with one ``all_reduce`` per dtype before clipping and
+AdamW. Parameters, optimizer state, λ, ``a`` and μ stay replicated (not
+FSDP-sharded over "embed" as in the reference: the same values, more
+memory), and every rank applies the same update. Where no batch axis
+divides the batch, every rank runs the whole step, as without a mesh.
 """
 from __future__ import annotations
 
@@ -18,9 +30,10 @@ from typing import Callable
 import torch
 
 from repro_torch.core.tasks import flatten_params, get_path
+from repro_torch.distributed import sharding
 from repro_torch.models.layers import unembed
 from repro_torch.models.transformer import (
-    decode_step, forward_hidden, init_params, loss_fn)
+    chunked_nll, decode_step, forward_hidden, init_params, loss_fn)
 from repro_torch.optim import AdamW, clip_by_global_norm
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -55,17 +68,49 @@ def init_lc_refs(params, paths: list[str]) -> dict:
 
 
 def stable_lc_refs(new_refs: dict, old_refs: dict) -> dict:
-    """Fresh Δ(Θ)/λ refs laid onto the refs they replace: each new ref on
-    its old ref's device and dtype (there is no sharding to match). μ is
-    the caller's business (it advances at the L-step start, not at the
-    swap), so it is carried from ``old_refs`` untouched."""
-    def like(new, old):
-        return new.to(device=old.device, dtype=old.dtype)
-    return {"a": {p: like(v, old_refs["a"][p])
-                  for p, v in new_refs["a"].items()},
-            "lam": {p: like(v, old_refs["lam"][p])
-                    for p, v in new_refs["lam"].items()},
+    """Fresh Δ(Θ)/λ refs laid onto the refs they replace
+    (``sharding.match_shardings``: each new ref on its old ref's device
+    and dtype; the refs are replicated). μ is the caller's business (it
+    advances at the L-step start, not at the swap), so it is carried from
+    ``old_refs`` untouched."""
+    return {"a": sharding.match_shardings(
+                new_refs["a"], {p: old_refs["a"][p] for p in new_refs["a"]}),
+            "lam": sharding.match_shardings(
+                new_refs["lam"],
+                {p: old_refs["lam"][p] for p in new_refs["lam"]}),
             "mu": old_refs["mu"]}
+
+
+def _shard_loss(params, batch, cfg, group, n: int):
+    """A rank's part of the global loss over its rows: its token NLL sum
+    over the global token count, plus 1/n of the MoE load-balance loss
+    (averaged over the ranks inside ``moe_ffn``), so that the ranks'
+    parts sum to the global loss and their gradients to its gradient.
+    The metrics are the global values."""
+    hidden, aux = forward_hidden(params, batch["inputs"], cfg)
+    nll, count = chunked_nll(params, hidden, batch["labels"], cfg,
+                             mask=batch.get("mask"))
+    total = sharding.all_reduce_sum(count.detach().clone(), group)
+    part = nll / torch.clamp_min(total, 1.0)
+    ce = sharding.all_reduce_sum(part.detach().clone(), group)
+    loss = part
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux / n
+    return loss, {"ce": ce, "aux": aux}
+
+
+def _sum_grads(grads: list, group) -> list:
+    """The gradients summed over ``group``: one ``all_reduce`` of a flat
+    buffer per dtype."""
+    out = list(grads)
+    for dtype in dict.fromkeys(g.dtype for g in grads):
+        idx = [i for i, g in enumerate(grads) if g.dtype == dtype]
+        flat = torch.cat([grads[i].reshape(-1) for i in idx])
+        sharding.all_reduce_sum(flat, group)
+        for i, piece in zip(idx, torch.split(
+                flat, [grads[i].numel() for i in idx])):
+            out[i] = piece.view_as(grads[i])
+    return out
 
 
 def make_train_step(cfg, optimizer: AdamW | None = None,
@@ -79,15 +124,34 @@ def make_train_step(cfg, optimizer: AdamW | None = None,
         params = tree_map(lambda t: t.detach().requires_grad_(True),
                           state["params"])
         leaves = tree_leaves(params)
-        with torch.enable_grad():
-            loss, metrics = loss_fn(params, batch, cfg)
+        mesh = sharding.active_mesh()
+        sharding.check_model_axis(mesh, "train_step")
+        split = (None if mesh is None else sharding.batch_shard(
+            batch["labels"].shape[0], mesh, sharding.active_rules()))
+        group, n, entry = None, 1, None
+        if split is not None:
+            entry, lo, hi = split
+            batch = {k: v[lo:hi] for k, v in batch.items()}
+            group = sharding.entry_group(mesh, entry)
+            n = sharding.entry_size(mesh, entry)
+        with torch.enable_grad(), sharding.local_batch(entry):
+            if group is None:
+                loss, metrics = loss_fn(params, batch, cfg)
+            else:
+                loss, metrics = _shard_loss(params, batch, cfg, group, n)
             if with_lc:
                 lc = state["lc"]
                 pen = lc_penalty_from_refs(params, lc["a"], lc["lam"],
                                            lc["mu"])
                 metrics = dict(metrics, lc_penalty=pen)
-                loss = loss + pen
-            grads = iter(torch.autograd.grad(loss, leaves))
+                # every rank holds the penalty whole: its n parts sum
+                # to it
+                loss = loss + (pen if group is None else pen / n)
+            grads = torch.autograd.grad(loss, leaves)
+        if group is not None:
+            grads = _sum_grads(grads, group)
+            loss = sharding.all_reduce_sum(loss.detach().clone(), group)
+        grads = iter(grads)
         grads = tree_map(lambda _: next(grads), params)
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         new_params, opt_state = optimizer.update(

@@ -1,10 +1,18 @@
 """CLI training driver.
 
-Port of ``src/repro/launch/train.py`` (no mesh). Runs on the card unless
+Port of ``src/repro/launch/train.py``. Runs on the card unless
 ``--device`` says otherwise:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \
         --reduced --lc-steps 2 --steps-per-l 3 --device cpu
+
+The trainer runs over a mesh, as the reference's: ``make_debug_mesh``'s
+one-rank ``("data", "model")`` mesh by default (a one-rank process group
+set up in this process), or ``--mesh DATA,MODEL`` sizes for a
+``torchrun`` launch, one process a rank (``torchrun --nproc-per-node 2
+-m repro_torch.launch.train --mesh 2,1 ...``), data-parallel over the
+global batch. A ``"model"`` size above 1 raises: it is the next slice of
+the port.
 
 LC-compressed training end to end: data stream → L steps (train step
 with the LC penalty, AdamW) → C steps → multipliers, with checkpointing
@@ -22,6 +30,7 @@ from repro_torch.core import (
     exponential_mu_schedule)
 from repro_torch.core.schemes import AdaptiveQuantization, ConstraintL0Pruning
 from repro_torch.data import TokenStream, embedding_stream
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models.ssm import mlstm_dims
 from repro_torch.runtime import FaultInjector, LCTrainer, TrainerConfig
 
@@ -65,6 +74,30 @@ def default_tasks(cfg, compression: str = "quantize", keep: float = 0.05):
     raise ValueError(compression)
 
 
+def _mesh(args):
+    """(device, mesh) of the run: under ``torchrun`` (``WORLD_SIZE`` in
+    the environment) the process group comes from its environment and a
+    CUDA rank takes the card of its ``LOCAL_RANK``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.interop import resolve_device
+    device = resolve_device(args.device)
+    shape = tuple(int(n) for n in args.mesh.split(","))
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 \
+            and not dist.is_initialized():
+        if device.type == "cuda" and args.device is None:
+            device = torch.device(
+                "cuda", int(os.environ.get("LOCAL_RANK", "0"))
+                % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo")
+    return device, make_debug_mesh(shape, device_type=device.type)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="xlstm-125m", choices=ARCHS)
@@ -79,6 +112,9 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--mesh", default="1,1",
+                    help="DATA,MODEL sizes of the mesh; more than one rank "
+                         "needs a torchrun launch")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
@@ -96,15 +132,16 @@ def main(argv=None):
             batch_at = staticmethod(fn)
         data = _D()
 
+    device, mesh = _mesh(args)
     lc = LCAlgorithm(
         default_tasks(cfg),
         exponential_mu_schedule(args.mu0, args.mu_a, args.lc_steps),
-        device=args.device)
+        device=device)
     trainer = LCTrainer(
-        cfg, lc, data,
+        cfg, lc, data, mesh=mesh,
         tcfg=TrainerConfig(steps_per_l=args.steps_per_l, lr=args.lr,
                            ckpt_dir=args.ckpt_dir),
-        fault_injector=FaultInjector(), device=args.device)
+        fault_injector=FaultInjector(), device=device)
     state, lc_state = trainer.run(0)
     for rec in trainer.history:
         print(rec)

@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import (
     apply_rope, apply_w, dense_init, rms_norm, wload)
@@ -133,12 +134,15 @@ def attn_forward(params, x, cfg, spec, positions, return_cache=False):
                                              cfg.head_dim)
     v = apply_w(x, params["wv"], dt).reshape(b, s, cfg.n_kv_heads,
                                              cfg.head_dim)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(apply_rope(q, positions, cfg.rope_theta),
+                  ("batch", "seq", "heads", None))
+    k = constrain(apply_rope(k, positions, cfg.rope_theta),
+                  ("batch", "seq", "kv_heads", None))
     out = blockwise_attention(
         q, k, v, positions, positions, window=spec.window,
         q_chunk=cfg.attn_chunk_q, kv_chunk=cfg.attn_chunk_kv,
         fused=cfg.fused_attention)
+    out = constrain(out, ("batch", "seq", "heads", None))
     y = apply_w(out.reshape(b, s, cfg.q_dim), params["wo"], dt)
     if not return_cache:
         return y

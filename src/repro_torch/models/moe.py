@@ -20,7 +20,16 @@ serving bridge keeps 3-D stacks dense. The shared experts and the router
 go through ``layers.apply_w``, which for a dense leaf is the reference's
 ``x @ w``.
 
-The ``shard_map`` branch waits for the sharding layer: a mesh raises.
+Over a mesh (the reference's ``shard_map`` branch) with a ``"model"``
+axis of 1: where the batch is split over the mesh's batch axes (the
+model holds this rank's rows, ``sharding.local_batch``, as the
+data-parallel train step lays it out when the batch divides them), the
+rank routes its own tokens at the per-shard capacity
+``ceil(t_loc·k/E·capacity_factor)`` and ``f_e`` and ``P_e`` are averaged
+over the group before the aux loss (the reference's ``psum``/n, here a
+differentiable ``all_reduce``); otherwise the tokens stay replicated and
+every rank routes them all. A ``"model"`` axis above 1 (the reference's
+"ep"/"tp" expert dispatch) raises: it is the next slice of the port.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.models.layers import apply_w, dense_init
 
 
@@ -116,8 +126,10 @@ def _dispatch_compute(x, gates, idx, wg, wu, wd, *, e0: int, e_local: int,
 
 
 def _moe_local(x, router_w, wg, wu, wd, cfg, *, e0: int, e_local: int,
-               capacity: int):
-    """x: (T, d) tokens → (y (T, d), aux 0-d f32)."""
+               capacity: int, batch_group=None):
+    """x: (T, d) tokens → (y (T, d), aux 0-d f32). ``batch_group``: the
+    process group whose ranks hold the other tokens of the batch, over
+    which ``f_e`` and ``P_e`` are averaged."""
     m = cfg.moe
     probs, gates, idx = route(x, router_w, cfg)
     y = _dispatch_compute(x, gates, idx, wg, wu, wd, e0=e0, e_local=e_local,
@@ -127,6 +139,11 @@ def _moe_local(x, router_w, wg, wu, wd, cfg, *, e0: int, e_local: int,
     onehot = F.one_hot(idx, e).float()                          # (T,k,E)
     f_e = torch.mean(torch.sum(onehot, dim=1), dim=0)
     p_e = torch.mean(probs, dim=0)
+    if batch_group is not None:
+        import torch.distributed as dist
+        n = dist.get_world_size(batch_group)
+        f_e = sharding.all_reduce_sum(f_e.clone(), batch_group) / n
+        p_e = sharding.differentiable_sum(p_e, batch_group) / n
     aux = e * torch.sum(f_e * p_e)
     return y, aux
 
@@ -139,19 +156,25 @@ def capacity_for(tokens: int, cfg) -> int:
 
 
 def moe_ffn(params, x, cfg, mesh=None):
-    """x: (B, S, d_model) → (y, aux_loss f32). Routed plus shared experts.
-    ``mesh`` must be None: the sharded dispatch is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_ffn over a mesh needs the sharding layer (ROADMAP item "
-            "14); call it with mesh=None")
+    """x: (B, S, d_model), the tokens this rank holds → (y, aux_loss f32).
+    Routed plus shared experts. Over a ``mesh`` (``"model"`` axis 1) whose
+    batch axes split the batch (``sharding.local_batch``), ``x`` is this
+    rank's rows: they are routed at the per-shard capacity and the
+    load-balance terms averaged over the batch's ranks; otherwise every
+    rank routes the whole batch."""
+    sharding.check_model_axis(mesh, "moe_ffn")
     m = cfg.moe
     b, s, d = x.shape
     dtype = x.dtype
+    group = None
+    entry = sharding.batch_entry()
+    if mesh is not None and entry is not None \
+            and sharding.entry_size(mesh, entry) > 1:
+        group = sharding.entry_group(mesh, entry)
     y, aux = _moe_local(
         x.reshape(b * s, d), params["router"], params["w_gate"],
         params["w_up"], params["w_down"], cfg, e0=0, e_local=m.n_experts,
-        capacity=capacity_for(b * s, cfg))
+        capacity=capacity_for(b * s, cfg), batch_group=group)
     y = y.reshape(b, s, d)
     if m.n_shared > 0:
         g = apply_w(x, params["sw_gate"], dtype)

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import apply_w, dense_init, rms_norm
 
 M_FLOOR = -30.0      # the stabilizer's floor (keeps exp(-m) finite)
@@ -199,6 +200,7 @@ def mamba_forward(params, x, cfg, spec, positions, chunk: int = 128,
 
     xz = apply_w(x, params["in_proj"], dt_)
     xi, z = torch.chunk(xz, 2, dim=-1)
+    xi = constrain(xi, ("batch", "seq", "inner"))
     xi, conv_tail = _causal_conv(xi, params["conv_w"].to(dt_),
                                  params["conv_b"].to(dt_))
     xi = F.silu(xi)

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import active_mesh, constrain
 from repro_torch.interop import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -121,7 +122,7 @@ def _apply_ffn(spec, bp, x, cfg):
         x = x + dense_ffn(bp["ffn"], h, cfg)
     elif spec.ffn == "moe":
         h = rms_norm(x, bp["ffn_norm"], cfg.norm_eps)
-        y, aux = moe_mod.moe_ffn(bp["ffn"], h, cfg)
+        y, aux = moe_mod.moe_ffn(bp["ffn"], h, cfg, active_mesh())
         x = x + y
     return x, aux
 
@@ -134,8 +135,9 @@ def _apply_block_full(spec, bp, x, cfg, positions, want_cache=False):
                                          positions, return_cache=True)
     else:
         h = MIXERS[spec.mixer][1](bp["mixer"], h, cfg, spec, positions)
-    x, aux = _apply_ffn(spec, bp, x + h, cfg)
-    return x, aux, cache
+    x = constrain(x + h, ("batch", "seq", None))
+    x, aux = _apply_ffn(spec, bp, x, cfg)
+    return constrain(x, ("batch", "seq", None)), aux, cache
 
 
 def _apply_blocks(specs, first, rp, x, cfg, positions):
@@ -159,7 +161,7 @@ def forward_hidden(params, inputs, cfg, return_caches: bool = False):
     max_len). The aux loss is the MoE router loss summed over every MoE
     block of every stage and repetition, as the reference's
     ``aux_total``; 0 for a model without MoE blocks."""
-    x = embed(params["embed"], inputs, cfg)
+    x = constrain(embed(params["embed"], inputs, cfg), ("batch", "seq", None))
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int64, device=x.device)
     # remat (training only): the reference checkpoints its scan body and
@@ -293,7 +295,8 @@ def decode_step(params, cache, inputs, pos, cfg, active=None):
                     spec, sp[f"pos{pi}"], x, sc[f"pos{pi}"], pos, cfg,
                     active=active)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(params["embed"], x, cfg), cache
+    return constrain(unembed(params["embed"], x, cfg),
+                     ("batch", None, "vocab")), cache
 
 
 def prefill(params, inputs, cfg, max_len: int | None = None):
@@ -307,18 +310,19 @@ def prefill(params, inputs, cfg, max_len: int | None = None):
 # ----------------------------------------------------------------------
 def _chunk_nll(embed_params, h, labels, mask, cfg):
     """(Σ masked NLL, Σ mask) of one sequence chunk, in float32."""
-    logits = unembed(embed_params, h, cfg).float()
+    logits = constrain(unembed(embed_params, h, cfg),
+                       ("batch", "seq", "vocab")).float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, labels.long()[..., None],
                                 dim=-1)[..., 0]
     return torch.sum((lse - gold) * mask), torch.sum(mask)
 
 
-def chunked_ce_loss(params, hidden, labels, cfg, chunk: int = 512,
-                    mask=None):
-    """Sequence-chunked cross-entropy: never materializes (B, S, V).
-    Chunks are summed in order, each recomputed in the backward pass
-    when gradients are recorded (the reference's checkpointed scan)."""
+def chunked_nll(params, hidden, labels, cfg, chunk: int = 512, mask=None):
+    """(Σ masked NLL, Σ mask), sequence-chunked: never materializes (B,
+    S, V). Chunks are summed in order, each recomputed in the backward
+    pass when gradients are recorded (the reference's checkpointed
+    scan)."""
     b, s, d = hidden.shape
     c = min(chunk, s)
     assert s % c == 0
@@ -336,6 +340,13 @@ def chunked_ce_loss(params, hidden, labels, cfg, chunk: int = 512,
             nll, n = _chunk_nll(*args)
         total = total + nll
         count = count + n
+    return total, count
+
+
+def chunked_ce_loss(params, hidden, labels, cfg, chunk: int = 512,
+                    mask=None):
+    """Sequence-chunked mean cross-entropy (:func:`chunked_nll`)."""
+    total, count = chunked_nll(params, hidden, labels, cfg, chunk, mask)
     return total / torch.clamp_min(count, 1.0)
 
 

@@ -30,8 +30,15 @@ Two execution modes (``TrainerConfig.overlap``):
   other stream may still read it. On the CPU the same pipeline runs
   with the C step done at dispatch.
 
-There is no mesh: a trainer given one raises (ROADMAP item 14, the
-sharding layer).
+With a ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` whose ``"model"``
+axis is 1, one process a rank; a larger ``"model"`` axis raises, it is
+the next slice of the port), the trainer hands the mesh to the algorithm
+(``lc.set_mesh``: the C step shards its groups' items over the data axis,
+also on the overlapped pipeline's side stream) and runs every train step
+under it: data-parallel over the global batch, which every rank's data
+source yields whole (``launch/steps.py``). Every rank holds the whole,
+replicated state; checkpoints are written by rank 0
+(``checkpoint/checkpoint.py``).
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ from repro_torch.core.algorithm import LCAlgorithm
 from repro_torch.core.state import probe_is_ready, ready_probe
 from repro_torch.core.tasks import get_path, set_path
 from repro_torch.data.pipeline import Prefetcher
+from repro_torch.distributed.sharding import check_model_axis, use_mesh
 from repro_torch.interop import resolve_device
 from repro_torch.launch.steps import (
     init_train_state, make_train_step, stable_lc_refs)
@@ -102,10 +110,7 @@ class LCTrainer:
                  optimizer: AdamW | None = None,
                  fault_injector: FaultInjector | None = None,
                  overlap: str | None = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "LCTrainer runs on one device: the sharding layer (mesh) "
-                "is not ported yet (ROADMAP item 14)")
+        check_model_axis(mesh, "LCTrainer")
         self.device = resolve_device(device)
         if lc.device != self.device:
             raise ValueError(f"the LCAlgorithm runs on {lc.device}, the "
@@ -113,6 +118,11 @@ class LCTrainer:
         self.cfg = cfg
         self.lc = lc
         self.data = data
+        self.mesh = mesh
+        if mesh is not None and lc.mesh is None:
+            # the trainer owns the mesh: the grouped C step shards its
+            # packed item axes over "data"
+            lc.set_mesh(mesh)
         self.tcfg = tcfg or TrainerConfig()
         if overlap is not None:
             self.tcfg = replace(self.tcfg, overlap=overlap)
@@ -183,7 +193,8 @@ class LCTrainer:
 
     def _one_step(self, state, step: int):
         self.faults.maybe_fail(step)
-        return self._train_step(state, self._batch(step))
+        with use_mesh(self.mesh):
+            return self._train_step(state, self._batch(step))
 
     def _restore_state(self, state):
         """Hard-failure restore with consistent LC bookkeeping: leaves

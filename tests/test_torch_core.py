@@ -70,7 +70,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                                    "quickstart", "gaussian_blobs", "Server",
                                    "ServingEngine", "launch.serve.main",
                                    "init_mlp", "LCTrainer",
-                                   "launch.train.main"])
+                                   "launch.train.main", "make_debug_mesh",
+                                   "make_cstep_mesh",
+                                   "make_production_mesh"])
 def test_entry_points_default_to_the_card(entry):
     """Called without ``device``, every entry point asks for CUDA and
     raises with a clear message when there is none."""
@@ -79,7 +81,7 @@ def test_entry_points_default_to_the_card(entry):
     from repro_torch import quickstart, showcase
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.data import gaussian_blobs
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import mesh, serve, train
     from repro_torch.runtime import LCTrainer
     from repro_torch.runtime import Server, ServingEngine
     params = {"l0": {"w": torch.zeros(4, 3), "b": torch.zeros(3)}}
@@ -106,6 +108,9 @@ def test_entry_points_default_to_the_card(entry):
                                                        device="cpu"), None),
         "launch.train.main": lambda: train.main(["--arch", "phi3-mini-3.8b",
                                                  "--reduced"]),
+        "make_debug_mesh": lambda: mesh.make_debug_mesh(),
+        "make_cstep_mesh": lambda: mesh.make_cstep_mesh(),
+        "make_production_mesh": lambda: mesh.make_production_mesh(),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

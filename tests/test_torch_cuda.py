@@ -1294,3 +1294,66 @@ def test_overlapped_trainer_replays_its_boundary_on_the_side_stream(
     # the run captured its graphs, and the trainer let them go at its end
     assert captured and captured[0] > 0 and lc.programs.captured == 0
     assert all(h["c_step_violations"] == [] for h in trainer.history)
+
+
+@pytest.mark.cuda
+def test_sharded_paths_on_card(gen):
+    """Path S1 of ``chip_smoke.py`` at reduced width: the compiled LC
+    driver over a one-rank NCCL mesh (``make_cstep_mesh``), a K-means
+    group of 5 items and an ℓ0 group of 4, 3 C steps (the third on
+    replays), against ``mesh=None``: Θ, ``a`` and λ bit for bit at every
+    step, and the same launches a C step."""
+    import torch.distributed as dist
+
+    from repro_torch.core import (
+        AsStacked, CompressionTask, LCAlgorithm, flatten_params)
+    from repro_torch.core.schemes import (
+        AdaptiveQuantization, ConstraintL0Pruning)
+    from repro_torch.launch.mesh import make_cstep_mesh
+    from repro_torch.tree import tree_leaves
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    mesh = make_cstep_mesh()
+    shapes = {"qa": (3, 96, 256), "qb": (2, 96, 256), "pa": (2, 256, 96),
+              "pb": (2, 256, 96)}
+    params = {n: 0.02 * torch.randn(s, device="cuda", generator=gen)
+              for n, s in shapes.items()}
+
+    def driver(m):
+        return LCAlgorithm(
+            [CompressionTask(n, f"^{n}$", AsStacked("vector"),
+                             AdaptiveQuantization(k=16, iters=10)
+                             if n[0] == "q" else
+                             ConstraintL0Pruning(kappa=1000 + 100 * i))
+             for i, n in enumerate(shapes)],
+            (1e-4, 1.3e-4, 1.69e-4), device="cuda", mesh=m)
+
+    runs = []
+    for m in (mesh, None):
+        lc, w = driver(m), {n: x.clone() for n, x in params.items()}
+        state, per_step = lc.init(w), []
+        g = torch.Generator(device="cuda").manual_seed(1)
+        for k, mu in enumerate(lc.mu_schedule):
+            for x in w.values():
+                x.add_(1e-3 * torch.randn(x.shape, device="cuda",
+                                          generator=g))
+            state = lc.set_mu(state, mu, k)
+            before = (k1.LLOYD.launches, k2.TOPK.launches,
+                      k2.MASK_KERNEL.launches)
+            state = lc.c_step(w, state)
+            state = lc.multiplier_step(w, state)
+            torch.cuda.synchronize()
+            after = (k1.LLOYD.launches, k2.TOPK.launches,
+                     k2.MASK_KERNEL.launches)
+            per_step.append(([a - b for a, b in zip(after, before)],
+                             [x.clone() for x in tree_leaves(
+                                 state["tasks"])]))
+        groups = lc.group_summary(flatten_params(w))
+        runs.append((per_step, groups))
+    (sharded, groups), (plain, _) = runs
+    assert sorted(g["shard_mode"] for g in groups if g["grouped"]) == [
+        "sharded", "sharded"]
+    for (n_s, leaves_s), (n_p, leaves_p) in zip(sharded, plain):
+        assert n_s == n_p == [1, 1, 1]
+        assert all(torch.equal(a, b) for a, b in zip(leaves_s, leaves_p))

@@ -211,12 +211,29 @@ def test_shared_experts_match_jax():
     np.testing.assert_allclose(y_t - y_t0, y_j - y_j0, **MM)
 
 
+class _ModelAxisMesh:
+    """A mesh's layout with a tensor-parallel "model" axis of 2."""
+    mesh_dim_names, shape = ("data", "model"), (1, 2)
+
+
 def test_moe_ffn_with_a_mesh_raises():
-    _, tcfg = _cfgs("mixtral-8x7b")
-    _, tp = _moe_params(_cfgs("mixtral-8x7b")[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+    """A "model" axis above 1 (the reference's "ep"/"tp" dispatch) raises,
+    naming the next slice of the port; a data-only mesh of one rank, the
+    batch split over it or not, equals ``mesh=None``."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_debug_mesh
+    jcfg, tcfg = _cfgs("mixtral-8x7b")
+    _, tp = _moe_params(jcfg)
+    with pytest.raises(NotImplementedError, match="next slice"):
         tmoe.moe_ffn(tp, torch.zeros(1, 2, tcfg.d_model), tcfg,
-                     mesh=object())
+                     mesh=_ModelAxisMesh())
+    x = torch.from_numpy(_x(jcfg))
+    mesh = make_debug_mesh(device_type="cpu")
+    y0, aux0 = tmoe.moe_ffn(tp, x, tcfg)
+    for entry in (None, "data"):
+        with sharding.use_mesh(mesh), sharding.local_batch(entry):
+            y, aux = tmoe.moe_ffn(tp, x, tcfg, sharding.active_mesh())
+        assert torch.equal(y, y0) and torch.equal(aux, aux0)
 
 
 def test_dispatch_refuses_a_weight_form():

@@ -209,13 +209,32 @@ def test_overlap_rejects_bad_mode():
         _make_trainer(overlap="sometimes")
 
 
+class _ModelAxisMesh:
+    """A mesh's layout with a tensor-parallel "model" axis of 2."""
+    mesh_dim_names, shape = ("data", "model"), (1, 2)
+
+
 def test_trainer_refuses_a_mesh_and_a_foreign_device():
+    """A mesh with a "model" axis above 1 is refused (the next slice of
+    the port), as is a device other than the algorithm's; a data-only
+    mesh of one rank goes to the algorithm and trains as no mesh does,
+    bit for bit."""
+    from repro_torch.launch.mesh import make_debug_mesh
     lc = LCAlgorithm([], [1e-3], device="cpu")
     data = TokenStream(CFG.vocab_size, 2, 16)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        LCTrainer(CFG, lc, data, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="next slice"):
+        LCTrainer(CFG, lc, data, mesh=_ModelAxisMesh(), device="cpu")
     with pytest.raises(ValueError, match="runs on cpu"):
         LCTrainer(CFG, lc, data, device="meta")
+    mesh = make_debug_mesh(device_type="cpu")
+    runs = []
+    for m in (None, mesh):
+        trainer = _make_trainer(n_mu=2, steps_per_l=2)
+        trainer = LCTrainer(CFG, trainer.lc, trainer.data, mesh=m,
+                            tcfg=trainer.tcfg, device="cpu")
+        assert trainer.lc.mesh is m
+        runs.append(trainer.run(KEY))
+    _assert_trees_equal(runs[0], runs[1], "one-rank mesh against none")
 
 
 def test_hard_failure_restore_rewinds_and_resyncs(tmp_path):

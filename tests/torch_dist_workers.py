@@ -1,0 +1,281 @@
+"""Rank processes for the port's multi-rank tests on the CPU.
+
+The tests spawn ``gloo`` ranks with ``torch.multiprocessing`` (the
+``spawn`` start method) and a ``FileStore`` under the test's
+``tmp_path``; each rank imports this module, which imports torch and the
+port only (never JAX: the reference runs in the test's own process). A
+rank writes what it computed with ``torch.save`` for the test to read.
+
+    from torch_dist_workers import spawn
+    spawn(worker_fn, world, tmp_path, *args)   # worker_fn(rank, world, *args)
+"""
+from __future__ import annotations
+
+import datetime
+import os
+
+import numpy as np
+import torch
+
+# ----------------------------------------------------------------------
+# spawning
+# ----------------------------------------------------------------------
+
+
+def _entry(rank, fn, world, store, args):
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+#: modules the fork server imports once, so that every rank forked from
+#: it starts with them (torch's import alone takes seconds)
+PRELOAD = ["torch", "torch_dist_workers", "repro_torch.core",
+           "repro_torch.launch.mesh", "torch._dynamo"]
+
+
+def spawn(fn, world: int, tmp_path, *args) -> None:
+    """Run ``fn(rank, world, *args)`` on ``world`` gloo ranks, forked from
+    a fork server that holds no JAX and no threads of the test process;
+    raises if any rank fails."""
+    import multiprocessing
+
+    import torch.multiprocessing as mp
+    multiprocessing.get_context("forkserver").set_forkserver_preload(
+        PRELOAD)
+    store = os.path.join(str(tmp_path), f"store_{fn.__name__}_{world}")
+    mp.start_processes(_entry, args=(fn, world, store, args), nprocs=world,
+                       start_method="forkserver")
+
+
+# ----------------------------------------------------------------------
+# the sharded C step: LeNet300-width tasks
+# ----------------------------------------------------------------------
+#: (name, shape, family): a K-means group of 5 items (stacks of 3 and 2
+#: items of LeNet300's l1, 300 × 100), an ℓ0 group of LeNet300's l0 twice
+#: (κ differs: one launch), a low-rank group of l2 (100 × 10) twice, and
+#: a singleton
+CSTEP_LEAVES = (("qa", (3, 300, 100), "quant"), ("qb", (2, 300, 100), "quant"),
+                ("pa", (784, 300), "l0-2000"), ("pb", (784, 300), "l0-6000"),
+                ("la", (100, 10), "lowrank"), ("lb", (100, 10), "lowrank"),
+                ("s", (100, 10), "quant-single"))
+CSTEP_MUS = (1e-3, 2e-3, 4e-3)
+
+
+def cstep_params(seed: int = 0) -> dict:
+    rng = np.random.default_rng(seed)
+    return {n: rng.standard_normal(s).astype(np.float32)
+            for n, s, _ in CSTEP_LEAVES}
+
+
+def cstep_tasks(core, schemes):
+    """The tasks, built from either package's ``core`` and ``schemes``."""
+    out = []
+    for name, shape, family in CSTEP_LEAVES:
+        if family == "quant":
+            view = core.AsStacked("vector")
+            scheme = schemes.AdaptiveQuantization(k=4, iters=3)
+        elif family.startswith("l0"):
+            view = core.AsVector()
+            scheme = schemes.ConstraintL0Pruning(kappa=int(family[3:]))
+        elif family == "lowrank":
+            view, scheme = core.AsIs(), schemes.LowRank(target_rank=2)
+        else:
+            view, scheme = core.AsVector(), schemes.AdaptiveQuantization(
+                k=2, iters=3)
+        out.append(core.CompressionTask(name, f"^{name}$", view, scheme))
+    return out
+
+
+def step_params(params: dict, k: int) -> dict:
+    """A stand-in for an L step: the weights nudged before C step ``k``."""
+    return {n: w + 0.01 * (k + 1) for n, w in params.items()}
+
+
+def run_lc(mesh, backend: str = "cuda", jit: bool = True) -> tuple:
+    """``LCAlgorithm`` over the C-step problem: init, then for each μ a
+    C step and a multiplier step. Returns (per C step, {task: (Θ, a)};
+    the driver)."""
+    from repro_torch import core
+    from repro_torch.core import schemes
+    params = {n: torch.from_numpy(w) for n, w in cstep_params().items()}
+    lc = core.LCAlgorithm(cstep_tasks(core, schemes), CSTEP_MUS,
+                          cstep_backend=backend, device="cpu",
+                          jit_c_step=jit, mesh=mesh)
+    state = lc.init(params)
+    out = [{n: (state["tasks"][n]["theta"], state["tasks"][n]["a"])
+            for n in state["tasks"]}]
+    for k, mu in enumerate(CSTEP_MUS):
+        state = lc.set_mu(state, mu, k)
+        params = step_params(params, k)
+        state = lc.c_step(params, state)
+        state = lc.multiplier_step(params, state)
+        out.append({n: (state["tasks"][n]["theta"], state["tasks"][n]["a"],
+                        state["tasks"][n]["lam"])
+                    for n in state["tasks"]})
+    return out, lc
+
+
+def grouped_once(mesh, inputs: dict, backend: str = "cuda") -> dict:
+    """One grouped C step at μ 1e-3 from ``inputs`` ({"xs": numpy, "thetas":
+    numpy trees}, the reference's Θ^DC)."""
+    from repro_torch import core, interop
+    from repro_torch.core import schemes
+    from repro_torch.core.grouping import grouped_compress
+    params = {n: torch.from_numpy(w.copy()) for n, w in inputs["xs"].items()}
+    tasks = [t.resolve(params) for t in cstep_tasks(core, schemes)]
+    thetas = {t.name: interop._theta_from_numpy(inputs["thetas"][t.name],
+                                                "cpu") for t in tasks}
+    return grouped_compress(tasks, {t.name: t.compressible(params)
+                                    for t in tasks}, thetas,
+                            torch.tensor(1e-3), mesh=mesh, backend=backend,
+                            device="cpu", planner="on")
+
+
+def sharded_cstep(rank, world, inputs_path, out_dir):
+    from repro_torch.distributed import compression_comm as cc
+    from repro_torch.launch.mesh import make_cstep_mesh
+    mesh = make_cstep_mesh(device_type="cpu")
+    inputs = torch.load(inputs_path, weights_only=False)
+    once = grouped_once(mesh, inputs)
+    steps, lc = run_lc(mesh)
+    # set_mesh drops the captured programs
+    before = (lc.programs, len(lc._compiled.executables),
+              len(lc._compiled.tasks))
+    lc.set_mesh(mesh)
+    dropped = {"executables_before": before[1], "tasks_before": before[2],
+               "new_programs": lc.programs is not before[0],
+               "executables_after": len(lc._compiled.executables),
+               "tasks_after": len(lc._compiled.tasks)}
+    # psum_compressed: rank-dependent gradients, zero error feedback
+    g = torch.Generator().manual_seed(100 + rank)
+    grads = {"w": torch.randn(64, 8, generator=g),
+             "b": torch.randn(8, generator=g)}
+    avg, new_ef = cc.psum_compressed(grads, cc.init_ef(grads), "data",
+                                     mesh=mesh)
+    torch.save({"once": once, "steps": steps,
+                "dropped": dropped, "grads": grads, "psum": avg,
+                "ef": new_ef},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+# ----------------------------------------------------------------------
+# data-parallel training
+# ----------------------------------------------------------------------
+#: the global batch: 4 sequences of 32 tokens (2 rows a rank at world 2)
+DP_BATCH, DP_SEQ, DP_LR = 4, 32, 1e-3
+
+
+def dp_config(arch: str):
+    """A reduced float32 config; MoE at capacity factor 8, so that no
+    token drops at the full batch's capacity or at a shard's."""
+    import dataclasses
+
+    from repro_torch import configs
+    cfg = dataclasses.replace(
+        configs.reduced_config(configs.get_config(arch)), dtype="float32")
+    if cfg.moe is not None:
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe,
+                                                capacity_factor=8.0))
+    return cfg
+
+
+def dp_state(cfg):
+    """The train state from seed 0, with LC refs moved off ``a = w`` so
+    that the penalty takes part."""
+    from repro_torch.launch.steps import init_train_state
+    state = init_train_state(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(1)
+    lc = state["lc"]
+    for p in lc["a"]:
+        lc["a"][p] = lc["a"][p] + 0.01 * torch.randn(lc["a"][p].shape,
+                                                     generator=g)
+        lc["lam"][p] = 0.01 * torch.randn(lc["a"][p].shape, generator=g)
+    lc["mu"] = torch.tensor(0.5)
+    return state
+
+
+def dp_batch(cfg) -> dict:
+    from repro_torch.data import TokenStream
+    return TokenStream(cfg.vocab_size, DP_BATCH, DP_SEQ).batch_at(3)
+
+
+def dp_step(arch: str, mesh) -> tuple:
+    """One ``make_train_step`` step on the global batch under ``mesh``:
+    (metrics, new params)."""
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.steps import make_train_step
+    cfg = dp_config(arch)
+    step = make_train_step(cfg, lr=DP_LR)
+    with use_mesh(mesh):
+        new, metrics = step(dp_state(cfg), dp_batch(cfg))
+    return ({k: float(v) for k, v in metrics.items()}, new["params"])
+
+
+def moe_shard(mesh, inputs: dict, rank: int, world: int):
+    """The rank's rows of ``inputs["x"]`` through ``moe_ffn`` over
+    ``mesh`` (the batch split over "data")."""
+    from repro_torch import configs, interop
+    from repro_torch.distributed import sharding
+    from repro_torch.models.moe import moe_ffn
+    cfg = configs.reduced_config(configs.get_config(inputs["arch"]))
+    import dataclasses
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    params = interop.params_from_numpy(inputs["params"], "cpu")
+    x = torch.from_numpy(inputs["x"])
+    rows = x.shape[0] // world
+    with sharding.use_mesh(mesh), sharding.local_batch("data"):
+        y, aux = moe_ffn(params, x[rank * rows:(rank + 1) * rows], cfg,
+                         sharding.active_mesh())
+    return y, aux
+
+
+def dp_trainer(mesh, ckpt_dir: str, fail_at: dict):
+    """``LCTrainer`` over ``mesh``: reduced phi3-mini, per-layer 4-bit
+    quantization of the FFNs, 2 μ × 2 L steps, a checkpoint every step
+    and a hard failure at step 3 that outlasts the retries (restored)."""
+    from repro_torch.core import (
+        AsVector, CompressionTask, LCAlgorithm, exponential_mu_schedule)
+    from repro_torch.core.schemes import AdaptiveQuantization
+    from repro_torch.data import TokenStream
+    from repro_torch.runtime import FaultInjector, LCTrainer, TrainerConfig
+    cfg = dp_config("phi3-mini-3.8b")
+    lc = LCAlgorithm(
+        [CompressionTask("qg", r"stages/.*/w_gate$", AsVector(),
+                         AdaptiveQuantization(k=4, iters=5)),
+         CompressionTask("qu", r"stages/.*/w_up$", AsVector(),
+                         AdaptiveQuantization(k=4, iters=5))],
+        exponential_mu_schedule(1e-3, 1.5, 2), device="cpu")
+    trainer = LCTrainer(
+        cfg, lc, TokenStream(cfg.vocab_size, DP_BATCH, DP_SEQ), mesh=mesh,
+        tcfg=TrainerConfig(steps_per_l=2, ckpt_every=1, ckpt_dir=ckpt_dir,
+                           lr=DP_LR),
+        fault_injector=FaultInjector(fail_at), device="cpu")
+    trainer.retry.backoff_s = 0.001
+    state, lc_state = trainer.run(0)
+    return trainer, state, lc_state
+
+
+def dp_train(rank, world, inputs_path, out_dir):
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh((world, 1), device_type="cpu")
+    inputs = torch.load(inputs_path, weights_only=False)
+    steps = {arch: dp_step(arch, mesh)
+             for arch in ("phi3-mini-3.8b", "jamba-v0.1-52b")}
+    y, aux = moe_shard(mesh, inputs, rank, world)
+    trainer, state, lc_state = dp_trainer(
+        mesh, os.path.join(out_dir, "ckpt"), {3: 5})
+    torch.save({"steps": steps, "moe": (y, aux),
+                "history": trainer.history,
+                "injected": trainer.faults.injected,
+                "lc_mesh": trainer.lc.mesh is mesh,
+                "params": state["params"],
+                "theta": {n: lc_state["tasks"][n]["theta"]
+                          for n in lc_state["tasks"]}},
+               os.path.join(out_dir, f"rank{rank}.pt"))
