@@ -11,9 +11,12 @@
     python3 chip_smoke.py --lc          # the compiled LC driver's paths only
     python3 chip_smoke.py --lc-memory   # path H1's peak memory and the LM
                                         # steps' times, eager and compiled
-    python3 chip_smoke.py --shard       # path S: the sharding layer's
-                                        # data axis (its ranks run as
-                                        # --shard-rank R)
+    python3 chip_smoke.py --shard       # paths S and T: the sharding
+                                        # layer's data axis and its
+                                        # "model" axis for serving (its
+                                        # ranks run as --shard-rank R)
+    python3 chip_smoke.py --tp          # path T alone (its ranks run as
+                                        # --tp-rank R)
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit (nvcc). Every ``Server`` and ``ServingEngine`` serves
@@ -227,7 +230,27 @@ Phases, each of which fails the run:
     loss within rtol 1e-5, the parameters within 2·lr a step and all
     but 0.1% within 1e-6 (``tests/test_torch_dp_train.py``); step ms
     per rank, the gradient all-reduce's ms and share, peak memory;
-20. one JSON line listing every ported kernel, then the result line.
+20. path T, the tensor-parallel "model" axis for serving, in path S's
+    processes (``--shard``; alone ``--tp``): T1, NCCL at world size 1,
+    ``make_debug_mesh((1, 1))``, path C's model and forms:
+    ``Server(mesh=).generate`` (2 × 512, 32 new) and
+    ``ServingEngine(mesh=)`` on a burst of 6 requests through CUDA
+    graphs against ``mesh=None`` (deterministic algorithms on for both:
+    the sparse product's ``index_add_``): logits, tokens and the burst
+    bit for bit, the same launches. T2–T4 on S's two gloo ranks, mesh
+    (1, 2), each against the one-process run of its model: T2 C's model
+    (16 heads, "mlp" 4096, a vocabulary of 16,032 and the rows of the
+    sparse w_down a rank), T3 deepseek-moe-16b at I2's depth and forms
+    ("ep": 32 experts, 8 heads, lead FFN 5,472, shared experts 1,408,
+    vocabulary 51,200 a rank), T4 minicpm3-4b (2 layers, J's forms, 2 ×
+    256 prompts, 16 new; 20 heads, vocabulary 36,724 a rank): prefill
+    logits within 1e-3·max|logit|, greedy agreement 1.0 in the server
+    and in every request of the burst, each rank's K4/K5/K6 launches
+    those of one process, every K4/K5/K6 shape of the run held against
+    its plain version; prefill and decode ms, the collectives' ms and
+    share, the weight bytes held and the peak per rank; then K4, K5 and
+    K6 timed at the shard shapes beside their plain versions and bounds;
+21. one JSON line listing every ported kernel, then the result line.
 
 Tolerances: assignments, masks and integer counts must be equal; K1/K7
 cluster sums may differ from the plain version's by the summation order
@@ -1198,113 +1221,113 @@ def lm_phase(kern, power: str) -> dict:
     return total
 
 
+def gemm_row(k45, name: str, m: int, k: int, n: int, c: int, g,
+             power: str, label: str = "") -> dict:
+    """One K4/K5 row: checked and timed beside the plain version and the
+    densified ``torch.matmul``. The bound is the function's, not the
+    kernel's: x, the indices, the codebook and y moved once, and 2·M·K·N
+    operations at the faster of the f32 CUDA cores and three TF32 passes
+    on the tensor cores, for the decode GEMV and the prefill kernel
+    alike."""
+    from repro_torch.kernels.quant_matmul import ops as qops
+    x = torch.randn((m, k), device="cuda", generator=g)
+    idx = torch.randint(0, c, (k, n), device="cuda", generator=g,
+                        dtype=torch.uint8)
+    # codebook at the scale of the model's weights (std 1/√fan_in)
+    cb = torch.sort(torch.randn(c, device="cuda", generator=g)).values \
+        / math.sqrt(k)
+    if name == "K4":
+        w = qops.pack4(idx)
+        if k % 2:   # odd K: the zero column that meets the pad row
+            x = torch.cat([x, x.new_zeros((m, 1))], dim=1)
+        kern = lambda: k45.quant_matmul_packed(x, w, cb)  # noqa: E731
+        plain = lambda: k45.quant_matmul_packed_plain(x, w, cb)  # noqa: E731
+    else:
+        w = idx
+        kern = lambda: k45.quant_matmul(x, w, cb)  # noqa: E731
+        plain = lambda: k45.quant_matmul_plain(x, w, cb)  # noqa: E731
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    err = float((got - want).abs().max())
+    dense = cb[idx.long()]
+    if x.shape[1] != k:
+        dense = torch.cat([dense, dense.new_zeros((1, n))], dim=0)
+    reps = 10 if m * k * n > 1e9 else 30
+    ms, plain_ms, dense_ms = timed_turns(
+        (kern, plain, lambda: torch.matmul(x, dense)), reps)
+    n_bytes = 4.0 * m * k + w.numel() + 4.0 * c + 4.0 * m * n
+    ops = 2.0 * m * k * n
+    b_ms, b_by = min(bound(n_bytes, ops),
+                     bound(n_bytes, 3 * ops, TF32_OPS_PER_S))
+    print(f"{label}{name} M={m} K={k} N={n} C={c}: ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.3g} ({b_by}) "
+          f"densified_torch_matmul_ms={dense_ms:.4f} "
+          f"max|Δ|={err:.3g} [{power}]", flush=True)
+    return {"shape": [m, k, n, c], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+            "densified_matmul_ms": dense_ms}
+
+
+def flash_row(k6, b: int, s: int, h: int, kvh: int, d: int, dv: int,
+              window: int, g, power: str, label: str = "") -> dict:
+    """One K6 row: checked and timed beside the plain version and SDPA
+    (the window as a mask); bound by three TF32 passes of 2·(D + Dv)
+    operations a (query, key) pair kept."""
+    grp = h // kvh
+    q = torch.randn((b, kvh, grp, s, d), device="cuda", generator=g)
+    k = torch.randn((b, kvh, s, d), device="cuda", generator=g)
+    v = torch.randn((b, kvh, s, dv), device="cuda", generator=g)
+    # MLA passes its scale; another than the default 1/√D, so that the
+    # row shows the caller's scale reaches the kernel
+    scale = 0.9 / math.sqrt(d) if dv != d else None
+    got = k6.flash_attention(q, k, v, window=window, scale=scale)
+    torch.cuda.synchronize()
+    want = k6.flash_attention_plain(q, k, v, window=window, scale=scale)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    err = float((got - want).abs().max())
+    del want
+    qh = q.reshape(b, h, s, d)
+    # SDPA: causal, or the causal window as a boolean mask
+    mask = None
+    if window:
+        pos = torch.arange(s, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[None, :] > pos[:, None] - window)
+    fns = [lambda: k6.flash_attention(q, k, v, window=window, scale=scale),
+           lambda: k6.flash_attention_plain(q, k, v, window=window,
+                                            scale=scale),
+           lambda: F.scaled_dot_product_attention(
+               qh, k, v, attn_mask=mask, is_causal=mask is None,
+               scale=scale, enable_gqa=True)]
+    ms, plain_ms, lib_ms = timed_turns(fns, 50 if s <= 1024 else 10)
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
+    # three TF32 passes of 2·D (Q·Kᵀ) + 2·Dv (P·V) operations per pair
+    # (the f32 split)
+    b_ms, b_by = bound(
+        4.0 * (b * h * s * (d + dv) + b * kvh * s * (d + dv)),
+        3 * 2.0 * (d + dv) * b * h * pairs, TF32_OPS_PER_S)
+    print(f"{label}K6 B={b} S={s} H={h} KV={kvh} D={d} Dv={dv} "
+          f"window={window}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={b_ms:.3g} ({b_by}) sdpa_ms={lib_ms:.4f} "
+          f"max|Δ|={err:.3g} [{power}]", flush=True)
+    return {"shape": [b, s, h, kvh, d, dv, window], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err, "library_ms": lib_ms}
+
+
 def serve_kernel_phase(k45, k6, power: str) -> dict:
     """K4, K5 and K6 against their plain versions at the serving paths'
-    shapes; ``power`` (the card's power limit) is printed beside every
-    time."""
-    from repro_torch.kernels.quant_matmul import ops as qops
+    shapes (``gemm_row``, ``flash_row``); ``power`` (the card's power
+    limit) is printed beside every time."""
     g = torch.Generator(device="cuda").manual_seed(3)
-    rec = {"K4": [], "K5": [], "K6": []}
-
-    def gemm_case(name, m, k, n, c):
-        """One K4/K5 row: checked and timed beside the plain version and
-        the densified ``torch.matmul``. The bound is the function's, not
-        the kernel's: x, the indices, the codebook and y moved once, and
-        2·M·K·N operations at the faster of the f32 CUDA cores and three
-        TF32 passes on the tensor cores, for the decode GEMV and the
-        prefill kernel alike."""
-        x = torch.randn((m, k), device="cuda", generator=g)
-        idx = torch.randint(0, c, (k, n), device="cuda", generator=g,
-                            dtype=torch.uint8)
-        # codebook at the scale of the model's weights (std 1/√fan_in)
-        cb = torch.sort(torch.randn(c, device="cuda", generator=g)).values \
-            / math.sqrt(k)
-        if name == "K4":
-            w = qops.pack4(idx)
-            if k % 2:   # odd K: the zero column that meets the pad row
-                x = torch.cat([x, x.new_zeros((m, 1))], dim=1)
-            kern = lambda: k45.quant_matmul_packed(x, w, cb)  # noqa: E731
-            plain = lambda: k45.quant_matmul_packed_plain(x, w, cb)  # noqa: E731,E501
-            w_bytes = w.numel()
-        else:
-            w = idx
-            kern = lambda: k45.quant_matmul(x, w, cb)  # noqa: E731
-            plain = lambda: k45.quant_matmul_plain(x, w, cb)  # noqa: E731
-            w_bytes = w.numel()
-        got = kern()
-        torch.cuda.synchronize()
-        want = plain()
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
-        err = float((got - want).abs().max())
-        dense = cb[idx.long()]
-        if x.shape[1] != k:
-            dense = torch.cat([dense, dense.new_zeros((1, n))], dim=0)
-        reps = 10 if m * k * n > 1e9 else 30
-        ms, plain_ms, dense_ms = timed_turns(
-            (kern, plain, lambda: torch.matmul(x, dense)), reps)
-        n_bytes = 4.0 * m * k + w_bytes + 4.0 * c + 4.0 * m * n
-        ops = 2.0 * m * k * n
-        b_ms, b_by = min(bound(n_bytes, ops),
-                         bound(n_bytes, 3 * ops, TF32_OPS_PER_S))
-        row = {"shape": [m, k, n, c], "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-               "densified_matmul_ms": dense_ms}
-        rec[name].append(row)
-        print(f"{name} M={m} K={k} N={n} C={c}: ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.3g} ({b_by}) "
-              f"densified_torch_matmul_ms={dense_ms:.4f} "
-              f"max|Δ|={err:.3g} [{power}]", flush=True)
-
-    for m, k, n, c in K4_SHAPES:
-        gemm_case("K4", m, k, n, c)
-    for m, k, n, c in K5_SHAPES:
-        gemm_case("K5", m, k, n, c)
-
-    for b, s, h, kvh, d, dv, window in K6_SHAPES:
-        grp = h // kvh
-        q = torch.randn((b, kvh, grp, s, d), device="cuda", generator=g)
-        k = torch.randn((b, kvh, s, d), device="cuda", generator=g)
-        v = torch.randn((b, kvh, s, dv), device="cuda", generator=g)
-        # MLA passes its scale; another than the default 1/√D, so that
-        # the row shows the caller's scale reaches the kernel
-        scale = 0.9 / math.sqrt(d) if dv != d else None
-        got = k6.flash_attention(q, k, v, window=window, scale=scale)
-        torch.cuda.synchronize()
-        want = k6.flash_attention_plain(q, k, v, window=window, scale=scale)
-        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
-        err = float((got - want).abs().max())
-        del want
-        qh = q.reshape(b, h, s, d)
-        # SDPA: causal, or the causal window as a boolean mask
-        mask = None
-        if window:
-            pos = torch.arange(s, device="cuda")
-            mask = (pos[None, :] <= pos[:, None]) & \
-                (pos[None, :] > pos[:, None] - window)
-        fns = [lambda: k6.flash_attention(q, k, v, window=window,
-                                          scale=scale),
-               lambda: k6.flash_attention_plain(q, k, v, window=window,
-                                                scale=scale),
-               lambda: F.scaled_dot_product_attention(
-                   qh, k, v, attn_mask=mask, is_causal=mask is None,
-                   scale=scale, enable_gqa=True)]
-        ms, plain_ms, lib_ms = timed_turns(fns, 50 if s <= 1024 else 10)
-        pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
-        # three TF32 passes of 2·D (Q·Kᵀ) + 2·Dv (P·V) operations per
-        # pair (the f32 split)
-        b_ms, b_by = bound(
-            4.0 * (b * h * s * (d + dv) + b * kvh * s * (d + dv)),
-            3 * 2.0 * (d + dv) * b * h * pairs, TF32_OPS_PER_S)
-        rec["K6"].append({"shape": [b, s, h, kvh, d, dv, window], "ms": ms,
-                          "plain_ms": plain_ms, "bound_ms": b_ms,
-                          "bound_by": b_by, "max_abs_err": err,
-                          "library_ms": lib_ms})
-        print(f"K6 B={b} S={s} H={h} KV={kvh} D={d} Dv={dv} "
-              f"window={window}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={b_ms:.3g} ({b_by}) sdpa_ms={lib_ms:.4f} "
-              f"max|Δ|={err:.3g} [{power}]", flush=True)
-        del q, k, v, qh, got, mask
-    torch.cuda.empty_cache()
+    rec = {"K4": [gemm_row(k45, "K4", *sh, g, power) for sh in K4_SHAPES],
+           "K5": [gemm_row(k45, "K5", *sh, g, power) for sh in K5_SHAPES],
+           "K6": []}
+    for shape in K6_SHAPES:
+        rec["K6"].append(flash_row(k6, *shape, g, power))
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -3415,22 +3438,13 @@ def topk_at(k2, calls, theta, kappa: int, label: str, power: str) -> dict:
                    "bound_by": b3_by, "max_abs_err": 0.0}}
 
 
-def main_path_i2(kern, k1, k2, power: str) -> dict:
-    """deepseek-moe-16b at full width: its dense lead layer and 3 MoE
-    layers; ℓ0 at 5% on all expert ``w_down`` stacks as one vector (the
-    fused bisection and K3), 4-bit k=16 on the lead FFN and on each
-    layer's shared experts (K4 in serving), 8-bit k=64 on each layer's
-    attention (K5); ``Server.generate`` (2 × 512), then a ServingEngine
-    trace whose per-slot MoE decode drops tokens at capacity."""
+def i2_tasks() -> list:
+    """Path I2's tasks: ℓ0 at 5% on all expert ``w_down`` stacks as one
+    vector, 4-bit k=16 on the lead FFN and on each layer's shared
+    experts, 8-bit k=64 on each layer's attention."""
     from repro_torch.core import AsVector, CompressionTask
     from repro_torch.core.schemes import (
         AdaptiveQuantization, ConstraintL0Pruning)
-    from repro_torch.kernels.kmeans import ops as kops
-    from repro_torch.kernels.prune import ops as pops
-    from repro_torch.models import moe
-    cfg = moe_mla_config("deepseek-moe-16b", DS_MOE_LAYERS)
-    check(moe.capacity_for(8, cfg) == 1,
-          "I2: the engine's decode is not the capacity-drop case")
     q4 = dict(k=16, iters=10)
     tasks = [CompressionTask("experts_down", r"^stages/s1/pos\d/ffn/w_down$",
                              AsVector(), ConstraintL0Pruning(kappa=DS_KAPPA)),
@@ -3444,7 +3458,23 @@ def main_path_i2(kern, k1, k2, power: str) -> dict:
                               rf"^stages/s{si}/pos{i}/mixer/(wq|wk|wv|wo)$",
                               AsVector(), AdaptiveQuantization(k=64, iters=10))
               for si, n in ((0, 1), (1, DS_MOE_LAYERS)) for i in range(n)]
-    run = serve_path(kern, "I2", cfg, tasks, SERVE_PROMPT, power,
+    return tasks
+
+
+def main_path_i2(kern, k1, k2, power: str) -> dict:
+    """deepseek-moe-16b at full width: its dense lead layer and 3 MoE
+    layers; ℓ0 at 5% on all expert ``w_down`` stacks as one vector (the
+    fused bisection and K3), 4-bit k=16 on the lead FFN and on each
+    layer's shared experts (K4 in serving), 8-bit k=64 on each layer's
+    attention (K5); ``Server.generate`` (2 × 512), then a ServingEngine
+    trace whose per-slot MoE decode drops tokens at capacity."""
+    from repro_torch.kernels.kmeans import ops as kops
+    from repro_torch.kernels.prune import ops as pops
+    from repro_torch.models import moe
+    cfg = moe_mla_config("deepseek-moe-16b", DS_MOE_LAYERS)
+    check(moe.capacity_for(8, cfg) == 1,
+          "I2: the engine's decode is not the capacity-drop case")
+    run = serve_path(kern, "I2", cfg, i2_tasks(), SERVE_PROMPT, power,
                      seeds=(22, 22),
                      capture=[(pops, "topk_threshold_batched"),
                               (pops, "mask_apply_batched"),
@@ -3493,18 +3523,13 @@ def main_path_i2(kern, k1, k2, power: str) -> dict:
     return out
 
 
-def main_path_j(kern, k1, power: str) -> dict:
-    """minicpm3-4b at full width, 4 of 62 layers, tied embeddings: 8-bit
-    k=64 on each layer's MLA projections (wukv materialized in serving),
-    4-bit k=16 on each layer's FFN; ``Server.generate`` (2 × 512; K6 at
-    qk 96, v 64), then a short ServingEngine trace (the per-slot latent
-    cache decode)."""
+def j_tasks(layers: int) -> list:
+    """Path J's tasks: 8-bit k=64 on each layer's MLA projections, 4-bit
+    k=16 on each layer's FFN."""
     from repro_torch.core import AsVector, CompressionTask
     from repro_torch.core.schemes import AdaptiveQuantization
-    from repro_torch.kernels.kmeans import ops as kops
-    cfg = moe_mla_config("minicpm3-4b", CPM_LAYERS)
     tasks = []
-    for i in range(CPM_LAYERS):
+    for i in range(layers):
         pre = rf"^stages/s0/pos{i}/"
         tasks += [CompressionTask(f"mla{i}",
                                   pre + r"mixer/(wdq|wuq|wdkv|wukv|wo)$",
@@ -3514,7 +3539,19 @@ def main_path_j(kern, k1, power: str) -> dict:
                                   pre + r"ffn/(w_gate|w_up|w_down)$",
                                   AsVector(),
                                   AdaptiveQuantization(k=16, iters=10))]
-    run = serve_path(kern, "J", cfg, tasks, SERVE_PROMPT, power,
+    return tasks
+
+
+def main_path_j(kern, k1, power: str) -> dict:
+    """minicpm3-4b at full width, 4 of 62 layers, tied embeddings: 8-bit
+    k=64 on each layer's MLA projections (wukv materialized in serving),
+    4-bit k=16 on each layer's FFN; ``Server.generate`` (2 × 512; K6 at
+    qk 96, v 64), then a short ServingEngine trace (the per-slot latent
+    cache decode)."""
+    from repro_torch.kernels.kmeans import ops as kops
+    cfg = moe_mla_config("minicpm3-4b", CPM_LAYERS)
+    run = serve_path(kern, "J", cfg, j_tasks(CPM_LAYERS), SERVE_PROMPT,
+                     power,
                      seeds=(23, 23),
                      capture=[(kops, "kmeans_lloyd_batched")])
     check(run["kinds"] == {"quant8": 5 * CPM_LAYERS,
@@ -4607,7 +4644,8 @@ def shard_rank(kern, rank: int, card: str) -> None:
     bisection a group a C step on the rank's block; S3: the data-parallel
     trainer on the rank's half of the global batch, losses within rtol
     1e-5 of the one-process run's and parameters within ``2·lr`` a step
-    of them (``tests/test_torch_dp_train.py``'s tolerance)."""
+    of them (``tests/test_torch_dp_train.py``'s tolerance); then paths
+    T2–T4 (``t_ranks``)."""
     import datetime
 
     import torch.distributed as dist
@@ -4703,38 +4741,502 @@ def shard_rank(kern, rank: int, card: str) -> None:
           f"parameters after {S3_STEPS} L steps and a C step max|Δ|="
           f"{worst:.3g}, {flipped} of {n_all} past 1e-6 [{card}]",
           flush=True)
+    found = {f"S2 rank {rank}": total, f"S3 rank {rank}": run["launches"]}
+    del run, ref_params, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    found.update(t_ranks(kern, rank, card))
     dist.destroy_process_group()
-    print(SHARD_LAUNCHES, json.dumps({
-        f"S2 rank {rank}": total, f"S3 rank {rank}": run["launches"]}),
-        flush=True)
+    print(SHARD_LAUNCHES, json.dumps(found), flush=True)
 
 
 def shard_paths(kern, card: str) -> None:
-    """``python3 chip_smoke.py --shard``: path S. S1 here (NCCL, world
-    size 1), then the one-process S3 run here, then S_WORLD rank
-    processes (``--shard-rank``) over ``gloo`` on the one card for S2 and
-    S3; every child's check fails the run. The launches end the output as
-    the line ``shard_launches {json}``."""
+    """``python3 chip_smoke.py --shard``: paths S and T. S1 here (NCCL,
+    world size 1), then the one-process S3 run here, then T1 and path T's
+    one-process references (``t_prepare``), then S_WORLD rank processes
+    (``--shard-rank``) over ``gloo`` on the one card for S2, S3 and
+    T2–T4, then the kernel rows at T's shard shapes; every child's check
+    fails the run. The launches end the output as the line
+    ``shard_launches {json}``."""
     import shutil
-    shutil.rmtree(SHARD_DIR, ignore_errors=True)
-    SHARD_DIR.mkdir(parents=True)
+    for folder in (SHARD_DIR, TP_DIR):
+        shutil.rmtree(folder, ignore_errors=True)
+        folder.mkdir(parents=True)
     stamp("path S1")
-    s1 = path_s1(kern, card)
+    found = {"S1": path_s1(kern, card)}
     stamp("path S3, one process")
     trainer = s3_trainer(None, S_WORLD * S3_ROWS)
     run = s3_run(kern, trainer, f"one process ({S_WORLD * S3_ROWS} × "
                  f"{H_SEQ} tokens)", card)
     (SHARD_DIR / "s3_losses.json").write_text(json.dumps(run["losses"]))
     torch.save(run["state"]["params"], SHARD_DIR / "s3_params.pt")
-    s3 = run["launches"]
+    found["S3 one process"] = run["launches"]
     del trainer, run
     gc.collect()
     torch.cuda.empty_cache()
-    stamp(f"paths S2 and S3 on {S_WORLD} ranks")
-    logs = [open(SHARD_DIR / f"rank{r}.log", "w") for r in range(S_WORLD)]
+    found.update(t_prepare(kern, card))
+    stamp(f"paths S2, S3 and T2–T4 on {S_WORLD} ranks")
+    found.update(run_ranks("--shard-rank", SHARD_DIR, SHARD_LAUNCHES,
+                           "path "))
+    check(all(f"{p} rank {r}" in found for p in ("S2", "S3") + T_LABELS
+              for r in range(S_WORLD)), "paths S and T: a rank reported "
+          "no launches")
+    stamp("path T's kernels at the shard shapes")
+    t_shard_rows(card)
+    for folder in (SHARD_DIR, TP_DIR):
+        shutil.rmtree(folder, ignore_errors=True)
+    stamp("done")
+    print(SHARD_LAUNCHES, json.dumps(found), flush=True)
+
+
+# ----------------------------------------------------------------------
+# path T: the tensor-parallel "model" axis for serving (in the
+# ``--shard`` process and its ranks, after path S; alone: ``--tp``, whose
+# ranks run ``--tp-rank R``)
+# ----------------------------------------------------------------------
+TP_DIR = ROOT / "build" / "tp"
+TP_LAUNCHES = "tp_launches"            # the line ``--tp`` reports on
+#: the engine burst of path T: requests, prompt and new-token ranges,
+#: all arriving at once (the schedule, and each MoE decode's batch, does
+#: not depend on the ticks' times)
+TP_BURST = (6, (32, 128), (8, 32))
+#: T4: minicpm3-4b's layers, prompt length and new tokens
+CPM_T_LAYERS, CPM_T_PROMPT, CPM_T_GEN = 2, 256, 16
+T_LABELS = ("T2", "T3", "T4")
+T_KERNELS = ("K4", "K5", "K6")
+
+
+def t_model(label: str):
+    """Path T's model ``label`` (T2: path C's, T3: path I2's, T4: path
+    J's at 2 layers): (config, tasks, prompt length, new tokens, seeds of
+    the weights and the prompts)."""
+    if label == "T2":
+        return serving_config(), c_tasks(), SERVE_PROMPT, SERVE_GEN, (2, 4)
+    if label == "T3":
+        return (moe_mla_config("deepseek-moe-16b", DS_MOE_LAYERS),
+                i2_tasks(), SERVE_PROMPT, SERVE_GEN, (22, 22))
+    return (moe_mla_config("minicpm3-4b", CPM_T_LAYERS),
+            j_tasks(CPM_T_LAYERS), CPM_T_PROMPT, CPM_T_GEN, (23, 23))
+
+
+def t_build(label: str):
+    """Path T's model ``label`` in its serving forms (random weights from
+    its seed, the forms of its tasks' direct compression, as every
+    process builds them: the same bits in each): (cfg, the whole serving
+    tree, prompts, new tokens)."""
+    from repro_torch.core import LCAlgorithm
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime import server as srv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, tasks, plen, new, seeds = t_model(label)
+    params = tf.init_params(
+        torch.Generator(device="cuda").manual_seed(seeds[0]), cfg)
+    lc = LCAlgorithm(tasks, [1e-4], device="cuda")
+    serving, _ = srv.load_compressed_for_serving(params, lc.init(params),
+                                                 lc.tasks)
+    del params, lc
+    prompts = np.random.default_rng(seeds[1]).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, plen), dtype=np.int64).astype(
+            np.int32)
+    return cfg, serving, prompts, new
+
+
+def t_servers(cfg, serving, prompts, new: int, mesh) -> tuple:
+    """A ``Server`` and a ``ServingEngine`` (8 slots, chunks of 32) over
+    ``mesh`` on the whole serving tree (graphs where the mesh allows
+    them), each keeping its slices."""
+    from repro_torch.runtime import server as srv
+    _, plens, news = TP_BURST
+    return (srv.Server(cfg, serving, max_len=prompts.shape[1] + new,
+                       device="cuda", mesh=mesh),
+            srv.ServingEngine(cfg, serving, slots=8,
+                              max_len=plens[1] + news[1], prefill_chunk=32,
+                              device="cuda", mesh=mesh))
+
+
+def t_run(kern, cfg, server, engine, prompts, new: int) -> dict:
+    """``Server.generate`` (with its logits) and the engine on TP_BURST,
+    each with its K4/K5/K6 launches."""
+    n_req, plens, news = TP_BURST
+    reset(kern)
+    res = server.generate(prompts, new, return_logits=True)
+    torch.cuda.synchronize()
+    n_server = launches(kern)
+    reset(kern)
+    out = engine.run(poisson_requests(cfg, n_req, plens, news, seed=6,
+                                      gap=0.0))
+    torch.cuda.synchronize()
+    n_engine = launches(kern)
+    check(not out["rejected"] and len(out["finished"]) == n_req,
+          "path T engine burst")
+    return {"server": server, "engine": engine, "tokens": res.tokens,
+            "logits": res.logits, "burst": {f.id: f.tokens.tolist()
+                                            for f in out["finished"]},
+            "launches": {"server": {k: n_server[k] for k in T_KERNELS},
+                         "engine": {k: n_engine[k] for k in T_KERNELS}},
+            "all": {k: n_server[k] + n_engine[k] for k in kern}}
+
+
+def t_prepare(kern, card: str) -> dict:
+    """T1, then the one-process references of T3 and T4 for the ranks
+    (files under TP_DIR; T2's is T1's ``mesh=None`` run). T1: NCCL at
+    world size 1, ``make_debug_mesh((1, 1))``, path C's model and forms
+    (phi3-mini, 4 of 32 layers): ``Server(mesh=).generate`` (2 × 512, 32
+    new) and ``ServingEngine(mesh=)`` on TP_BURST through CUDA graphs
+    against ``mesh=None``: logits and tokens bit for bit, the same
+    launches. Returns every run's launches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    mesh = make_debug_mesh((1, 1))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    found = {}
+    for label in T_LABELS:
+        stamp(f"path {'T1 and ' if label == 'T2' else ''}{label}, "
+              f"one process")
+        cfg, serving, prompts, new = t_build(label)
+        # T1's runs are held bit for bit: the sparse w_down product's
+        # index_add_ sums by atomics unless deterministic algorithms are
+        # on (two mesh=None runs differ otherwise)
+        torch.use_deterministic_algorithms(label == "T2")
+        try:
+            runs = {m: t_run(kern, cfg, *t_servers(cfg, serving, prompts,
+                                                   new, mesh_), prompts, new)
+                    for m, mesh_ in (("none", None), ("mesh", mesh))
+                    if m == "none" or label == "T2"}
+        finally:
+            torch.use_deterministic_algorithms(False)
+        found[f"{label} one process"] = runs["none"]["all"]
+        if label == "T2":
+            found["T1"] = runs["mesh"]["all"]
+            a, b = runs["mesh"], runs["none"]
+            check(a["server"].programs.graphs and a["engine"].programs.graphs,
+                  "path T1: a one-rank model axis runs through graphs")
+            check(torch.equal(a["logits"], b["logits"])
+                  and np.array_equal(a["tokens"], b["tokens"])
+                  and a["burst"] == b["burst"]
+                  and a["launches"] == b["launches"],
+                  f"path T1 mesh (1, 1) against mesh=None: max|Δlogit| "
+                  f"{float((a['logits'] - b['logits']).abs().max())}, "
+                  f"tokens equal "
+                  f"{np.array_equal(a['tokens'], b['tokens'])}, burst "
+                  f"equal {a['burst'] == b['burst']}, launches "
+                  f"{a['launches']} / {b['launches']}")
+            print(f"path T1 (NCCL, world size 1, mesh (1, 1), {cfg.name} "
+                  f"full width, {cfg.n_layers} layers, CUDA graphs): "
+                  f"Server.generate ({SERVE_BATCH}x{prompts.shape[1]}, "
+                  f"{new} new) logits and tokens and the engine's "
+                  f"{TP_BURST[0]}-request burst bit for bit against "
+                  f"mesh=None; launches server {a['launches']['server']} "
+                  f"engine {a['launches']['engine']} each [{card}]",
+                  flush=True)
+        ref = runs["none"]
+        torch.save({"logits": ref["logits"][:, 0].cpu(),
+                    "tokens": ref["tokens"], "burst": ref["burst"],
+                    "launches": ref["launches"]}, TP_DIR / f"{label}.pt")
+        del runs, ref, serving
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return found
+
+
+class KernelCalls:
+    """The first call of K4, K5 and K6 at each shape (through their
+    wrappers in the ops modules), operands and result copied, to hold
+    each against its plain version."""
+
+    def __init__(self):
+        from repro_torch.kernels.flash_attention import ops as fops
+        from repro_torch.kernels.quant_matmul import ops as qops
+        self.calls = {}
+        self._patched = [(qops, "quant_matmul", "K5"),
+                         (qops, "quant_matmul_packed", "K4"),
+                         (fops, "flash_attention", "K6")]
+        self._orig = {}
+
+    def __enter__(self):
+        for mod, name, key in self._patched:
+            fn = getattr(mod, name)
+            self._orig[(mod, name)] = fn
+
+            def wrapped(*args, _fn=fn, _key=key, **kw):
+                out = _fn(*args, **kw)
+                shape = (_key, *(tuple(a.shape) for a in args),
+                         tuple(sorted(kw.items())))
+                if shape not in self.calls:
+                    self.calls[shape] = ([a.clone() for a in args], kw,
+                                         out.clone())
+                return out
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in self._orig.items():
+            setattr(mod, name, fn)
+
+    def check(self, k45, k6, label: str) -> dict:
+        """Every call against the plain version on its operands (K4/K5
+        rtol 1e-5 / atol 1e-4, K6 rtol 2e-4 / atol 2e-4); returns the
+        shapes by kernel, as (M, K, N, C) and (B, S, H, KV, D, Dv,
+        window)."""
+        shapes = {"K4": [], "K5": [], "K6": []}
+        plain = {"K4": k45.quant_matmul_packed_plain,
+                 "K5": k45.quant_matmul_plain,
+                 "K6": k6.flash_attention_plain}
+        worst = 0.0
+        for key, (args, kw, got) in self.calls.items():
+            want = plain[key[0]](*args, **kw)
+            tol = dict(rtol=2e-4, atol=2e-4) if key[0] == "K6" else \
+                dict(rtol=1e-5, atol=1e-4)
+            try:
+                torch.testing.assert_close(got, want, **tol)
+            except AssertionError as e:
+                fail(f"{label} {key}: the kernel against its plain "
+                     f"version: {e}")
+            worst = max(worst, float((got - want).abs().max()))
+            if key[0] == "K6":
+                b, kvh, grp, s, d = args[0].shape
+                shapes["K6"].append([b, s, kvh * grp, kvh, d,
+                                     args[2].shape[-1],
+                                     int(kw.get("window", 0))])
+            else:
+                x, w, cb = args
+                shapes[key[0]].append([x.shape[0], x.shape[1],
+                                       w.shape[1], cb.shape[0]])
+        return {"shapes": shapes, "max_abs_err": worst,
+                "calls": len(self.calls)}
+
+
+def _tensor_bytes(tree) -> int:
+    from repro_torch.runtime.server import _tensors
+    return sum(t.numel() * t.element_size()
+               for t in {id(x): x for x in _tensors(tree)}.values())
+
+
+def t_layout(label: str, cfg, params, m: int) -> str:
+    """The rank's slices of path T's model ``label``: its heads, its
+    share of the MLP and the vocabulary (and T3's experts, lead FFN and
+    shared experts), as phase 20 of the module's note lists them."""
+    st = params["stages"]
+    emb = params["embed"]["tokens"].shape[0]
+    if label == "T2":
+        blk = st["s0"]["pos0"]
+        got = (blk["mixer"]["wq"].shape[1] // cfg.head_dim,
+               blk["ffn"]["w_gate"].shape[1], emb,
+               blk["ffn"]["w_down"].shape[0])
+        check(got == (16, 4096, 16032, 4096)
+              and type(blk["ffn"]["w_down"]).__name__ == "SparseWeight",
+              f"path T2 layout {got}")
+        return (f"16 heads, mlp 4096, vocabulary {emb}, w_down rows "
+                f"{got[3]} (sparse)")
+    if label == "T3":
+        lead, moe = st["s0"]["pos0"], st["s1"]["pos0"]
+        got = (moe["mixer"]["wq"].shape[1] // cfg.head_dim,
+               moe["ffn"]["w_gate"].shape[0],
+               lead["ffn"]["w_gate"].shape[1],
+               moe["ffn"]["sw_gate"].shape[1], emb)
+        check(got == (8, 32, 5472, 1408, 51200), f"path T3 layout {got}")
+        return (f"8 heads, 32 experts (\"ep\"), lead FFN 5472, shared "
+                f"experts 1408, vocabulary {emb}")
+    blk = st["s0"]["pos0"]
+    qk = cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim
+    got = (blk["mixer"]["wuq"].shape[1] // qk, emb)
+    check(got == (20, 36724), f"path T4 layout {got}")
+    return f"20 heads (MLA), vocabulary {emb} (tied)"
+
+
+def t_ranks(kern, rank: int, card: str) -> dict:
+    """T2, T3 and T4 on this rank of S_WORLD (``gloo`` on the one card,
+    its group up): mesh (1, S_WORLD); each model built whole, served by
+    ``Server(mesh=)`` and ``ServingEngine(mesh=)`` (eager: a model axis
+    above 1 captures nothing) from its slices, the whole tree dropped;
+    against the one-process run (TP_DIR): prefill logits within
+    1e-3·max|logit|, greedy agreement 1.0 in the server and in every
+    request of the burst, the same K4/K5/K6 launches; every K4/K5/K6
+    shape of the run held against its plain version; prefill and decode
+    ms, the collectives' ms and share, the weight bytes held, the peak.
+    Returns the launches."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.flash_attention import flash_attention as k6
+    from repro_torch.kernels.quant_matmul import quant_matmul as k45
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh((1, S_WORLD))
+    found, shapes = {}, {"K4": [], "K5": [], "K6": []}
+    for label in T_LABELS:
+        # the ranks build the whole tree one at a time (the direct
+        # compression of T3's experts peaks near half the card), each
+        # keeping only its slices before the next starts
+        for r in range(S_WORLD):
+            if r == rank:
+                gc.collect()
+                torch.cuda.empty_cache()
+                cfg, serving, prompts, new = t_build(label)
+                whole = _tensor_bytes(serving)
+                servers = t_servers(cfg, serving, prompts, new, mesh)
+                del serving
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        with KernelCalls() as calls:
+            run = t_run(kern, cfg, *servers, prompts, new)
+        del servers
+        found[f"{label} rank {rank}"] = run["all"]
+        server, engine = run["server"], run["engine"]
+        check(not server.programs.graphs and not engine.programs.graphs,
+              f"path {label}: the model axis of {S_WORLD} ran graphs")
+        layout = t_layout(label, cfg, server.params, S_WORLD)
+        ref = torch.load(TP_DIR / f"{label}.pt", weights_only=False)
+        logits = run["logits"][:, 0].cpu()
+        tol = 1e-3 * float(ref["logits"].abs().max())
+        dlogit = float((logits - ref["logits"]).abs().max())
+        check(dlogit <= tol, f"path {label} rank {rank}: prefill logits "
+              f"max|Δ| {dlogit} > {tol}")
+        agree = float(np.mean(run["tokens"] == ref["tokens"]))
+        per_req = [float(np.mean(np.asarray(run["burst"][i])
+                                 == np.asarray(ref["burst"][i])))
+                   if len(run["burst"][i]) == len(ref["burst"][i]) else 0.0
+                   for i in sorted(ref["burst"])]
+        check(agree == 1.0 and all(a == 1.0 for a in per_req),
+              f"path {label} rank {rank}: greedy agreement {agree}, burst "
+              f"{per_req}")
+        check(run["launches"] == ref["launches"],
+              f"path {label} rank {rank}: launches {run['launches']} "
+              f"against one process {ref['launches']}")
+        held = calls.check(k45, k6, f"path {label} rank {rank}")
+        for k, v in held["shapes"].items():
+            shapes[k] += [x for x in v if x not in shapes[k]]
+        # the times: untimed collectives first, then each collective
+        # between synchronizations (its ms and share of the step)
+        times = {}
+        coll = {"s": 0.0, "n": 0}
+        originals = (sharding.model_all_reduce, sharding.model_all_gather)
+
+        def timed(fn):
+            def run_(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                coll["s"] += time.perf_counter() - t0
+                coll["n"] += 1
+                return out
+            return run_
+
+        for mode in ("untimed", "timed"):
+            if mode == "timed":
+                sharding.model_all_reduce, sharding.model_all_gather = (
+                    timed(f) for f in originals)
+            try:
+                for n in (1, new):
+                    coll["s"], coll["n"] = 0.0, 0
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    server.generate(prompts, n)
+                    torch.cuda.synchronize()
+                    times[(mode, n)] = (time.perf_counter() - t0,
+                                        coll["s"], coll["n"])
+            finally:
+                sharding.model_all_reduce, sharding.model_all_gather = \
+                    originals
+        pre, pre_c, pre_n = times[("timed", 1)]
+        full, full_c, full_n = times[("timed", new)]
+        dec = (full - pre) / (new - 1)
+        dec_c = (full_c - pre_c) / (new - 1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"path {label} rank {rank} of {S_WORLD} (gloo, one card, mesh "
+              f"(1, {S_WORLD}), {cfg.name} full width, {cfg.n_layers} "
+              f"layers; {layout}): prefill logits max|Δ|={dlogit:.3g} "
+              f"(tol {tol:.3g}) against one process, greedy agreement "
+              f"{agree} (server) and {per_req} (burst of "
+              f"{TP_BURST[0]}); launches {run['launches']} as one "
+              f"process; {held['calls']} K4/K5/K6 shapes held against "
+              f"their plain versions (max|Δ| {held['max_abs_err']:.3g}); "
+              f"prefill_ms={times[('untimed', 1)][0] * 1e3:.1f} "
+              f"decode_ms_per_step="
+              f"{(times[('untimed', new)][0] - times[('untimed', 1)][0]) / (new - 1) * 1e3:.2f}; "
+              f"with the collectives timed: prefill_ms={pre * 1e3:.1f} of "
+              f"which collectives {pre_c * 1e3:.1f} ({pre_n}, share "
+              f"{pre_c / pre:.3f}), decode_ms_per_step={dec * 1e3:.2f} of "
+              f"which collectives {dec_c * 1e3:.2f} ("
+              f"{(full_n - pre_n) // (new - 1)} a step, share "
+              f"{dec_c / dec:.3f}); weight bytes held by the server "
+              f"{_tensor_bytes(server.params):,} of the whole tree's "
+              f"{whole:,}; peak_memory_gib={peak:.2f} from the first "
+              f"call on, the whole tree dropped (server and engine) "
+              f"[{card}]", flush=True)
+        del run, server, engine
+    if rank == 0:
+        (TP_DIR / "shapes.json").write_text(json.dumps(shapes))
+    return found
+
+
+def t_shard_rows(card: str) -> dict:
+    """K4, K5 and K6 at the shard shapes that path T's ranks launched
+    (rank 0's list), each checked and timed beside its plain version,
+    its bound and the library's yardstick, alone on the card."""
+    from repro_torch.kernels.flash_attention import flash_attention as k6
+    from repro_torch.kernels.quant_matmul import quant_matmul as k45
+    shapes = json.loads((TP_DIR / "shapes.json").read_text())
+    g = torch.Generator(device="cuda").manual_seed(31)
+    rows = {"K4": [gemm_row(k45, "K4", *sh, g, card, "path T shard ")
+                   for sh in shapes["K4"]],
+            "K5": [gemm_row(k45, "K5", *sh, g, card, "path T shard ")
+                   for sh in shapes["K5"]],
+            "K6": [flash_row(k6, *sh, g, card, "path T shard ")
+                   for sh in shapes["K6"]]}
+    torch.cuda.empty_cache()
+    return rows
+
+
+def tp_paths(kern, card: str) -> None:
+    """``python3 chip_smoke.py --tp``: path T alone: T1 and the
+    one-process references here, then S_WORLD rank processes
+    (``--tp-rank``) over ``gloo`` on the one card for T2–T4, then the
+    kernel rows at their shard shapes. The launches end the output as
+    the line ``tp_launches {json}``."""
+    import shutil
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    found = t_prepare(kern, card)
+    stamp(f"paths T2–T4 on {S_WORLD} ranks")
+    found.update(run_ranks("--tp-rank", TP_DIR, TP_LAUNCHES, "path T"))
+    t_shard_rows(card)
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    stamp("done")
+    print(TP_LAUNCHES, json.dumps(found), flush=True)
+
+
+def tp_rank(kern, rank: int, card: str) -> None:
+    """``python3 chip_smoke.py --tp-rank R``: rank R of S_WORLD over
+    ``gloo`` on the one card, paths T2–T4 (``t_ranks``)."""
+    import datetime
+
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{TP_DIR / 'store'}", rank=rank,
+        world_size=S_WORLD, timeout=datetime.timedelta(seconds=300))
+    found = t_ranks(kern, rank, card)
+    dist.destroy_process_group()
+    print(TP_LAUNCHES, json.dumps(found), flush=True)
+
+
+def run_ranks(flag: str, folder: Path, mark: str, prefix: str) -> dict:
+    """S_WORLD processes of this script with ``flag R``, their output in
+    ``folder``; each line of theirs that starts with ``prefix`` (or
+    holds FAILED) is printed, and their ``mark {json}`` lines merged
+    into the result. A rank that fails fails the run."""
+    logs = [open(folder / f"rank{r}.log", "w") for r in range(S_WORLD)]
     procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--shard-rank",
-         str(r)], stdout=log, text=True) for r, log in enumerate(logs)]
+        [sys.executable, str(Path(__file__).resolve()), flag, str(r)],
+        stdout=log, text=True) for r, log in enumerate(logs)]
     try:
         for p in procs:
             p.wait(timeout=600)
@@ -4745,22 +5247,16 @@ def shard_paths(kern, card: str) -> None:
                 p.wait()
         for log in logs:
             log.close()
-    outs = [(SHARD_DIR / f"rank{r}.log").read_text()
-            for r in range(S_WORLD)]
-    found = {"S1": s1, "S3 one process": s3}
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        for line in out.splitlines():
-            if line.startswith(SHARD_LAUNCHES + " "):
-                found.update(json.loads(line[len(SHARD_LAUNCHES) + 1:]))
-            elif line.startswith("path S") or "FAILED" in line:
+    found = {}
+    for r, p in enumerate(procs):
+        for line in (folder / f"rank{r}.log").read_text().splitlines():
+            if line.startswith(mark + " "):
+                found.update(json.loads(line[len(mark) + 1:]))
+            elif line.startswith(prefix) or "FAILED" in line:
                 print(line, flush=True)
-        check(p.returncode == 0, f"path S rank {r} exited with "
+        check(p.returncode == 0, f"{prefix} rank {r} exited with "
               f"{p.returncode}")
-    check(all(f"S{i} rank {r}" in found for i in (2, 3)
-              for r in range(S_WORLD)), "path S ranks reported no launches")
-    shutil.rmtree(SHARD_DIR, ignore_errors=True)
-    stamp("done")
-    print(SHARD_LAUNCHES, json.dumps(found), flush=True)
+    return found
 
 
 def main() -> int:
@@ -4832,6 +5328,12 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--shard-rank"]:
         shard_rank(kern, int(sys.argv[2]), card)
+        return 0
+    if sys.argv[1:] == ["--tp"]:
+        tp_paths(kern, card)
+        return 0
+    if sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank(kern, int(sys.argv[2]), card)
         return 0
     t_start = time.time()
     stamp('kernel phase')

@@ -52,10 +52,10 @@ w − λ/μ are made group by group (chunk by chunk where the planner splits
 a group), never for every task at once.
 
 With a ``mesh`` (``LCAlgorithm(mesh=...)`` or :meth:`LCAlgorithm.set_mesh`:
-a ``torch.distributed`` ``DeviceMesh`` whose ``"model"`` axis is 1, one
-process a rank, each holding the whole parameters), the grouped C step
-and Θ^DC shard each group's packed items over the mesh's data axis and
-gather them (``core/grouping.py``): every rank's state equals the
+a ``torch.distributed`` ``DeviceMesh``, one process a rank, each holding
+the whole parameters), the grouped C step and Θ^DC shard each group's
+packed items over the mesh's data axis (the ranks of one data
+coordinate, along ``"model"``, solve the same block) and gather them (``core/grouping.py``): every rank's state equals the
 ``mesh=None`` state bit for bit. The multiplier step and the
 distortions read only replicated tensors and run whole on every rank.
 
@@ -161,10 +161,8 @@ class LCAlgorithm:
         """Bind the device mesh the grouped C step shards over (``None``:
         none). Every captured program is dropped (:meth:`release_graphs`),
         as the JAX driver re-jits its steps; plans are keyed by the mesh's
-        axis sizes, so none made under another mesh is read. A mesh whose
-        ``"model"`` axis is larger than 1 raises (the next slice)."""
-        from repro_torch.distributed.sharding import check_model_axis
-        check_model_axis(mesh, "LCAlgorithm")
+        axis sizes, so none made under another mesh is read. On a
+        ``(data, model)`` mesh the items shard over ``"data"`` only."""
         self.mesh = mesh
         if rules is not None:
             self.sharding_rules = rules

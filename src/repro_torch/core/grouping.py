@@ -63,8 +63,10 @@ the torch k-means) change bits with the batch, so their groups run whole
 on every rank (``shard_mode="replicated"``). A sharded group never
 chunks. Under the compiled driver each rank's executable captures its
 local solve only; the gather runs outside the graph. Singletons run
-whole on every rank, as in the reference. A mesh whose ``"model"`` axis
-is larger than 1 raises (the next slice of the port).
+whole on every rank, as in the reference. On a ``(data, model)`` mesh
+the items shard over ``"data"`` only (the ``"items"`` rule never names
+``"model"``): the ranks of one data coordinate solve the same block, and
+the gather runs over the data group.
 """
 from __future__ import annotations
 
@@ -229,7 +231,6 @@ def describe_groups(tasks: Sequence[CompressionTask], xs: dict,
     fallbacks): the same cached plan the C step will use, with Θ's
     shapes from the scheme's init on meta tensors (nothing runs). When
     planned, ``backend`` reports the planner's choice."""
-    sharding.check_model_axis(mesh, "describe_groups")
     out = []
     for group in build_groups(tasks, xs, backend=backend, device=device):
         t0 = group[0]
@@ -526,7 +527,6 @@ def grouped_compress(tasks: Sequence[CompressionTask], xs: dict,
     ``mesh``, each chunk-exact multi-task group is solved block by block
     over the mesh's ranks and gathered (the module's note): every rank
     gets the ``mesh=None`` result bit for bit."""
-    sharding.check_model_axis(mesh, "grouped_compress")
     shapes = {t.name: _meta(xs[t.name]) for t in tasks}
     out = {}
     for group in build_groups(tasks, shapes, backend=backend, device=device):
@@ -888,7 +888,6 @@ def grouped_init(tasks: Sequence[CompressionTask], xs: dict, mesh=None,
     ``{task_name: (theta, a_arr)}``. With a ``mesh`` the packed item axis
     shards as the C step's (each item's init runs alone, so every group
     shards): every rank gets the ``mesh=None`` result."""
-    sharding.check_model_axis(mesh, "grouped_init")
     out = {}
     for group in build_groups(tasks, xs, for_init=True):
         if len(group) == 1:

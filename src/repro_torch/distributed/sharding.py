@@ -27,10 +27,17 @@ Where the JAX package lets GSPMD place data, the port moves it itself:
   the rows a rank trains on, and :func:`local_batch` tells the model
   that it holds them (``models/moe.py`` averages its load-balance terms
   over the group then).
-* :func:`constrain` is the identity on a mesh whose ``"model"`` axis is
-  1; the tensor-parallel ``"model"`` axis is the next slice of the port
-  (ROADMAP queue 1), and every place that would need it raises
-  :func:`check_model_axis`'s ``NotImplementedError``.
+* :func:`constrain` is the identity: activations stay where the model
+  code puts them. Under the tensor-parallel ``"model"`` axis (serving)
+  the model code splits its products itself: :func:`shard_params` gives
+  a rank its slices of the weights (the ``"model"`` entry of each dim,
+  :func:`shard_spec`, of ``param_axes(cfg)`` under :data:`SERVE_RULES`),
+  a layer reads from its weights' shapes whether they were split, and
+  :func:`model_all_reduce` / :func:`model_all_gather` put the partial
+  results together over the ``"model"`` process group (none is issued
+  on a group of one rank). Training over ``"model"`` is the next slice
+  of the port: those places raise :func:`check_model_axis`'s
+  ``NotImplementedError``.
 
 Nothing here imports a collective backend at import time; the collectives
 run only where a mesh with a process group is given. ``gloo`` takes CUDA
@@ -91,9 +98,13 @@ SERVE_RULES = dict(DEFAULT_RULES)
 SERVE_RULES["embed"] = [()]
 SERVE_RULES["embed_pod"] = [()]
 
-#: what the next slice of the port brings (the message of every refusal)
-NEXT_SLICE = ("the tensor-parallel \"model\" axis is the next slice of the "
-              "port (ROADMAP queue 1 item 8)")
+#: what the next slice of the port brings (the message of the refusals
+#: of training over the "model" axis)
+NEXT_SLICE = ("tensor-parallel training over the \"model\" axis is the next "
+              "slice of the port (ROADMAP queue 1)")
+#: the message of the SSM mixers' refusal
+SSM_SLICE = ("the SSM mixers' \"inner\" split over the \"model\" axis is a "
+             "later slice of the port (ROADMAP queue 1)")
 
 
 def mesh_sizes(mesh) -> dict[str, int]:
@@ -102,13 +113,14 @@ def mesh_sizes(mesh) -> dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
 
 
-def check_model_axis(mesh, where: str) -> None:
-    """Raise ``NotImplementedError`` naming the next slice when ``mesh``
-    has a ``"model"`` axis larger than 1 (``where`` names the caller)."""
+def check_model_axis(mesh, where: str, what: str = NEXT_SLICE) -> None:
+    """Raise ``NotImplementedError`` naming the slice that brings it
+    (``what``) when ``mesh`` has a ``"model"`` axis larger than 1
+    (``where`` names the caller)."""
     if mesh is not None and mesh_sizes(mesh).get("model", 1) > 1:
         raise NotImplementedError(
             f"{where}: a mesh whose \"model\" axis is "
-            f"{mesh_sizes(mesh)['model']} is not supported: {NEXT_SLICE}")
+            f"{mesh_sizes(mesh)['model']} is not supported: {what}")
 
 
 def _axes(entry) -> tuple[str, ...]:
@@ -243,11 +255,10 @@ def active_rules() -> dict:
 
 
 def constrain(x, names: tuple):
-    """The identity on the active mesh (the reference's
-    ``with_sharding_constraint``): activations stay where they are on a
-    mesh whose ``"model"`` axis is 1, where the batch is already the
-    rank's rows. A larger ``"model"`` axis raises."""
-    check_model_axis(active_mesh(), "constrain")
+    """The identity (the reference's ``with_sharding_constraint``): the
+    port moves activations itself. The batch a rank holds is already its
+    rows, and under the ``"model"`` axis each layer puts its partial
+    results together (:func:`model_all_reduce`)."""
     return x
 
 
@@ -363,3 +374,117 @@ def batch_entry():
     """The entry the batch held is split over (:func:`local_batch`), or
     ``None``."""
     return getattr(_CTX, "batch", None)
+
+
+# ----------------------------------------------------------------------
+# the tensor-parallel "model" axis (serving)
+# ----------------------------------------------------------------------
+def model_size(mesh) -> int:
+    """The size of ``mesh``'s ``"model"`` axis (1 without a mesh)."""
+    return 1 if mesh is None else mesh_sizes(mesh).get("model", 1)
+
+
+def model_rank(mesh) -> int:
+    """This rank's index along ``mesh``'s ``"model"`` axis."""
+    return entry_rank(mesh, "model") if model_size(mesh) > 1 else 0
+
+
+def shard_spec(names: tuple, shape: tuple, mesh,
+               rules: dict | None = None) -> tuple:
+    """The ``"model"`` entry of each dim: :func:`resolve_spec` restricted
+    to that axis (``"model"`` where the dim splits over it, else
+    ``None``)."""
+    return tuple("model" if "model" in _axes(e) else None
+                 for e in resolve_spec(names, shape, mesh, rules))
+
+
+def model_split(n_local: int, n_full: int, what: str) -> bool:
+    """Whether a layer's weight holds ``n_local`` of ``n_full`` along a
+    dim that :func:`shard_params` splits over the active mesh's
+    ``"model"`` axis (``False``: it is whole)."""
+    if n_local == n_full:
+        return False
+    m = model_size(active_mesh())
+    if n_local * m != n_full:
+        raise ValueError(
+            f"{what}: a weight of {n_local} of {n_full} along a split dim "
+            f"is no shard of the active mesh's \"model\" axis ({m}): "
+            f"serve the tree that shard_params gives for this mesh")
+    return True
+
+
+def model_all_reduce(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the active mesh's ``"model"`` group, in place
+    (returned): the partial products of a row-parallel weight. No
+    collective on a group of one rank."""
+    mesh = active_mesh()
+    if model_size(mesh) > 1:
+        import torch.distributed as dist
+        x = x.contiguous()
+        dist.all_reduce(x, group=entry_group(mesh, "model"))
+    return x
+
+
+def model_all_gather(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The ranks' blocks of ``x`` along ``dim`` put together in rank
+    order over the active mesh's ``"model"`` group (the columns of a
+    column-parallel product, the logits of a split vocabulary)."""
+    mesh = active_mesh()
+    m = model_size(mesh)
+    if m == 1:
+        return x
+    import torch.distributed as dist
+    blk = x.contiguous()
+    out = blk.new_empty((m * blk.shape[0], *blk.shape[1:]))
+    dist.all_gather_into_tensor(out, blk, group=entry_group(mesh, "model"))
+    out = out.reshape(m, *blk.shape).movedim(0, dim % x.ndim)
+    return out.reshape(*x.shape[:dim % x.ndim], -1,
+                       *x.shape[dim % x.ndim + 1:])
+
+
+def shard_params(params, cfg, mesh, rules: dict | None = None):
+    """This rank's tree of ``params`` (the whole tree, dense tensors or
+    weight forms) over ``mesh``'s ``"model"`` axis.
+
+    Each leaf of ``param_axes(cfg)`` is sliced on the dim that
+    :func:`shard_spec` resolves to ``"model"`` under ``rules``
+    (:data:`SERVE_RULES` by default): the rank's even block, copied, so
+    that the whole tree can be dropped. A leaf where no dim resolves
+    stays whole (the same tensor). Attention and MLA split by whole heads
+    (``attention.head_slices``) and run whole where the heads do not
+    divide; the SSM mixers stay whole (their ``"inner"`` split is a
+    later slice, and they refuse a ``"model"`` axis above 1). On a
+    ``"model"`` axis of 1 the tree is returned as it is."""
+    from repro_torch.models import attention, layers, transformer
+    m = model_size(mesh)
+    if m == 1:
+        return params
+    r = model_rank(mesh)
+    rules = SERVE_RULES if rules is None else rules
+    kinds = transformer.mixer_kinds(cfg)
+
+    def shard(leaf, names, path):
+        shape = tuple(leaf.shape)
+        if path[0] == "stages" and path[3] == "mixer":
+            kind = kinds[path[1:3]]
+            if kind not in ("attn", "mla"):
+                return leaf
+            cut = attention.head_slices(cfg, kind, path[-1], m, r)
+            if cut is None:
+                return leaf
+            rows, lo, hi = cut
+            return layers.slice_weight(leaf, len(shape) - (2 if rows else 1),
+                                       lo, hi)
+        spec = shard_spec(tuple(names), shape, mesh, rules)
+        if "model" not in spec:
+            return leaf
+        d = spec.index("model")
+        per = shape[d] // m
+        return layers.slice_weight(leaf, d, r * per, (r + 1) * per)
+
+    def walk(tree, axes, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, axes[k], path + (k,)) for k, v in tree.items()}
+        return shard(tree, axes, path)
+
+    return walk(params, transformer.param_axes(cfg), ())

@@ -77,3 +77,29 @@ def make_cstep_mesh(n_data: int | None = None, device_type: str = "cuda"):
     _require_group("make_cstep_mesh", device_type)
     n = n_data if n_data is not None else dist.get_world_size()
     return _mesh(device_type, (n, 1), ("data", "model"))
+
+
+def launch_mesh(shape: str, device=None):
+    """``(device, mesh)`` of a CLI run over ``--mesh DATA,MODEL``
+    (``shape``): under ``torchrun`` (``WORLD_SIZE`` above 1 in the
+    environment) the process group comes from its environment and a CUDA
+    rank takes the card of its ``LOCAL_RANK``; otherwise
+    :func:`make_debug_mesh` sets up a one-rank group in this process.
+    ``device`` (``None``: the card) as every entry point takes it."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.interop import resolve_device
+    dev = resolve_device(device)
+    sizes = tuple(int(n) for n in shape.split(","))
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 \
+            and not dist.is_initialized():
+        if dev.type == "cuda" and device is None:
+            dev = torch.device(
+                "cuda", int(os.environ.get("LOCAL_RANK", "0"))
+                % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return dev, make_debug_mesh(sizes, device_type=dev.type)

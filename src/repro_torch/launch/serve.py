@@ -1,12 +1,21 @@
 """CLI serving driver: batched or continuous-batching generation on
 dense or LC-compressed weights.
 
-Port of ``src/repro/launch/serve.py`` (no mesh: ``Server(mesh=)`` and
-the tensor-parallel "model" axis are the next slice). Runs on the card unless
+Port of ``src/repro/launch/serve.py``. Runs on the card unless
 ``--device`` says otherwise:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \
         --reduced --engine --form quant4 --slots 4 --requests 12 --device cpu
+
+It serves over a mesh, as the reference's: ``make_debug_mesh``'s
+one-rank ``("data", "model")`` mesh by default (a one-rank process group
+set up in this process), or ``--mesh DATA,MODEL`` sizes for a
+``torchrun`` launch, one process a rank, each serving the whole batch
+with its slices of the weights over the tensor-parallel ``"model"``
+axis (``Server(mesh=)``, ``ServingEngine(mesh=)``)::
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch phi3-mini-3.8b --reduced --form quant4 --mesh 1,2 --device cpu
 
 Every token model runs: e.g. ``--arch mixtral-8x7b``,
 ``deepseek-moe-16b`` (MoE), ``minicpm3-4b`` (MLA), ``jamba-v0.1-52b``
@@ -25,7 +34,7 @@ import torch
 
 from repro_torch.configs import ARCHS, get_config, reduced_config
 from repro_torch.core.tasks import get_path
-from repro_torch.interop import resolve_device
+from repro_torch.launch.mesh import launch_mesh
 from repro_torch.launch.steps import lc_param_paths
 from repro_torch.models.transformer import init_params
 from repro_torch.runtime import compressed as cforms
@@ -81,10 +90,10 @@ def compress_for_form(cfg, params, form: str, device):
     return serving
 
 
-def run_engine(cfg, params, args, device):
+def run_engine(cfg, params, args, device, mesh=None):
     engine = ServingEngine(cfg, params, slots=args.slots,
                            max_len=args.prompt_len + args.gen,
-                           prefill_chunk=8, device=device)
+                           prefill_chunk=8, mesh=mesh, device=device)
     rng = np.random.default_rng(0)
     t, reqs = 0.0, []
     for i in range(args.requests):
@@ -108,9 +117,9 @@ def run_engine(cfg, params, args, device):
     return out
 
 
-def run_batch(cfg, params, args, device):
+def run_batch(cfg, params, args, device, mesh=None):
     server = Server(cfg, params, max_len=args.prompt_len + args.gen,
-                    device=device)
+                    device=device, mesh=mesh)
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
     t0 = time.perf_counter()
@@ -141,8 +150,11 @@ def main(argv=None):
                     help="engine trace length")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    ap.add_argument("--mesh", default="1,1",
+                    help="DATA,MODEL sizes of the mesh; more than one rank "
+                         "needs a torchrun launch")
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
+    device, mesh = launch_mesh(args.mesh, args.device)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -158,8 +170,8 @@ def main(argv=None):
         params = compress_for_form(cfg, params, args.form, device)
 
     if args.engine:
-        return run_engine(cfg, params, args, device)
-    return run_batch(cfg, params, args, device)
+        return run_engine(cfg, params, args, device, mesh)
+    return run_batch(cfg, params, args, device, mesh)
 
 
 if __name__ == "__main__":

@@ -11,8 +11,8 @@ one-rank ``("data", "model")`` mesh by default (a one-rank process group
 set up in this process), or ``--mesh DATA,MODEL`` sizes for a
 ``torchrun`` launch, one process a rank (``torchrun --nproc-per-node 2
 -m repro_torch.launch.train --mesh 2,1 ...``), data-parallel over the
-global batch. A ``"model"`` size above 1 raises: it is the next slice of
-the port.
+global batch. A ``"model"`` size above 1 raises: tensor-parallel
+training is the next slice of the port.
 
 LC-compressed training end to end: data stream → L steps (train step
 with the LC penalty, AdamW) → C steps → multipliers, with checkpointing
@@ -30,7 +30,7 @@ from repro_torch.core import (
     exponential_mu_schedule)
 from repro_torch.core.schemes import AdaptiveQuantization, ConstraintL0Pruning
 from repro_torch.data import TokenStream, embedding_stream
-from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.launch.mesh import launch_mesh
 from repro_torch.models.ssm import mlstm_dims
 from repro_torch.runtime import FaultInjector, LCTrainer, TrainerConfig
 
@@ -74,30 +74,6 @@ def default_tasks(cfg, compression: str = "quantize", keep: float = 0.05):
     raise ValueError(compression)
 
 
-def _mesh(args):
-    """(device, mesh) of the run: under ``torchrun`` (``WORLD_SIZE`` in
-    the environment) the process group comes from its environment and a
-    CUDA rank takes the card of its ``LOCAL_RANK``."""
-    import os
-
-    import torch
-    import torch.distributed as dist
-
-    from repro_torch.interop import resolve_device
-    device = resolve_device(args.device)
-    shape = tuple(int(n) for n in args.mesh.split(","))
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1 \
-            and not dist.is_initialized():
-        if device.type == "cuda" and args.device is None:
-            device = torch.device(
-                "cuda", int(os.environ.get("LOCAL_RANK", "0"))
-                % torch.cuda.device_count())
-            torch.cuda.set_device(device)
-        dist.init_process_group(
-            "nccl" if device.type == "cuda" else "gloo")
-    return device, make_debug_mesh(shape, device_type=device.type)
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="xlstm-125m", choices=ARCHS)
@@ -132,7 +108,7 @@ def main(argv=None):
             batch_at = staticmethod(fn)
         data = _D()
 
-    device, mesh = _mesh(args)
+    device, mesh = launch_mesh(args.mesh, args.device)
     lc = LCAlgorithm(
         default_tasks(cfg),
         exponential_mu_schedule(args.mu0, args.mu_a, args.lc_steps),

@@ -16,6 +16,19 @@ mask), the rows of inactive slots end the step with their cache bit for
 bit as it was, while their outputs are those of the reference's step
 (the new token written, then the old rows merged back), which matters
 where rows meet again downstream (an MoE FFN's capacity).
+
+Under the tensor-parallel ``"model"`` axis of m ranks
+(``sharding.shard_params``), rank r holds query heads ``[r·H/m,
+(r+1)·H/m)`` and the kv heads they read (``h // G``; a kv head is held
+by several ranks when m > KV), the cache holds the rank's kv heads, K6
+runs on them, and ``wo`` is row-parallel: its partial sums are added
+over the ``"model"`` group. MLA splits ``wuq`` and ``wukv`` by whole
+heads (their flat dims are head-major) and ``wo`` by rows; its latent
+cache stays whole on every rank. Where the heads do not split evenly
+(:func:`attn_split`, :func:`head_slices`) the layer runs whole on every
+model rank: the reference's GSPMD can split ``"heads_flat"`` in the
+middle of a head, a kernel over whole heads cannot. Each forward reads
+its head counts from its weights' shapes.
 """
 from __future__ import annotations
 
@@ -23,6 +36,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import (
@@ -39,6 +53,81 @@ def init_attn(gen: torch.Generator, cfg) -> dict:
         "wv": dense_init(gen, (d, kv)),
         "wo": dense_init(gen, (q, d)),
     }
+
+
+def attn_axes(cfg) -> dict:
+    return {
+        "wq": ("embed", "heads_flat"),
+        "wk": ("embed", "kv_flat"),
+        "wv": ("embed", "kv_flat"),
+        "wo": ("heads_flat", "embed"),
+    }
+
+
+def attn_split(cfg, m: int):
+    """``(query heads, kv heads)`` a rank holds of a GQA layer over a
+    ``"model"`` axis of ``m``, or ``None`` where the layer runs whole:
+    H divides by m, and a rank's query heads read whole kv groups (G
+    divides H/m) or lie within one (H/m divides G)."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if m == 1 or h % m:
+        return None
+    hl, g = h // m, h // kv
+    if hl % g == 0:
+        return hl, hl // g
+    if g % hl == 0:
+        return hl, 1
+    return None
+
+
+def head_slices(cfg, kind: str, name: str, m: int, r: int):
+    """Rank ``r``'s slice of the attention (``kind`` "attn") or MLA
+    ("mla") leaf ``name`` over a ``"model"`` axis of ``m``: ``(rows,
+    lo, hi)`` (``rows`` True: rows ``[lo, hi)``, else columns), or
+    ``None`` where the leaf stays whole."""
+    if kind == "attn":
+        split = attn_split(cfg, m)
+        if split is None:
+            return None
+        hl, kvl = split
+        hd = cfg.head_dim
+        q0 = r * hl
+        kv0 = q0 // (cfg.n_heads // cfg.n_kv_heads)
+        q = (q0 * hd, (q0 + hl) * hd)
+        kv = (kv0 * hd, (kv0 + kvl) * hd)
+        cut = {"wq": (False, *q), "wk": (False, *kv), "wv": (False, *kv),
+               "wo": (True, *q)}
+        return cut.get(name)
+    if m == 1 or cfg.n_heads % m:
+        return None
+    ml = cfg.mla
+    hl = cfg.n_heads // m
+    q0 = r * hl
+    widths = {"wuq": (False, ml.qk_nope_dim + ml.qk_rope_dim),
+              "wukv": (False, ml.qk_nope_dim + ml.v_head_dim),
+              "wo": (True, ml.v_head_dim)}
+    if name not in widths:
+        return None
+    rows, w = widths[name]
+    return rows, q0 * w, (q0 + hl) * w
+
+
+def _local_heads(params, cfg):
+    """(query heads, kv heads) of a GQA layer's weights: the whole
+    layer's, or this rank's under the "model" axis."""
+    hd = cfg.head_dim
+    h = params["wq"].shape[1] // hd
+    sharding.model_split(h, cfg.n_heads, "attention")
+    return h, params["wk"].shape[1] // hd
+
+
+def _wo(params, out, cfg, h: int, dt):
+    """The output projection of ``h`` heads' ``out``, its partial sums
+    added over the "model" group when the heads are a rank's share."""
+    y = apply_w(out, params["wo"], dt)
+    if h < cfg.n_heads:
+        y = sharding.model_all_reduce(y)
+    return y
 
 
 def _mask(q_pos, k_pos, window: int):
@@ -129,11 +218,10 @@ def attn_forward(params, x, cfg, spec, positions, return_cache=False):
     """Full-sequence attention (prefill). x: (B, S, d_model)."""
     b, s, _ = x.shape
     dt = x.dtype
-    q = apply_w(x, params["wq"], dt).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = apply_w(x, params["wk"], dt).reshape(b, s, cfg.n_kv_heads,
-                                             cfg.head_dim)
-    v = apply_w(x, params["wv"], dt).reshape(b, s, cfg.n_kv_heads,
-                                             cfg.head_dim)
+    h, kvh = _local_heads(params, cfg)
+    q = apply_w(x, params["wq"], dt).reshape(b, s, h, cfg.head_dim)
+    k = apply_w(x, params["wk"], dt).reshape(b, s, kvh, cfg.head_dim)
+    v = apply_w(x, params["wv"], dt).reshape(b, s, kvh, cfg.head_dim)
     q = constrain(apply_rope(q, positions, cfg.rope_theta),
                   ("batch", "seq", "heads", None))
     k = constrain(apply_rope(k, positions, cfg.rope_theta),
@@ -143,7 +231,7 @@ def attn_forward(params, x, cfg, spec, positions, return_cache=False):
         q_chunk=cfg.attn_chunk_q, kv_chunk=cfg.attn_chunk_kv,
         fused=cfg.fused_attention)
     out = constrain(out, ("batch", "seq", "heads", None))
-    y = apply_w(out.reshape(b, s, cfg.q_dim), params["wo"], dt)
+    y = _wo(params, out.reshape(b, s, h * cfg.head_dim), cfg, h, dt)
     if not return_cache:
         return y
     w = spec.window
@@ -157,9 +245,12 @@ def attn_forward(params, x, cfg, spec, positions, return_cache=False):
 # ----------------------------------------------------------------------
 def init_attn_cache(cfg, spec, batch: int, max_len: int, dtype,
                     device) -> dict:
-    """Full cache for global layers; ring buffer for windowed layers."""
+    """Full cache for global layers; ring buffer for windowed layers. It
+    holds this rank's kv heads under the active mesh's "model" axis."""
     length = min(spec.window, max_len) if spec.window > 0 else max_len
-    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+    split = attn_split(cfg, sharding.model_size(sharding.active_mesh()))
+    kvh = cfg.n_kv_heads if split is None else split[1]
+    shape = (batch, length, kvh, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -206,11 +297,10 @@ def attn_decode(params, x, cache, pos, cfg, spec, layer_idx=None,
     are the reference's (computed with the new token in the cache)."""
     b = x.shape[0]
     dt = x.dtype
-    q = apply_w(x, params["wq"], dt).reshape(b, 1, cfg.n_heads, cfg.head_dim)
-    k = apply_w(x, params["wk"], dt).reshape(b, 1, cfg.n_kv_heads,
-                                             cfg.head_dim)
-    v = apply_w(x, params["wv"], dt).reshape(b, 1, cfg.n_kv_heads,
-                                             cfg.head_dim)
+    h, kvh = _local_heads(params, cfg)
+    q = apply_w(x, params["wq"], dt).reshape(b, 1, h, cfg.head_dim)
+    k = apply_w(x, params["wk"], dt).reshape(b, 1, kvh, cfg.head_dim)
+    v = apply_w(x, params["wv"], dt).reshape(b, 1, kvh, cfg.head_dim)
     pos_b = slot_positions(pos, b, x.device)                     # (B,)
     q = apply_rope(q, pos_b[:, None], cfg.rope_theta)
     k = apply_rope(k, pos_b[:, None], cfg.rope_theta)
@@ -225,8 +315,7 @@ def attn_decode(params, x, cache, pos, cfg, spec, layer_idx=None,
     restore = _write_rows(((k_cache, k[:, 0]), (v_cache, v[:, 0])), rows,
                           slot, active)
 
-    kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    qh = q.reshape(b, kvh, g, cfg.head_dim)
+    qh = q.reshape(b, kvh, h // kvh, cfg.head_dim)
     s = torch.einsum("bkgd,bskd->bkgs", qh.float(), k_cache.float())
     s = s / math.sqrt(cfg.head_dim)
     n_valid = torch.clamp_max(pos_b + 1, length)                 # (B,)
@@ -236,8 +325,8 @@ def attn_decode(params, x, cache, pos, cfg, spec, layer_idx=None,
     out = torch.einsum("bkgs,bskd->bkgd", p.float(),
                        v_cache.float()).to(dt)
     restore()
-    out = out.reshape(b, 1, cfg.q_dim)
-    return apply_w(out, params["wo"], dt), {"k": k_buf, "v": v_buf}
+    out = out.reshape(b, 1, h * cfg.head_dim)
+    return _wo(params, out, cfg, h, dt), {"k": k_buf, "v": v_buf}
 
 
 # ======================================================================
@@ -261,14 +350,36 @@ def init_mla(gen: torch.Generator, cfg) -> dict:
     }
 
 
+def mla_axes(cfg) -> dict:
+    return {
+        "wdq": ("embed", "lora"),
+        "q_norm": ("lora",),
+        "wuq": ("lora", "heads_flat"),
+        "wdkv": ("embed", "lora"),
+        "kv_norm": ("lora",),
+        "wukv": ("lora", "heads_flat"),
+        "wo": ("heads_flat", "embed"),
+    }
+
+
+def _mla_heads(params, cfg) -> int:
+    """The heads an MLA layer's weights hold (this rank's share under
+    the "model" axis)."""
+    m = cfg.mla
+    h = params["wuq"].shape[1] // (m.qk_nope_dim + m.qk_rope_dim)
+    sharding.model_split(h, cfg.n_heads, "MLA")
+    return h
+
+
 def _mla_qkv(params, x, cfg, positions):
     """Shared q/k/v construction for the full-sequence MLA path →
     (q (B,S,H,nope+rope), k (B,S,H,nope+rope), v (B,S,H,v), the normed
-    latent (B,S,kv_lora), k_rope (B,S,1,rope))."""
+    latent (B,S,kv_lora), k_rope (B,S,1,rope)); H the heads the weights
+    hold."""
     m = cfg.mla
     b, s, _ = x.shape
     dt = x.dtype
-    h = cfg.n_heads
+    h = _mla_heads(params, cfg)
     cq = rms_norm(apply_w(x, params["wdq"], dt), params["q_norm"],
                   cfg.norm_eps)
     q = apply_w(cq, params["wuq"], dt).reshape(
@@ -297,13 +408,14 @@ def mla_forward(params, x, cfg, spec, positions, return_cache=False):
     b, s, _ = x.shape
     dt = x.dtype
     q, k, v, ckv_n, k_rope = _mla_qkv(params, x, cfg, positions)
+    h = q.shape[2]
     scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
     out = blockwise_attention(
         q, k, v, positions, positions, window=spec.window,
         q_chunk=cfg.attn_chunk_q, kv_chunk=cfg.attn_chunk_kv, scale=scale,
         fused=cfg.fused_attention)
-    out = out.reshape(b, s, cfg.n_heads * m.v_head_dim)
-    y = apply_w(out, params["wo"], dt)
+    out = out.reshape(b, s, h * m.v_head_dim)
+    y = _wo(params, out, cfg, h, dt)
     if not return_cache:
         return y
     return y, {"ckv": ckv_n.contiguous(),
@@ -333,7 +445,7 @@ def mla_decode(params, x, cache, pos, cfg, spec, layer_idx=None,
     m = cfg.mla
     b = x.shape[0]
     dt = x.dtype
-    h = cfg.n_heads
+    h = _mla_heads(params, cfg)
     pos_b = slot_positions(pos, b, x.device)                     # (B,)
 
     cq = rms_norm(apply_w(x, params["wdq"], dt), params["q_norm"],
@@ -375,5 +487,4 @@ def mla_decode(params, x, cache, pos, cfg, spec, layer_idx=None,
     restore()
     out = torch.einsum("bhl,lhv->bhv", o_latent, w_uv)       # (B,H,v)
     out = out.reshape(b, 1, h * m.v_head_dim)
-    return apply_w(out, params["wo"], dt), {"ckv": ckv_buf,
-                                            "k_rope": kr_buf}
+    return _wo(params, out, cfg, h, dt), {"ckv": ckv_buf, "k_rope": kr_buf}

@@ -5,12 +5,21 @@ tensors; every forward takes (params, x, cfg) and works over any batch
 and sequence shape. Master params are float32; compute casts to
 ``cfg.dtype``. Inits draw from an explicit ``torch.Generator`` and
 create their tensors on the generator's device.
+
+Under the tensor-parallel ``"model"`` axis (``sharding.shard_params``)
+a layer reads from its weights' shapes whether they were split: the
+FFN's ``w_gate``/``w_up`` column-parallel on ``"mlp"`` and ``w_down``
+row-parallel, its partial sums added over the ``"model"`` group; the
+embedding a lookup into the rank's vocabulary rows (zero outside them),
+summed; the unembedding the rank's logits, gathered in rank order.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.distributed import sharding
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -21,17 +30,30 @@ def cdtype(cfg) -> torch.dtype:
 
 
 # Serving weight forms (runtime/compressed.py) register here on import:
-# {leaf type: (apply_fn(x, leaf, dt) -> y, load_fn(leaf, dt) -> dense)}.
-# The registry lives in layers, not runtime, so models never import
-# runtime (which imports models back).
+# {leaf type: (apply_fn(x, leaf, dt) -> y, load_fn(leaf, dt) -> dense,
+# slice_fn(leaf, dim, lo, hi) -> leaf)}. The registry lives in layers,
+# not runtime, so models never import runtime (which imports models back).
 _WEIGHT_FORMS: dict[type, tuple] = {}
 
 
-def register_weight_form(cls, apply_fn, load_fn) -> None:
+def register_weight_form(cls, apply_fn, load_fn, slice_fn=None) -> None:
     """Register a compressed weight-form leaf class. ``apply_fn`` runs
     x @ W in compressed form; ``load_fn`` materializes the dense matrix
-    (embedding lookups, parity checks)."""
-    _WEIGHT_FORMS[cls] = (apply_fn, load_fn)
+    (embedding lookups, parity checks); ``slice_fn`` cuts rows (dim 0)
+    or columns (dim 1) ``[lo, hi)`` of the matrix, in the same form."""
+    _WEIGHT_FORMS[cls] = (apply_fn, load_fn, slice_fn)
+
+
+def slice_weight(leaf, dim: int, lo: int, hi: int):
+    """Indices ``[lo, hi)`` of a weight leaf along ``dim``, in its own
+    form and held apart from the whole (a tensor's slice is copied)."""
+    form = _WEIGHT_FORMS.get(type(leaf))
+    if form is not None:
+        if form[2] is None:
+            raise TypeError(f"{type(leaf).__name__} cannot be sliced")
+        return form[2](leaf, dim, lo, hi)
+    return leaf.narrow(dim, lo, hi - lo).clone(
+        memory_format=torch.contiguous_format)
 
 
 def wload(leaf, dt):
@@ -109,7 +131,11 @@ def dense_ffn(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     dt = cdtype(cfg)
     g = apply_w(x, params["w_gate"], dt)
     u = apply_w(x, params["w_up"], dt)
-    return apply_w(torch.nn.functional.silu(g) * u, params["w_down"], dt)
+    y = apply_w(torch.nn.functional.silu(g) * u, params["w_down"], dt)
+    if sharding.model_split(params["w_down"].shape[0], cfg.d_ff,
+                            "dense_ffn"):
+        y = sharding.model_all_reduce(y)
+    return y
 
 
 # ----------------------------------------------------------------------
@@ -133,18 +159,33 @@ def init_embed(gen: torch.Generator, cfg) -> dict:
 def embed(params: dict, inputs: torch.Tensor, cfg) -> torch.Tensor:
     dt = cdtype(cfg)
     if cfg.input_mode == "tokens":
-        x = wload(params["tokens"], dt)[inputs.long()]
         # the scale is rounded to the compute dtype first, as in the
         # reference (on the host: no copy to the device per call)
-        return x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=dt))
+        scale = float(torch.tensor(math.sqrt(cfg.d_model), dtype=dt))
+        table = wload(params["tokens"], dt)
+        ids = inputs.long()
+        n = table.shape[0]
+        if not sharding.model_split(n, cfg.vocab_size, "embed"):
+            return table[ids] * scale
+        # the rank's vocabulary rows [v0, v0 + n): a token outside them
+        # looks up zeros, and the ranks' lookups add up to the whole
+        local = ids - sharding.model_rank(sharding.active_mesh()) * n
+        inside = (local >= 0) & (local < n)
+        x = table[torch.where(inside, local, 0)] * scale
+        return sharding.model_all_reduce(
+            torch.where(inside[..., None], x, 0.0))
     return apply_w(inputs.to(dt), params["proj"], dt)
 
 
 def unembed(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     dt = cdtype(cfg)
     if cfg.tie_embeddings and cfg.input_mode == "tokens":
-        return x @ wload(params["tokens"], dt).T
-    return apply_w(x, params["unembed"], dt)
+        logits = x @ wload(params["tokens"], dt).T
+    else:
+        logits = apply_w(x, params["unembed"], dt)
+    if sharding.model_split(logits.shape[-1], cfg.vocab_size, "unembed"):
+        logits = sharding.model_all_gather(logits, -1)
+    return logits
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -20,16 +20,27 @@ serving bridge keeps 3-D stacks dense. The shared experts and the router
 go through ``layers.apply_w``, which for a dense leaf is the reference's
 ``x @ w``.
 
-Over a mesh (the reference's ``shard_map`` branch) with a ``"model"``
-axis of 1: where the batch is split over the mesh's batch axes (the
-model holds this rank's rows, ``sharding.local_batch``, as the
-data-parallel train step lays it out when the batch divides them), the
-rank routes its own tokens at the per-shard capacity
-``ceil(t_loc·k/E·capacity_factor)`` and ``f_e`` and ``P_e`` are averaged
-over the group before the aux loss (the reference's ``psum``/n, here a
-differentiable ``all_reduce``); otherwise the tokens stay replicated and
-every rank routes them all. A ``"model"`` axis above 1 (the reference's
-"ep"/"tp" expert dispatch) raises: it is the next slice of the port.
+Over a mesh (the reference's ``shard_map`` branch): where the batch is
+split over the mesh's batch axes (the model holds this rank's rows,
+``sharding.local_batch``, as the data-parallel train step lays it out
+when the batch divides them), the rank routes its own tokens at the
+per-shard capacity ``ceil(t_loc·k/E·capacity_factor)`` and ``f_e`` and
+``P_e`` are averaged over the group before the aux loss (the
+reference's ``psum``/n, here a differentiable ``all_reduce``);
+otherwise the tokens stay replicated and every rank routes them all.
+Over a ``"model"`` axis of m ranks the expert stacks are split as
+``sharding.shard_params`` lays them out, which the weights' shapes tell:
+
+* ``"ep"`` (E divides by m): rank r holds experts ``[r·E/m,
+  (r+1)·E/m)`` and packs only the assignments to them, at the capacity
+  of the tokens it holds (the global E in the formula);
+* ``"tp"`` (otherwise): every expert's ``w_gate``/``w_up`` split on
+  ``"mlp"`` and ``w_down`` on its rows;
+
+then the ranks' partial outputs are summed over the ``"model"`` group
+(the reference's ``psum`` over "model"). The router is whole on every
+rank; the shared experts split as a dense FFN, and their partial sums
+join the routed experts' in one ``all_reduce``.
 """
 from __future__ import annotations
 
@@ -60,6 +71,20 @@ def init_moe(gen: torch.Generator, cfg) -> dict:
         p["sw_up"] = dense_init(gen, (d, fs))
         p["sw_down"] = dense_init(gen, (fs, d))
     return p
+
+
+def moe_axes(cfg) -> dict:
+    ax = {
+        "router": ("embed", None),
+        "w_gate": ("experts", "embed", "mlp"),
+        "w_up": ("experts", "embed", "mlp"),
+        "w_down": ("experts", "mlp", "embed"),
+    }
+    if cfg.moe.n_shared > 0:
+        ax["sw_gate"] = ("embed", "mlp")
+        ax["sw_up"] = ("embed", "mlp")
+        ax["sw_down"] = ("mlp", "embed")
+    return ax
 
 
 def route(x, router_w, cfg):
@@ -157,12 +182,12 @@ def capacity_for(tokens: int, cfg) -> int:
 
 def moe_ffn(params, x, cfg, mesh=None):
     """x: (B, S, d_model), the tokens this rank holds → (y, aux_loss f32).
-    Routed plus shared experts. Over a ``mesh`` (``"model"`` axis 1) whose
-    batch axes split the batch (``sharding.local_batch``), ``x`` is this
-    rank's rows: they are routed at the per-shard capacity and the
-    load-balance terms averaged over the batch's ranks; otherwise every
-    rank routes the whole batch."""
-    sharding.check_model_axis(mesh, "moe_ffn")
+    Routed plus shared experts. Over a ``mesh`` whose batch axes split the
+    batch (``sharding.local_batch``), ``x`` is this rank's rows: they are
+    routed at the per-shard capacity and the load-balance terms averaged
+    over the batch's ranks; otherwise every rank routes the whole batch.
+    Expert stacks split over the ``"model"`` axis ("ep" or "tp", from
+    their shapes) give partial outputs, summed over its group."""
     m = cfg.moe
     b, s, d = x.shape
     dtype = x.dtype
@@ -171,13 +196,26 @@ def moe_ffn(params, x, cfg, mesh=None):
     if mesh is not None and entry is not None \
             and sharding.entry_size(mesh, entry) > 1:
         group = sharding.entry_group(mesh, entry)
+    e_local, _, f_local = params["w_gate"].shape
+    ep = sharding.model_split(e_local, m.n_experts, "moe_ffn experts")
+    tp = sharding.model_split(f_local, m.d_expert, "moe_ffn d_expert")
+    e0 = sharding.model_rank(mesh) * e_local if ep else 0
     y, aux = _moe_local(
         x.reshape(b * s, d), params["router"], params["w_gate"],
-        params["w_up"], params["w_down"], cfg, e0=0, e_local=m.n_experts,
+        params["w_up"], params["w_down"], cfg, e0=e0, e_local=e_local,
         capacity=capacity_for(b * s, cfg), batch_group=group)
     y = y.reshape(b, s, d)
-    if m.n_shared > 0:
-        g = apply_w(x, params["sw_gate"], dtype)
-        u = apply_w(x, params["sw_up"], dtype)
-        y = y + apply_w(F.silu(g) * u, params["sw_down"], dtype)
-    return y, aux.float()
+    if m.n_shared == 0:
+        return (sharding.model_all_reduce(y) if ep or tp else y), aux.float()
+    g = apply_w(x, params["sw_gate"], dtype)
+    u = apply_w(x, params["sw_up"], dtype)
+    ys = apply_w(F.silu(g) * u, params["sw_down"], dtype)
+    shared = sharding.model_split(params["sw_down"].shape[0],
+                                  m.n_shared * m.d_expert, "shared experts")
+    if (ep or tp) and shared:     # one sum over "model" for both partials
+        return sharding.model_all_reduce(y + ys), aux.float()
+    if ep or tp:
+        y = sharding.model_all_reduce(y)
+    elif shared:
+        ys = sharding.model_all_reduce(ys)
+    return y + ys, aux.float()

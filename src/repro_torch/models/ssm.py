@@ -32,6 +32,11 @@ Gates follow the reference's forms: softplus is ``logaddexp(x, 0)``
 log-sigmoid is ``-softplus(-x)``. Weight leaves that the reference reads
 directly (``conv_w``, ``A_log``, sLSTM's ``r``) are read with ``.to``:
 a compressed weight form there has no product and raises.
+
+The ``"inner"`` split of the tensor-parallel ``"model"`` axis is a later
+slice of the port: every forward and decode here raises
+``NotImplementedError`` under an active mesh whose ``"model"`` axis is
+above 1, rather than run the mixer replicated without saying so.
 """
 from __future__ import annotations
 
@@ -41,10 +46,16 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import apply_w, dense_init, rms_norm
 
 M_FLOOR = -30.0      # the stabilizer's floor (keeps exp(-m) finite)
+
+
+def _refuse_model_axis(where: str) -> None:
+    sharding.check_model_axis(sharding.active_mesh(), where,
+                              sharding.SSM_SLICE)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -115,6 +126,20 @@ def init_mamba(gen: torch.Generator, cfg) -> dict:
         "A_log": torch.log(a),
         "D": torch.ones((di,), device=dev),
         "out_proj": dense_init(gen, (di, cfg.d_model)),
+    }
+
+
+def mamba_axes(cfg) -> dict:
+    return {
+        "in_proj": ("embed", "inner"),
+        "conv_w": ("conv", "inner"),
+        "conv_b": ("inner",),
+        "x_proj": ("inner", "lora"),
+        "dt_proj": ("lora", "inner"),
+        "dt_bias": ("inner",),
+        "A_log": ("inner", "state"),
+        "D": ("inner",),
+        "out_proj": ("inner", "embed"),
     }
 
 
@@ -193,6 +218,7 @@ def _mamba_chunk(h, xi_j, dt_j, b_j, c_j, a):
 def mamba_forward(params, x, cfg, spec, positions, chunk: int = 128,
                   return_cache=False):
     """x: (B, S, d_model) → (B, S, d_model)."""
+    _refuse_model_axis("mamba_forward")
     m = cfg.mamba
     di, dtr = mamba_dims(cfg)
     b, s, _ = x.shape
@@ -252,6 +278,7 @@ def init_mamba_cache(cfg, spec, batch: int, max_len: int, dtype,
 def mamba_decode(params, x, cache, pos, cfg, spec, layer_idx=None,
                  active=None):
     """x: (B, 1, d_model): one step of the recurrence."""
+    _refuse_model_axis("mamba_decode")
     m = cfg.mamba
     di, dtr = mamba_dims(cfg)
     dt_ = x.dtype
@@ -310,6 +337,17 @@ def init_mlstm(gen: torch.Generator, cfg) -> dict:
     }
 
 
+def mlstm_axes(cfg) -> dict:
+    return {
+        "up_proj": ("embed", "inner"), "conv_w": ("conv", "inner"),
+        "conv_b": ("inner",), "wq": ("inner", "inner"),
+        "wk": ("inner", "inner"), "wv": ("inner", "inner"),
+        "wi": ("inner", "gates"), "wf": ("inner", "gates"),
+        "bi": ("gates",), "bf": ("gates",), "out_norm": ("inner",),
+        "down_proj": ("inner", "embed"),
+    }
+
+
 def _mlstm_gates(params, xc):
     """(log i, log f), each (…, H) in float32."""
     li = apply_w(xc, params["wi"], xc.dtype).float() + params["bi"]
@@ -363,6 +401,7 @@ def _mlstm_chunk(cbar, nbar, mbar, q_j, k_j, v_j, li_j, lf_j):
 
 def mlstm_forward(params, x, cfg, spec, positions, return_cache=False):
     """Chunkwise-parallel mLSTM. x: (B, S, d) → (B, S, d)."""
+    _refuse_model_axis("mlstm_forward")
     di, dh = mlstm_dims(cfg)
     hn = cfg.n_heads
     b, s, _ = x.shape
@@ -424,6 +463,7 @@ def init_mlstm_cache(cfg, spec, batch: int, max_len: int, dtype,
 def mlstm_decode(params, x, cache, pos, cfg, spec, layer_idx=None,
                  active=None):
     """x: (B, 1, d_model): one step of the recurrence."""
+    _refuse_model_axis("mlstm_decode")
     di, dh = mlstm_dims(cfg)
     hn = cfg.n_heads
     b = x.shape[0]
@@ -490,6 +530,16 @@ def init_slstm(gen: torch.Generator, cfg) -> dict:
     }
 
 
+def slstm_axes(cfg) -> dict:
+    return {
+        # r stays replicated (the reference's note: split over "model"
+        # it would cost a sum over the group at every time step)
+        "w": ("embed", "inner"), "r": ("stack", None, None, None),
+        "b": ("inner",), "out_norm": ("inner",),
+        "up_proj": ("inner", "mlp"), "down_proj": ("mlp", "embed"),
+    }
+
+
 def _slstm_cell(params, wx_t, state, cfg):
     """One sLSTM step. wx_t: (B, 4·di), the input's precomputed share;
     state (c, n, h, m). Returns the new state and h."""
@@ -519,6 +569,7 @@ def _slstm_out(params, h, cfg, dt_):
 
 
 def slstm_forward(params, x, cfg, spec, positions, return_cache=False):
+    _refuse_model_axis("slstm_forward")
     di, _, _ = slstm_dims(cfg)
     b, s, _ = x.shape
     dt_ = x.dtype
@@ -550,6 +601,7 @@ def init_slstm_cache(cfg, spec, batch: int, max_len: int, dtype,
 
 def slstm_decode(params, x, cache, pos, cfg, spec, layer_idx=None,
                  active=None):
+    _refuse_model_axis("slstm_decode")
     dt_ = x.dtype
     st = _read_states(cache, layer_idx)
     wx = apply_w(x[:, 0], params["w"], dt_).float()

@@ -44,6 +44,12 @@ MIXERS = {
 }
 
 
+#: each mixer's logical axes (the reference's second MIXERS column)
+MIXER_AXES = {"attn": attn.attn_axes, "mla": attn.mla_axes,
+              "mamba": ssm.mamba_axes, "mlstm": ssm.mlstm_axes,
+              "slstm": ssm.slstm_axes}
+
+
 # ----------------------------------------------------------------------
 # Stage planning
 # ----------------------------------------------------------------------
@@ -77,6 +83,59 @@ def init_block(gen: torch.Generator, spec, cfg) -> dict:
         p["ffn_norm"] = torch.zeros((cfg.d_model,), device=gen.device)
         p["ffn"] = moe_mod.init_moe(gen, cfg)
     return p
+
+
+def block_axes(spec, cfg) -> dict:
+    ax = {
+        "mixer_norm": ("embed",),
+        "mixer": MIXER_AXES[spec.mixer](cfg),
+    }
+    if spec.ffn == "dense":
+        ax["ffn_norm"] = ("embed",)
+        ax["ffn"] = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+                     "w_down": ("mlp", "embed")}
+    elif spec.ffn == "moe":
+        ax["ffn_norm"] = ("embed",)
+        ax["ffn"] = moe_mod.moe_axes(cfg)
+    return ax
+
+
+def param_axes(cfg) -> dict:
+    """The logical axes of every parameter leaf (the tree of
+    :func:`init_params`): each mixer's, FFN's and embedding's table, a
+    stacked stage's leaves led by "layers"."""
+    if cfg.input_mode == "tokens":
+        emb = {"tokens": ("vocab", "embed")}
+    else:
+        emb = {"proj": ("embed", None)}
+    if not cfg.tie_embeddings or cfg.input_mode != "tokens":
+        emb["unembed"] = ("embed", "vocab")
+    axes = {"embed": emb, "final_norm": ("embed",)}
+    st_axes = {}
+    for si, st in enumerate(plan_stages(cfg)):
+        sp = {}
+        for pi, spec in enumerate(st["specs"]):
+            bx = block_axes(spec, cfg)
+            if st["kind"] == "scan":
+                bx = _prefix_layers(bx)
+            sp[f"pos{pi}"] = bx
+        st_axes[f"s{si}"] = sp
+    axes["stages"] = st_axes
+    return axes
+
+
+def _prefix_layers(ax):
+    if isinstance(ax, dict):
+        return {k: _prefix_layers(v) for k, v in ax.items()}
+    return ("layers", *ax)
+
+
+def mixer_kinds(cfg) -> dict:
+    """``{(stage, position): mixer}`` of the param tree's blocks, e.g.
+    ``{("s0", "pos0"): "attn"}``."""
+    return {(f"s{si}", f"pos{pi}"): spec.mixer
+            for si, st in enumerate(plan_stages(cfg))
+            for pi, spec in enumerate(st["specs"])}
 
 
 def _stack(trees: list):

@@ -21,6 +21,15 @@ SparseWeight    nnz·(2+4+4) B            kernels/prune/serve (COO
 The classes are plain Python classes holding tensors; they register with
 ``layers.register_weight_form`` on import. The reference's tile hint
 (``cost.gemm_tiles``) is dropped: the kernels pick their own tiles.
+
+Each form slices by rows (K) or columns (N) in its own form, for the
+tensor-parallel ``"model"`` axis (``sharding.shard_params``): a
+quantized weight keeps its whole codebook (as the reference's
+``launch/inputs.py:quantize_params_sds``) and slices its indices (4-bit
+rows in byte pairs; a row block that starts at an odd row or ends at an
+odd row inside the matrix is unpacked and packed again once); a low-rank
+weight slices ``vt`` (columns) or ``u`` (rows); a sparse weight keeps the
+entries in the block, rebased, in their order.
 """
 from __future__ import annotations
 
@@ -121,9 +130,46 @@ def _sparse_load(w: SparseWeight, dt):
     return prune_serve.densify(w.values, w.rows, w.cols, w.shape).to(dt)
 
 
-layers.register_weight_form(QuantizedWeight, _quant_apply, _quant_load)
-layers.register_weight_form(LowRankWeight, _lowrank_apply, _lowrank_load)
-layers.register_weight_form(SparseWeight, _sparse_apply, _sparse_load)
+def _quant_slice(w: QuantizedWeight, dim: int, lo: int, hi: int):
+    k, n = w.shape
+    if dim == 1:
+        return QuantizedWeight(w.packed[:, lo:hi].contiguous(), w.codebook,
+                               (k, hi - lo), w.bits)
+    if w.bits == 8:
+        packed = w.packed[lo:hi].contiguous()
+    elif lo % 2 == 0 and (hi % 2 == 0 or hi == k):
+        # whole byte pairs (the last block of an odd K keeps its pad row)
+        packed = w.packed[lo // 2:(hi + 1) // 2].contiguous()
+    else:
+        packed = quant_ops.pack4(quant_ops.unpack4(w.packed)[lo:hi])
+    return QuantizedWeight(packed, w.codebook, (hi - lo, n), w.bits)
+
+
+def _lowrank_slice(w: LowRankWeight, dim: int, lo: int, hi: int):
+    if dim == 1:
+        return LowRankWeight(w.u, w.vt[:, lo:hi].contiguous())
+    return LowRankWeight(w.u[lo:hi].contiguous(), w.vt)
+
+
+def _sparse_slice(w: SparseWeight, dim: int, lo: int, hi: int):
+    at = w.cols if dim == 1 else w.rows
+    keep = (at >= lo) & (at < hi)
+    rows, cols = w.rows[keep], w.cols[keep]
+    if dim == 1:
+        cols = cols - lo
+    else:
+        rows = rows - lo
+    shape = (w.shape[0], hi - lo) if dim == 1 else (hi - lo, w.shape[1])
+    return SparseWeight(w.values[keep], rows.to(torch.int32),
+                        cols.to(torch.int32), shape)
+
+
+layers.register_weight_form(QuantizedWeight, _quant_apply, _quant_load,
+                            _quant_slice)
+layers.register_weight_form(LowRankWeight, _lowrank_apply, _lowrank_load,
+                            _lowrank_slice)
+layers.register_weight_form(SparseWeight, _sparse_apply, _sparse_load,
+                            _sparse_slice)
 
 
 def materialize(leaf, dt=torch.float32):

@@ -32,6 +32,19 @@ or the engine's ``torch.Generator`` draws outside the programs, in the
 same order with graphs or without, so only greedy decoding is comparable
 with the reference token for token.
 
+Over a ``mesh`` (``Server(mesh=)``, ``ServingEngine(mesh=)``: a
+``torch.distributed`` ``DeviceMesh``, one process a rank) each takes the
+whole tree, as the reference's does, and keeps only this rank's slices of
+it (``sharding.shard_params`` under ``SERVE_RULES``: heads, the MLP,
+the vocabulary and the experts split over the ``"model"`` axis); every
+call runs under ``use_mesh(mesh)``, and the layers put their partial
+results together over the ``"model"`` group. The batch is whole on every
+rank, so every rank gathers the same logits and picks the same tokens
+(sampling draws from them with the same seeded generator). Collectives
+are not captured: on a ``"model"`` axis above 1 the programs run eagerly
+(``graphs=None``; ``graphs=True`` raises), while a ``"model"`` axis of 1
+issues no collective and runs through graphs as without a mesh.
+
 :func:`load_compressed_for_serving` maps an LC state's Θ (codebooks,
 factors, masks) straight into the serving forms of
 ``runtime/compressed.py``.
@@ -46,6 +59,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.graphs import Programs
 from repro_torch.interop import resolve_device
 from repro_torch.models.layers import unembed
@@ -73,6 +87,25 @@ def _check_device(params, device: torch.device) -> None:
         if t.device != device:
             raise ValueError(f"a parameter is on {t.device}, but this "
                              f"server runs on {device}")
+
+
+def _serving_graphs(mesh, graphs: bool | None) -> bool | None:
+    """The ``graphs`` request of a server over ``mesh``: on a ``"model"``
+    axis above 1 the programs run eagerly (``None`` → False)."""
+    if sharding.model_size(mesh) == 1:
+        return graphs
+    if graphs:
+        raise ValueError(
+            "graphs=True over a \"model\" axis above 1: the layers' "
+            "collectives cannot be captured in a CUDA graph under gloo, and "
+            "NCCL capture at more than one rank cannot be tested on one "
+            "card (ROADMAP queue 3); pass graphs=None or False")
+    return False
+
+
+def _serving_mesh(mesh):
+    """The context every call of a server over ``mesh`` runs in."""
+    return sharding.use_mesh(mesh, sharding.SERVE_RULES)
 
 
 def pad_caches_to(cache, cfg, cur_len: int, max_len: int):
@@ -175,14 +208,19 @@ class Server:
     there): the prefill one per prompt shape (B, S), as the reference
     jits it per shape, and the decode step, replayed n − 1 times, one per
     prefill graph. ``programs`` has their capture seconds and pool bytes.
+    Over a ``mesh`` the server keeps this rank's slices of ``params``
+    (the module's note).
     """
 
     def __init__(self, cfg, params, max_len: int = 512, device=None,
-                 graphs: bool | None = None):
+                 graphs: bool | None = None, mesh=None):
         self.cfg = cfg
         self.max_len = max_len
         self.device = resolve_device(device)
         _check_device(params, self.device)
+        graphs = _serving_graphs(mesh, graphs)
+        self.mesh = mesh
+        params = sharding.shard_params(params, cfg, mesh)
         self.params = params
         self.programs = Programs(self.device, graphs)
         # the programs read this server's params (bound here: a per-call
@@ -202,6 +240,12 @@ class Server:
         traffic use :class:`ServingEngine`), on the host or the device.
         ``generator`` feeds temperature sampling (default: seeded 0 on
         the device): one (B, V) uniform draw per token, in order."""
+        with _serving_mesh(self.mesh):
+            return self._generate(prompts, n_tokens, temperature, generator,
+                                  return_logits)
+
+    def _generate(self, prompts, n_tokens, temperature, generator,
+                  return_logits):
         temperature = float(temperature)
         prompts = torch.as_tensor(prompts)
         b, s = prompts.shape
@@ -364,14 +408,21 @@ class ServingEngine:
     ``trace_counts`` holds, per program, the number of graphs captured
     (the distinct signatures seen, with ``graphs=False``): after the
     first tick every value stays at 1 across mixed-length traffic.
+
+    Over a ``mesh`` the engine keeps this rank's slices of ``params``
+    (the module's note); its caches hold the rank's kv heads.
     """
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
                  prefill_chunk: int = 8, temperature: float = 0.0,
-                 seed: int = 0, device=None, graphs: bool | None = None):
+                 mesh=None, seed: int = 0, device=None,
+                 graphs: bool | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         _check_device(params, self.device)
+        graphs = _serving_graphs(mesh, graphs)
+        self.mesh = mesh
+        params = sharding.shard_params(params, cfg, mesh)
         self.params = params
         self.slots = int(slots)
         self.max_len = int(max_len)
@@ -385,7 +436,7 @@ class ServingEngine:
             self.trace_counts, self.programs)
 
         # host-side slot state
-        with torch.inference_mode():
+        with torch.inference_mode(), _serving_mesh(mesh):
             self._cache = init_cache(cfg, self.slots, self.max_len,
                                      device=self.device)
             self._noise = (None, None)
@@ -509,6 +560,10 @@ class ServingEngine:
         """Serve a request trace to completion. Returns ``{"finished",
         "rejected", "stats"}`` — latencies on the virtual timeline
         (arrival offsets + measured device time per tick)."""
+        with _serving_mesh(self.mesh):
+            return self._run(requests)
+
+    def _run(self, requests: list[Request]) -> dict:
         queue = deque(sorted(requests, key=lambda r: (r.arrival, r.id)))
         finished: list[FinishedRequest] = []
         rejected: list[Request] = []

@@ -31,8 +31,8 @@ Two execution modes (``TrainerConfig.overlap``):
   with the C step done at dispatch.
 
 With a ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` whose ``"model"``
-axis is 1, one process a rank; a larger ``"model"`` axis raises, it is
-the next slice of the port), the trainer hands the mesh to the algorithm
+axis is 1, one process a rank; a larger ``"model"`` axis raises:
+tensor-parallel training is the next slice of the port), the trainer hands the mesh to the algorithm
 (``lc.set_mesh``: the C step shards its groups' items over the data axis,
 also on the overlapped pipeline's side stream) and runs every train step
 under it: data-parallel over the global batch, which every rank's data

@@ -72,7 +72,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                                    "init_mlp", "LCTrainer",
                                    "launch.train.main", "make_debug_mesh",
                                    "make_cstep_mesh",
-                                   "make_production_mesh"])
+                                   "make_production_mesh", "launch_mesh"])
 def test_entry_points_default_to_the_card(entry):
     """Called without ``device``, every entry point asks for CUDA and
     raises with a clear message when there is none."""
@@ -111,6 +111,7 @@ def test_entry_points_default_to_the_card(entry):
         "make_debug_mesh": lambda: mesh.make_debug_mesh(),
         "make_cstep_mesh": lambda: mesh.make_cstep_mesh(),
         "make_production_mesh": lambda: mesh.make_production_mesh(),
+        "launch_mesh": lambda: mesh.launch_mesh("1,2"),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

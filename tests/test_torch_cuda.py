@@ -1357,3 +1357,52 @@ def test_sharded_paths_on_card(gen):
     for (n_s, leaves_s), (n_p, leaves_p) in zip(sharded, plain):
         assert n_s == n_p == [1, 1, 1]
         assert all(torch.equal(a, b) for a, b in zip(leaves_s, leaves_p))
+
+
+@pytest.mark.cuda
+def test_tp_server_on_card(gen):
+    """Path T1 of ``chip_smoke.py`` at reduced width: ``Server(mesh=)``
+    and ``ServingEngine(mesh=)`` over a one-rank NCCL mesh
+    (``make_debug_mesh((1, 1))``), through CUDA graphs, against
+    ``mesh=None``: the logits of every token and the tokens bit for bit,
+    the same K4/K5/K6 launches; graphs=True on a "model" axis above 1
+    raises."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.runtime.server import Server
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    mesh = make_debug_mesh((1, 1))
+    cfg, params = _served("phi3-mini-3.8b")
+    prompts = np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (2, 16)).astype(np.int32)
+    (a, na), (b, nb) = (_counted(lambda m=m: Server(
+        cfg, params, max_len=32, device="cuda", mesh=m).generate(
+            prompts, 8, return_logits=True)) for m in (mesh, None))
+    assert (a.tokens == b.tokens).all() and torch.equal(a.logits, b.logits)
+    assert na == nb and sum(na) > 0
+    runs = {m: _counted(lambda m=m: _engine_run_mesh(cfg, params, m))
+            for m in (mesh, None)}
+    assert runs[mesh] == runs[None]
+
+    class _TwoRanks:
+        mesh_dim_names, shape = ("data", "model"), (1, 2)
+    with pytest.raises(ValueError, match="cannot be captured"):
+        Server(cfg, {}, device="cuda", graphs=True, mesh=_TwoRanks())
+
+
+def _engine_run_mesh(cfg, params, mesh):
+    """A short trace on a 3-slot engine over ``mesh``: {id: tokens}."""
+    import numpy as np
+    from repro_torch.runtime import server as srv
+    rng = np.random.default_rng(0)
+    reqs = [srv.Request(i, rng.integers(1, cfg.vocab_size, size=int(n))
+                        .astype(np.int32), int(m), 0.0)
+            for i, (n, m) in enumerate(rng.integers(2, 12, size=(6, 2)))]
+    out = srv.ServingEngine(cfg, params, slots=3, max_len=32,
+                            prefill_chunk=4, mesh=mesh,
+                            device="cuda").run(reqs)
+    return {f.id: f.tokens.tolist() for f in out["finished"]}

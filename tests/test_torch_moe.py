@@ -212,21 +212,76 @@ def test_shared_experts_match_jax():
 
 
 class _ModelAxisMesh:
-    """A mesh's layout with a tensor-parallel "model" axis of 2."""
-    mesh_dim_names, shape = ("data", "model"), (1, 2)
+    """A mesh's layout with a tensor-parallel "model" axis of ``m``, seen
+    from model rank ``r``."""
+
+    def __init__(self, m, r):
+        self.mesh_dim_names, self.shape, self.r = ("data", "model"), (1, m), r
+
+    def get_local_rank(self, axis):
+        return self.r if axis == "model" else 0
 
 
-def test_moe_ffn_with_a_mesh_raises():
-    """A "model" axis above 1 (the reference's "ep"/"tp" dispatch) raises,
-    naming the next slice of the port; a data-only mesh of one rank, the
-    batch split over it or not, equals ``mesh=None``."""
+def _model_axis_partials(arch, experts, m, monkeypatch):
+    """Each model rank's ``moe_ffn`` from its slices of the expert stacks
+    and shared experts over a "model" axis of ``m`` (stand-in meshes,
+    the sum over "model" recorded instead of run), against the
+    reference's ``moe_ffn`` at ``mesh=None``."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import layers
+    jcfg, tcfg = _cfgs(arch)
+    if experts is not None:
+        jcfg = jcfg.with_(moe=dataclasses.replace(jcfg.moe,
+                                                  n_experts=experts))
+        tcfg = tcfg.with_(moe=dataclasses.replace(tcfg.moe,
+                                                  n_experts=experts))
+    jp, tp = _moe_params(jcfg)
+    x = _x(jcfg)
+    y_j, aux_j = jmoe.moe_ffn(jp, jnp.asarray(x), jcfg, None)
+    partials = []
+    monkeypatch.setattr(sharding, "model_all_reduce",
+                        lambda y: partials.append(y) or y)
+    axes = tmoe.moe_axes(tcfg)
+    ep = tcfg.moe.n_experts % m == 0
+    total = 0
+    for r in range(m):
+        mesh = _ModelAxisMesh(m, r)
+        shard = {}
+        for k, leaf in tp.items():
+            spec = sharding.shard_spec(axes[k], tuple(leaf.shape), mesh,
+                                       sharding.SERVE_RULES)
+            if "model" in spec:
+                d = spec.index("model")
+                per = leaf.shape[d] // m
+                leaf = layers.slice_weight(leaf, d, r * per, (r + 1) * per)
+            shard[k] = leaf
+        # "ep" splits the experts, "tp" every expert's columns
+        assert (shard["w_gate"].shape[0] < tcfg.moe.n_experts) == ep
+        assert (shard["w_gate"].shape[2] < tcfg.moe.d_expert) != ep
+        with sharding.use_mesh(mesh):
+            y, aux = tmoe.moe_ffn(shard, torch.from_numpy(x), tcfg, mesh)
+        assert len(partials) == r + 1      # one sum over "model" a call
+        np.testing.assert_allclose(_np(aux), np.asarray(aux_j), **MM)
+        total = total + y
+    np.testing.assert_allclose(_np(total), np.asarray(y_j), **MM)
+
+
+def test_moe_ffn_with_a_mesh_raises(monkeypatch):
+    """Over a "model" axis of m ("ep" where E divides by m, else "tp"),
+    each rank's partial output (what ``moe_ffn`` hands the sum over
+    "model") adds up to the reference's ``moe_ffn`` at ``mesh=None``,
+    with its aux loss: mixtral "ep" at m = 2, deepseek (shared experts)
+    "ep" at m = 4 and, with 6 experts, "tp" at m = 4. A data-only mesh of
+    one rank, the batch split over it or not, equals ``mesh=None``."""
     from repro_torch.distributed import sharding
     from repro_torch.launch.mesh import make_debug_mesh
+    for arch, experts, m in (("mixtral-8x7b", None, 2),
+                             ("deepseek-moe-16b", None, 4),
+                             ("deepseek-moe-16b", 6, 4)):
+        with monkeypatch.context() as mp:
+            _model_axis_partials(arch, experts, m, mp)
     jcfg, tcfg = _cfgs("mixtral-8x7b")
     _, tp = _moe_params(jcfg)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tmoe.moe_ffn(tp, torch.zeros(1, 2, tcfg.d_model), tcfg,
-                     mesh=_ModelAxisMesh())
     x = torch.from_numpy(_x(jcfg))
     mesh = make_debug_mesh(device_type="cpu")
     y0, aux0 = tmoe.moe_ffn(tp, x, tcfg)

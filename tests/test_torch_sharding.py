@@ -13,8 +13,10 @@ layout without ranks: the reference's reads ``axis_names`` and
   for bit, scale and error at rtol 1e-6;
 * ``describe_groups`` under (2, 1) and (8, 1) meshes: the reference's
   partition and pad for every group, the low-rank group replicated;
-* a ``"model"`` axis above 1 refused everywhere the next slice is
-  needed; the meshes of ``launch/mesh.py`` over a one-rank group.
+* under a (2, 2) mesh: ``constrain`` the identity and the reference's
+  C-step layout; training over ``"model"`` and the SSM mixers' split
+  refused, naming the slice that brings them; the meshes of
+  ``launch/mesh.py`` over a one-rank group.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -184,23 +186,65 @@ def test_describe_groups_reports_the_reference_layout(world):
         assert g["shard_mode"] == mode, g["tasks"]
 
 
-def test_a_model_axis_is_refused():
-    """Every place that would need the tensor-parallel axis raises,
-    naming the next slice."""
+def test_a_model_axis_leaves_constrain_and_the_c_step_layout():
+    """Under a (2, 2) mesh ``constrain`` is the identity, the LC driver
+    takes the mesh, and ``describe_groups`` reports the reference's
+    partition and pad: the items shard over "data" only."""
     mesh = _TorchMesh({"data": 2, "model": 2})
-    tasks = w.cstep_tasks(core, schemes)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        core.LCAlgorithm(tasks, [1e-3], device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        grouping.grouped_compress(tasks, {}, {}, 1e-3, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        with sh.use_mesh(mesh):
-            sh.constrain(torch.zeros(2), ("batch",))
     x = torch.zeros(2)
-    with sh.use_mesh(_TorchMesh({"data": 2, "model": 1})):
+    with sh.use_mesh(mesh):
         assert sh.constrain(x, ("batch",)) is x
-        assert isinstance(sh.active_mesh(), _TorchMesh)
+        assert sh.active_mesh() is mesh
     assert sh.active_mesh() is None
+    lc = core.LCAlgorithm(w.cstep_tasks(core, schemes), [1e-3],
+                          device="cpu", mesh=mesh)
+    assert lc.mesh is mesh
+    params = w.cstep_params()
+    jp = {n: jnp.asarray(a) for n, a in params.items()}
+    tp = {n: torch.from_numpy(a) for n, a in params.items()}
+    jtasks = [t.resolve(jp) for t in w.cstep_tasks(jcore, jschemes)]
+    ttasks = [t.resolve(tp) for t in w.cstep_tasks(core, schemes)]
+    want = jgrouping.describe_groups(
+        jtasks, {t.name: t.compressible(jp) for t in jtasks},
+        mesh=_JaxMesh({"data": 2, "model": 2}), backend="auto")
+    got = grouping.describe_groups(
+        ttasks, {t.name: t.compressible(tp) for t in ttasks}, mesh=mesh,
+        backend="cuda", device="cpu")
+    assert [g["tasks"] for g in got] == [g["tasks"] for g in want]
+    for g, j in zip(got, want):
+        assert g["spec"] == (tuple(j["spec"]) if j["spec"] is not None
+                             else None), g["tasks"]
+        assert g["padding"] == j["padding"], g["tasks"]
+
+
+def test_a_model_axis_is_refused():
+    """Tensor-parallel training (the trainer and the train step) and the
+    SSM mixers' "inner" split raise, naming the slice that brings them."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import ssm
+    from repro_torch.runtime import LCTrainer
+    mesh = _TorchMesh({"data": 2, "model": 2})
+    cfg = dataclasses.replace(configs.reduced_config(
+        configs.get_config("phi3-mini-3.8b")), dtype="float32")
+    lc = core.LCAlgorithm([], [1e-3], device="cpu")
+    with pytest.raises(NotImplementedError, match="next slice"):
+        LCTrainer(cfg, lc, TokenStream(cfg.vocab_size, 2, 8), mesh=mesh,
+                  device="cpu")
+    step = make_train_step(cfg)
+    with sh.use_mesh(mesh), pytest.raises(NotImplementedError,
+                                          match="next slice"):
+        step({"params": {}}, {"labels": torch.zeros(2, 8)})
+    x = torch.zeros(1, 4, cfg.d_model)
+    for name in ("mamba", "mlstm", "slstm"):
+        with sh.use_mesh(mesh):
+            with pytest.raises(NotImplementedError, match="later slice"):
+                getattr(ssm, f"{name}_forward")(None, x, cfg, None, None)
+            with pytest.raises(NotImplementedError, match="later slice"):
+                getattr(ssm, f"{name}_decode")(None, x, None, 0, cfg, None)
 
 
 def test_meshes_over_a_one_rank_group():

@@ -279,3 +279,64 @@ def dp_train(rank, world, inputs_path, out_dir):
                 "theta": {n: lc_state["tasks"][n]["theta"]
                           for n in lc_state["tasks"]}},
                os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+# ----------------------------------------------------------------------
+# serving over the tensor-parallel "model" axis
+# ----------------------------------------------------------------------
+#: Server.generate's new tokens and length; the engine's settings
+TP_NEW, TP_MAX_LEN = 5, 32
+TP_ENGINE = {"slots": 3, "max_len": 32, "prefill_chunk": 4}
+
+
+def tp_serve_case(cfg, params, prompts, trace, mesh) -> dict:
+    """One model served over ``mesh`` (``None``: one process):
+    ``Server.generate``'s greedy tokens and prefill logits, and the
+    engine's tokens of every request of ``trace``."""
+    from repro_torch.runtime.server import Request, Server, ServingEngine
+    srv = Server(cfg, params, max_len=TP_MAX_LEN, device="cpu", mesh=mesh)
+    res = srv.generate(prompts, TP_NEW, return_logits=True)
+    eng = ServingEngine(cfg, params, mesh=mesh, device="cpu", **TP_ENGINE)
+    out = eng.run([Request(*r) for r in trace])
+    return {"tokens": res.tokens, "logits": res.logits[:, 0].numpy(),
+            "engine": {f.id: f.tokens for f in out["finished"]}}
+
+
+def tp_moe_partial(cfg, params, x, mesh):
+    """This rank's partial routed-expert output of the first MoE block
+    over ``mesh`` before the sum over "model" (``_moe_local`` on its
+    slices of the expert stacks): ``(model rank, y)``."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import mixer_kinds
+    tree = sharding.shard_params(params, cfg, mesh)
+    blk = next(tree["stages"][s][p]["ffn"] for s, p in mixer_kinds(cfg)
+               if "router" in tree["stages"][s][p].get("ffn", {}))
+    e_local = blk["w_gate"].shape[0]
+    r = sharding.model_rank(mesh)
+    y, _ = moe._moe_local(
+        torch.from_numpy(x), blk["router"], blk["w_gate"], blk["w_up"],
+        blk["w_down"], cfg, e0=r * e_local if e_local < cfg.moe.n_experts
+        else 0, e_local=e_local, capacity=moe.capacity_for(x.shape[0], cfg))
+    return r, y
+
+
+def tp_serve(rank, world, inputs_path, out_dir):
+    """Every case of ``inputs`` served over each mesh shape for this world
+    size; the MoE cases' partial outputs; at world size 4, the C-step
+    problem's ``LCAlgorithm`` over a (2, 2) mesh."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    inputs = torch.load(inputs_path, weights_only=False)
+    out = {}
+    for shape in inputs["meshes"][world]:
+        mesh = make_debug_mesh(shape, device_type="cpu")
+        for name, case in inputs["cases"].items():
+            out[(shape, name)] = tp_serve_case(
+                case["cfg"], case["params"], inputs["prompts"],
+                inputs["trace"], mesh)
+            if case["cfg"].moe is not None:
+                out[(shape, name, "moe")] = tp_moe_partial(
+                    case["cfg"], case["params"], inputs["moe_x"], mesh)
+    if world == 4:
+        out["cstep"] = run_lc(make_debug_mesh((2, 2), device_type="cpu"))[0]
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
