@@ -17,6 +17,8 @@
                                         # ranks run as --shard-rank R)
     python3 chip_smoke.py --tp          # path T alone (its ranks run as
                                         # --tp-rank R)
+    python3 chip_smoke.py --tp-train    # path U alone (its ranks run as
+                                        # --tp-train-rank R)
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit (nvcc). Every ``Server`` and ``ServingEngine`` serves
@@ -114,11 +116,11 @@ Phases, each of which fails the run:
     rounds and the item-by-item additive group included, then a
     replay), each beside its eager twin (with the planner off: planner
     on against off too), eager against replayed seconds;
-14. main path H — LC training of phi3-mini-3.8b at full width (4 of 32
+14. main path H — LC training of phi3-mini-3.8b at full width (2 of 32
     layers, float32, remat, plain attention) with ``LCTrainer``: AdamW L
     steps on the port's ``TokenStream`` (8 × 1024 tokens a step), the
     tasks and defaults of ``launch/train.py``. H1: per-layer K=16
-    quantization of every matrix (28 items in two groups), 3 μ × 3 L
+    quantization of every matrix (14 items in two groups), 3 μ × 3 L
     steps, serial; H2: the same overlapped (C step on a second stream),
     its first boundary's Θ equal bit for bit to a serial C step on the
     same snapshot (a replay); H3: ℓ0 pruning of all matrices at κ = 5%,
@@ -158,8 +160,9 @@ Phases, each of which fails the run:
     its 8-layer super-block (Mamba + dense FFN, Mamba + MoE, attention +
     dense FFN; 3,960,418,304 params), 4-bit in_proj|out_proj and
     w_gate|w_up, 8-bit x_proj|dt_proj and attention, ℓ0 at 5% on both
-    w_down as one vector; L1: xlstm-125m, all 12 blocks (10 mLSTM, 2
-    sLSTM), 4-bit wq|wk|wv|up_proj|down_proj|w. Each: LC init and one C
+    w_down as one vector; L1: xlstm-125m, one repetition of its pattern
+    (5 mLSTM, 1 sLSTM; 6 of its 12 blocks), 4-bit
+    wq|wk|wv|up_proj|down_proj|w. Each: LC init and one C
     step, the bridge, ``Server.generate`` of 32 tokens for 2 prompts of
     1024, logits against the densified model, greedy agreement 1.0,
     exact launches, every Lloyd loop of the C step held against the
@@ -250,7 +253,22 @@ Phases, each of which fails the run:
     its plain version; prefill and decode ms, the collectives' ms and
     share, the weight bytes held and the peak per rank; then K4, K5 and
     K6 timed at the shard shapes beside their plain versions and bounds;
-21. one JSON line listing every ported kernel, then the result line.
+21. path U, tensor-parallel LC training over the "model" axis, in path
+    S's processes after T (``--shard``; alone ``--tp-train``), S3's
+    trainer (phi3-mini at full width, 2 of 32 layers, quantization
+    tasks, one μ of 2 L steps and a C step, 8 × 1024 tokens): U1, NCCL
+    at world size 1, mesh (1, 1) against ``mesh=None`` with
+    deterministic algorithms on for both: losses, parameters and Θ bit
+    for bit, the same launches; U2 on the two gloo ranks, mesh (1, 2),
+    each rank on the whole batch and its slices of the weights, against
+    the one-process run: losses within rtol 1e-5, the gathered
+    parameters within 2·lr a step (all but 0.1% within 1e-6), each
+    rank's K1-loop launches those of one process, and every C step and
+    multiplier step of a rank replayed by ``LCAlgorithm(mesh=None)`` on
+    its gathered weights bit for bit; per rank the step ms, the model
+    collectives' ms and share of it, the gathers' and the C step's ms,
+    the peak and the weight bytes held;
+22. one JSON line listing every ported kernel, then the result line.
 
 Tolerances: assignments, masks and integer counts must be equal; K1/K7
 cluster sums may differ from the plain version's by the summation order
@@ -414,15 +432,16 @@ F_DOWN_KAPPA = LM_ITEM // 100                     # 251,658
 F_MU = 1e-4
 F_MUS = (F_MU, 1.3 * F_MU, 1.69 * F_MU)   # C steps 2 and 3: capture, replay
 
-# path H: LC training of phi3-mini-3.8b at full width, 4 of 32 layers
+# path H: LC training of phi3-mini-3.8b at full width, 2 of 32 layers
 # (H4: 1), batches of 8 × 1024 tokens; the CLI defaults of
 # ``launch/train.py`` (μ0 9e-5, a 1.2, lr 1e-3); the quantization tasks'
-# two groups: wq|wk|wv|wo (16 items of 3072²) and w_gate|w_up|w_down (12
+# two groups: wq|wk|wv|wo (8 items of 3072²) and w_gate|w_up|w_down (6
 # of 3072 × 8192)
 H_BATCH, H_SEQ = 8, 1024
 H_MU0, H_MU_A, H_LR = 9e-5, 1.2, 1e-3
-H_GROUPS = [(4 * LM_LAYERS, LM_D_MODEL * LM_D_MODEL), (3 * LM_LAYERS, LM_ITEM)]
-H_WEIGHTS = sum(i * p for i, p in H_GROUPS)           # 452,984,832
+H_LAYERS = 2        # path H's depth (4 until path U came; PERF.md §4)
+H_GROUPS = [(4 * H_LAYERS, LM_D_MODEL * LM_D_MODEL), (3 * H_LAYERS, LM_ITEM)]
+H_WEIGHTS = sum(i * p for i, p in H_GROUPS)           # 226,492,416
 
 
 # paths I and J: mixtral-8x7b (2 of 32 layers; 2 prompts of 4608 tokens,
@@ -440,13 +459,16 @@ CPM_LAYERS = 4
 
 # paths K, L1 and L2: jamba-v0.1-52b (layers 2–4 of its 8-layer
 # super-block: Mamba + dense FFN, Mamba + MoE, attention + dense FFN) and
-# xlstm-125m (all 12 blocks), prompts of 1024 (8 Mamba chunks of 128, 4
-# mLSTM chunks of 256, 1024 sLSTM steps); the prefill-against-decode
+# xlstm-125m (L1: one repetition of its 6-block pattern, 5 mLSTM and 1
+# sLSTM; all 12 blocks until path U came), prompts of 1024 (8 Mamba
+# chunks of 128, 4 mLSTM chunks of 256, 1024 sLSTM steps); the
+# prefill-against-decode
 # check on 2 prompts of two chunks (K 2 × 256, L1 2 × 512); L2 trains
 # xlstm-125m at 4 × 1024 tokens a step
 SSM_PROMPT = 1024
 SSM_LAUNCHES = "ssm_launches"          # the line ``--ssm`` reports on
-JAMBA_PARAMS, XLSTM_PARAMS = 3_960_418_304, 155_651_408
+XLSTM_REPS = 1      # L1's repetitions of xlstm-125m's pattern (of 2)
+JAMBA_PARAMS, XLSTM_PARAMS = 3_960_418_304, 97_142_824
 JAMBA_FFN = 4096 * 14336                               # 58,720,256
 JAMBA_KAPPA = int(0.05 * 2 * JAMBA_FFN)                # 5,872,025
 L2_BATCH, L2_SEQ, L2_LC, L2_STEPS = 4, 1024, 3, 1
@@ -2306,7 +2328,7 @@ def cstep_device_times(k1, k2, rec: dict, mrec: dict, frec: dict,
 # ----------------------------------------------------------------------
 # path H: the LC trainer at phi3-mini width
 # ----------------------------------------------------------------------
-def h_config(layers: int = LM_LAYERS):
+def h_config(layers: int = H_LAYERS):
     """phi3-mini-3.8b at full width, ``layers`` of its 32 layers, float32,
     remat on, plain attention (K6 has no backward, and refuses autograd)."""
     from repro_torch.configs import get_config
@@ -3594,8 +3616,9 @@ def main_path_j(kern, k1, power: str) -> dict:
 # ----------------------------------------------------------------------
 def ssm_config(arch: str):
     """jamba-v0.1-52b cut to layers 2–4 of its super-block, or xlstm-125m
-    whole, at the published widths, float32, fused attention, unrolled
-    (the bridge needs per-layer leaves)."""
+    cut to XLSTM_REPS repetitions of its pattern, at the published
+    widths, float32, fused attention, unrolled (the bridge needs
+    per-layer leaves)."""
     from repro_torch.configs import get_config
     from repro_torch.models.ssm import mamba_dims, mlstm_dims, slstm_dims
     from repro_torch.models.transformer import count_params
@@ -3611,7 +3634,7 @@ def ssm_config(arch: str):
                 [("mamba", "dense"), ("mamba", "moe"), ("attn", "dense")],
                 JAMBA_PARAMS)
     else:
-        cfg = cfg.with_(pattern=cfg.pattern * cfg.pattern_reps,
+        cfg = cfg.with_(pattern=cfg.pattern * XLSTM_REPS,
                         pattern_reps=1, dtype="float32",
                         fused_attention=True)
         got = (cfg.d_model, cfg.n_heads, cfg.vocab_size, cfg.tie_embeddings,
@@ -3620,7 +3643,7 @@ def ssm_config(arch: str):
                [x.mixer for x in cfg.pattern].count("slstm"),
                count_params(cfg))
         want = (768, 4, 50304, True, (1536, 384), (768, 192, 1024), 256,
-                10, 2, XLSTM_PARAMS)
+                5 * XLSTM_REPS, XLSTM_REPS, XLSTM_PARAMS)
     check(got == want, f"{arch} widths {got}")
     return cfg
 
@@ -3831,8 +3854,8 @@ def single_slot_agreement(cfg, serving, power: str):
 
 
 def main_path_l1(kern, k1, power: str) -> dict:
-    """xlstm-125m at full width and depth (10 mLSTM, 2 sLSTM blocks,
-    unrolled): 4-bit k=16 per layer on the reference twin's set
+    """xlstm-125m at full width, XLSTM_REPS repetitions of its pattern
+    (5 mLSTM and 1 sLSTM block each, unrolled): 4-bit k=16 per layer on the reference twin's set
     wq|wk|wv|up_proj|down_proj|w (K1, then K4 in serving); LC init, one C
     step, the bridge, ``Server.generate`` (2 × 1024), the served checks,
     prefill against decode, then an engine trace whose re-admitted slots
@@ -3845,14 +3868,15 @@ def main_path_l1(kern, k1, power: str) -> dict:
     run = serve_path(kern, "L1", cfg, l1_tasks(cfg), SSM_PROMPT, power,
                      seeds=L1_SEEDS,
                      capture=[(kops, "kmeans_lloyd_batched")])
-    check(run["kinds"] == {"quant4": 10 * 5 + 2 * 3},
+    check(run["kinds"] == {"quant4": XLSTM_REPS * (5 * 5 + 3)},
           f"L1 bridged forms {run['kinds']}")
-    want = only(kern, K1loop=run["kmeans_groups"], K4=56 * SERVE_GEN)
+    want = only(kern, K1loop=run["kmeans_groups"],
+                K4=XLSTM_REPS * 28 * SERVE_GEN)
     check(run["launches"] == want, f"L1 launches {run['launches']} != {want}")
     (lloyd,) = run.pop("calls")
     (di, _), (_, _, ff), d = mlstm_dims(cfg), slstm_dims(cfg), cfg.d_model
-    items = sorted([(10, d * 2 * di + 3 * di * di + di * d),
-                    (2, d * 4 * d + d * 2 * ff + ff * d)])
+    items = sorted([(5 * XLSTM_REPS, d * 2 * di + 3 * di * di + di * d),
+                    (XLSTM_REPS, d * 4 * d + d * 2 * ff + ff * d)])
     got = sorted((1, a[0].shape[1]) for a, _, _ in lloyd
                  for _ in range(a[0].shape[0]))
     check(got == sorted(x for n, p in items for x in [(1, p)] * n),
@@ -4746,6 +4770,7 @@ def shard_rank(kern, rank: int, card: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     found.update(t_ranks(kern, rank, card))
+    found.update(u_ranks(kern, rank, card))
     dist.destroy_process_group()
     print(SHARD_LAUNCHES, json.dumps(found), flush=True)
 
@@ -4775,11 +4800,13 @@ def shard_paths(kern, card: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     found.update(t_prepare(kern, card))
-    stamp(f"paths S2, S3 and T2–T4 on {S_WORLD} ranks")
+    found.update(path_u1(kern, card))
+    stamp(f"paths S2, S3, T2–T4 and U2 on {S_WORLD} ranks")
     found.update(run_ranks("--shard-rank", SHARD_DIR, SHARD_LAUNCHES,
                            "path "))
-    check(all(f"{p} rank {r}" in found for p in ("S2", "S3") + T_LABELS
-              for r in range(S_WORLD)), "paths S and T: a rank reported "
+    check(all(f"{p} rank {r}" in found
+              for p in ("S2", "S3") + T_LABELS + ("U2",)
+              for r in range(S_WORLD)), "paths S, T and U: a rank reported "
           "no launches")
     stamp("path T's kernels at the shard shapes")
     t_shard_rows(card)
@@ -5228,6 +5255,300 @@ def tp_rank(kern, rank: int, card: str) -> None:
     print(TP_LAUNCHES, json.dumps(found), flush=True)
 
 
+# ----------------------------------------------------------------------
+# path U: tensor-parallel LC training over the "model" axis (in the
+# ``--shard`` process and its ranks, after S and T; alone:
+# ``--tp-train``, whose ranks run ``--tp-train-rank R``)
+# ----------------------------------------------------------------------
+U_LAUNCHES = "u_launches"              # the line ``--tp-train`` reports on
+
+
+def lc_digests(state) -> dict:
+    """Fingerprints of every task's Θ, ``a`` and λ in an LC state."""
+    from repro_torch.tree import tree_leaves
+    return {n: [digest(x) for x in tree_leaves(state["tasks"][n])]
+            for n in state["tasks"]}
+
+
+class ModelCollectives:
+    """While entered: every collective of the ``"model"`` axis
+    (``sharding.model_reduce``, ``sharding.model_gather``) timed between
+    synchronisations into ``ms``, and each gather of the whole params
+    (``sharding.gather_params``) into ``gather_ms`` (its own collectives
+    apart from ``ms``)."""
+
+    def __init__(self):
+        self.ms, self.n, self.gather_ms = 0.0, 0, []
+        self._in_gather = False
+
+    def _timed(self, fn):
+        def run(*a, **kw):
+            if self._in_gather:
+                return fn(*a, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.ms += (time.perf_counter() - t0) * 1e3
+            self.n += 1
+            return out
+        return run
+
+    def _gather(self, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self._in_gather = True
+            try:
+                out = fn(*a, **kw)
+            finally:
+                self._in_gather = False
+            torch.cuda.synchronize()
+            self.gather_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    def __enter__(self):
+        from repro_torch.distributed import sharding
+        self._orig = {n: getattr(sharding, n) for n in
+                      ("model_reduce", "model_gather", "gather_params")}
+        sharding.model_reduce = self._timed(self._orig["model_reduce"])
+        sharding.model_gather = self._timed(self._orig["model_gather"])
+        sharding.gather_params = self._gather(self._orig["gather_params"])
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.distributed import sharding
+        for n, fn in self._orig.items():
+            setattr(sharding, n, fn)
+
+
+def u_run(kern, trainer, label: str, card: str) -> dict:
+    """Run ``trainer`` (S3's) from seed 0: each train step's loss, wall
+    ms and the model collectives' ms within it, the gathers' and the C
+    step's ms, the peak, the weight bytes this rank holds and the
+    launches; every C step and multiplier step is recorded (its inputs
+    and outputs copied) for the replay."""
+    from repro_torch.tree import tree_leaves, tree_map
+    losses, step_ms, coll_ms, steps = [], [], [], []
+    step, lc = trainer._train_step, trainer.lc
+    coll = ModelCollectives()
+
+    def timed(state, batch):
+        coll.ms = 0.0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t0) * 1e3)
+        coll_ms.append(coll.ms)
+        losses.append(float(out[1]["loss"]))
+        return out
+
+    def recorded(name):
+        fn = getattr(lc, name)
+
+        def copied(tree):
+            return tree_map(lambda x: x.clone()
+                            if isinstance(x, torch.Tensor) else x, tree)
+
+        def run(params, state):
+            before = copied(state)
+            out = fn(params, state)
+            steps.append((name, params, before, copied(out["tasks"])))
+            return out
+        return run
+
+    trainer._train_step = timed
+    for name in ("c_step", "multiplier_step"):
+        setattr(lc, name, recorded(name))
+    torch.cuda.reset_peak_memory_stats()
+    reset(kern)
+    with coll:
+        state, lc_state = trainer.run(0)
+    torch.cuda.synchronize()
+    n = launches(kern)
+    hist = trainer.history
+    check(len(hist) == 1 and hist[0]["c_step_violations"] == []
+          and all(math.isfinite(x) for x in losses),
+          f"path {label} records {hist}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    held = sum(x.numel() * x.element_size()
+               for x in tree_leaves(state["params"]))
+    share = [round(c / s_, 4) for c, s_ in zip(coll_ms, step_ms)]
+    print(f"path {label}: losses {losses} step_ms "
+          f"{[round(x, 2) for x in step_ms]} model_collectives_ms "
+          f"{[round(x, 2) for x in coll_ms]} ({coll.n} calls) share "
+          f"{share} gather_ms {[round(x, 2) for x in coll.gather_ms]} "
+          f"c_step_ms {round(hist[0]['c_step_ms'], 2)} peak_memory_gib="
+          f"{peak:.2f} weight_bytes_held={held} launches "
+          f"{ {k: v for k, v in n.items() if v} } [{card}]", flush=True)
+    return {"state": state, "lc_state": lc_state, "losses": losses,
+            "launches": n, "steps": steps}
+
+
+def path_u1(kern, card: str) -> dict:
+    """U1: NCCL at world size 1, ``make_debug_mesh((1, 1))``: S3's
+    trainer over the mesh against ``mesh=None``, deterministic algorithms
+    on for both (the embedding's backward sums by atomics otherwise):
+    losses, parameters and Θ bit for bit, the same launches. Where path S
+    has not saved its one-process run (``--tp-train``), the ``mesh=None``
+    run stands for it; its launches go to the ranks (``u1.json``)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.tree import tree_leaves
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    mesh = make_debug_mesh((1, 1))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    runs = {}
+    try:
+        for name, m in (("none", None), ("mesh", mesh)):
+            stamp(f"path U1, {name}")
+            trainer = s3_trainer(m, S_WORLD * S3_ROWS)
+            run = u_run(kern, trainer, "U1 " + (
+                "mesh=None" if m is None else "mesh (1, 1), NCCL"), card)
+            runs[name] = {"losses": run["losses"],
+                          "launches": run["launches"],
+                          "theta": lc_digests(run["lc_state"]),
+                          "params": run["state"]["params"]}
+            del trainer, run
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, b = runs["mesh"], runs["none"]
+    same = all(torch.equal(x, y) for x, y in zip(tree_leaves(a["params"]),
+                                                 tree_leaves(b["params"])))
+    check(a["losses"] == b["losses"] and same and a["theta"] == b["theta"]
+          and a["launches"] == b["launches"],
+          f"path U1 mesh (1, 1) against mesh=None: losses {a['losses']} / "
+          f"{b['losses']}, parameters equal {same}, Θ equal "
+          f"{a['theta'] == b['theta']}, launches {a['launches']} / "
+          f"{b['launches']}")
+    print(f"path U1 (NCCL, world size 1, mesh (1, 1), phi3-mini-3.8b full "
+          f"width, {S3_LAYERS} layers, {S_WORLD * S3_ROWS} × {H_SEQ} "
+          f"tokens): losses, parameters and Θ bit for bit against "
+          f"mesh=None, launches "
+          f"{ {k: v for k, v in a['launches'].items() if v} } each "
+          f"[{card}]", flush=True)
+    if not (SHARD_DIR / "s3_losses.json").exists():
+        (SHARD_DIR / "s3_losses.json").write_text(json.dumps(b["losses"]))
+        torch.save(b["params"], SHARD_DIR / "s3_params.pt")
+    (SHARD_DIR / "u1.json").write_text(json.dumps(b["launches"]))
+    found = {"U1": a["launches"], "U1 one process": b["launches"]}
+    runs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return found
+
+
+def u_ranks(kern, rank: int, card: str) -> dict:
+    """U2 on this rank of S_WORLD (``gloo`` on the one card, its group
+    up): S3's trainer over mesh (1, S_WORLD), each rank on the whole
+    batch and its slices of the weights, optimizer state and LC refs,
+    the C step on the weights gathered whole; against the one-process run
+    (``s3_losses.json``, ``s3_params.pt``, ``u1.json``): losses within
+    rtol 1e-5, the gathered parameters within 2·lr a step (all but 0.1%
+    within 1e-6), the K1-loop launches equal; then every C step and
+    multiplier step of the rank replayed by ``LCAlgorithm(mesh=None)`` on
+    its gathered weights, Θ, ``a`` and λ bit for bit. Returns the run's
+    launches."""
+    from repro_torch.core import LCAlgorithm, exponential_mu_schedule
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import default_tasks
+    from repro_torch.tree import tree_leaves
+    mesh = make_debug_mesh((1, S_WORLD))
+    trainer = s3_trainer(mesh, S_WORLD * S3_ROWS)
+    run = u_run(kern, trainer, f"U2 rank {rank} of {S_WORLD} (gloo, one "
+                f"card, mesh (1, {S_WORLD}), {S_WORLD * S3_ROWS} × {H_SEQ} "
+                f"tokens a rank)", card)
+    ref = json.loads((SHARD_DIR / "s3_losses.json").read_text())
+    check(np.allclose(run["losses"], ref, rtol=1e-5, atol=0),
+          f"path U2 rank {rank} losses {run['losses']} against one "
+          f"process {ref}")
+    want = json.loads((SHARD_DIR / "u1.json").read_text())
+    check(run["launches"]["K1loop"] == want["K1loop"] > 0,
+          f"path U2 rank {rank} K1-loop launches {run['launches']} "
+          f"against one process {want}")
+    whole = sharding.gather_params(run["state"]["params"], trainer.cfg,
+                                   mesh, sharding.DEFAULT_RULES)
+    ref_params = torch.load(SHARD_DIR / "s3_params.pt", map_location="cuda")
+    worst, flipped, n_all = 0.0, 0, 0
+    for x, y in zip(tree_leaves(whole), tree_leaves(ref_params)):
+        d = (x - y).abs()
+        worst = max(worst, float(d.max()))
+        flipped += int((d > 1e-6).sum())
+        n_all += d.numel()
+    check(worst <= 2 * H_LR * S3_STEPS * (1 + 1e-4)
+          and flipped <= 1e-3 * n_all,
+          f"path U2 rank {rank} parameters: max|Δ| {worst}, {flipped} of "
+          f"{n_all} past 1e-6")
+    del whole, ref_params
+    lc = LCAlgorithm(default_tasks(trainer.cfg, "quantize"),
+                     exponential_mu_schedule(H_MU0, H_MU_A, 1),
+                     device="cuda")
+    for k, (name, params, state, want_tasks) in enumerate(run["steps"]):
+        lc.resolve(params)
+        got = getattr(lc, name)(params, state)["tasks"]
+        check(all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(got), tree_leaves(want_tasks))) and len(
+            tree_leaves(got)) == len(tree_leaves(want_tasks)),
+              f"path U2 rank {rank} {name} {k}: against mesh=None on the "
+              f"gathered weights")
+    print(f"path U2 rank {rank}: losses within rtol 1e-5 of one process; "
+          f"parameters after {S3_STEPS} L steps and a C step max|Δ|="
+          f"{worst:.3g}, {flipped} of {n_all} past 1e-6; "
+          f"{len(run['steps'])} C and multiplier steps on the gathered "
+          f"weights bit for bit against mesh=None; K1-loop launches "
+          f"{want['K1loop']} as one process [{card}]", flush=True)
+    found = {f"U2 rank {rank}": run["launches"]}
+    lc.release_graphs()
+    del run, trainer, lc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return found
+
+
+def tp_train_paths(kern, card: str) -> None:
+    """``python3 chip_smoke.py --tp-train``: path U alone: U1 here, then
+    S_WORLD rank processes (``--tp-train-rank``) over ``gloo`` on the one
+    card for U2. The launches end the output as the line ``u_launches
+    {json}``."""
+    import shutil
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    SHARD_DIR.mkdir(parents=True)
+    found = path_u1(kern, card)
+    stamp(f"path U2 on {S_WORLD} ranks")
+    found.update(run_ranks("--tp-train-rank", SHARD_DIR, U_LAUNCHES,
+                           "path U"))
+    check(all(f"U2 rank {r}" in found for r in range(S_WORLD)),
+          "path U2: a rank reported no launches")
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    stamp("done")
+    print(U_LAUNCHES, json.dumps(found), flush=True)
+
+
+def tp_train_rank(kern, rank: int, card: str) -> None:
+    """``python3 chip_smoke.py --tp-train-rank R``: rank R of S_WORLD
+    over ``gloo`` on the one card, path U2 (``u_ranks``)."""
+    import datetime
+
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{SHARD_DIR / 'store'}", rank=rank,
+        world_size=S_WORLD, timeout=datetime.timedelta(seconds=300))
+    found = u_ranks(kern, rank, card)
+    dist.destroy_process_group()
+    print(U_LAUNCHES, json.dumps(found), flush=True)
+
+
 def run_ranks(flag: str, folder: Path, mark: str, prefix: str) -> dict:
     """S_WORLD processes of this script with ``flag R``, their output in
     ``folder``; each line of theirs that starts with ``prefix`` (or
@@ -5334,6 +5655,12 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--tp-rank"]:
         tp_rank(kern, int(sys.argv[2]), card)
+        return 0
+    if sys.argv[1:] == ["--tp-train"]:
+        tp_train_paths(kern, card)
+        return 0
+    if sys.argv[1:2] == ["--tp-train-rank"]:
+        tp_train_rank(kern, int(sys.argv[2]), card)
         return 0
     t_start = time.time()
     stamp('kernel phase')

@@ -23,7 +23,14 @@ Under an initialized ``torch.distributed`` process group of more than one
 rank (data parallelism: every rank holds the same, replicated state),
 rank 0 alone writes; every rank waits at a barrier once the write is
 done (at the next ``save``/``wait``/``restore``, or at once for a
-blocking save), and every rank restores from the same directory.
+blocking save), and every rank restores from the same directory. Given
+the model config and a mesh whose ``"model"`` axis is above 1 (a train
+state split over it), ``save`` writes the whole state, gathered from
+every model rank (``sharding.gather_train_state``; every rank takes
+part), and ``restore`` slices the whole state it reads
+(``sharding.shard_train_state``): a checkpoint restores over any
+``"model"`` size, and without a mesh, as the reference's global arrays
+do.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tasks import flatten_params
+from repro_torch.distributed import sharding
 
 _SEP = "::"
 
@@ -81,8 +89,11 @@ def _barrier() -> None:
 
 class CheckpointManager:
     def __init__(self, directory: str, keep_last: int = 3,
-                 async_save: bool = True):
+                 async_save: bool = True, cfg=None, mesh=None):
         self.dir = directory
+        # the train state's split over "model" (None: whole)
+        self._split = ((cfg, mesh) if sharding.model_size(mesh) > 1
+                       else None)
         self.keep_last = keep_last
         self.async_save = async_save
         self._thread: threading.Thread | None = None
@@ -110,6 +121,9 @@ class CheckpointManager:
         # snapshot to host memory synchronously, write on the background
         # thread (rank 0 alone, under a process group)
         self.wait()
+        if self._split is not None:
+            state = sharding.gather_train_state(
+                state, *self._split, sharding.DEFAULT_RULES)
         if _rank_world()[0] != 0:
             if blocking:
                 _barrier()
@@ -180,4 +194,8 @@ class CheckpointManager:
             manifest = json.load(f)
         flat = {k: np.load(os.path.join(d, k + ".npy"))
                 for k in manifest["leaves"]}
-        return _unflatten_into(template, flat), step
+        state = _unflatten_into(template, flat)
+        if self._split is not None:
+            state = sharding.shard_train_state(
+                state, *self._split, sharding.DEFAULT_RULES)
+        return state, step

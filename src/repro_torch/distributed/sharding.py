@@ -1,6 +1,8 @@
 """Logical-axis sharding rules over a ``torch.distributed`` device mesh.
 
-Port of ``src/repro/distributed/sharding.py``, for the mesh's data axis.
+Port of ``src/repro/distributed/sharding.py``: the mesh's data axis and
+its tensor-parallel ``"model"`` axis (the SSM mixers' ``"inner"`` split
+excepted).
 Every tensor dim carries a *logical name* ("batch", "items", ...). A rule
 maps a name to an ordered list of mesh-axis candidates; the resolver
 picks, per tensor, the first candidate that (a) exists in the mesh, (b)
@@ -28,16 +30,41 @@ Where the JAX package lets GSPMD place data, the port moves it itself:
   that it holds them (``models/moe.py`` averages its load-balance terms
   over the group then).
 * :func:`constrain` is the identity: activations stay where the model
-  code puts them. Under the tensor-parallel ``"model"`` axis (serving)
-  the model code splits its products itself: :func:`shard_params` gives
-  a rank its slices of the weights (the ``"model"`` entry of each dim,
-  :func:`shard_spec`, of ``param_axes(cfg)`` under :data:`SERVE_RULES`),
-  a layer reads from its weights' shapes whether they were split, and
-  :func:`model_all_reduce` / :func:`model_all_gather` put the partial
-  results together over the ``"model"`` process group (none is issued
-  on a group of one rank). Training over ``"model"`` is the next slice
-  of the port: those places raise :func:`check_model_axis`'s
-  ``NotImplementedError``.
+  code puts them. Under the tensor-parallel ``"model"`` axis the model
+  code splits its products itself: :func:`shard_params` gives a rank its
+  slices of the weights (the ``"model"`` entry of each dim,
+  :func:`shard_spec`, of ``param_axes(cfg)``; :func:`gather_params` puts
+  them back), and a layer reads from its weights' shapes whether they
+  were split.
+
+The ``"model"`` axis, in serving and in training, follows one
+convention. Every model rank computes the whole loss of its data rows.
+The layers join their partial results with three conjugate pairs, each
+a ``torch.autograd.Function`` (none issues a collective on a group of
+one rank, or records a graph where no gradient is asked for):
+
+* :func:`copy_to_model`: the identity forward, the gradient summed over
+  the ``"model"`` group backward (Megatron's "f"): the input of a
+  column-parallel weight;
+* :func:`reduce_from_model` (:func:`model_all_reduce`): the sum over the
+  group forward, the identity backward ("g"): the partial products of a
+  row-parallel weight;
+* :func:`gather_from_model` (:func:`model_all_gather`): the ranks'
+  blocks put together forward, this rank's block of the gradient
+  backward: serving's full logits.
+
+After the backward pass a leaf that is whole on every model rank has
+the same gradient on each, a split leaf has its own shard's, and a kv
+head held by several ranks (``attention.head_slices`` where m > KV) has
+its copies' gradients summed over the ranks that hold it
+(:func:`sum_kv_copies`). No other model-axis sum of gradients is made;
+the training loss takes the vocabulary-parallel cross-entropy
+(``layers.vocab_parallel_nll``). The data axis keeps its own
+convention: each rank's loss is a part that the ranks' parts sum to
+(:func:`differentiable_sum`), and the train step sums the gradients over
+the batch's ranks once. :func:`param_layout` says of each leaf whether it
+is split, whole or copied, which the global norm and the LC penalty
+read to count each weight once.
 
 Nothing here imports a collective backend at import time; the collectives
 run only where a mesh with a process group is given. ``gloo`` takes CUDA
@@ -47,6 +74,7 @@ which is how two ranks share one card, where NCCL refuses them.
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 
 import torch
@@ -98,10 +126,6 @@ SERVE_RULES = dict(DEFAULT_RULES)
 SERVE_RULES["embed"] = [()]
 SERVE_RULES["embed_pod"] = [()]
 
-#: what the next slice of the port brings (the message of the refusals
-#: of training over the "model" axis)
-NEXT_SLICE = ("tensor-parallel training over the \"model\" axis is the next "
-              "slice of the port (ROADMAP queue 1)")
 #: the message of the SSM mixers' refusal
 SSM_SLICE = ("the SSM mixers' \"inner\" split over the \"model\" axis is a "
              "later slice of the port (ROADMAP queue 1)")
@@ -113,7 +137,7 @@ def mesh_sizes(mesh) -> dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
 
 
-def check_model_axis(mesh, where: str, what: str = NEXT_SLICE) -> None:
+def check_model_axis(mesh, where: str, what: str) -> None:
     """Raise ``NotImplementedError`` naming the slice that brings it
     (``what``) when ``mesh`` has a ``"model"`` axis larger than 1
     (``where`` names the caller)."""
@@ -308,6 +332,9 @@ def gather_items(tree, mesh, entry):
         # is gathered once, and stays one tensor
         if id(x) not in done:
             blk = x.contiguous()
+            if n == 1:      # no collective on a group of one rank
+                done[id(x)] = blk.clone()
+                return done[id(x)]
             out = blk.new_empty((n * blk.shape[0], *blk.shape[1:]))
             dist.all_gather_into_tensor(out, blk, group=group)
             done[id(x)] = out
@@ -376,8 +403,27 @@ def batch_entry():
     return getattr(_CTX, "batch", None)
 
 
+def recompute_context():
+    """``context_fn`` of a non-reentrant ``torch.utils.checkpoint``: the
+    recomputation, which autograd runs on a thread of its own for CUDA
+    tensors, sees the active mesh, rules and batch entry of the forward
+    (this thread's, read now)."""
+    now = (getattr(_CTX, "state", None), getattr(_CTX, "batch", None))
+
+    @contextlib.contextmanager
+    def restore():
+        prev = (getattr(_CTX, "state", None), getattr(_CTX, "batch", None))
+        _CTX.state, _CTX.batch = now
+        try:
+            yield
+        finally:
+            _CTX.state, _CTX.batch = prev
+
+    return contextlib.nullcontext(), restore()
+
+
 # ----------------------------------------------------------------------
-# the tensor-parallel "model" axis (serving)
+# the tensor-parallel "model" axis
 # ----------------------------------------------------------------------
 def model_size(mesh) -> int:
     """The size of ``mesh``'s ``"model"`` axis (1 without a mesh)."""
@@ -409,82 +455,336 @@ def model_split(n_local: int, n_full: int, what: str) -> bool:
         raise ValueError(
             f"{what}: a weight of {n_local} of {n_full} along a split dim "
             f"is no shard of the active mesh's \"model\" axis ({m}): "
-            f"serve the tree that shard_params gives for this mesh")
+            f"run the tree that shard_params gives for this mesh")
     return True
 
 
-def model_all_reduce(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the active mesh's ``"model"`` group, in place
-    (returned): the partial products of a row-parallel weight. No
-    collective on a group of one rank."""
-    mesh = active_mesh()
-    if model_size(mesh) > 1:
-        import torch.distributed as dist
-        x = x.contiguous()
-        dist.all_reduce(x, group=entry_group(mesh, "model"))
+def model_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``x`` reduced over ``group`` in place (returned), by ``op`` ("sum"
+    or "max"): every collective of the ``"model"`` axis but the gathers
+    goes through here."""
+    import torch.distributed as dist
+    dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM, group=group)
     return x
 
 
-def model_all_gather(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+def model_gather(x: torch.Tensor, group, m: int) -> torch.Tensor:
+    """The ``m`` ranks' blocks of ``x`` (one shape on every rank) stacked
+    in rank order along a new leading axis: ``(m, *x.shape)``."""
+    import torch.distributed as dist
+    blk = x.contiguous().reshape(1, -1)
+    out = blk.new_empty((m, blk.shape[1]))
+    dist.all_gather_into_tensor(out, blk, group=group)
+    return out.reshape(m, *x.shape)
+
+
+def _join_blocks(stacked: torch.Tensor, dim: int) -> torch.Tensor:
+    """``(m, *shape)`` blocks put together along ``dim`` of ``shape``."""
+    shape = stacked.shape[1:]
+    return stacked.movedim(0, dim).reshape(*shape[:dim], -1,
+                                           *shape[dim + 1:])
+
+
+def _wants_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The identity; backward, the gradient summed over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return model_reduce(g.clone(memory_format=torch.contiguous_format),
+                            ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over the group; backward, the identity."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return model_reduce(x.clone(memory_format=torch.contiguous_format),
+                            group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The ranks' blocks along ``dim`` put together; backward, this
+    rank's block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, m, r, dim):
+        ctx.cut = (dim, r * x.shape[dim], x.shape[dim])
+        return _join_blocks(model_gather(x, group, m), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(*ctx.cut), None, None, None, None
+
+
+class _SumCopies(torch.autograd.Function):
+    """The identity on a rank's columns ``[lo, hi)`` of ``width``;
+    backward, the gradients of the ranks that hold the same columns
+    summed (one sum over the group of a zero-padded full width)."""
+
+    @staticmethod
+    def forward(ctx, w, group, lo, hi, width):
+        ctx.args = (group, lo, hi, width)
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, lo, hi, width = ctx.args
+        full = g.new_zeros((*g.shape[:-1], width))
+        full[..., lo:hi] = g
+        return (model_reduce(full, group)[..., lo:hi].contiguous(),
+                None, None, None, None)
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is, its gradient summed over the active mesh's
+    ``"model"`` group (the input of a column-parallel weight)."""
+    mesh = active_mesh()
+    if model_size(mesh) == 1 or not _wants_grad(x):
+        return x
+    return _CopyToModel.apply(x, entry_group(mesh, "model"))
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the active mesh's ``"model"`` group (the partial
+    products of a row-parallel weight), the gradient passed through.
+    Where no gradient is recorded the sum is made in place on ``x``."""
+    mesh = active_mesh()
+    if model_size(mesh) == 1:
+        return x
+    group = entry_group(mesh, "model")
+    if _wants_grad(x):
+        return _ReduceFromModel.apply(x, group)
+    return model_reduce(x.contiguous(), group)
+
+
+def gather_from_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """The ranks' blocks of ``x`` along ``dim`` put together in rank
-    order over the active mesh's ``"model"`` group (the columns of a
-    column-parallel product, the logits of a split vocabulary)."""
+    order over the active mesh's ``"model"`` group; the gradient of each
+    rank's block is its block of the output's."""
     mesh = active_mesh()
     m = model_size(mesh)
     if m == 1:
         return x
-    import torch.distributed as dist
-    blk = x.contiguous()
-    out = blk.new_empty((m * blk.shape[0], *blk.shape[1:]))
-    dist.all_gather_into_tensor(out, blk, group=entry_group(mesh, "model"))
-    out = out.reshape(m, *blk.shape).movedim(0, dim % x.ndim)
-    return out.reshape(*x.shape[:dim % x.ndim], -1,
-                       *x.shape[dim % x.ndim + 1:])
+    group = entry_group(mesh, "model")
+    if _wants_grad(x):
+        return _GatherFromModel.apply(x, group, m, model_rank(mesh),
+                                      dim % x.ndim)
+    return _join_blocks(model_gather(x, group, m), dim % x.ndim)
 
 
-def shard_params(params, cfg, mesh, rules: dict | None = None):
+def sum_kv_copies(w: torch.Tensor, lo: int, hi: int,
+                  width: int) -> torch.Tensor:
+    """``w``, a rank's columns ``[lo, hi)`` of a weight ``width`` wide
+    that other model ranks hold too (a kv head where m > KV), as it is;
+    its gradient summed over the ranks that hold the same columns."""
+    mesh = active_mesh()
+    if model_size(mesh) == 1 or not _wants_grad(w):
+        return w
+    return _SumCopies.apply(w, entry_group(mesh, "model"), lo, hi, width)
+
+
+#: the names the layers call (serving and training run one code path)
+model_all_reduce = reduce_from_model
+model_all_gather = gather_from_model
+
+
+# ----------------------------------------------------------------------
+# a tree's slices over the "model" axis
+# ----------------------------------------------------------------------
+class _Cuts:
+    """Every rank's slice of each leaf of ``cfg``'s tree over a
+    ``"model"`` axis of ``m`` (``mesh``'s), by path."""
+
+    def __init__(self, cfg, mesh, rules):
+        from repro_torch.models import transformer
+        self.cfg, self.mesh, self.m = cfg, mesh, model_size(mesh)
+        self.rules = SERVE_RULES if rules is None else rules
+        self.kinds = transformer.mixer_kinds(cfg)
+        self.axes = transformer.param_axes(cfg)
+        self.shapes = transformer.param_shapes(cfg)
+
+    def _at(self, tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
+
+    def __call__(self, path: tuple, r: int):
+        """``(dim, lo, hi)`` of rank ``r``'s slice of the leaf at ``path``
+        (a tuple of keys), or ``None`` where the leaf stays whole.
+        Attention and MLA split by whole heads
+        (``attention.head_slices``); the SSM mixers stay whole."""
+        from repro_torch.models import attention
+        shape = self._at(self.shapes, path)
+        if path[0] == "stages" and path[3] == "mixer":
+            kind = self.kinds[path[1:3]]
+            if kind not in ("attn", "mla"):
+                return None
+            cut = attention.head_slices(self.cfg, kind, path[-1], self.m, r)
+            if cut is None:
+                return None
+            rows, lo, hi = cut
+            return len(shape) - (2 if rows else 1), lo, hi
+        spec = shard_spec(tuple(self._at(self.axes, path)), shape,
+                          self.mesh, self.rules)
+        if "model" not in spec:
+            return None
+        d = spec.index("model")
+        per = shape[d] // self.m
+        return d, r * per, (r + 1) * per
+
+    def layout(self, path: tuple, r: int):
+        """``"whole"``, ``"split"``, or the number of ranks that hold
+        rank ``r``'s slice where it is held by more than one."""
+        cut = self(path, r)
+        if cut is None:
+            return "whole"
+        k = sum(self(path, q) == cut for q in range(self.m))
+        return k if k > 1 else "split"
+
+
+def _map_paths(tree, fn, path=()):
+    """``fn(leaf, path)`` over a nested tree (``path`` a tuple of keys)."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(v, fn, path + (k,)) for k, v in tree.items()}
+    return fn(tree, path)
+
+
+def _map_flat(flat: dict, fn):
+    """``fn(leaf, path)`` over a dict keyed by ``"a/b/c"`` paths (the LC
+    refs)."""
+    return {p: fn(v, tuple(p.split("/"))) for p, v in flat.items()}
+
+
+def shard_params(params, cfg, mesh, rules: dict | None = None,
+                 flat: bool = False):
     """This rank's tree of ``params`` (the whole tree, dense tensors or
-    weight forms) over ``mesh``'s ``"model"`` axis.
+    weight forms) over ``mesh``'s ``"model"`` axis; ``flat``: a dict of
+    leaves keyed by ``"a/b/c"`` paths (the LC refs).
 
     Each leaf of ``param_axes(cfg)`` is sliced on the dim that
     :func:`shard_spec` resolves to ``"model"`` under ``rules``
-    (:data:`SERVE_RULES` by default): the rank's even block, copied, so
-    that the whole tree can be dropped. A leaf where no dim resolves
-    stays whole (the same tensor). Attention and MLA split by whole heads
-    (``attention.head_slices``) and run whole where the heads do not
-    divide; the SSM mixers stay whole (their ``"inner"`` split is a
-    later slice, and they refuse a ``"model"`` axis above 1). On a
-    ``"model"`` axis of 1 the tree is returned as it is."""
-    from repro_torch.models import attention, layers, transformer
+    (:data:`SERVE_RULES` by default; :data:`DEFAULT_RULES`, which
+    training takes, gives the same ``"model"`` entries): the rank's even
+    block, copied, so that the whole tree can be dropped. A leaf where
+    no dim resolves stays whole (the same tensor). Attention and MLA
+    split by whole heads (``attention.head_slices``) and run whole where
+    the heads do not divide; the SSM mixers stay whole (their
+    ``"inner"`` split is a later slice, and they refuse a ``"model"``
+    axis above 1). On a ``"model"`` axis of 1 the tree is returned as it
+    is."""
+    from repro_torch.models import layers
+    if model_size(mesh) == 1:
+        return params
+    cuts, r = _Cuts(cfg, mesh, rules), model_rank(mesh)
+
+    def shard(leaf, path):
+        cut = cuts(path, r)
+        return leaf if cut is None else layers.slice_weight(leaf, *cut)
+
+    return (_map_flat if flat else _map_paths)(params, shard)
+
+
+def _gather_parts(leaf, group, m: int) -> list:
+    """Every rank's ``leaf`` (a tensor of one shape on every rank, or a
+    weight form, whose tensors may differ in size), in rank order."""
+    if isinstance(leaf, torch.Tensor):
+        return list(model_gather(leaf, group, m).unbind(0))
+    import copy
+    parts = [copy.copy(leaf) for _ in range(m)]
+    for name, val in vars(leaf).items():
+        if not isinstance(val, torch.Tensor):
+            continue
+        sizes = model_gather(torch.tensor(val.shape, dtype=torch.int64,
+                                          device=val.device), group, m)
+        n = int(sizes.prod(dim=1).max())
+        flat = val.reshape(-1)
+        blocks = model_gather(torch.cat([flat, flat.new_zeros(
+            n - flat.numel())]), group, m)
+        for p, blk, size in zip(parts, blocks, sizes.tolist()):
+            setattr(p, name, blk[:math.prod(size)].reshape(size).clone())
+    return parts
+
+
+def gather_params(params, cfg, mesh, rules: dict | None = None,
+                  flat: bool = False):
+    """The inverse of :func:`shard_params`: the whole tree from every
+    model rank's slices, put back together in rank order (an all-gather
+    over ``mesh``'s ``"model"`` group; the same tree on every rank). A
+    slice that several ranks hold (a kv head where m > KV) is taken once;
+    a weight form is put back in its own layout
+    (``layers.join_weight``)."""
+    from repro_torch.models import layers
     m = model_size(mesh)
     if m == 1:
         return params
-    r = model_rank(mesh)
-    rules = SERVE_RULES if rules is None else rules
-    kinds = transformer.mixer_kinds(cfg)
+    cuts, group = _Cuts(cfg, mesh, rules), entry_group(mesh, "model")
 
-    def shard(leaf, names, path):
-        shape = tuple(leaf.shape)
-        if path[0] == "stages" and path[3] == "mixer":
-            kind = kinds[path[1:3]]
-            if kind not in ("attn", "mla"):
-                return leaf
-            cut = attention.head_slices(cfg, kind, path[-1], m, r)
-            if cut is None:
-                return leaf
-            rows, lo, hi = cut
-            return layers.slice_weight(leaf, len(shape) - (2 if rows else 1),
-                                       lo, hi)
-        spec = shard_spec(tuple(names), shape, mesh, rules)
-        if "model" not in spec:
+    def gather(leaf, path):
+        every = [cuts(path, r) for r in range(m)]
+        if every[0] is None:
             return leaf
-        d = spec.index("model")
-        per = shape[d] // m
-        return layers.slice_weight(leaf, d, r * per, (r + 1) * per)
+        parts = dict(zip(every, _gather_parts(leaf, group, m)))
+        return layers.join_weight([parts[c] for c in sorted(parts)],
+                                  every[0][0])
 
-    def walk(tree, axes, path):
-        if isinstance(tree, dict):
-            return {k: walk(v, axes[k], path + (k,)) for k, v in tree.items()}
-        return shard(tree, axes, path)
+    return (_map_flat if flat else _map_paths)(params, gather)
 
-    return walk(params, transformer.param_axes(cfg), ())
+
+def param_layout(cfg, mesh, rules: dict | None = None) -> dict:
+    """Each leaf of ``cfg``'s tree on this rank of ``mesh``'s ``"model"``
+    axis, in the tree's structure: ``"split"`` (a slice no other model
+    rank holds), ``"whole"`` (the same leaf on every model rank), or the
+    number of model ranks that hold the same slice (a kv head where m >
+    KV)."""
+    from repro_torch.models import transformer
+    cuts, r = _Cuts(cfg, mesh, rules), model_rank(mesh)
+    return _map_paths(transformer.param_axes(cfg),
+                      lambda _, path: cuts.layout(path, r))
+
+
+def _map_state(state, cfg, mesh, rules, fn):
+    """``fn(tree, cfg, mesh, rules, flat=...)`` over a train state's
+    parameter-shaped parts: the params, every tree of the optimizer
+    state, and the LC refs ``a`` and λ (keyed by path)."""
+    out = dict(state)
+    out["params"] = fn(state["params"], cfg, mesh, rules)
+    if "opt" in state:
+        out["opt"] = {k: fn(v, cfg, mesh, rules) if isinstance(v, dict)
+                      else v for k, v in state["opt"].items()}
+    if "lc" in state:
+        out["lc"] = dict(state["lc"], **{
+            k: fn(state["lc"][k], cfg, mesh, rules, flat=True)
+            for k in ("a", "lam")})
+    return out
+
+
+def shard_train_state(state, cfg, mesh, rules: dict | None = None):
+    """This rank's train state from the whole one (:func:`shard_params`
+    of its params, optimizer trees and LC refs); step and μ as they
+    are. On a ``"model"`` axis of 1 the state is returned as it is."""
+    if model_size(mesh) == 1:
+        return state
+    return _map_state(state, cfg, mesh, rules, shard_params)
+
+
+def gather_train_state(state, cfg, mesh, rules: dict | None = None):
+    """The whole train state from every model rank's
+    (:func:`gather_params`), the same on every rank."""
+    if model_size(mesh) == 1:
+        return state
+    return _map_state(state, cfg, mesh, rules, gather_params)

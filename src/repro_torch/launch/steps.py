@@ -11,17 +11,27 @@ multipliers ``λ`` ride in the train state beside the params:
 The step is functional, as the reference's jitted one: it returns a new
 state and writes nothing of the state it is given.
 
-Under an active mesh (``distributed.sharding.use_mesh``, a ``"model"``
-axis of 1) whose batch axes divide the global batch (the "batch" rule),
-the step is data-parallel: every rank is handed the whole global batch
-and takes its own rows; the loss is the global mean, each rank's token
-sum over the global token count (the MoE load-balance terms averaged
-over the ranks, ``models/moe.py``); the gradients are summed over the
-batch's ranks with one ``all_reduce`` per dtype before clipping and
-AdamW. Parameters, optimizer state, λ, ``a`` and μ stay replicated (not
-FSDP-sharded over "embed" as in the reference: the same values, more
-memory), and every rank applies the same update. Where no batch axis
-divides the batch, every rank runs the whole step, as without a mesh.
+Under an active mesh (``distributed.sharding.use_mesh``) whose batch
+axes divide the global batch (the "batch" rule), the step is
+data-parallel: every rank is handed the whole global batch and takes the
+rows of its data coordinate; the loss is the global mean, each rank's
+token sum over the global token count (the MoE load-balance terms
+averaged over the ranks, ``models/moe.py``); the gradients are summed
+over the batch's ranks with one ``all_reduce`` per dtype before clipping
+and AdamW. Where no batch axis divides the batch, every rank runs the
+whole step, as without a mesh.
+
+Over a ``"model"`` axis above 1 the step takes this rank's tree of
+``sharding.shard_params`` (and the LC refs ``a``, λ as slices of the same
+split): every model rank computes the whole loss of its rows, the layers
+sum their partial products and their inputs' gradients over the
+``"model"`` group (the convention of ``distributed/sharding.py``), the
+LC penalty is summed over the rank's slices, the global norm counts each
+weight once (``sharding.param_layout``), and AdamW runs on the shards.
+The reported ``loss``, ``ce``, ``lc_penalty`` and ``grad_norm`` are the
+whole model's, the same on every rank. Parameters, optimizer state, λ,
+``a`` and μ are not FSDP-sharded over "embed" as in the reference (the
+same values, more memory).
 """
 from __future__ import annotations
 
@@ -45,16 +55,26 @@ def lc_param_paths(params) -> list[str]:
     return [p for p, l in flat.items() if getattr(l, "ndim", 0) >= 2]
 
 
+def _penalty_terms(params, a: dict, lam: dict, mu: torch.Tensor):
+    """(path, μ/2‖w − a − λ/μ‖²) of each ref, differentiable in w."""
+    for p, a_leaf in a.items():
+        w = get_path(params, p).float()
+        d = w - a_leaf - lam[p] / mu
+        yield p, 0.5 * mu * torch.sum(d * d)
+
+
+def _sum_terms(terms, device) -> torch.Tensor:
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    for _, term in terms:
+        total = total + term
+    return total
+
+
 def lc_penalty_from_refs(params, a: dict, lam: dict,
                          mu: torch.Tensor) -> torch.Tensor:
     """Σ μ/2‖w − a − λ/μ‖² over the refs' paths, differentiable in the
     params (unlike ``LCAlgorithm.penalty``, a monitor under no_grad)."""
-    total = torch.zeros((), dtype=torch.float32, device=mu.device)
-    for p, a_leaf in a.items():
-        w = get_path(params, p).float()
-        d = w - a_leaf - lam[p] / mu
-        total = total + 0.5 * mu * torch.sum(d * d)
-    return total
+    return _sum_terms(_penalty_terms(params, a, lam, mu), mu.device)
 
 
 def init_lc_refs(params, paths: list[str]) -> dict:
@@ -113,19 +133,54 @@ def _sum_grads(grads: list, group) -> list:
     return out
 
 
-def make_train_step(cfg, optimizer: AdamW | None = None,
-                    lr: float | Callable = 3e-4,
-                    clip_norm: float = 1.0,
-                    with_lc: bool = True):
-    optimizer = optimizer or AdamW()
-    lr_fn = lr if callable(lr) else (lambda step: lr)
+class _ModelAxis:
+    """The ``"model"`` group of a mesh whose ``"model"`` axis is above 1,
+    and each leaf's layout on this rank (``sharding.param_layout``)."""
 
-    def train_step(state, batch):
+    def __init__(self, cfg, mesh, rules):
+        self.group = sharding.entry_group(mesh, "model")
+        self.layout = sharding.param_layout(cfg, mesh, rules)
+        self.flat = flatten_params(self.layout)
+
+    def penalty(self, terms, like: torch.Tensor) -> torch.Tensor:
+        """The whole tree's penalty from this rank's terms: split leaves
+        summed over the group, a leaf held by k ranks at 1/k on each,
+        whole leaves once (a 0-d tensor like ``like``)."""
+        whole = torch.zeros_like(like)
+        shared = torch.zeros_like(whole)
+        for p, t in terms:
+            where = self.flat[p]
+            if where == "whole":
+                whole = whole + t
+            else:
+                shared = shared + (t if where == "split" else t / where)
+        return sharding.model_reduce(shared, self.group) + whole
+
+
+def make_value_and_grad(cfg, with_lc: bool = True):
+    """``value_and_grad(state, batch) -> (loss, metrics, grads)``: the
+    train step's loss (model loss plus the LC penalty) and its gradients
+    with respect to ``state["params"]`` (this rank's shards under a
+    ``"model"`` axis above 1, summed over the batch's ranks), before
+    clipping. ``loss`` and the metrics are the global values, the same
+    on every rank. Its ``model_axis(mesh)`` gives the ``"model"`` group
+    and the leaves' layout for the clip (``None`` at ``"model"`` 1)."""
+    axes: dict = {}
+
+    def model_axis(mesh):
+        if sharding.model_size(mesh) == 1:
+            return None
+        if axes.get("mesh") is not mesh:
+            axes["mesh"], axes["axis"] = mesh, _ModelAxis(
+                cfg, mesh, sharding.active_rules())
+        return axes["axis"]
+
+    def value_and_grad(state, batch):
         params = tree_map(lambda t: t.detach().requires_grad_(True),
                           state["params"])
         leaves = tree_leaves(params)
         mesh = sharding.active_mesh()
-        sharding.check_model_axis(mesh, "train_step")
+        tp = model_axis(mesh)
         split = (None if mesh is None else sharding.batch_shard(
             batch["labels"].shape[0], mesh, sharding.active_rules()))
         group, n, entry = None, 1, None
@@ -139,11 +194,17 @@ def make_train_step(cfg, optimizer: AdamW | None = None,
                 loss, metrics = loss_fn(params, batch, cfg)
             else:
                 loss, metrics = _shard_loss(params, batch, cfg, group, n)
+            base = loss
             if with_lc:
                 lc = state["lc"]
-                pen = lc_penalty_from_refs(params, lc["a"], lc["lam"],
-                                           lc["mu"])
-                metrics = dict(metrics, lc_penalty=pen)
+                terms = list(_penalty_terms(params, lc["a"], lc["lam"],
+                                            lc["mu"]))
+                pen = _sum_terms(terms, lc["mu"].device)
+                # under "model" each rank's penalty is its slices' (their
+                # gradients); the metric is the whole tree's
+                shown = pen if tp is None else tp.penalty(
+                    [(p, t.detach()) for p, t in terms], pen.detach())
+                metrics = dict(metrics, lc_penalty=shown)
                 # every rank holds the penalty whole: its n parts sum
                 # to it
                 loss = loss + (pen if group is None else pen / n)
@@ -151,16 +212,38 @@ def make_train_step(cfg, optimizer: AdamW | None = None,
         if group is not None:
             grads = _sum_grads(grads, group)
             loss = sharding.all_reduce_sum(loss.detach().clone(), group)
+        if tp is not None and with_lc:
+            if group is not None:
+                base = sharding.all_reduce_sum(base.detach().clone(), group)
+            loss = base.detach() + metrics["lc_penalty"]
         grads = iter(grads)
         grads = tree_map(lambda _: next(grads), params)
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return loss.detach(), metrics, grads
+
+    value_and_grad.model_axis = model_axis
+    return value_and_grad
+
+
+def make_train_step(cfg, optimizer: AdamW | None = None,
+                    lr: float | Callable = 3e-4,
+                    clip_norm: float = 1.0,
+                    with_lc: bool = True):
+    optimizer = optimizer or AdamW()
+    lr_fn = lr if callable(lr) else (lambda step: lr)
+    value_and_grad = make_value_and_grad(cfg, with_lc)
+
+    def train_step(state, batch):
+        loss, metrics, grads = value_and_grad(state, batch)
+        tp = value_and_grad.model_axis(sharding.active_mesh())
+        group, layout = (None, None) if tp is None else (tp.group,
+                                                         tp.layout)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm, group, layout)
         new_params, opt_state = optimizer.update(
             grads, state["opt"], state["params"], lr_fn(state["step"]))
         new_state = dict(state, params=new_params, opt=opt_state,
                          step=state["step"] + 1)
-        metrics = {k: v.detach() for k, v in
-                   dict(metrics, loss=loss, grad_norm=gnorm).items()}
-        return new_state, metrics
+        return new_state, dict(metrics, loss=loss, grad_norm=gnorm)
 
     return train_step
 

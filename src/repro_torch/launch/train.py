@@ -9,10 +9,13 @@ Port of ``src/repro/launch/train.py``. Runs on the card unless
 The trainer runs over a mesh, as the reference's: ``make_debug_mesh``'s
 one-rank ``("data", "model")`` mesh by default (a one-rank process group
 set up in this process), or ``--mesh DATA,MODEL`` sizes for a
-``torchrun`` launch, one process a rank (``torchrun --nproc-per-node 2
--m repro_torch.launch.train --mesh 2,1 ...``), data-parallel over the
-global batch. A ``"model"`` size above 1 raises: tensor-parallel
-training is the next slice of the port.
+``torchrun`` launch, one process a rank: data-parallel over the global
+batch (``torchrun --nproc-per-node 2 -m repro_torch.launch.train --mesh
+2,1 ...``), tensor-parallel over ``"model"`` (``--mesh 1,2``: each rank
+holds its slices of the weights, the optimizer state and the LC refs;
+the C step runs on the weights gathered whole), or both (``--mesh
+2,2``). The SSM mixers (jamba, xlstm) do not split over ``"model"``
+yet: a ``MODEL`` size above 1 raises for them.
 
 LC-compressed training end to end: data stream → L steps (train step
 with the LC penalty, AdamW) → C steps → multipliers, with checkpointing

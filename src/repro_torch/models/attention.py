@@ -24,7 +24,11 @@ by several ranks when m > KV), the cache holds the rank's kv heads, K6
 runs on them, and ``wo`` is row-parallel: its partial sums are added
 over the ``"model"`` group. MLA splits ``wuq`` and ``wukv`` by whole
 heads (their flat dims are head-major) and ``wo`` by rows; its latent
-cache stays whole on every rank. Where the heads do not split evenly
+cache stays whole on every rank. In training the split products' inputs
+(``x``; MLA's normed latents and k_rope) take ``sharding.copy_to_model``,
+so that their gradients are summed over the group, and a kv head held by
+several ranks sums its copies' gradients (``sharding.sum_kv_copies``).
+Where the heads do not split evenly
 (:func:`attn_split`, :func:`head_slices`) the layer runs whole on every
 model rank: the reference's GSPMD can split ``"heads_flat"`` in the
 middle of a head, a kernel over whole heads cannot. Each forward reads
@@ -214,14 +218,33 @@ def blockwise_attention(q, k, v, q_positions, k_positions, *,
     return out.reshape(b, sq, h, dv)
 
 
+def _kv_weights(params, cfg, h: int):
+    """``wk`` and ``wv`` for the forward; where other model ranks hold the
+    same kv head (m > KV), their gradients are summed over those ranks
+    (``sharding.sum_kv_copies``)."""
+    wk, wv = params["wk"], params["wv"]
+    m = cfg.n_heads // h
+    if h == cfg.n_heads or m <= cfg.n_kv_heads:
+        return wk, wv
+    r = sharding.model_rank(sharding.active_mesh())
+    _, lo, hi = head_slices(cfg, "attn", "wk", m, r)
+    width = cfg.n_kv_heads * cfg.head_dim
+    return (sharding.sum_kv_copies(wk, lo, hi, width),
+            sharding.sum_kv_copies(wv, lo, hi, width))
+
+
 def attn_forward(params, x, cfg, spec, positions, return_cache=False):
     """Full-sequence attention (prefill). x: (B, S, d_model)."""
     b, s, _ = x.shape
     dt = x.dtype
     h, kvh = _local_heads(params, cfg)
+    wk, wv = params["wk"], params["wv"]
+    if h < cfg.n_heads:
+        x = sharding.copy_to_model(x)
+        wk, wv = _kv_weights(params, cfg, h)
     q = apply_w(x, params["wq"], dt).reshape(b, s, h, cfg.head_dim)
-    k = apply_w(x, params["wk"], dt).reshape(b, s, kvh, cfg.head_dim)
-    v = apply_w(x, params["wv"], dt).reshape(b, s, kvh, cfg.head_dim)
+    k = apply_w(x, wk, dt).reshape(b, s, kvh, cfg.head_dim)
+    v = apply_w(x, wv, dt).reshape(b, s, kvh, cfg.head_dim)
     q = constrain(apply_rope(q, positions, cfg.rope_theta),
                   ("batch", "seq", "heads", None))
     k = constrain(apply_rope(k, positions, cfg.rope_theta),
@@ -380,9 +403,12 @@ def _mla_qkv(params, x, cfg, positions):
     b, s, _ = x.shape
     dt = x.dtype
     h = _mla_heads(params, cfg)
+    # a rank's heads read the whole latents: their gradients summed over
+    # the "model" group where the heads are split
+    to_heads = sharding.copy_to_model if h < cfg.n_heads else (lambda t: t)
     cq = rms_norm(apply_w(x, params["wdq"], dt), params["q_norm"],
                   cfg.norm_eps)
-    q = apply_w(cq, params["wuq"], dt).reshape(
+    q = apply_w(to_heads(cq), params["wuq"], dt).reshape(
         b, s, h, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
@@ -392,10 +418,11 @@ def _mla_qkv(params, x, cfg, positions):
                               dim=-1)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
     ckv_n = rms_norm(ckv, params["kv_norm"], cfg.norm_eps)
-    kv = (ckv_n @ wload(params["wukv"], dt)).reshape(
+    kv = (to_heads(ckv_n) @ wload(params["wukv"], dt)).reshape(
         b, s, h, m.qk_nope_dim + m.v_head_dim)
     k_nope, v = torch.split(kv, [m.qk_nope_dim, m.v_head_dim], dim=-1)
-    k = torch.cat([k_nope, k_rope.expand(b, s, h, m.qk_rope_dim)], dim=-1)
+    k = torch.cat([k_nope, to_heads(k_rope).expand(b, s, h, m.qk_rope_dim)],
+                  dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     return q, k, v.contiguous(), ckv_n, k_rope
 

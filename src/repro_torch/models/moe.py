@@ -39,8 +39,13 @@ Over a ``"model"`` axis of m ranks the expert stacks are split as
 
 then the ranks' partial outputs are summed over the ``"model"`` group
 (the reference's ``psum`` over "model"). The router is whole on every
-rank; the shared experts split as a dense FFN, and their partial sums
-join the routed experts' in one ``all_reduce``.
+rank, so each rank routes all of its tokens at one process's capacity
+and drops what the reference drops; the shared experts split as a dense
+FFN, and their partial sums join the routed experts' in one
+``all_reduce``. In training the routed tokens, their gates and the
+shared experts' input take ``sharding.copy_to_model``: their gradients
+are summed over the group, and the router's and the load-balance loss's
+stay whole on every rank.
 """
 from __future__ import annotations
 
@@ -151,13 +156,19 @@ def _dispatch_compute(x, gates, idx, wg, wu, wd, *, e0: int, e_local: int,
 
 
 def _moe_local(x, router_w, wg, wu, wd, cfg, *, e0: int, e_local: int,
-               capacity: int, batch_group=None):
+               capacity: int, batch_group=None, split: bool = False):
     """x: (T, d) tokens → (y (T, d), aux 0-d f32). ``batch_group``: the
     process group whose ranks hold the other tokens of the batch, over
-    which ``f_e`` and ``P_e`` are averaged."""
+    which ``f_e`` and ``P_e`` are averaged. ``split``: the expert stacks
+    are this rank's share over "model", so the routed tokens and their
+    gates take ``sharding.copy_to_model`` (their gradients summed over
+    the group; the router and the load-balance loss stay whole)."""
     m = cfg.moe
     probs, gates, idx = route(x, router_w, cfg)
-    y = _dispatch_compute(x, gates, idx, wg, wu, wd, e0=e0, e_local=e_local,
+    xe, ge = x, gates
+    if split:
+        xe, ge = sharding.copy_to_model(x), sharding.copy_to_model(gates)
+    y = _dispatch_compute(xe, ge, idx, wg, wu, wd, e0=e0, e_local=e_local,
                           capacity=capacity, dtype=x.dtype)
     # Switch-style load-balance loss: E · Σ_e f_e · P_e
     e = m.n_experts
@@ -203,15 +214,17 @@ def moe_ffn(params, x, cfg, mesh=None):
     y, aux = _moe_local(
         x.reshape(b * s, d), params["router"], params["w_gate"],
         params["w_up"], params["w_down"], cfg, e0=e0, e_local=e_local,
-        capacity=capacity_for(b * s, cfg), batch_group=group)
+        capacity=capacity_for(b * s, cfg), batch_group=group,
+        split=ep or tp)
     y = y.reshape(b, s, d)
     if m.n_shared == 0:
         return (sharding.model_all_reduce(y) if ep or tp else y), aux.float()
-    g = apply_w(x, params["sw_gate"], dtype)
-    u = apply_w(x, params["sw_up"], dtype)
-    ys = apply_w(F.silu(g) * u, params["sw_down"], dtype)
     shared = sharding.model_split(params["sw_down"].shape[0],
                                   m.n_shared * m.d_expert, "shared experts")
+    xs = sharding.copy_to_model(x) if shared else x
+    g = apply_w(xs, params["sw_gate"], dtype)
+    u = apply_w(xs, params["sw_up"], dtype)
+    ys = apply_w(F.silu(g) * u, params["sw_down"], dtype)
     if (ep or tp) and shared:     # one sum over "model" for both partials
         return sharding.model_all_reduce(y + ys), aux.float()
     if ep or tp:

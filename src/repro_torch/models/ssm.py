@@ -48,7 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import constrain
-from repro_torch.models.layers import apply_w, dense_init, rms_norm
+from repro_torch.models.layers import apply_w, dense_init, randn, rms_norm
 
 M_FLOOR = -30.0      # the stabilizer's floor (keeps exp(-m) finite)
 
@@ -516,8 +516,7 @@ def init_slstm(gen: torch.Generator, cfg) -> dict:
     di, dh, ff = slstm_dims(cfg)
     dev = gen.device
     w = dense_init(gen, (cfg.d_model, 4 * di))
-    r = torch.randn((4, cfg.n_heads, dh, dh), generator=gen, device=dev,
-                    dtype=torch.float32) / math.sqrt(dh)
+    r = randn(gen, (4, cfg.n_heads, dh, dh)) / math.sqrt(dh)
     b = torch.zeros((4 * di,), device=dev)
     b[di:2 * di] = 3.0                    # forget-gate bias (order i,f,z,o)
     return {

@@ -13,20 +13,30 @@ each repetition (or unrolled block) with
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, as the
 reference wraps its scan body and blocks in ``jax.checkpoint``; the
 training loss (``loss_fn``) takes the cross-entropy in sequence chunks
-that are checkpointed too, so (B, S, vocab) logits are never held.
+that are checkpointed too, so (B, S, vocab) logits are never held, and
+over a vocabulary split on the "model" axis no rank holds a chunk's
+whole vocabulary either (``layers.vocab_parallel_nll``). Every rank
+recomputes its checkpoints in the same order, so the collectives in
+them meet, and the recomputation sees the forward's mesh and batch
+split (``sharding.recompute_context``: autograd recomputes CUDA
+tensors' checkpoints on a thread of its own).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import active_mesh, constrain
+from repro_torch.distributed.sharding import (
+    active_mesh, constrain, recompute_context)
 from repro_torch.interop import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import (
-    cdtype, dense_ffn, embed, init_dense_ffn, init_embed, rms_norm, unembed)
+    MetaGenerator, cdtype, dense_ffn, embed, init_dense_ffn, init_embed,
+    local_logits, rms_norm, unembed, vocab_parallel_nll)
 
 
 # mixer registry: init, forward, decode, cache-init
@@ -162,6 +172,20 @@ def init_params(gen: torch.Generator, cfg) -> dict:
     return params
 
 
+@functools.lru_cache(maxsize=None)
+def param_shapes(cfg) -> dict:
+    """The shape of every parameter leaf (the tree of
+    :func:`init_params`) at ``cfg``'s widths, from an init on the meta
+    device (no memory). The tree is shared: do not change it."""
+    return _shapes_of(init_params(MetaGenerator(), cfg))
+
+
+def _shapes_of(tree):
+    if isinstance(tree, dict):
+        return {k: _shapes_of(v) for k, v in tree.items()}
+    return tuple(tree.shape)
+
+
 def _rep(tree, i: int):
     """One repetition's params out of a stage's stacked params."""
     if isinstance(tree, dict):
@@ -243,7 +267,8 @@ def forward_hidden(params, inputs, cfg, return_caches: bool = False):
                 first = 0
                 for specs in groups:
                     x, a = checkpoint(_apply_blocks, specs, first, rp, x,
-                                      cfg, positions, use_reentrant=False)
+                                      cfg, positions, use_reentrant=False,
+                                      context_fn=recompute_context)
                     if a is not None:
                         aux_total = aux_total + a
                     first += len(specs)
@@ -368,9 +393,14 @@ def prefill(params, inputs, cfg, max_len: int | None = None):
 # Training loss
 # ----------------------------------------------------------------------
 def _chunk_nll(embed_params, h, labels, mask, cfg):
-    """(Σ masked NLL, Σ mask) of one sequence chunk, in float32."""
-    logits = constrain(unembed(embed_params, h, cfg),
-                       ("batch", "seq", "vocab")).float()
+    """(Σ masked NLL, Σ mask) of one sequence chunk, in float32. Where
+    the vocabulary is split over "model" each rank keeps its own logits
+    (``layers.vocab_parallel_nll``)."""
+    logits, v0 = local_logits(embed_params, h, cfg)
+    if v0 is not None:
+        return (torch.sum(vocab_parallel_nll(logits, labels, v0) * mask),
+                torch.sum(mask))
+    logits = constrain(logits, ("batch", "seq", "vocab")).float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, labels.long()[..., None],
                                 dim=-1)[..., 0]
@@ -381,7 +411,8 @@ def chunked_nll(params, hidden, labels, cfg, chunk: int = 512, mask=None):
     """(Σ masked NLL, Σ mask), sequence-chunked: never materializes (B,
     S, V). Chunks are summed in order, each recomputed in the backward
     pass when gradients are recorded (the reference's checkpointed
-    scan)."""
+    scan); over a split vocabulary the recomputation issues the chunk's
+    collectives again, in the same order on every rank."""
     b, s, d = hidden.shape
     c = min(chunk, s)
     assert s % c == 0
@@ -394,7 +425,8 @@ def chunked_nll(params, hidden, labels, cfg, chunk: int = 512, mask=None):
         args = (params["embed"], hidden[:, i:i + c], labels[:, i:i + c],
                 mask[:, i:i + c], cfg)
         if torch.is_grad_enabled():
-            nll, n = checkpoint(_chunk_nll, *args, use_reentrant=False)
+            nll, n = checkpoint(_chunk_nll, *args, use_reentrant=False,
+                                context_fn=recompute_context)
         else:
             nll, n = _chunk_nll(*args)
         total = total + nll

@@ -14,6 +14,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -82,19 +83,39 @@ class SGDM:
 
 
 @torch.no_grad()
-def global_norm(tree) -> torch.Tensor:
-    """√(Σ‖leaf‖²) in float32, summed leaf by leaf in tree order."""
+def global_norm(tree, group=None, layout=None) -> torch.Tensor:
+    """√(Σ‖leaf‖²) in float32, summed leaf by leaf in tree order.
+
+    Over a tensor-parallel ``"model"`` ``group`` (``None``: the tree is
+    whole here), ``layout`` gives each leaf's place in the tree's
+    structure (``sharding.param_layout``): ``"split"`` leaves' squares
+    are summed over the group, a leaf held by ``k`` ranks counts ``1/k``
+    on each, and ``"whole"`` leaves count once: the norm of the whole
+    tree, the same on every rank."""
     leaves = tree_leaves(tree)
     total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    for leaf in leaves:
-        total = total + torch.sum(torch.square(leaf.float()))
-    return torch.sqrt(total)
+    if group is None:
+        for leaf in leaves:
+            total = total + torch.sum(torch.square(leaf.float()))
+        return torch.sqrt(total)
+    shared = torch.zeros_like(total)
+    for leaf, where in zip(leaves, tree_leaves(tree_map(
+            lambda _, f: f, tree, layout))):
+        sq = torch.sum(torch.square(leaf.float()))
+        if where == "whole":
+            total = total + sq
+        elif where == "split":
+            shared = shared + sq
+        else:
+            shared = shared + sq / where
+    return torch.sqrt(sharding.model_reduce(shared, group) + total)
 
 
 @torch.no_grad()
-def clip_by_global_norm(tree, max_norm: float):
-    """(tree scaled so its global norm is at most ``max_norm``, norm)."""
-    n = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, group=None, layout=None):
+    """(tree scaled so its global norm is at most ``max_norm``, norm);
+    ``group`` and ``layout`` as :func:`global_norm` takes them."""
+    n = global_norm(tree, group, layout)
     # tensor / tensor: a Python number over a tensor would multiply by
     # a rounded reciprocal
     scale = torch.clamp_max(

@@ -29,7 +29,8 @@ quantized weight keeps its whole codebook (as the reference's
 rows in byte pairs; a row block that starts at an odd row or ends at an
 odd row inside the matrix is unpacked and packed again once); a low-rank
 weight slices ``vt`` (columns) or ``u`` (rows); a sparse weight keeps the
-entries in the block, rebased, in their order.
+entries in the block, rebased, in their order. Each form puts its blocks
+back together in its own layout too (``sharding.gather_params``).
 """
 from __future__ import annotations
 
@@ -164,12 +165,57 @@ def _sparse_slice(w: SparseWeight, dim: int, lo: int, hi: int):
                         cols.to(torch.int32), shape)
 
 
+def _quant_join(parts, dim: int):
+    k, n = parts[0].shape
+    bits, cb = parts[0].bits, parts[0].codebook
+    if dim == 1:
+        return QuantizedWeight(torch.cat([p.packed for p in parts], dim=1),
+                               cb, (k, sum(p.shape[1] for p in parts)),
+                               bits)
+    rows = [p.shape[0] for p in parts]
+    if bits == 8:
+        packed = torch.cat([p.packed for p in parts])
+    elif all(r % 2 == 0 for r in rows[:-1]):
+        # whole byte pairs (the last block of an odd K keeps its pad row)
+        packed = torch.cat([p.packed for p in parts])
+    else:
+        packed = quant_ops.pack4(torch.cat(
+            [quant_ops.unpack4(p.packed)[:r] for p, r in zip(parts, rows)]))
+    return QuantizedWeight(packed, cb, (sum(rows), n), bits)
+
+
+def _lowrank_join(parts, dim: int):
+    if dim == 1:
+        return LowRankWeight(parts[0].u,
+                             torch.cat([p.vt for p in parts], dim=1))
+    return LowRankWeight(torch.cat([p.u for p in parts]), parts[0].vt)
+
+
+def _sparse_join(parts, dim: int):
+    """The blocks' entries rebased and put back in row-major order (the
+    order in which the bridge and the interop build them)."""
+    offsets, at = [], 0
+    for p in parts:
+        offsets.append(at)
+        at += p.shape[dim]
+    rows = torch.cat([p.rows.long() + (o if dim == 0 else 0)
+                      for p, o in zip(parts, offsets)])
+    cols = torch.cat([p.cols.long() + (o if dim == 1 else 0)
+                      for p, o in zip(parts, offsets)])
+    values = torch.cat([p.values for p in parts])
+    shape = ((at, parts[0].shape[1]) if dim == 0
+             else (parts[0].shape[0], at))
+    order = torch.argsort(rows * shape[1] + cols, stable=True)
+    return SparseWeight(values[order], rows[order].to(torch.int32),
+                        cols[order].to(torch.int32), shape)
+
+
 layers.register_weight_form(QuantizedWeight, _quant_apply, _quant_load,
-                            _quant_slice)
+                            _quant_slice, _quant_join)
 layers.register_weight_form(LowRankWeight, _lowrank_apply, _lowrank_load,
-                            _lowrank_slice)
+                            _lowrank_slice, _lowrank_join)
 layers.register_weight_form(SparseWeight, _sparse_apply, _sparse_load,
-                            _sparse_slice)
+                            _sparse_slice, _sparse_join)
 
 
 def materialize(leaf, dt=torch.float32):

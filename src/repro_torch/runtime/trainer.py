@@ -30,15 +30,26 @@ Two execution modes (``TrainerConfig.overlap``):
   other stream may still read it. On the CPU the same pipeline runs
   with the C step done at dispatch.
 
-With a ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` whose ``"model"``
-axis is 1, one process a rank; a larger ``"model"`` axis raises:
-tensor-parallel training is the next slice of the port), the trainer hands the mesh to the algorithm
-(``lc.set_mesh``: the C step shards its groups' items over the data axis,
-also on the overlapped pipeline's side stream) and runs every train step
-under it: data-parallel over the global batch, which every rank's data
-source yields whole (``launch/steps.py``). Every rank holds the whole,
-replicated state; checkpoints are written by rank 0
-(``checkpoint/checkpoint.py``).
+With a ``mesh`` (a ``torch.distributed`` ``DeviceMesh``, one process a
+rank), the trainer hands the mesh to the algorithm (``lc.set_mesh``: the
+C step shards its groups' items over the data axis, also on the
+overlapped pipeline's side stream) and runs every train step under it:
+data-parallel over the global batch, which every rank's data source
+yields whole (``launch/steps.py``). Where the mesh's ``"model"`` axis is
+above 1 the train state is split over it: ``init_state`` takes the whole
+tree and keeps this rank's slices of the params, the optimizer state and
+the LC refs (``sharding.shard_train_state``), and the train step runs
+tensor-parallel on them. The C step runs on whole weights: at each LC
+boundary the split params are gathered over ``"model"``
+(``sharding.gather_params``), ``LCAlgorithm`` runs its C step,
+multiplier step, distortions and the §7 monitor on the whole tree as
+without the split (every model rank of one data coordinate solves the
+same items), and the fresh ``a`` and λ are sliced back. The LC state is
+whole on every model rank (a solve per slice would change the k-means
+codebooks and κ's support). ``compressed_params`` returns the whole
+tree. Checkpoints hold the whole state, written by rank 0
+(``checkpoint/checkpoint.py``), so that they restore over any mesh. The
+SSM mixers refuse a ``"model"`` axis above 1 (a later slice).
 """
 from __future__ import annotations
 
@@ -56,7 +67,8 @@ from repro_torch.core.algorithm import LCAlgorithm
 from repro_torch.core.state import probe_is_ready, ready_probe
 from repro_torch.core.tasks import get_path, set_path
 from repro_torch.data.pipeline import Prefetcher
-from repro_torch.distributed.sharding import check_model_axis, use_mesh
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import use_mesh
 from repro_torch.interop import resolve_device
 from repro_torch.launch.steps import (
     init_train_state, make_train_step, stable_lc_refs)
@@ -110,7 +122,6 @@ class LCTrainer:
                  optimizer: AdamW | None = None,
                  fault_injector: FaultInjector | None = None,
                  overlap: str | None = None, device=None):
-        check_model_axis(mesh, "LCTrainer")
         self.device = resolve_device(device)
         if lc.device != self.device:
             raise ValueError(f"the LCAlgorithm runs on {lc.device}, the "
@@ -140,8 +151,11 @@ class LCTrainer:
             factor=self.tcfg.straggler_factor)
         self.faults = fault_injector or FaultInjector()
         self.ckpt = (CheckpointManager(self.tcfg.ckpt_dir,
-                                       self.tcfg.keep_last)
+                                       self.tcfg.keep_last, cfg=cfg,
+                                       mesh=mesh)
                      if self.tcfg.ckpt_dir else None)
+        # the last params gathered whole over "model" (split, whole)
+        self._gathered: tuple | None = None
         self._train_step = make_train_step(
             cfg, self.optimizer, lr=self.tcfg.lr,
             clip_norm=self.tcfg.clip_norm, with_lc=True)
@@ -161,25 +175,47 @@ class LCTrainer:
         """A train state from seed ``key`` (params drawn by a generator on
         the trainer's device), or ``state`` as given (for instance the
         JAX package's, carried over by ``interop.train_state_from_numpy``),
-        with its LC refs set from the algorithm's direct compression."""
+        with its LC refs set from the algorithm's direct compression.
+        The state is the whole tree; over a ``"model"`` axis above 1 the
+        trainer keeps this rank's slices of it."""
         if state is None:
             gen = torch.Generator(device=self.device).manual_seed(int(key))
             state = init_train_state(gen, self.cfg, self.optimizer,
                                      with_lc=True)
         lc_state = self.lc.init(state["params"])
+        state = sharding.shard_train_state(
+            {k: v for k, v in state.items() if k != "lc"}, self.cfg,
+            self.mesh, sharding.DEFAULT_RULES)
         state["lc"] = self._refs_from_lc(state["params"], lc_state)
         self._lc_state = lc_state
+        self._gathered = None
         return state
 
     def _refs_from_lc(self, params, lc_state):
-        """Flatten LC (a, λ) into the train-state penalty refs."""
+        """Flatten LC (a, λ) into the train-state penalty refs (this
+        rank's slices of them over a ``"model"`` axis above 1)."""
         a, lam = {}, {}
         for t in self.lc.tasks:
             ts = lc_state["tasks"][t.name]
             for p in t.paths:
                 a[p] = ts["a"][p]
                 lam[p] = ts["lam"][p]
+        a, lam = (sharding.shard_params(x, self.cfg, self.mesh,
+                                        sharding.DEFAULT_RULES, flat=True)
+                  for x in (a, lam))
         return {"a": a, "lam": lam, "mu": lc_state["mu"]}
+
+    def _whole(self, params):
+        """The whole params: ``params`` as they are, or over a ``"model"``
+        axis above 1 gathered from every model rank's slices (once for
+        each params tree)."""
+        if sharding.model_size(self.mesh) == 1:
+            return params
+        if self._gathered is None or self._gathered[0] is not params:
+            self._gathered = None
+            self._gathered = (params, sharding.gather_params(
+                params, self.cfg, self.mesh, sharding.DEFAULT_RULES))
+        return self._gathered[1]
 
     # ------------------------------------------------------------------
     def _batch(self, step: int) -> dict:
@@ -284,12 +320,14 @@ class LCTrainer:
             lc_state = self.lc.set_mu(lc_state, mu, k)
             self._lc_state = lc_state
             state["lc"] = self._refs_from_lc(state["params"], lc_state)
-            pen0 = float(self.lc.penalty(state["params"], lc_state))
+            pen0 = float(self.lc.penalty(self._whole(state["params"]),
+                                         lc_state))
+            self._gathered = None     # not held through the L step
 
             state, metrics, global_step = self._l_step(
                 state, k, global_step)
 
-            params = state["params"]
+            params = self._whole(state["params"])
             d_pre = None
             if self.tcfg.monitor_distortion:
                 d_pre = self.lc.shifted_distortion(params, lc_state)
@@ -369,9 +407,12 @@ class LCTrainer:
                 state["lc"] = dict(state["lc"], mu=lc_state["mu"])
             # the penalty at the L step's start reads the boundary's new
             # Δ(Θ)/λ: queued behind them, on the side stream
+            whole = self._whole(state["params"])
             with self._on_side():
-                pen0 = self.lc.penalty(state["params"], lc_state)
-            self._record_side(state["params"], lc_state)
+                pen0 = self.lc.penalty(whole, lc_state)
+            self._record_side(whole, lc_state)
+            del whole
+            self._gathered = None     # not held through the L step
 
             state, metrics, global_step = self._l_step(
                 state, k, global_step, on_microbatch=on_microbatch)
@@ -385,7 +426,7 @@ class LCTrainer:
             # boundary at a time: the driver's compiled steps replay the
             # graphs of one owner, which never run twice at once
             assert self._pending is None, "two LC boundaries in flight"
-            params = state["params"]
+            params = self._whole(state["params"])
             t_dispatch = time.time()
             with self._on_side():
                 d_pre = (self.lc.shifted_distortion(params, lc_state)
@@ -500,8 +541,9 @@ class LCTrainer:
 
     # ------------------------------------------------------------------
     def compressed_params(self, state, lc_state):
-        """Final model: w ← Δ(Θ)."""
-        params = state["params"]
+        """Final model: w ← Δ(Θ), the whole tree (over a ``"model"`` axis
+        above 1, gathered from every model rank's slices)."""
+        params = self._whole(state["params"])
         for t in self.lc.tasks:
             ts = lc_state["tasks"][t.name]
             for p in t.paths:

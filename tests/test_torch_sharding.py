@@ -218,26 +218,30 @@ def test_a_model_axis_leaves_constrain_and_the_c_step_layout():
 
 
 def test_a_model_axis_is_refused():
-    """Tensor-parallel training (the trainer and the train step) and the
-    SSM mixers' "inner" split raise, naming the slice that brings them."""
+    """Only the SSM mixers' "inner" split still raises over a "model" axis
+    above 1, naming the slice that brings it. Tensor-parallel training
+    is no longer refused: the trainer takes the mesh and hands it to the
+    algorithm, and each leaf's layout over it is read
+    (``tests/test_torch_tp_train.py`` holds both to the reference on
+    ranks)."""
     import dataclasses
 
     from repro_torch import configs
     from repro_torch.data import TokenStream
-    from repro_torch.launch.steps import make_train_step
     from repro_torch.models import ssm
     from repro_torch.runtime import LCTrainer
     mesh = _TorchMesh({"data": 2, "model": 2})
     cfg = dataclasses.replace(configs.reduced_config(
         configs.get_config("phi3-mini-3.8b")), dtype="float32")
     lc = core.LCAlgorithm([], [1e-3], device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        LCTrainer(cfg, lc, TokenStream(cfg.vocab_size, 2, 8), mesh=mesh,
-                  device="cpu")
-    step = make_train_step(cfg)
-    with sh.use_mesh(mesh), pytest.raises(NotImplementedError,
-                                          match="next slice"):
-        step({"params": {}}, {"labels": torch.zeros(2, 8)})
+    trainer = LCTrainer(cfg, lc, TokenStream(cfg.vocab_size, 2, 8),
+                        mesh=mesh, device="cpu")
+    assert trainer.mesh is mesh and lc.mesh is mesh
+    layout = core.flatten_params(sh.param_layout(cfg, mesh,
+                                                 sh.DEFAULT_RULES))
+    assert layout["stages/s0/pos0/ffn/w_down"] == "split"
+    assert layout["embed/tokens"] == "split"
+    assert layout["final_norm"] == "whole"
     x = torch.zeros(1, 4, cfg.d_model)
     for name in ("mamba", "mlstm", "slstm"):
         with sh.use_mesh(mesh):

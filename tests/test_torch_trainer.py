@@ -215,15 +215,17 @@ class _ModelAxisMesh:
 
 
 def test_trainer_refuses_a_mesh_and_a_foreign_device():
-    """A mesh with a "model" axis above 1 is refused (the next slice of
-    the port), as is a device other than the algorithm's; a data-only
-    mesh of one rank goes to the algorithm and trains as no mesh does,
-    bit for bit."""
+    """A mesh with a "model" axis above 1 is taken (tensor-parallel
+    training: the mesh goes to the algorithm; ``tests/
+    test_torch_tp_train.py`` runs it on ranks); a device other than the
+    algorithm's is refused; a data-only mesh of one rank goes to the
+    algorithm and trains as no mesh does, bit for bit."""
     from repro_torch.launch.mesh import make_debug_mesh
     lc = LCAlgorithm([], [1e-3], device="cpu")
     data = TokenStream(CFG.vocab_size, 2, 16)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        LCTrainer(CFG, lc, data, mesh=_ModelAxisMesh(), device="cpu")
+    split = LCTrainer(CFG, lc, data, mesh=_ModelAxisMesh(), device="cpu")
+    assert split.mesh is lc.mesh and isinstance(lc.mesh, _ModelAxisMesh)
+    lc = LCAlgorithm([], [1e-3], device="cpu")
     with pytest.raises(ValueError, match="runs on cpu"):
         LCTrainer(CFG, lc, data, device="meta")
     mesh = make_debug_mesh(device_type="cpu")

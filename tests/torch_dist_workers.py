@@ -340,3 +340,219 @@ def tp_serve(rank, world, inputs_path, out_dir):
     if world == 4:
         out["cstep"] = run_lc(make_debug_mesh((2, 2), device_type="cpu"))[0]
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+# ----------------------------------------------------------------------
+# training over the tensor-parallel "model" axis
+# ----------------------------------------------------------------------
+#: the global batch and the learning rate of a train step
+TPT_BATCH, TPT_SEQ, TPT_LR = 4, 16, 1e-3
+
+
+def tp_train_step(cfg, state_np: dict, batch_np: dict, mesh) -> dict:
+    """One ``make_train_step`` step over ``mesh`` (``None``: one process)
+    from the whole state ``state_np`` (numpy, carried over from the
+    reference): the metrics, the gradients before clipping and the new
+    parameters, each gathered whole."""
+    from repro_torch import interop
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.steps import make_train_step, make_value_and_grad
+    state = interop.train_state_from_numpy(state_np, "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    with sharding.use_mesh(mesh):
+        local = sharding.shard_train_state(state, cfg, mesh)
+        _, _, grads = make_value_and_grad(cfg)(local, batch)
+        new, metrics = make_train_step(cfg, lr=TPT_LR)(local, batch)
+        return {"metrics": {k: float(v) for k, v in metrics.items()},
+                "grads": sharding.gather_params(grads, cfg, mesh),
+                "params": sharding.gather_params(new["params"], cfg, mesh),
+                "local": new["params"]}
+
+
+def _clone(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor)
+                    else x, tree)
+
+
+class CStepRecorder:
+    """Every C step and multiplier step of an ``LCAlgorithm`` (its
+    methods wrapped): the weights and the LC state it was given and what
+    it returned, copied."""
+
+    def __init__(self, lc):
+        self.steps: list = []
+        for name in ("c_step", "c_step_async", "multiplier_step",
+                     "multiplier_step_async"):
+            setattr(lc, name, self._wrap(name, getattr(lc, name)))
+
+    def _wrap(self, name, fn):
+        def run(params, state):
+            before = _clone((params, state))
+            out = fn(params, state)
+            self.steps.append((name.replace("_async", ""), *before,
+                               _clone(out)))
+            return out
+        return run
+
+
+def tpt_trainer(cfg, mesh, compression: str, overlap: str,
+                ckpt_dir: str | None = None):
+    """``LCTrainer`` over ``mesh`` (``None``: one process): ``launch/
+    train.py``'s ``compression`` tasks, 2 μ × 2 L steps on the reduced
+    config, overlapped or serial, checkpoints in ``ckpt_dir``. Returns
+    the trainer, its recorder, the final train state gathered whole and
+    the LC state."""
+    from repro_torch.core import LCAlgorithm, exponential_mu_schedule
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.train import default_tasks
+    from repro_torch.runtime import LCTrainer, TrainerConfig
+    lc = LCAlgorithm(default_tasks(cfg, compression),
+                     exponential_mu_schedule(1e-3, 1.5, 2), device="cpu")
+    rec = CStepRecorder(lc)
+    trainer = LCTrainer(
+        cfg, lc, TokenStream(cfg.vocab_size, TPT_BATCH, TPT_SEQ), mesh=mesh,
+        tcfg=TrainerConfig(steps_per_l=2, ckpt_every=100, ckpt_dir=ckpt_dir,
+                           lr=TPT_LR, overlap=overlap), device="cpu")
+    state, lc_state = trainer.run(0)
+    whole = sharding.gather_train_state(state, cfg, mesh,
+                                        sharding.DEFAULT_RULES)
+    return trainer, rec, whole, lc_state
+
+
+def tpt_nll(cfg, inputs: dict, mesh, chunk: int) -> dict:
+    """``chunked_nll`` over ``mesh`` on this rank's slices of the
+    unembedding: the mean NLL, its gradients with respect to the hidden
+    state and to the unembedding (gathered whole), and the widest last
+    dim of any tensor an op made in the forward and backward passes."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch import interop
+    from repro_torch.distributed import sharding
+    from repro_torch.models.transformer import chunked_nll
+    from repro_torch.tree import tree_leaves
+
+    class Widest(TorchDispatchMode):
+        widest = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out if isinstance(out, (tuple, list))
+                                 else [out]):
+                if isinstance(t, torch.Tensor) and t.ndim:
+                    Widest.widest = max(Widest.widest, t.shape[-1])
+            return out
+
+    embed = interop.params_from_numpy({"embed": inputs["embed"]}, "cpu")
+    hidden = torch.from_numpy(inputs["hidden"]).requires_grad_(True)
+    labels = torch.from_numpy(inputs["labels"])
+    with sharding.use_mesh(mesh):
+        local = sharding.shard_params(embed, cfg, mesh,
+                                      sharding.DEFAULT_RULES)
+        leaves = tree_leaves(local)
+        for x in leaves:
+            x.requires_grad_(True)
+        with Widest():
+            total, count = chunked_nll(local, hidden, labels, cfg,
+                                       chunk=chunk)
+            loss = total / count
+            grads = torch.autograd.grad(loss, [hidden] + leaves)
+        it = iter(grads[1:])
+        from repro_torch.tree import tree_map
+        g_embed = tree_map(lambda _: next(it), local)
+        whole = sharding.gather_params(g_embed, cfg, mesh,
+                                       sharding.DEFAULT_RULES)
+    return {"loss": float(loss.detach()), "d_hidden": grads[0],
+            "d_embed": whole,
+            "widest": Widest.widest}
+
+
+def forms_tree(cfg) -> dict:
+    """The reduced tree of ``cfg`` (unrolled) with weight forms for its
+    matrices, from seeds: 4-bit ``w_gate`` and ``wo``, sparse ``w_up``
+    and ``w_down`` (row-major COO), 8-bit ``wv`` and low-rank ``wq`` and
+    ``wk``; split by ``shard_params`` by columns and by rows."""
+    from repro_torch.kernels.quant_matmul import ops as qops
+    from repro_torch.models.transformer import init_params
+    from repro_torch.runtime import compressed as forms
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(5)
+
+    def quant(w, bits):
+        codes = 16 if bits == 4 else 64
+        idx = torch.randint(0, codes, tuple(w.shape), generator=g,
+                            dtype=torch.uint8)
+        return forms.QuantizedWeight(
+            qops.pack4(idx) if bits == 4 else idx,
+            torch.sort(torch.randn(codes, generator=g)).values,
+            tuple(w.shape), bits)
+
+    def sparse(w):
+        dense = torch.where(torch.rand(w.shape, generator=g) < 0.3, w, 0.0)
+        rows, cols = torch.nonzero(dense, as_tuple=True)
+        return forms.SparseWeight(dense[rows, cols], rows.to(torch.int32),
+                                  cols.to(torch.int32), tuple(w.shape))
+
+    def lowrank(w):
+        return forms.LowRankWeight(torch.randn(w.shape[0], 3, generator=g),
+                                   torch.randn(3, w.shape[1], generator=g))
+
+    for blk in params["stages"]["s0"].values():
+        f, a = blk["ffn"], blk["mixer"]
+        f["w_gate"], f["w_up"] = quant(f["w_gate"], 4), sparse(f["w_up"])
+        f["w_down"] = sparse(f["w_down"])
+        a["wq"], a["wk"] = lowrank(a["wq"]), lowrank(a["wk"])
+        a["wv"], a["wo"] = quant(a["wv"], 8), quant(a["wo"], 4)
+    return params
+
+
+def tp_train(rank, world, inputs_path, out_dir):
+    """One train step of every case over each mesh shape for this world
+    size and the vocabulary-parallel loss; at world size 2 the trainer
+    over (1, 2): quantization serial (checkpointed) and overlapped, ℓ0
+    serial, and the one-process run's checkpoint restored."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_debug_mesh
+    inputs = torch.load(inputs_path, weights_only=False)
+    out = {}
+    for shape in inputs["meshes"][world]:
+        mesh = make_debug_mesh(shape, device_type="cpu")
+        for name, case in inputs["cases"].items():
+            if shape in case["meshes"]:
+                out[(shape, name)] = tp_train_step(
+                    case["cfg"], case["state"], case["batch"], mesh)
+        for name, case in inputs["nll"].items():
+            if shape[0] == 1:
+                out[(shape, "nll", name)] = tpt_nll(
+                    case["cfg"], case, mesh, inputs["chunk"])
+        if shape[0] == 1:
+            from repro_torch.distributed import sharding
+            cfg = inputs["forms_cfg"][world]
+            out[(shape, "forms")] = sharding.gather_params(
+                sharding.shard_params(forms_tree(cfg), cfg, mesh), cfg,
+                mesh)
+    if world == 2:
+        cfg = inputs["trainer_cfg"]
+        mesh = make_debug_mesh((1, 2), device_type="cpu")
+        for compression, overlap in (("quantize", "off"),
+                                     ("quantize", "on"),
+                                     ("prune", "off")):
+            ckpt = (os.path.join(out_dir, "ckpt_mesh")
+                    if overlap == "off" and compression == "quantize"
+                    else None)
+            trainer, rec, whole, lc_state = tpt_trainer(
+                cfg, mesh, compression, overlap, ckpt)
+            out[("trainer", compression, overlap)] = {
+                "history": trainer.history, "state": whole,
+                "lc_state": lc_state, "steps": rec.steps,
+                "compressed": trainer.compressed_params(
+                    sharding.shard_train_state(whole, cfg, mesh),
+                    lc_state)}
+        template = sharding.shard_train_state(
+            out[("trainer", "quantize", "off")]["state"], cfg, mesh)
+        out["restored"] = CheckpointManager(
+            inputs["one_process_ckpt"], cfg=cfg, mesh=mesh).restore(
+                template)[0]
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
