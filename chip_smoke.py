@@ -6,7 +6,8 @@
     python3 chip_smoke.py --ssm         # the chunked groups, paths K and L1
                                         # and their profile
     python3 chip_smoke.py --busy C      # serving's busy shares, eager and
-                                        # through CUDA graphs (C, K or L1)
+                                        # through CUDA graphs (C, K or L1;
+                                        # not in the full run)
     python3 chip_smoke.py --chunks      # chunked groups against one launch
     python3 chip_smoke.py --lc          # the compiled LC driver's paths only
     python3 chip_smoke.py --lc-memory   # path H1's peak memory and the LM
@@ -105,13 +106,13 @@ Phases, each of which fails the run:
     LeNet300, and the single passes K7, K1, K8 and K2 on their results;
     then the host time to queue 1,000 launches each of K1, K7, K2 and K8
     at those shapes without a sync (the launch path's cost);
-13. main path F — low-rank serving of phi3-mini-3.8b at full width (4 of
-    32 layers): 28 per-matrix tasks (LowRank on wq|wk|wv, w_gate, w_up;
+13. main path F — low-rank serving of phi3-mini-3.8b at full width (2 of
+    32 layers): 14 per-matrix tasks (LowRank on wq|wk|wv, w_gate, w_up;
     RankSelection with two α on wo; additive ℓ0 + quantization on
     w_down) in four groups, LC init, one C step, a multiplier step, the
-    bridge (24 low-rank and 4 dense forms) and ``Server.generate``;
+    bridge (12 low-rank and 2 dense forms) and ``Server.generate``;
     selected ranks against the exact spectrum, distortion against the
-    exact SVD, logits against the densified model, 4 K6 launches; then
+    exact SVD, logits against the densified model, 2 K6 launches; then
     C steps 2 and 3 (the capture of every group's solve, the Jacobi
     rounds and the item-by-item additive group included, then a
     replay), each beside its eager twin (with the planner off: planner
@@ -177,7 +178,7 @@ Phases, each of which fails the run:
     ``init_cache``'s values right after its reset. K and L1 run last, in
     a process of their own (``--ssm``), with phase 17's profile of their
     served models. L2: LC training of xlstm-125m
-    (``train_lm_compress.make_trainer``, 4 × 1024 tokens a step, 3 μ × 1
+    (``train_lm_compress.make_trainer``, 4 × 512 tokens a step, 3 μ × 1
     L step): finite losses, CE falling, the §7 monitor, the reference's
     compression ratio, one fused Lloyd loop a k-means group each C step,
     the groups derived from the widths, the last C step's loops held
@@ -185,8 +186,9 @@ Phases, each of which fails the run:
     tokens/s, C-step ms, peak memory;
 17. ``torch.profiler`` over one more LM C step, path C's prefill and 8
     decode steps: the device's busy share, the kernels that took the
-    most time and the K4/K5 kernels' sum; last, for C, K and L1 each in
-    a process of its own (``--busy``), the busy share of 8 steps of
+    most time and the K4/K5 kernels' sum; alone (``--busy C|K|L1``, a
+    process a model; not in the full run, which the time limit does not
+    leave room for), the busy share of 8 steps of
     ``Server``'s decode program and of an engine's short trace, through
     CUDA graphs and eagerly (``serving_busy``); then (in the ``--ssm``
     process) one session over paths K and L1's prefills and 8 decode
@@ -237,7 +239,7 @@ Phases, each of which fails the run:
     processes (``--shard``; alone ``--tp``): T1, NCCL at world size 1,
     ``make_debug_mesh((1, 1))``, path C's model and forms:
     ``Server(mesh=).generate`` (2 × 512, 32 new) and
-    ``ServingEngine(mesh=)`` on a burst of 6 requests through CUDA
+    ``ServingEngine(mesh=)`` on a burst of 4 requests through CUDA
     graphs against ``mesh=None`` (deterministic algorithms on for both:
     the sparse product's ``index_add_``): logits, tokens and the burst
     bit for bit, the same launches. T2–T4 on S's two gloo ranks, mesh
@@ -252,7 +254,16 @@ Phases, each of which fails the run:
     those of one process, every K4/K5/K6 shape of the run held against
     its plain version; prefill and decode ms, the collectives' ms and
     share, the weight bytes held and the peak per rank; then K4, K5 and
-    K6 timed at the shard shapes beside their plain versions and bounds;
+    K6 timed at the shard shapes beside their plain versions and bounds.
+    T5 and T6 split the SSM mixers' "inner" channels the same way: T5
+    jamba-v0.1-52b at K's depth and forms (Mamba by channel: in_proj
+    4096 × 8192 in two segments, x_proj 4096 × 288, dt_proj 256 × 4096,
+    out_proj 4096 × 4096 a rank; 8 experts "ep", 16 heads; 2 × 256
+    prompts, two Mamba chunks), T6 xlstm-125m at L1's 6 blocks and forms
+    (2 of 4 heads a rank: mLSTM up_proj 768 × 1536, q/k/v 1536 × 768,
+    down_proj 768 × 768; sLSTM w 768 × 1536, up_proj 768 × 1024,
+    down_proj 512 × 768; 2 × 512 prompts, two mLSTM chunks), 16 new
+    tokens each, with T2–T4's checks;
 21. path U, tensor-parallel LC training over the "model" axis, in path
     S's processes after T (``--shard``; alone ``--tp-train``), S3's
     trainer (phi3-mini at full width, 2 of 32 layers, quantization
@@ -267,7 +278,14 @@ Phases, each of which fails the run:
     multiplier step of a rank replayed by ``LCAlgorithm(mesh=None)`` on
     its gathered weights bit for bit; per rank the step ms, the model
     collectives' ms and share of it, the gathers' and the C step's ms,
-    the peak and the weight bytes held;
+    the peak and the weight bytes held. U3 and U4 train the split SSM
+    mixers the same way (U3 2 × 512 tokens a step, U4 2 × 1024), one μ
+    of 2 L steps and a C step, each against its one-process run with
+    U2's checks: U3
+    xlstm-125m with L2's trainer's settings (``train_lm_compress``,
+    remat, K=16 a layer's matrix: one task a matrix of the unrolled
+    blocks) at 6 blocks, U4 jamba-v0.1-52b's first layer (Mamba with a
+    dense FFN) at full width with K's Mamba and FFN quantization tasks;
 22. one JSON line listing every ported kernel, then the result line.
 
 Tolerances: assignments, masks and integer counts must be equal; K1/K7
@@ -430,6 +448,7 @@ F_RANKS = {"wq": 128, "wk": 128, "wv": 128, "w_gate": 256, "w_up": 192}
 F_WO_STEPS, F_WO_MAX_RANK = (24, 48), 128
 F_DOWN_KAPPA = LM_ITEM // 100                     # 251,658
 F_MU = 1e-4
+F_LAYERS = 2       # path F's depth: 2 of C's 4 layers (PERF.md §4)
 F_MUS = (F_MU, 1.3 * F_MU, 1.69 * F_MU)   # C steps 2 and 3: capture, replay
 
 # path H: LC training of phi3-mini-3.8b at full width, 2 of 32 layers
@@ -464,14 +483,14 @@ CPM_LAYERS = 4
 # chunks of 128, 4 mLSTM chunks of 256, 1024 sLSTM steps); the
 # prefill-against-decode
 # check on 2 prompts of two chunks (K 2 × 256, L1 2 × 512); L2 trains
-# xlstm-125m at 4 × 1024 tokens a step
+# xlstm-125m at 4 × 512 tokens a step (two mLSTM chunks, 512 sLSTM steps)
 SSM_PROMPT = 1024
 SSM_LAUNCHES = "ssm_launches"          # the line ``--ssm`` reports on
 XLSTM_REPS = 1      # L1's repetitions of xlstm-125m's pattern (of 2)
 JAMBA_PARAMS, XLSTM_PARAMS = 3_960_418_304, 97_142_824
 JAMBA_FFN = 4096 * 14336                               # 58,720,256
 JAMBA_KAPPA = int(0.05 * 2 * JAMBA_FFN)                # 5,872,025
-L2_BATCH, L2_SEQ, L2_LC, L2_STEPS = 4, 1024, 3, 1
+L2_BATCH, L2_SEQ, L2_LC, L2_STEPS = 4, 512, 3, 1   # 1024 tokens until T5–U4
 
 # path S: the sharding layer's data axis. S1 and S2 run path S's C-step
 # problem (``s_problem``); S2 and S3 run on S_WORLD ranks over gloo on
@@ -489,6 +508,13 @@ _T0 = time.time()
 def stamp(what: str) -> None:
     """Print the seconds since this process started, before ``what``."""
     print(f"[t={time.time() - _T0:.1f}s] {what}", flush=True)
+
+
+def rank_mark(label: str, rank: int) -> None:
+    """A rank's line (printed by ``run_ranks``) with the seconds since
+    its process started, as it begins path ``label``."""
+    print(f"path {label} rank {rank} starts at t={time.time() - _T0:.1f}s",
+          flush=True)
 
 
 def fail(msg: str) -> None:
@@ -681,7 +707,8 @@ def iterated_bisection(k2, w, kappa, iters, strict):
     return lo, hi, k2.count_above_batched(w, hi, strict)
 
 
-def check_lloyd(k1, w, cb, iters, got, label: str) -> tuple[float, int]:
+def check_lloyd(k1, w, cb, iters, got, label: str,
+                times: dict | None = None) -> tuple[float, int]:
     """Hold a fused Lloyd loop's result ``got`` (codebooks, assignments)
     on w (I, P) from codebooks cb: bit-identical to the loop of single K1
     launches with the torch update, and against the plain loop: the
@@ -690,11 +717,17 @@ def check_lloyd(k1, w, cb, iters, got, label: str) -> tuple[float, int]:
     few lie between the two loops' boundaries: the assignments are held
     against the plain pass over the fused loop's own codebooks. Returns
     the codebooks' max |Δ| and the count of assignments that differ from
-    the plain loop's."""
+    the plain loop's; with ``times``, the plain loop's ms (one run) go
+    into ``times["plain_ms"]``."""
     want = iterated_lloyd(k1, w, cb, iters)
     check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
           f"{label} differs from the iterated loop")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     plain = k1.kmeans_lloyd_batched_plain(w, cb, iters)
+    torch.cuda.synchronize()
+    if times is not None:
+        times["plain_ms"] = (time.perf_counter() - t0) * 1e3
     check(torch.equal(got[1], k1.kmeans_assign_moments_batched_plain(
         w, got[0])[0]), f"{label}: assignments differ from the plain pass "
           f"over its codebooks")
@@ -1443,13 +1476,14 @@ def device_profile(fn, label: str, power: str, kern: dict,
     return dev, prof.events()
 
 
-def serving_config():
-    """phi3-mini-3.8b at full width, cut to 4 of its 32 layers (unrolled:
-    the bridge needs per-layer 2-D leaves), float32, fused attention."""
+def serving_config(layers: int = LM_LAYERS):
+    """phi3-mini-3.8b at full width, cut to ``layers`` of its 32 layers
+    (unrolled: the bridge needs per-layer 2-D leaves), float32, fused
+    attention."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import LayerSpec
     cfg = get_config("phi3-mini-3.8b").with_(
-        pattern=(LayerSpec("attn", "dense"),) * LM_LAYERS, pattern_reps=1,
+        pattern=(LayerSpec("attn", "dense"),) * layers, pattern_reps=1,
         dtype="float32", fused_attention=True)
     check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
            cfg.d_ff, cfg.vocab_size) == (LM_D_MODEL, 32, 32, 96, LM_D_FF,
@@ -1908,8 +1942,8 @@ def jacobi_kernels_per_round() -> float:
 
 def main_path_f(kern, power: str) -> dict:
     """Low-rank serving of phi3-mini at full width: LC init, a C step
-    and a multiplier step over 28 per-matrix tasks in four groups, the
-    bridge, ``Server.generate``; the checks against the exact SVD and
+    and a multiplier step over 7 per-matrix tasks a layer in four groups,
+    the bridge, ``Server.generate``; the checks against the exact SVD and
     the densified model; then two more C steps (the compiled driver's
     capture and a replay), every step beside its eager twin, which runs
     with the planner off (so the planner on is held against off too)."""
@@ -1923,7 +1957,7 @@ def main_path_f(kern, power: str) -> dict:
     from repro_torch.runtime import server as srv
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = serving_config()
+    cfg = serving_config(F_LAYERS)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -1936,7 +1970,7 @@ def main_path_f(kern, power: str) -> dict:
     # α·(m+n) = μ/2·σ_{r-1}·σ_r between the two squared singular values
     alphas = []
     tasks = []
-    for i in range(LM_LAYERS):
+    for i in range(F_LAYERS):
         pre = rf"^stages/s0/pos{i}/"
         s = spectra[f"stages/s0/pos{i}/mixer/wo"]
         r = F_WO_STEPS[i % 2]
@@ -1957,7 +1991,7 @@ def main_path_f(kern, power: str) -> dict:
                             AdditiveCombination(
                                 [ConstraintL0Pruning(F_DOWN_KAPPA),
                                  AdaptiveQuantization(k=16)], iters=2))]
-    check(len(tasks) == 7 * LM_LAYERS, "path F tasks")
+    check(len(tasks) == 7 * F_LAYERS, "path F tasks")
     rng = np.random.default_rng(8)
     prompts = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
                            dtype=np.int64).astype(np.int32)
@@ -1971,10 +2005,10 @@ def main_path_f(kern, power: str) -> dict:
     groups = lc.group_summary(params)
     summary = [(g["solver"], g["items"], tuple(g["item_shape"]))
                for g in groups]
-    want = [("lowrank_rsvd", 3 * LM_LAYERS, (LM_D_MODEL, LM_D_MODEL)),
-            ("rank_select", LM_LAYERS, (LM_D_MODEL, LM_D_MODEL)),
-            ("lowrank_rsvd", 2 * LM_LAYERS, (LM_D_MODEL, LM_D_FF)),
-            (None, LM_LAYERS, (LM_D_FF * LM_D_MODEL,))]
+    want = [("lowrank_rsvd", 3 * F_LAYERS, (LM_D_MODEL, LM_D_MODEL)),
+            ("rank_select", F_LAYERS, (LM_D_MODEL, LM_D_MODEL)),
+            ("lowrank_rsvd", 2 * F_LAYERS, (LM_D_MODEL, LM_D_FF)),
+            (None, F_LAYERS, (LM_D_FF * LM_D_MODEL,))]
     check(summary == want and all(g["grouped"] for g in groups),
           f"path F groups {summary}")
     print("path F groups:", [(g["scheme"], g["solver"], g["backend"],
@@ -2010,11 +2044,11 @@ def main_path_f(kern, power: str) -> dict:
 
     kinds = sorted(f.split("(")[0] for fs in report.values()
                    for f in fs.values())
-    check(kinds == ["dense"] * LM_LAYERS + ["lowrank"] * 6 * LM_LAYERS,
+    check(kinds == ["dense"] * F_LAYERS + ["lowrank"] * 6 * F_LAYERS,
           f"path F bridged forms {kinds}")
     # the prefill's 4 fused attention launches; the C step's solvers
     # are matmul programs, the additive parts run item by item
-    check(n == only(kern, K6=LM_LAYERS), f"path F launches {n}")
+    check(n == only(kern, K6=F_LAYERS), f"path F launches {n}")
     toks = res.tokens
     check(toks.shape == (SERVE_BATCH, SERVE_GEN) and toks.min() >= 0
           and toks.max() < cfg.vocab_size, f"path F tokens {toks.shape}")
@@ -2025,7 +2059,7 @@ def main_path_f(kern, power: str) -> dict:
     rounds = sum(sweeps * (min(r_max + OVERSAMPLE, LM_D_MODEL) - 1)
                  for r_max in (F_RANKS["wq"], F_WO_MAX_RANK,
                                F_RANKS["w_gate"]))
-    print(f"main path F (phi3-mini-3.8b full width, {LM_LAYERS} layers, "
+    print(f"main path F (phi3-mini-3.8b full width, {F_LAYERS} layers, "
           f"{n_params:,} params, low rank): weights_s={t_weights:.2f} "
           f"init_s={t_init:.2f} c_step_s={t_cstep:.2f} "
           f"bridge_s={t_bridge:.3f} generate_s={t_gen:.3f} "
@@ -2066,7 +2100,7 @@ def main_path_f(kern, power: str) -> dict:
         check(excess <= 1e-4, f"path F {t.name}: distortion {d} against "
               f"the exact rank-{r} {d_opt} (excess {excess:.3g})")
         worst = max(worst, excess)
-    check(ranks == [F_WO_STEPS[i % 2] for i in range(LM_LAYERS)],
+    check(ranks == [F_WO_STEPS[i % 2] for i in range(F_LAYERS)],
           f"path F wo ranks {ranks}")
     print(f"path F vs exact SVD: wo ranks={ranks} (exact-spectrum optimum "
           f"each) worst distortion excess={worst:.3g} (tol 1e-4)",
@@ -2097,7 +2131,7 @@ def main_path_f(kern, power: str) -> dict:
     stack.close()
     del params, state, lc, tw, twins
     torch.cuda.empty_cache()
-    print(f"path F C step ({7 * LM_LAYERS} tasks, 3 groups and the additive "
+    print(f"path F C step ({7 * F_LAYERS} tasks, 3 groups and the additive "
           f"group, mu="
           f"{list(F_MUS)}): eager {[round(t, 3) for t in frec['eager_s']]} "
           f"s against compiled {[round(t, 3) for t in frec['compiled_s']]} "
@@ -2988,8 +3022,8 @@ def check_served(label: str, cfg, run: dict, power: str) -> None:
 def check_lloyd_at(k1, calls, label: str, power: str) -> dict:
     """The C step's fused Lloyd loops (``calls``) held against the
     iterated and plain loops on their own operands (``check_lloyd``),
-    the fused loop timed (3 turns) beside the plain loop (one run) and
-    its bound; returns the largest item stack's row. Each loop is
+    the fused loop timed (3 turns) beside the plain loop (its one run in
+    the check) and its bound; returns the largest item stack's row. Each loop is
     checked and timed in the partition it was launched with (a chunk of
     a planned group: its group's, ``build.group_partition``)."""
     from repro_torch.kernels.build import group_partition
@@ -2997,18 +3031,16 @@ def check_lloyd_at(k1, calls, label: str, power: str) -> dict:
     for ((w, cb, iters), _, got), part in zip(calls, calls.partitions):
         w, cb = w.to("cuda"), cb.to("cuda")
         got = tuple(g.to("cuda") for g in got)
+        times = {}
         with group_partition(part):
             err, moved = check_lloyd(k1, w, cb, iters, got,
-                                     f"{label} Lloyd loop {tuple(w.shape)}")
+                                     f"{label} Lloyd loop {tuple(w.shape)}",
+                                     times)
             ms = timed_turns(
                 [lambda: k1.kmeans_lloyd_batched(w, cb, iters)], 3)[0]
             k = cb.shape[1]
             b_ms, b_by, floor = lloyd_bound(k1, w, k, iters)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        k1.kmeans_lloyd_batched_plain(w, cb, iters)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
+        plain_ms = times["plain_ms"]
         rows.append({"shape": list(w.shape), "k": k, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "max_abs_err": err})
@@ -3229,8 +3261,9 @@ MODES = ("eager", "graphs")
 #: the engine comparison's short trace: requests, prompt and new-token
 #: ranges (D's and the SSM paths' main traces take 16–24 requests); all
 #: arrive at once, so that the schedule, and with it each MoE decode's
-#: batch, does not depend on the ticks' times
-SHORT_TRACE = (12, (32, 128), (8, 32))
+#: batch, does not depend on the ticks' times (12 requests of 8–32 new
+#: tokens until the smoke's time limit asked for a cut; two waves still)
+SHORT_TRACE = (10, (32, 128), (8, 24))
 #: the busy-share profiles' engine trace (``serving_busy``)
 BUSY_TRACE = (4, (16, 32), (8, 8))
 
@@ -3367,8 +3400,8 @@ def serving_busy(kern, label: str, cfg, serving, prompts, toks,
     ``prompts`` (fed ``toks``' first column), and of a warmed engine on
     BUSY_TRACE, each through CUDA graphs (captured before the session)
     and then eagerly, each profile taken up to 3 times until it holds
-    every counted launch. ``main`` runs this for each model in a process
-    of its own (``--busy``): a profiler session after an eager engine's
+    every counted launch. It runs for one model a process (``--busy``,
+    not in the full run): a profiler session after an eager engine's
     (~50k kernel events) traced 43 of 50 K9 launches."""
     from repro_torch.models import transformer as tf
     from repro_torch.runtime import server as srv
@@ -4698,6 +4731,7 @@ def shard_rank(kern, rank: int, card: str) -> None:
         return out
 
     sharding.gather_items = timed_gather
+    rank_mark("S2", rank)
     want = json.loads((SHARD_DIR / "s1_theta.json").read_text())
     torch.cuda.reset_peak_memory_stats()
     params, tasks = s_problem(torch.Generator(device="cuda").manual_seed(7))
@@ -4742,6 +4776,7 @@ def shard_rank(kern, rank: int, card: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     # S3: data-parallel training, beside the one-process run
+    rank_mark("S3", rank)
     trainer = s3_trainer(make_debug_mesh((S_WORLD, 1)), S_WORLD * S3_ROWS)
     run = s3_run(kern, trainer, f"rank {rank} of {S_WORLD} (gloo, "
                  f"{S3_ROWS} × {H_SEQ} tokens a rank)", card)
@@ -4771,6 +4806,7 @@ def shard_rank(kern, rank: int, card: str) -> None:
     torch.cuda.empty_cache()
     found.update(t_ranks(kern, rank, card))
     found.update(u_ranks(kern, rank, card))
+    found.update(u_ssm_ranks(kern, rank, card))
     dist.destroy_process_group()
     print(SHARD_LAUNCHES, json.dumps(found), flush=True)
 
@@ -4801,11 +4837,12 @@ def shard_paths(kern, card: str) -> None:
     torch.cuda.empty_cache()
     found.update(t_prepare(kern, card))
     found.update(path_u1(kern, card))
-    stamp(f"paths S2, S3, T2–T4 and U2 on {S_WORLD} ranks")
+    found.update(u_ssm_one(kern, card))
+    stamp(f"paths S2, S3, T2–T6 and U2–U4 on {S_WORLD} ranks")
     found.update(run_ranks("--shard-rank", SHARD_DIR, SHARD_LAUNCHES,
                            "path "))
     check(all(f"{p} rank {r}" in found
-              for p in ("S2", "S3") + T_LABELS + ("U2",)
+              for p in ("S2", "S3") + T_LABELS + ("U2",) + U_SSM
               for r in range(S_WORLD)), "paths S, T and U: a rank reported "
           "no launches")
     stamp("path T's kernels at the shard shapes")
@@ -4826,22 +4863,31 @@ TP_LAUNCHES = "tp_launches"            # the line ``--tp`` reports on
 #: the engine burst of path T: requests, prompt and new-token ranges,
 #: all arriving at once (the schedule, and each MoE decode's batch, does
 #: not depend on the ticks' times)
-TP_BURST = (6, (32, 128), (8, 32))
+TP_BURST = (4, (32, 128), (8, 16))
 #: T4: minicpm3-4b's layers, prompt length and new tokens
 CPM_T_LAYERS, CPM_T_PROMPT, CPM_T_GEN = 2, 256, 16
-T_LABELS = ("T2", "T3", "T4")
+#: T5 (jamba) and T6 (xlstm): prompt lengths (two Mamba chunks of 128,
+#: two mLSTM chunks of 256) and new tokens
+JAMBA_T_PROMPT, XLSTM_T_PROMPT, SSM_T_GEN = 256, 512, 16
+T_LABELS = ("T2", "T3", "T4", "T5", "T6")
 T_KERNELS = ("K4", "K5", "K6")
 
 
 def t_model(label: str):
     """Path T's model ``label`` (T2: path C's, T3: path I2's, T4: path
-    J's at 2 layers): (config, tasks, prompt length, new tokens, seeds of
-    the weights and the prompts)."""
+    J's at 2 layers, T5: path K's, T6: path L1's): (config, tasks, prompt
+    length, new tokens, seeds of the weights and the prompts)."""
     if label == "T2":
         return serving_config(), c_tasks(), SERVE_PROMPT, SERVE_GEN, (2, 4)
     if label == "T3":
         return (moe_mla_config("deepseek-moe-16b", DS_MOE_LAYERS),
                 i2_tasks(), SERVE_PROMPT, SERVE_GEN, (22, 22))
+    if label == "T5":
+        return (ssm_config("jamba-v0.1-52b"), k_tasks(), JAMBA_T_PROMPT,
+                SSM_T_GEN, K_SEEDS)
+    if label == "T6":
+        cfg = ssm_config("xlstm-125m")
+        return cfg, l1_tasks(cfg), XLSTM_T_PROMPT, SSM_T_GEN, L1_SEEDS
     return (moe_mla_config("minicpm3-4b", CPM_T_LAYERS),
             j_tasks(CPM_T_LAYERS), CPM_T_PROMPT, CPM_T_GEN, (23, 23))
 
@@ -5069,6 +5115,31 @@ def t_layout(label: str, cfg, params, m: int) -> str:
         check(got == (8, 32, 5472, 1408, 51200), f"path T3 layout {got}")
         return (f"8 heads, 32 experts (\"ep\"), lead FFN 5472, shared "
                 f"experts 1408, vocabulary {emb}")
+    if label == "T5":
+        mam = st["s0"]["pos0"]["mixer"]
+        got = tuple(tuple(mam[n].shape) for n in (
+            "in_proj", "x_proj", "dt_proj", "out_proj", "conv_w", "A_log"))
+        moe, att = st["s0"]["pos1"], st["s0"]["pos2"]["mixer"]
+        got += (moe["ffn"]["w_gate"].shape[0],
+                att["wq"].shape[1] // cfg.head_dim, emb)
+        check(got == ((4096, 8192), (4096, 288), (256, 4096), (4096, 4096),
+                      (4, 4096), (4096, 16), 8, 16, 32768),
+              f"path T5 layout {got}")
+        return ("Mamba 4096 of 8192 channels (in_proj 4096x8192 in two "
+                "segments, x_proj 4096x288, dt_proj 256x4096, out_proj "
+                f"4096x4096), 8 experts (\"ep\"), 16 heads, vocabulary {emb}")
+    if label == "T6":
+        m, sl = st["s0"]["pos0"]["mixer"], st["s0"]["pos5"]["mixer"]
+        got = tuple(tuple(x.shape) for x in (
+            m["up_proj"], m["wq"], m["wk"], m["wv"], m["down_proj"],
+            sl["w"], sl["r"], sl["up_proj"], sl["down_proj"])) + (emb,)
+        check(got == ((768, 1536), (1536, 768), (1536, 768), (1536, 768),
+                      (768, 768), (768, 1536), (4, 2, 192, 192),
+                      (768, 1024), (512, 768), 25152),
+              f"path T6 layout {got}")
+        return ("2 of 4 heads (mLSTM up_proj 768x1536, q/k/v 1536x768, "
+                "down_proj 768x768; sLSTM w 768x1536, up_proj 768x1024, "
+                f"down_proj 512x768), vocabulary {emb} (tied)")
     blk = st["s0"]["pos0"]
     qk = cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim
     got = (blk["mixer"]["wuq"].shape[1] // qk, emb)
@@ -5096,6 +5167,7 @@ def t_ranks(kern, rank: int, card: str) -> dict:
     mesh = make_debug_mesh((1, S_WORLD))
     found, shapes = {}, {"K4": [], "K5": [], "K6": []}
     for label in T_LABELS:
+        rank_mark(label, rank)
         # the ranks build the whole tree one at a time (the direct
         # compression of T3's experts peaks near half the card), each
         # keeping only its slices before the next starts
@@ -5464,6 +5536,7 @@ def u_ranks(kern, rank: int, card: str) -> dict:
     from repro_torch.launch.train import default_tasks
     from repro_torch.tree import tree_leaves
     mesh = make_debug_mesh((1, S_WORLD))
+    rank_mark("U2", rank)
     trainer = s3_trainer(mesh, S_WORLD * S3_ROWS)
     run = u_run(kern, trainer, f"U2 rank {rank} of {S_WORLD} (gloo, one "
                 f"card, mesh (1, {S_WORLD}), {S_WORLD * S3_ROWS} × {H_SEQ} "
@@ -5515,20 +5588,188 @@ def u_ranks(kern, rank: int, card: str) -> dict:
     return found
 
 
+#: U3 (xlstm-125m) and U4 (jamba-v0.1-52b): the split SSM mixers trained
+U_SSM = ("U3", "U4")
+#: their global batch (rows), L steps, and tokens a row (U3: two mLSTM
+#: chunks of 256 and 512 sLSTM steps, 1024 until the smoke's time limit
+#: asked for a cut; PERF.md §6)
+U_SSM_ROWS, U_SSM_STEPS = 2, 2
+U_SSM_SEQ = {"U3": 512, "U4": H_SEQ}
+
+
+def u_ssm_config(label: str):
+    """U3: xlstm-125m at 6 of its 12 blocks (one repetition of its
+    pattern, unrolled), float32, remat; U4: jamba-v0.1-52b's first layer
+    (Mamba with a dense FFN) at full width, float32, remat."""
+    from repro_torch.configs import get_config
+    if label == "U3":
+        cfg = get_config("xlstm-125m").with_(dtype="float32",
+                                             pattern_reps=1)
+        want = ("xlstm-125m", 768, 6, ("mlstm",) * 5 + ("slstm",))
+    else:
+        cfg = get_config("jamba-v0.1-52b")
+        cfg = cfg.with_(pattern=cfg.pattern[:1], pattern_reps=1,
+                        dtype="float32")
+        want = ("jamba-v0.1-52b", 4096, 1, ("mamba",))
+    got = (cfg.name, cfg.d_model, cfg.n_layers,
+           tuple(x.mixer for x in cfg.all_layer_specs()))
+    check(got == want and cfg.remat, f"path {label} config {got}")
+    return cfg
+
+
+def u_ssm_lc(label: str, cfg):
+    """U3's and U4's ``LCAlgorithm`` (one μ). U3: path L2's trainer's
+    task and schedule (``train_lm_compress``: K=16 on the matrices of
+    ``PATTERN``, μ from 9e-5 by 1.3), one codebook a layer's matrix as
+    its ``AsStacked`` gives on L2's stacked tree, here one task a matrix
+    of the unrolled blocks (``AsStacked`` would take each row of an
+    unrolled matrix as an item). U4: K's Mamba and FFN quantization
+    tasks of the layer."""
+    from repro_torch import train_lm_compress as twin
+    from repro_torch.core import (
+        AsVector, CompressionTask, LCAlgorithm, exponential_mu_schedule,
+        flatten_params)
+    from repro_torch.core.schemes import AdaptiveQuantization
+    from repro_torch.models.transformer import param_shapes
+    if label == "U3":
+        names = [p for p in flatten_params(param_shapes(cfg))
+                 if re.search(twin.PATTERN, p)]
+        return LCAlgorithm(
+            [CompressionTask(f"m{i}", f"^{re.escape(p)}$", AsVector(),
+                             AdaptiveQuantization(k=16, iters=10))
+             for i, p in enumerate(names)],
+            exponential_mu_schedule(9e-5, 1.3, 1), device="cuda")
+    return LCAlgorithm([t for t in k_tasks()
+                        if t.name in ("mamba4_0", "mamba8_0", "ffn0")],
+                       exponential_mu_schedule(H_MU0, H_MU_A, 1),
+                       device="cuda")
+
+
+def u_ssm_trainer(label: str, mesh):
+    """U3's or U4's trainer over ``mesh``: one μ of U_SSM_STEPS L steps
+    and a C step on U_SSM_ROWS × U_SSM_SEQ tokens, AdamW at lr 1e-3 (path
+    L2's and H's)."""
+    from repro_torch.data import TokenStream
+    from repro_torch.runtime import LCTrainer, TrainerConfig
+    cfg = u_ssm_config(label)
+    return LCTrainer(cfg, u_ssm_lc(label, cfg),
+                     TokenStream(cfg.vocab_size, U_SSM_ROWS,
+                                 U_SSM_SEQ[label]),
+                     mesh=mesh, tcfg=TrainerConfig(steps_per_l=U_SSM_STEPS,
+                                                   lr=H_LR),
+                     device="cuda")
+
+
+def u_ssm_one(kern, card: str) -> dict:
+    """U3's and U4's one-process runs (``mesh=None``): their losses,
+    parameters and launches, for the ranks (files under SHARD_DIR)."""
+    found = {}
+    for label in U_SSM:
+        stamp(f"path {label}, one process")
+        trainer = u_ssm_trainer(label, None)
+        run = u_run(kern, trainer, f"{label} one process "
+                    f"({U_SSM_ROWS} × {U_SSM_SEQ[label]} tokens)", card)
+        (SHARD_DIR / f"{label}.json").write_text(json.dumps(
+            {"losses": run["losses"], "launches": run["launches"]}))
+        torch.save(run["state"]["params"], SHARD_DIR / f"{label}_params.pt")
+        found[f"{label} one process"] = run["launches"]
+        del trainer, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return found
+
+
+def u_ssm_ranks(kern, rank: int, card: str) -> dict:
+    """U3 and U4 on this rank of S_WORLD (``gloo`` on the one card, its
+    group up), mesh (1, S_WORLD), each rank on the whole batch and its
+    slices of the split mixers, against the one-process run
+    (``u_ssm_one``): losses within rtol 1e-5, the gathered parameters
+    within 2·lr a step (the count past 1e-6 printed), the K1-loop
+    launches equal; every C step and multiplier step replayed by
+    ``LCAlgorithm(mesh=None)`` on the gathered weights bit for bit.
+    Returns the runs' launches."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.tree import tree_leaves
+    mesh = make_debug_mesh((1, S_WORLD))
+    found = {}
+    for label in U_SSM:
+        gc.collect()
+        torch.cuda.empty_cache()
+        rank_mark(label, rank)
+        trainer = u_ssm_trainer(label, mesh)
+        cfg = trainer.cfg
+        run = u_run(kern, trainer, f"{label} rank {rank} of {S_WORLD} "
+                    f"(gloo, one card, mesh (1, {S_WORLD}), {cfg.name}, "
+                    f"{cfg.n_layers} layers, {U_SSM_ROWS} × "
+                    f"{U_SSM_SEQ[label]} tokens "
+                    f"a rank)", card)
+        ref = json.loads((SHARD_DIR / f"{label}.json").read_text())
+        check(np.allclose(run["losses"], ref["losses"], rtol=1e-5, atol=0),
+              f"path {label} rank {rank} losses {run['losses']} against "
+              f"one process {ref['losses']}")
+        check(run["launches"]["K1loop"] == ref["launches"]["K1loop"] > 0,
+              f"path {label} rank {rank} K1-loop launches "
+              f"{run['launches']} against one process {ref['launches']}")
+        lc = u_ssm_lc(label, cfg)
+        for k, (name, params, state, want_tasks) in enumerate(run["steps"]):
+            lc.resolve(params)
+            got = getattr(lc, name)(params, state)["tasks"]
+            check(all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(got), tree_leaves(want_tasks))) and len(
+                tree_leaves(got)) == len(tree_leaves(want_tasks)),
+                  f"path {label} rank {rank} {name} {k}: against "
+                  f"mesh=None on the gathered weights")
+        n_steps = len(run["steps"])
+        lc.release_graphs()
+        del lc, got, params, state, want_tasks
+        run["steps"].clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        whole = sharding.gather_params(run["state"]["params"], cfg, mesh,
+                                       sharding.DEFAULT_RULES)
+        want = torch.load(SHARD_DIR / f"{label}_params.pt",
+                          map_location="cuda")
+        worst, flipped, n_all = 0.0, 0, 0
+        for x, y in zip(tree_leaves(whole), tree_leaves(want)):
+            d = (x - y).abs()
+            worst = max(worst, float(d.max()))
+            flipped += int(torch.count_nonzero(d > 1e-6))
+            n_all += d.numel()
+            del d
+        check(worst <= 2 * H_LR * U_SSM_STEPS * (1 + 1e-4),
+              f"path {label} rank {rank} parameters: max|Δ| {worst}")
+        del whole, want
+        print(f"path {label} rank {rank}: losses within rtol 1e-5 of one "
+              f"process; parameters after {U_SSM_STEPS} L steps and a C "
+              f"step max|Δ|={worst:.3g}, {flipped} of {n_all} past 1e-6; "
+              f"{n_steps} C and multiplier steps on the gathered "
+              f"weights bit for bit against mesh=None; K1-loop launches "
+              f"{ref['launches']['K1loop']} as one process [{card}]",
+              flush=True)
+        found[f"{label} rank {rank}"] = run["launches"]
+        del run, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return found
+
+
 def tp_train_paths(kern, card: str) -> None:
-    """``python3 chip_smoke.py --tp-train``: path U alone: U1 here, then
-    S_WORLD rank processes (``--tp-train-rank``) over ``gloo`` on the one
-    card for U2. The launches end the output as the line ``u_launches
+    """``python3 chip_smoke.py --tp-train``: path U alone: U1 and the
+    one-process runs of U3 and U4 here, then S_WORLD rank processes
+    (``--tp-train-rank``) over ``gloo`` on the one card for U2–U4. The launches end the output as the line ``u_launches
     {json}``."""
     import shutil
     shutil.rmtree(SHARD_DIR, ignore_errors=True)
     SHARD_DIR.mkdir(parents=True)
     found = path_u1(kern, card)
-    stamp(f"path U2 on {S_WORLD} ranks")
+    found.update(u_ssm_one(kern, card))
+    stamp(f"paths U2–U4 on {S_WORLD} ranks")
     found.update(run_ranks("--tp-train-rank", SHARD_DIR, U_LAUNCHES,
                            "path U"))
-    check(all(f"U2 rank {r}" in found for r in range(S_WORLD)),
-          "path U2: a rank reported no launches")
+    check(all(f"{p} rank {r}" in found for p in ("U2",) + U_SSM
+              for r in range(S_WORLD)),
+          "path U: a rank reported no launches")
     shutil.rmtree(SHARD_DIR, ignore_errors=True)
     stamp("done")
     print(U_LAUNCHES, json.dumps(found), flush=True)
@@ -5536,7 +5777,8 @@ def tp_train_paths(kern, card: str) -> None:
 
 def tp_train_rank(kern, rank: int, card: str) -> None:
     """``python3 chip_smoke.py --tp-train-rank R``: rank R of S_WORLD
-    over ``gloo`` on the one card, path U2 (``u_ranks``)."""
+    over ``gloo`` on the one card, paths U2 (``u_ranks``), U3 and U4
+    (``u_ssm_ranks``)."""
     import datetime
 
     import torch.distributed as dist
@@ -5545,6 +5787,7 @@ def tp_train_rank(kern, rank: int, card: str) -> None:
         "gloo", init_method=f"file://{SHARD_DIR / 'store'}", rank=rank,
         world_size=S_WORLD, timeout=datetime.timedelta(seconds=300))
     found = u_ranks(kern, rank, card)
+    found.update(u_ssm_ranks(kern, rank, card))
     dist.destroy_process_group()
     print(U_LAUNCHES, json.dumps(found), flush=True)
 
@@ -5728,16 +5971,6 @@ def main() -> int:
             if x.startswith(SSM_LAUNCHES + " ")]
     check(len(mark) == 1, "paths K and L1 reported no launches")
     paths.update(json.loads(mark[0][len(SSM_LAUNCHES) + 1:]))
-    # the busy shares of serving, eager and through CUDA graphs, each
-    # model in a fresh process (``serving_busy``)
-    for label in ("C", "K", "L1"):
-        stamp(f"busy shares of path {label}")
-        child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                                "--busy", label], stdout=subprocess.PIPE,
-                               text=True, timeout=600)
-        print(child.stdout, end="", flush=True)
-        check(child.returncode == 0, f"the busy-share process of path "
-              f"{label} exited with {child.returncode}")
     # path S: the sharding layer's data axis, in a process of its own
     # whose ranks are processes of their own (``shard_paths``)
     stamp("path S")

@@ -1,8 +1,8 @@
 """Logical-axis sharding rules over a ``torch.distributed`` device mesh.
 
 Port of ``src/repro/distributed/sharding.py``: the mesh's data axis and
-its tensor-parallel ``"model"`` axis (the SSM mixers' ``"inner"`` split
-excepted).
+its tensor-parallel ``"model"`` axis, the SSM mixers' ``"inner"`` split
+included.
 Every tensor dim carries a *logical name* ("batch", "items", ...). A rule
 maps a name to an ordered list of mesh-axis candidates; the resolver
 picks, per tensor, the first candidate that (a) exists in the mesh, (b)
@@ -33,9 +33,11 @@ Where the JAX package lets GSPMD place data, the port moves it itself:
   code puts them. Under the tensor-parallel ``"model"`` axis the model
   code splits its products itself: :func:`shard_params` gives a rank its
   slices of the weights (the ``"model"`` entry of each dim,
-  :func:`shard_spec`, of ``param_axes(cfg)``; :func:`gather_params` puts
-  them back), and a layer reads from its weights' shapes whether they
-  were split.
+  :func:`shard_spec`, of ``param_axes(cfg)``, by whole heads for
+  attention and the xLSTM mixers and by channel for Mamba; a leaf fused
+  along its split dim is cut in segments, one for each of its parts;
+  :func:`gather_params` puts them back), and a layer reads from its
+  weights' shapes whether they were split.
 
 The ``"model"`` axis, in serving and in training, follows one
 convention. Every model rank computes the whole loss of its data rows.
@@ -52,6 +54,13 @@ one rank, or records a graph where no gradient is asked for):
 * :func:`gather_from_model` (:func:`model_all_gather`): the ranks'
   blocks put together forward, this rank's block of the gradient
   backward: serving's full logits.
+
+A sum or a gather whose result every rank holds whole but reads only in
+part (the SSM mixers' ``x_proj`` output, the inputs of mLSTM's q/k/v,
+the RMS of a split norm: ``models/ssm.py``) has a gradient that is a
+part on each rank; there the layer composes ``copy_to_model`` over
+``reduce_from_model`` or ``gather_from_model``, so that the parts are
+summed before they flow back.
 
 After the backward pass a leaf that is whole on every model rank has
 the same gradient on each, a split leaf has its own shard's, and a kv
@@ -126,25 +135,10 @@ SERVE_RULES = dict(DEFAULT_RULES)
 SERVE_RULES["embed"] = [()]
 SERVE_RULES["embed_pod"] = [()]
 
-#: the message of the SSM mixers' refusal
-SSM_SLICE = ("the SSM mixers' \"inner\" split over the \"model\" axis is a "
-             "later slice of the port (ROADMAP queue 1)")
-
-
 def mesh_sizes(mesh) -> dict[str, int]:
     """``{axis name: size}`` of a mesh (or a stand-in with
     ``mesh_dim_names`` and ``shape``)."""
     return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
-
-
-def check_model_axis(mesh, where: str, what: str) -> None:
-    """Raise ``NotImplementedError`` naming the slice that brings it
-    (``what``) when ``mesh`` has a ``"model"`` axis larger than 1
-    (``where`` names the caller)."""
-    if mesh is not None and mesh_sizes(mesh).get("model", 1) > 1:
-        raise NotImplementedError(
-            f"{where}: a mesh whose \"model\" axis is "
-            f"{mesh_sizes(mesh)['model']} is not supported: {what}")
 
 
 def _axes(entry) -> tuple[str, ...]:
@@ -624,28 +618,37 @@ class _Cuts:
         return tree
 
     def __call__(self, path: tuple, r: int):
-        """``(dim, lo, hi)`` of rank ``r``'s slice of the leaf at ``path``
-        (a tuple of keys), or ``None`` where the leaf stays whole.
-        Attention and MLA split by whole heads
-        (``attention.head_slices``); the SSM mixers stay whole."""
-        from repro_torch.models import attention
+        """``(dim, segments)`` of rank ``r``'s slice of the leaf at
+        ``path`` (a tuple of keys), or ``None`` where the leaf stays
+        whole: ``segments`` a tuple of ``(lo, hi)`` along ``dim``, which
+        the rank holds put together in that order. Attention and MLA
+        split by whole heads (``attention.head_slices``), the SSM mixers
+        by channel and by whole heads (``ssm.inner_slices``), one segment
+        for each part of a fused leaf; every other leaf is one even
+        block."""
+        from repro_torch.models import attention, ssm
         shape = self._at(self.shapes, path)
         if path[0] == "stages" and path[3] == "mixer":
             kind = self.kinds[path[1:3]]
-            if kind not in ("attn", "mla"):
-                return None
-            cut = attention.head_slices(self.cfg, kind, path[-1], self.m, r)
+            if kind in ("attn", "mla"):
+                cut = attention.head_slices(self.cfg, kind, path[-1],
+                                            self.m, r)
+                if cut is None:
+                    return None
+                rows, lo, hi = cut
+                return len(shape) - (2 if rows else 1), ((lo, hi),)
+            cut = ssm.inner_slices(self.cfg, kind, path[-1], self.m, r)
             if cut is None:
                 return None
-            rows, lo, hi = cut
-            return len(shape) - (2 if rows else 1), lo, hi
+            dim, segs = cut          # dim counted from the end
+            return len(shape) + dim, segs
         spec = shard_spec(tuple(self._at(self.axes, path)), shape,
                           self.mesh, self.rules)
         if "model" not in spec:
             return None
         d = spec.index("model")
         per = shape[d] // self.m
-        return d, r * per, (r + 1) * per
+        return d, ((r * per, (r + 1) * per),)
 
     def layout(self, path: tuple, r: int):
         """``"whole"``, ``"split"``, or the number of ranks that hold
@@ -655,6 +658,15 @@ class _Cuts:
             return "whole"
         k = sum(self(path, q) == cut for q in range(self.m))
         return k if k > 1 else "split"
+
+
+def slice_segments(leaf, dim: int, segs):
+    """The ``segments`` (``(lo, hi)`` pairs) of a weight leaf along
+    ``dim``, put together in their order, in the leaf's own form
+    (``layers.slice_weight``, ``layers.join_weight``)."""
+    from repro_torch.models import layers
+    parts = [layers.slice_weight(leaf, dim, lo, hi) for lo, hi in segs]
+    return parts[0] if len(parts) == 1 else layers.join_weight(parts, dim)
 
 
 def _map_paths(tree, fn, path=()):
@@ -683,18 +695,20 @@ def shard_params(params, cfg, mesh, rules: dict | None = None,
     block, copied, so that the whole tree can be dropped. A leaf where
     no dim resolves stays whole (the same tensor). Attention and MLA
     split by whole heads (``attention.head_slices``) and run whole where
-    the heads do not divide; the SSM mixers stay whole (their
-    ``"inner"`` split is a later slice, and they refuse a ``"model"``
-    axis above 1). On a ``"model"`` axis of 1 the tree is returned as it
-    is."""
-    from repro_torch.models import layers
+    the heads do not divide. The SSM mixers split their ``"inner"``
+    channels (``ssm.inner_slices``): Mamba by channel, mLSTM and sLSTM by
+    whole heads (whole where the heads do not divide); a leaf fused
+    along its split dim (Mamba's and mLSTM's ``in_proj``/``up_proj``,
+    sLSTM's ``w``, ``b`` and ``up_proj``) gives the rank its channels of
+    each part, in the parts' order (:func:`slice_segments`). On a
+    ``"model"`` axis of 1 the tree is returned as it is."""
     if model_size(mesh) == 1:
         return params
     cuts, r = _Cuts(cfg, mesh, rules), model_rank(mesh)
 
     def shard(leaf, path):
         cut = cuts(path, r)
-        return leaf if cut is None else layers.slice_weight(leaf, *cut)
+        return leaf if cut is None else slice_segments(leaf, *cut)
 
     return (_map_flat if flat else _map_paths)(params, shard)
 
@@ -724,10 +738,11 @@ def gather_params(params, cfg, mesh, rules: dict | None = None,
                   flat: bool = False):
     """The inverse of :func:`shard_params`: the whole tree from every
     model rank's slices, put back together in rank order (an all-gather
-    over ``mesh``'s ``"model"`` group; the same tree on every rank). A
-    slice that several ranks hold (a kv head where m > KV) is taken once;
-    a weight form is put back in its own layout
-    (``layers.join_weight``)."""
+    over ``mesh``'s ``"model"`` group; the same tree on every rank). Each
+    rank's slice is cut back into its segments, and the segments of every
+    rank are put in place; a segment that several ranks hold (a kv head
+    where m > KV) is taken once; a weight form is put back in its own
+    layout (``layers.join_weight``)."""
     from repro_torch.models import layers
     m = model_size(mesh)
     if m == 1:
@@ -738,9 +753,17 @@ def gather_params(params, cfg, mesh, rules: dict | None = None,
         every = [cuts(path, r) for r in range(m)]
         if every[0] is None:
             return leaf
-        parts = dict(zip(every, _gather_parts(leaf, group, m)))
-        return layers.join_weight([parts[c] for c in sorted(parts)],
-                                  every[0][0])
+        dim = every[0][0]
+        pieces = {}
+        for (_, segs), part in zip(every, _gather_parts(leaf, group, m)):
+            at = 0
+            for lo, hi in segs:
+                if (lo, hi) not in pieces:
+                    pieces[(lo, hi)] = (part if len(segs) == 1 else
+                                        layers.slice_weight(
+                                            part, dim, at, at + hi - lo))
+                at += hi - lo
+        return layers.join_weight([pieces[s] for s in sorted(pieces)], dim)
 
     return (_map_flat if flat else _map_paths)(params, gather)
 

@@ -14,8 +14,8 @@ batch (``torchrun --nproc-per-node 2 -m repro_torch.launch.train --mesh
 2,1 ...``), tensor-parallel over ``"model"`` (``--mesh 1,2``: each rank
 holds its slices of the weights, the optimizer state and the LC refs;
 the C step runs on the weights gathered whole), or both (``--mesh
-2,2``). The SSM mixers (jamba, xlstm) do not split over ``"model"``
-yet: a ``MODEL`` size above 1 raises for them.
+2,2``). Every architecture splits over ``"model"``, jamba's Mamba and
+xlstm's mLSTM and sLSTM mixers included (``models/ssm.py``).
 
 LC-compressed training end to end: data stream → L steps (train step
 with the LC penalty, AdamW) → C steps → multipliers, with checkpointing

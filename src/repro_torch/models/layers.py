@@ -114,10 +114,22 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = 0) -> torch.Tensor:
     return randn(gen, shape) * std
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             n_full: int | None = None) -> torch.Tensor:
+    """RMS norm over the last dim. With ``n_full``, ``x`` and ``scale``
+    hold a rank's channels of ``n_full`` (a split mixer's): the sum of
+    squares, and its gradient, summed over the "model" group."""
     dt = x.dtype
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if n_full is None:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        ss = sharding.copy_to_model(sharding.model_all_reduce(
+            torch.sum(xf * xf, dim=-1, keepdim=True)))
+        # a true division (a Python scalar divisor may become a multiply
+        # by its rounded reciprocal)
+        var = ss / torch.full((), float(n_full), dtype=ss.dtype,
+                              device=ss.device)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(dt)
 

@@ -33,10 +33,36 @@ log-sigmoid is ``-softplus(-x)``. Weight leaves that the reference reads
 directly (``conv_w``, ``A_log``, sLSTM's ``r``) are read with ``.to``:
 a compressed weight form there has no product and raises.
 
-The ``"inner"`` split of the tensor-parallel ``"model"`` axis is a later
-slice of the port: every forward and decode here raises
-``NotImplementedError`` under an active mesh whose ``"model"`` axis is
-above 1, rather than run the mixer replicated without saying so.
+Under the tensor-parallel ``"model"`` axis of m ranks
+(``sharding.shard_params``, :func:`inner_slices`) each mixer splits its
+``"inner"`` channels, and reads from its weights' shapes whether it was
+split (``sharding.model_split``):
+
+* Mamba by channel: rank r holds channels ``[r·di/m, (r+1)·di/m)`` of
+  ``in_proj``'s x and z columns, the conv taps, ``dt_bias``, ``D``,
+  ``A_log``'s rows, ``dt_proj``'s columns and the row-parallel
+  ``x_proj`` and ``out_proj``; the scan runs on its channels, and its
+  cache holds them;
+* mLSTM by whole heads (H % m = 0): ``up_proj``'s x and z columns, the
+  conv, ``out_norm``, the column-parallel ``wq``/``wk``/``wv`` and
+  gates of its heads, the row-parallel ``down_proj``; its chunks and
+  cache hold its heads;
+* sLSTM by whole heads: the four gates' columns of ``w`` and ``b``, its
+  heads of ``r`` (the recurrence stays on the rank: no collective in
+  the time loop), ``out_norm``, ``up_proj``'s u and g columns over
+  ``"mlp"`` and the row-parallel ``down_proj``.
+
+Where the heads do not divide (or Mamba's channels) the mixer runs whole
+on every rank. Three results are held whole by every rank but read only
+in part: Mamba's ``x_proj`` output (dt, B and C, summed from the ranks'
+row-parallel parts), mLSTM's ``xc``/``xm`` and sLSTM's normed ``h``
+(gathered for the column-parallel products), and the RMS of a split
+``out_norm`` (its sum of squares summed). Each rank's gradient of such a
+result is a part of the whole: the forward composes
+``sharding.copy_to_model`` over ``sharding.model_all_reduce`` (the sums)
+or ``sharding.model_all_gather`` (the gathers), so that the parts are
+summed over the group before they flow back (:func:`_summed`,
+:func:`_gathered`, ``layers.rms_norm(n_full=)``). The input of every mixer takes ``copy_to_model``.
 """
 from __future__ import annotations
 
@@ -53,9 +79,75 @@ from repro_torch.models.layers import apply_w, dense_init, randn, rms_norm
 M_FLOOR = -30.0      # the stabilizer's floor (keeps exp(-m) finite)
 
 
-def _refuse_model_axis(where: str) -> None:
-    sharding.check_model_axis(sharding.active_mesh(), where,
-                              sharding.SSM_SLICE)
+# ----------------------------------------------------------------------
+# the "inner" split over the "model" axis
+# ----------------------------------------------------------------------
+def inner_split(cfg, kind: str, m: int) -> bool:
+    """Whether the mixer ``kind`` splits over a ``"model"`` axis of
+    ``m``: Mamba where its channels divide, mLSTM where its heads do,
+    sLSTM where its heads and its post-MLP width do."""
+    if m == 1:
+        return False
+    if kind == "mamba":
+        return mamba_dims(cfg)[0] % m == 0
+    if kind == "mlstm":
+        return cfg.n_heads % m == 0
+    return cfg.n_heads % m == 0 and slstm_dims(cfg)[2] % m == 0
+
+
+def inner_slices(cfg, kind: str, name: str, m: int, r: int):
+    """Rank ``r``'s slice of the SSM mixer leaf ``name`` over a
+    ``"model"`` axis of ``m``: ``(dim, segments)``, ``dim`` counted from
+    the leaf's end and ``segments`` its ``(lo, hi)`` ranges along it in
+    the order the rank holds them (one a part of a fused leaf), or
+    ``None`` where the mixer runs whole."""
+    if not inner_split(cfg, kind, m):
+        return None
+    if kind == "mamba":
+        di = mamba_dims(cfg)[0]
+    elif kind == "mlstm":
+        di = mlstm_dims(cfg)[0]
+    else:
+        di, _, ff = slstm_dims(cfg)
+    q = di // m
+    ch = ((r * q, (r + 1) * q),)                  # the rank's channels
+    hl = cfg.n_heads // m
+    heads = ((r * hl, (r + 1) * hl),)
+    xz = ((r * q, (r + 1) * q), (di + r * q, di + (r + 1) * q))
+    cuts = {
+        "mamba": {"in_proj": (-1, xz), "conv_w": (-1, ch),
+                  "conv_b": (-1, ch), "x_proj": (-2, ch),
+                  "dt_proj": (-1, ch), "dt_bias": (-1, ch),
+                  "A_log": (-2, ch), "D": (-1, ch), "out_proj": (-2, ch)},
+        "mlstm": {"up_proj": (-1, xz), "conv_w": (-1, ch),
+                  "conv_b": (-1, ch), "wq": (-1, ch), "wk": (-1, ch),
+                  "wv": (-1, ch), "wi": (-1, heads), "wf": (-1, heads),
+                  "bi": (-1, heads), "bf": (-1, heads),
+                  "out_norm": (-1, ch), "down_proj": (-2, ch)},
+    }
+    if kind == "slstm":
+        gates = tuple((g * di + lo, g * di + hi) for g in range(4)
+                      for lo, hi in ch)
+        fq = ff // m
+        mlp = ((r * fq, (r + 1) * fq), (ff + r * fq, ff + (r + 1) * fq))
+        cuts["slstm"] = {"w": (-1, gates), "b": (-1, gates),
+                         "r": (-3, heads), "out_norm": (-1, ch),
+                         "up_proj": (-1, mlp),
+                         "down_proj": (-2, ((r * fq, (r + 1) * fq),))}
+    return cuts[kind][name]
+
+
+def _summed(x: torch.Tensor) -> torch.Tensor:
+    """The ranks' parts of ``x`` summed over the "model" group; its
+    gradient, which each rank holds a part of, summed over the group."""
+    return sharding.copy_to_model(sharding.model_all_reduce(x))
+
+
+def _gathered(x: torch.Tensor) -> torch.Tensor:
+    """The ranks' channels of ``x`` (last dim) put together in rank
+    order; the gradient of the whole summed over the group before each
+    rank takes its channels."""
+    return sharding.copy_to_model(sharding.model_all_gather(x, -1))
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -218,12 +310,15 @@ def _mamba_chunk(h, xi_j, dt_j, b_j, c_j, a):
 def mamba_forward(params, x, cfg, spec, positions, chunk: int = 128,
                   return_cache=False):
     """x: (B, S, d_model) → (B, S, d_model)."""
-    _refuse_model_axis("mamba_forward")
     m = cfg.mamba
-    di, dtr = mamba_dims(cfg)
+    di = params["D"].shape[0]                 # the rank's channels
+    split = sharding.model_split(di, mamba_dims(cfg)[0], "mamba")
+    dtr = mamba_dims(cfg)[1]
     b, s, _ = x.shape
     dt_ = x.dtype
 
+    if split:
+        x = sharding.copy_to_model(x)
     xz = apply_w(x, params["in_proj"], dt_)
     xi, z = torch.chunk(xz, 2, dim=-1)
     xi = constrain(xi, ("batch", "seq", "inner"))
@@ -232,6 +327,8 @@ def mamba_forward(params, x, cfg, spec, positions, chunk: int = 128,
     xi = F.silu(xi)
 
     xdbl = apply_w(xi, params["x_proj"], dt_)
+    if split:
+        xdbl = _summed(xdbl)
     dt_raw, b_ssm, c_ssm = torch.split(xdbl, [dtr, m.d_state, m.d_state],
                                        dim=-1)
     dt = _softplus(apply_w(dt_raw, params["dt_proj"], dt_)
@@ -258,15 +355,25 @@ def mamba_forward(params, x, cfg, spec, positions, chunk: int = 128,
     y = y + xi * params["D"].to(dt_)[None, None]
     y = y * F.silu(z)
     out = apply_w(y, params["out_proj"], dt_)
+    if split:
+        out = sharding.model_all_reduce(out)
     if not return_cache:
         return out
     return out, {"conv": conv_tail, "ssm": h}
 
 
+def _local_width(cfg, kind: str, di: int) -> int:
+    """``di`` channels, or the rank's share where the mixer splits over
+    the active mesh's "model" axis."""
+    m = sharding.model_size(sharding.active_mesh())
+    return di // m if inner_split(cfg, kind, m) else di
+
+
 def init_mamba_cache(cfg, spec, batch: int, max_len: int, dtype,
                      device) -> dict:
+    """The rank's channels under the active mesh's "model" axis."""
     m = cfg.mamba
-    di, _ = mamba_dims(cfg)
+    di = _local_width(cfg, "mamba", mamba_dims(cfg)[0])
     return {
         "conv": torch.zeros((batch, m.d_conv - 1, di), dtype=dtype,
                             device=device),
@@ -278,9 +385,10 @@ def init_mamba_cache(cfg, spec, batch: int, max_len: int, dtype,
 def mamba_decode(params, x, cache, pos, cfg, spec, layer_idx=None,
                  active=None):
     """x: (B, 1, d_model): one step of the recurrence."""
-    _refuse_model_axis("mamba_decode")
     m = cfg.mamba
-    di, dtr = mamba_dims(cfg)
+    split = sharding.model_split(params["D"].shape[0], mamba_dims(cfg)[0],
+                                 "mamba")
+    dtr = mamba_dims(cfg)[1]
     dt_ = x.dtype
     st = _read_states(cache, layer_idx)
 
@@ -292,6 +400,8 @@ def mamba_decode(params, x, cache, pos, cfg, spec, layer_idx=None,
     xi = F.silu(xi)[:, 0]                                      # (B, di)
 
     xdbl = apply_w(xi, params["x_proj"], dt_)
+    if split:
+        xdbl = _summed(xdbl)
     dt_raw, b_ssm, c_ssm = torch.split(xdbl, [dtr, m.d_state, m.d_state],
                                        dim=-1)
     dt = _softplus(apply_w(dt_raw, params["dt_proj"], dt_)
@@ -304,6 +414,8 @@ def mamba_decode(params, x, cache, pos, cfg, spec, layer_idx=None,
     y = y + xi * params["D"].to(dt_)[None]
     y = y * F.silu(z[:, 0])
     out = apply_w(y, params["out_proj"], dt_)[:, None]
+    if split:
+        out = sharding.model_all_reduce(out)
     return out, _write_states(cache, {"conv": conv_state, "ssm": h},
                               layer_idx, active)
 
@@ -401,9 +513,10 @@ def _mlstm_chunk(cbar, nbar, mbar, q_j, k_j, v_j, li_j, lf_j):
 
 def mlstm_forward(params, x, cfg, spec, positions, return_cache=False):
     """Chunkwise-parallel mLSTM. x: (B, S, d) → (B, S, d)."""
-    _refuse_model_axis("mlstm_forward")
-    di, dh = mlstm_dims(cfg)
-    hn = cfg.n_heads
+    di_full, dh = mlstm_dims(cfg)
+    hn = params["bi"].shape[-1]               # the rank's heads
+    split = sharding.model_split(hn, cfg.n_heads, "mLSTM")
+    di = hn * dh
     b, s, _ = x.shape
     dt_ = x.dtype
     c = min(cfg.xlstm.chunk, s)
@@ -411,16 +524,20 @@ def mlstm_forward(params, x, cfg, spec, positions, return_cache=False):
         raise ValueError(f"sequence {s} is not a multiple of the mLSTM "
                          f"chunk {c}")
 
+    if split:
+        x = sharding.copy_to_model(x)
     xz = apply_w(x, params["up_proj"], dt_)
     xm, z = torch.chunk(xz, 2, dim=-1)
     xc, conv_tail = _causal_conv(xm, params["conv_w"].to(dt_),
                                  params["conv_b"].to(dt_))
     xc = F.silu(xc)
-    q = apply_w(xc, params["wq"], dt_).reshape(b, s, hn, dh)
-    k = _div_scalar(apply_w(xc, params["wk"], dt_).reshape(b, s, hn, dh),
-                    math.sqrt(dh))
-    v = apply_w(xm, params["wv"], dt_).reshape(b, s, hn, dh)
-    li, lf = _mlstm_gates(params, xc)
+    # the heads' products read every channel
+    xc_all, xm_all = (_gathered(xc), _gathered(xm)) if split else (xc, xm)
+    q = apply_w(xc_all, params["wq"], dt_).reshape(b, s, hn, dh)
+    k = _div_scalar(apply_w(xc_all, params["wk"], dt_).reshape(
+        b, s, hn, dh), math.sqrt(dh))
+    v = apply_w(xm_all, params["wv"], dt_).reshape(b, s, hn, dh)
+    li, lf = _mlstm_gates(params, xc_all)
 
     remat = _remat(cfg)
     cbar = torch.zeros((b, hn, dh, dh), dtype=torch.float32,
@@ -439,8 +556,11 @@ def mlstm_forward(params, x, cfg, spec, positions, return_cache=False):
             h_j, cbar, nbar, mbar = _mlstm_chunk(*args)
         hs.append(h_j.to(dt_))
     hseq = torch.cat(hs, dim=1).reshape(b, s, di)
-    hseq = rms_norm(hseq, params["out_norm"], cfg.norm_eps)
+    hseq = rms_norm(hseq, params["out_norm"], cfg.norm_eps,
+                    di_full if split else None)
     y = apply_w(hseq * F.silu(z), params["down_proj"], dt_)
+    if split:
+        y = sharding.model_all_reduce(y)
     if not return_cache:
         return y
     return y, {"conv": conv_tail, "C": cbar, "n": nbar, "m": mbar}
@@ -448,8 +568,10 @@ def mlstm_forward(params, x, cfg, spec, positions, return_cache=False):
 
 def init_mlstm_cache(cfg, spec, batch: int, max_len: int, dtype,
                      device) -> dict:
-    di, dh = mlstm_dims(cfg)
-    hn = cfg.n_heads
+    """The rank's heads under the active mesh's "model" axis."""
+    _, dh = mlstm_dims(cfg)
+    hn = _local_width(cfg, "mlstm", cfg.n_heads)
+    di = hn * dh
     f32 = dict(dtype=torch.float32, device=device)
     return {
         "conv": torch.zeros((batch, cfg.xlstm.conv_kernel - 1, di),
@@ -463,9 +585,10 @@ def init_mlstm_cache(cfg, spec, batch: int, max_len: int, dtype,
 def mlstm_decode(params, x, cache, pos, cfg, spec, layer_idx=None,
                  active=None):
     """x: (B, 1, d_model): one step of the recurrence."""
-    _refuse_model_axis("mlstm_decode")
-    di, dh = mlstm_dims(cfg)
-    hn = cfg.n_heads
+    di_full, dh = mlstm_dims(cfg)
+    hn = params["bi"].shape[-1]
+    split = sharding.model_split(hn, cfg.n_heads, "mLSTM")
+    di = hn * dh
     b = x.shape[0]
     dt_ = x.dtype
     st = _read_states(cache, layer_idx)
@@ -477,6 +600,8 @@ def mlstm_decode(params, x, cache, pos, cfg, spec, layer_idx=None,
         state=st["conv"])
     xc = F.silu(xc)[:, 0]
     xm = xm[:, 0]
+    if split:
+        xc, xm = _gathered(xc), _gathered(xm)
     q = apply_w(xc, params["wq"], dt_).reshape(b, hn, dh).float()
     k = _div_scalar(apply_w(xc, params["wk"], dt_).reshape(b, hn, dh),
                     math.sqrt(dh)).float()
@@ -494,8 +619,11 @@ def mlstm_decode(params, x, cache, pos, cfg, spec, layer_idx=None,
     den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", q, n_new)),
                         torch.exp(-m_new)) + 1e-6
     hvec = (num / den[..., None]).reshape(b, di).to(dt_)
-    hvec = rms_norm(hvec, params["out_norm"], cfg.norm_eps)
+    hvec = rms_norm(hvec, params["out_norm"], cfg.norm_eps,
+                    di_full if split else None)
     out = apply_w(hvec * F.silu(z[:, 0]), params["down_proj"], dt_)
+    if split:
+        out = sharding.model_all_reduce(out)
     return out[:, None], _write_states(
         cache, {"conv": conv_state, "C": c_new, "n": n_new, "m": m_new},
         layer_idx, active)
@@ -531,8 +659,10 @@ def init_slstm(gen: torch.Generator, cfg) -> dict:
 
 def slstm_axes(cfg) -> dict:
     return {
-        # r stays replicated (the reference's note: split over "model"
-        # it would cost a sum over the group at every time step)
+        # the reference's table, which keeps r replicated (split over
+        # "model" by its rows it would cost a sum over the group at every
+        # time step); the port splits r by whole heads instead
+        # (``inner_slices``), with no collective in the time loop
         "w": ("embed", "inner"), "r": ("stack", None, None, None),
         "b": ("inner",), "out_norm": ("inner",),
         "up_proj": ("inner", "mlp"), "down_proj": ("mlp", "embed"),
@@ -541,9 +671,11 @@ def slstm_axes(cfg) -> dict:
 
 def _slstm_cell(params, wx_t, state, cfg):
     """One sLSTM step. wx_t: (B, 4·di), the input's precomputed share;
-    state (c, n, h, m). Returns the new state and h."""
-    di, dh, _ = slstm_dims(cfg)
-    hn = cfg.n_heads
+    state (c, n, h, m). Returns the new state and h. The heads are those
+    of ``r`` (the rank's, where the mixer is split)."""
+    _, dh, _ = slstm_dims(cfg)
+    hn = params["r"].shape[1]
+    di = hn * dh
     c, n, hprev, m = state
     hh = hprev.reshape(-1, hn, dh)
     rec = torch.einsum("bhd,ghde->bghe", hh, params["r"])
@@ -560,16 +692,29 @@ def _slstm_cell(params, wx_t, state, cfg):
     return (c_new, n_new, h_new, m_new), h_new
 
 
+def _slstm_split(params, cfg) -> bool:
+    return sharding.model_split(params["out_norm"].shape[-1],
+                                slstm_dims(cfg)[0], "sLSTM")
+
+
 def _slstm_out(params, h, cfg, dt_):
-    """The block's norm and gated post-MLP on h (…, di)."""
-    h = rms_norm(h, params["out_norm"], cfg.norm_eps)
+    """The block's norm and gated post-MLP on h (…, di): over a split
+    mixer the normed channels are gathered for ``up_proj``'s columns and
+    ``down_proj``'s row-parallel parts summed."""
+    split = _slstm_split(params, cfg)
+    h = rms_norm(h, params["out_norm"], cfg.norm_eps,
+                 slstm_dims(cfg)[0] if split else None)
+    if split:
+        h = _gathered(h)
     u, g = torch.chunk(apply_w(h, params["up_proj"], dt_), 2, dim=-1)
-    return apply_w(u * F.silu(g), params["down_proj"], dt_)
+    y = apply_w(u * F.silu(g), params["down_proj"], dt_)
+    return sharding.model_all_reduce(y) if split else y
 
 
 def slstm_forward(params, x, cfg, spec, positions, return_cache=False):
-    _refuse_model_axis("slstm_forward")
-    di, _, _ = slstm_dims(cfg)
+    di = params["out_norm"].shape[-1]         # the rank's channels
+    if _slstm_split(params, cfg):
+        x = sharding.copy_to_model(x)
     b, s, _ = x.shape
     dt_ = x.dtype
     wx = apply_w(x, params["w"], dt_).float()                  # (B,S,4di)
@@ -590,7 +735,8 @@ def slstm_forward(params, x, cfg, spec, positions, return_cache=False):
 
 def init_slstm_cache(cfg, spec, batch: int, max_len: int, dtype,
                      device) -> dict:
-    di, _, _ = slstm_dims(cfg)
+    """The rank's channels under the active mesh's "model" axis."""
+    di = _local_width(cfg, "slstm", slstm_dims(cfg)[0])
     f32 = dict(dtype=torch.float32, device=device)
     return {"c": torch.zeros((batch, di), **f32),
             "n": torch.zeros((batch, di), **f32),
@@ -600,10 +746,12 @@ def init_slstm_cache(cfg, spec, batch: int, max_len: int, dtype,
 
 def slstm_decode(params, x, cache, pos, cfg, spec, layer_idx=None,
                  active=None):
-    _refuse_model_axis("slstm_decode")
     dt_ = x.dtype
     st = _read_states(cache, layer_idx)
-    wx = apply_w(x[:, 0], params["w"], dt_).float()
+    xt = x[:, 0]
+    if _slstm_split(params, cfg):
+        xt = sharding.copy_to_model(xt)
+    wx = apply_w(xt, params["w"], dt_).float()
     (c, n, h, m), _ = _slstm_cell(params, wx,
                                   (st["c"], st["n"], st["h"], st["m"]), cfg)
     out = _slstm_out(params, h.to(dt_), cfg, dt_)[:, None]

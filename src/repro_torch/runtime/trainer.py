@@ -49,7 +49,9 @@ whole on every model rank (a solve per slice would change the k-means
 codebooks and κ's support). ``compressed_params`` returns the whole
 tree. Checkpoints hold the whole state, written by rank 0
 (``checkpoint/checkpoint.py``), so that they restore over any mesh. The
-SSM mixers refuse a ``"model"`` axis above 1 (a later slice).
+SSM mixers split too (Mamba by channel, mLSTM and sLSTM by whole heads:
+``models/ssm.py``); their fused leaves are sliced and gathered in
+segments.
 """
 from __future__ import annotations
 

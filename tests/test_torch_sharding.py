@@ -218,12 +218,16 @@ def test_a_model_axis_leaves_constrain_and_the_c_step_layout():
 
 
 def test_a_model_axis_is_refused():
-    """Only the SSM mixers' "inner" split still raises over a "model" axis
-    above 1, naming the slice that brings it. Tensor-parallel training
-    is no longer refused: the trainer takes the mesh and hands it to the
+    """Nothing is refused over a "model" axis above 1 any more. Tensor-
+    parallel training: the trainer takes the mesh and hands it to the
     algorithm, and each leaf's layout over it is read
     (``tests/test_torch_tp_train.py`` holds both to the reference on
-    ranks)."""
+    ranks). The SSM mixers run under the mesh: given whole weights (a
+    mixer that ``shard_params`` left whole) they read from the weights'
+    shapes that they are not split, issue no collective, and give
+    ``mesh=None``'s output and states bit for bit
+    (``tests/test_torch_tp_ssm.py`` holds their split to the reference
+    on ranks)."""
     import dataclasses
 
     from repro_torch import configs
@@ -242,13 +246,33 @@ def test_a_model_axis_is_refused():
     assert layout["stages/s0/pos0/ffn/w_down"] == "split"
     assert layout["embed/tokens"] == "split"
     assert layout["final_norm"] == "whole"
-    x = torch.zeros(1, 4, cfg.d_model)
-    for name in ("mamba", "mlstm", "slstm"):
+    for arch, name in (("jamba-v0.1-52b", "mamba"), ("xlstm-125m", "mlstm"),
+                       ("xlstm-125m", "slstm")):
+        scfg = dataclasses.replace(configs.reduced_config(
+            configs.get_config(arch)), dtype="float32")
+        gen = torch.Generator().manual_seed(0)
+        params = getattr(ssm, f"init_{name}")(gen, scfg)
+        x = torch.randn(2, 8, scfg.d_model, generator=gen)
+        spec = next(s for s in scfg.all_layer_specs() if s.mixer == name)
+        fwd = getattr(ssm, f"{name}_forward")
+        dec = getattr(ssm, f"{name}_decode")
+        init = getattr(ssm, f"init_{name}_cache")
+        want, want_st = fwd(params, x, scfg, spec, None, return_cache=True)
+        # the whole mixer's cache (under the mesh ``init_*_cache`` gives
+        # a rank's share, which split weights read)
+        caches = [init(scfg, spec, 2, 8, torch.float32, "cpu")
+                  for _ in range(2)]
+        want_dec = dec(params, x[:, :1], caches[0], 0, scfg, spec)
         with sh.use_mesh(mesh):
-            with pytest.raises(NotImplementedError, match="later slice"):
-                getattr(ssm, f"{name}_forward")(None, x, cfg, None, None)
-            with pytest.raises(NotImplementedError, match="later slice"):
-                getattr(ssm, f"{name}_decode")(None, x, None, 0, cfg, None)
+            got, got_st = fwd(params, x, scfg, spec, None,
+                              return_cache=True)
+            got_dec = dec(params, x[:, :1], caches[1], 0, scfg, spec)
+        assert torch.equal(got, want), name
+        for k in want_st:
+            assert torch.equal(got_st[k], want_st[k]), (name, k)
+        assert torch.equal(got_dec[0], want_dec[0]), name
+        for k in want_dec[1]:
+            assert torch.equal(got_dec[1][k], want_dec[1][k]), (name, k)
 
 
 def test_meshes_over_a_one_rank_group():

@@ -16,7 +16,9 @@
   atol 1e-4;
 * ``shard_params`` gives each rank its blocks of the split leaves, whole
   heads of attention (a kv head on two ranks where m > KV) and MLA, the
-  same tensors where nothing splits, and leaves the SSM mixers whole.
+  SSM mixers' channels (Mamba) and whole heads (mLSTM, sLSTM), a fused
+  leaf in one segment a part, and the same tensors where nothing
+  splits.
 """
 import dataclasses
 import functools
@@ -233,8 +235,9 @@ def _leaves(tree, prefix=""):
     ("mixtral-8x7b", {"n_heads": 2, "n_kv_heads": 2}, 4),
     ("minicpm3-4b", {"n_heads": 4, "n_kv_heads": 4}, 2),
     ("jamba-v0.1-52b", {}, 2),
+    ("xlstm-125m", {"n_heads": 4, "n_kv_heads": 4}, 4),
 ], ids=["phi3-m2", "phi3-kv2-m4", "deepseek-ep-m4", "mixtral-heads2-m4",
-        "minicpm3-m2", "jamba-m2"])
+        "minicpm3-m2", "jamba-m2", "xlstm-m4"])
 def test_shard_params_gives_each_rank_its_blocks(arch, kw, m):
     cfg = _cfg(arch, **kw)
     params = ttf.init_params(torch.Generator().manual_seed(0), cfg)
@@ -248,7 +251,20 @@ def test_shard_params_gives_each_rank_its_blocks(arch, kw, m):
         split += 1
         kind = kinds.get(tuple(path.split("/")[2:4])) \
             if "/mixer/" in path else None
-        assert kind not in ("mamba", "mlstm", "slstm"), path
+        if kind in ("mamba", "mlstm", "slstm"):
+            # the rank's segments of the whole, put together in order;
+            # every index of the split dim held by exactly one rank
+            seen = []
+            for r, part in enumerate(parts):
+                dim, segs = tssm.inner_slices(cfg, kind, path.split("/")[-1],
+                                              m, r)
+                d = whole.ndim + dim
+                want = torch.cat([whole.narrow(d, lo, hi - lo)
+                                  for lo, hi in segs], dim=d)
+                assert torch.equal(part, want), (path, r)
+                seen += [i for lo, hi in segs for i in range(lo, hi)]
+            assert sorted(seen) == list(range(whole.shape[d])), path
+            continue
         diff = [d for d in range(whole.ndim)
                 if parts[0].shape[d] != whole.shape[d]]
         assert len(diff) == 1, path

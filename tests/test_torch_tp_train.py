@@ -475,7 +475,9 @@ def test_gather_params_puts_each_form_back_whole(trained, world):
 @pytest.mark.parametrize("arch,over,m", [
     ("phi3-mini-3.8b", {"n_kv_heads": 2}, 4),
     ("phi3-mini-3.8b", {"n_heads": 2, "n_kv_heads": 2}, 4),
-    ("deepseek-moe-16b", {}, 2), ("minicpm3-4b", {}, 2)])
+    ("deepseek-moe-16b", {}, 2), ("minicpm3-4b", {}, 2),
+    ("jamba-v0.1-52b", {}, 4), ("xlstm-125m", {}, 2),
+    ("xlstm-125m", {"n_heads": 2, "n_kv_heads": 2}, 4)])
 def test_param_layout_counts_every_weight_once(arch, over, m):
     """Over the model ranks, each leaf's elements counted as
     ``param_layout`` says (a split leaf on every rank, a leaf held by k

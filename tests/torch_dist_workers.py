@@ -397,19 +397,20 @@ class CStepRecorder:
 
 
 def tpt_trainer(cfg, mesh, compression: str, overlap: str,
-                ckpt_dir: str | None = None):
+                ckpt_dir: str | None = None, tasks=None):
     """``LCTrainer`` over ``mesh`` (``None``: one process): ``launch/
-    train.py``'s ``compression`` tasks, 2 μ × 2 L steps on the reduced
-    config, overlapped or serial, checkpoints in ``ckpt_dir``. Returns
-    the trainer, its recorder, the final train state gathered whole and
-    the LC state."""
+    train.py``'s ``compression`` tasks (or ``tasks()``'s), 2 μ × 2 L
+    steps on the reduced config, overlapped or serial, checkpoints in
+    ``ckpt_dir``. Returns the trainer, its recorder, the final train
+    state gathered whole and the LC state."""
     from repro_torch.core import LCAlgorithm, exponential_mu_schedule
     from repro_torch.data import TokenStream
     from repro_torch.distributed import sharding
     from repro_torch.launch.train import default_tasks
     from repro_torch.runtime import LCTrainer, TrainerConfig
-    lc = LCAlgorithm(default_tasks(cfg, compression),
-                     exponential_mu_schedule(1e-3, 1.5, 2), device="cpu")
+    lc = LCAlgorithm(default_tasks(cfg, compression) if tasks is None
+                     else tasks(), exponential_mu_schedule(1e-3, 1.5, 2),
+                     device="cpu")
     rec = CStepRecorder(lc)
     trainer = LCTrainer(
         cfg, lc, TokenStream(cfg.vocab_size, TPT_BATCH, TPT_SEQ), mesh=mesh,
@@ -555,4 +556,109 @@ def tp_train(rank, world, inputs_path, out_dir):
         out["restored"] = CheckpointManager(
             inputs["one_process_ckpt"], cfg=cfg, mesh=mesh).restore(
                 template)[0]
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+# ----------------------------------------------------------------------
+# the SSM mixers' "inner" split over the "model" axis
+# ----------------------------------------------------------------------
+#: the weight forms of the segmented round trip
+SSM_FORMS = ("quant4", "quant8", "sparse", "lowrank", "dense")
+
+
+def ssm_tasks():
+    """The SSM trainers' task: per-layer 4-entry codebooks (3 Lloyd
+    steps) on the leaves that split in segments (Mamba's ``in_proj``,
+    mLSTM's ``up_proj``, sLSTM's ``w``)."""
+    from repro_torch.core import AsStacked, CompressionTask
+    from repro_torch.core.schemes import AdaptiveQuantization
+    return [CompressionTask("quantize-segments",
+                            r"mixer/(in_proj|up_proj|w)$",
+                            AsStacked("vector"),
+                            AdaptiveQuantization(k=4, iters=3))]
+
+
+def ssm_forms_tree(cfg, form: str) -> dict:
+    """The reduced tree of ``cfg`` (unrolled) with every 2-D leaf of its
+    SSM mixers that the model applies as a product in ``form`` (from
+    seeds; ``conv_w`` and ``A_log`` stay dense, as ``launch/serve.py``
+    keeps them)."""
+    from repro_torch.models.transformer import init_params, mixer_kinds
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(6)
+    for (s, p), kind in mixer_kinds(cfg).items():
+        if kind not in ("mamba", "mlstm", "slstm"):
+            continue
+        mix = params["stages"][s][p]["mixer"]
+        for name, leaf in mix.items():
+            if leaf.ndim == 2 and name not in ("conv_w", "A_log"):
+                mix[name] = _as_form(leaf, form, g)
+    return params
+
+
+def _as_form(w, form: str, g):
+    from repro_torch.kernels.quant_matmul import ops as qops
+    from repro_torch.runtime import compressed as forms
+    if form.startswith("quant"):
+        bits = int(form[5:])
+        codes = 16 if bits == 4 else 64
+        idx = torch.randint(0, codes, tuple(w.shape), generator=g,
+                            dtype=torch.uint8)
+        return forms.QuantizedWeight(
+            qops.pack4(idx) if bits == 4 else idx,
+            torch.sort(torch.randn(codes, generator=g)).values,
+            tuple(w.shape), bits)
+    if form == "sparse":
+        dense = torch.where(torch.rand(w.shape, generator=g) < 0.3, w, 0.0)
+        rows, cols = torch.nonzero(dense, as_tuple=True)
+        return forms.SparseWeight(dense[rows, cols], rows.to(torch.int32),
+                                  cols.to(torch.int32), tuple(w.shape))
+    if form == "lowrank":
+        return forms.LowRankWeight(torch.randn(w.shape[0], 3, generator=g),
+                                   torch.randn(3, w.shape[1], generator=g))
+    return w
+
+
+def tp_ssm(rank, world, inputs_path, out_dir):
+    """The SSM cases of ``inputs`` over each mesh shape for this world
+    size: served (``tp_serve_case``), one train step
+    (``tp_train_step``), every form's segmented tree split and gathered
+    back, the one-process checkpoint restored; at world size 2 the
+    trainer over (1, 2) (checkpointed), its C steps recorded."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_debug_mesh
+    inputs = torch.load(inputs_path, weights_only=False)
+    out = {}
+    for shape in inputs["meshes"][world]:
+        mesh = make_debug_mesh(shape, device_type="cpu")
+        for name, case in inputs["serve"].items():
+            out[(shape, "serve", name)] = tp_serve_case(
+                case["cfg"], case["params"], inputs["prompts"],
+                inputs["trace"], mesh)
+        for name, case in inputs["train"].items():
+            out[(shape, "train", name)] = tp_train_step(
+                case["cfg"], case["state"], case["batch"], mesh)
+        if shape[0] == 1:
+            for name, cfg in inputs["forms"].items():
+                for form in SSM_FORMS:
+                    whole = ssm_forms_tree(cfg, form)
+                    out[(shape, "forms", name, form)] = \
+                        sharding.gather_params(sharding.shard_params(
+                            whole, cfg, mesh), cfg, mesh)
+            for name, case in inputs["trainer"].items():
+                template = sharding.shard_train_state(
+                    case["template"], case["cfg"], mesh)
+                out[(shape, "restored", name)] = CheckpointManager(
+                    case["ckpt"], cfg=case["cfg"], mesh=mesh).restore(
+                        template)[0]
+    if world == 2:
+        mesh = make_debug_mesh((1, 2), device_type="cpu")
+        for name, case in inputs["trainer"].items():
+            trainer, rec, whole, lc_state = tpt_trainer(
+                case["cfg"], mesh, "quantize", "off",
+                os.path.join(out_dir, f"ckpt_{name}"), ssm_tasks)
+            out[("trainer", name)] = {"history": trainer.history,
+                                      "state": whole, "lc_state": lc_state,
+                                      "steps": rec.steps}
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
