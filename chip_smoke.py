@@ -20,6 +20,9 @@
                                         # --tp-rank R)
     python3 chip_smoke.py --tp-train    # path U alone (its ranks run as
                                         # --tp-train-rank R)
+    python3 chip_smoke.py --dryrun      # path R alone: the dry run and
+                                        # roofline against the card
+                                        # (--dryrun-meta: R1 only)
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit (nvcc). Every ``Server`` and ``ServingEngine`` serves
@@ -279,14 +282,31 @@ Phases, each of which fails the run:
     its gathered weights bit for bit; per rank the step ms, the model
     collectives' ms and share of it, the gathers' and the C step's ms,
     the peak and the weight bytes held. U3 and U4 train the split SSM
-    mixers the same way (U3 2 × 512 tokens a step, U4 2 × 1024), one μ
+    mixers the same way (U3 and U4 2 × 512 tokens a step), one μ
     of 2 L steps and a C step, each against its one-process run with
     U2's checks: U3
     xlstm-125m with L2's trainer's settings (``train_lm_compress``,
     remat, K=16 a layer's matrix: one task a matrix of the unrolled
     blocks) at 6 blocks, U4 jamba-v0.1-52b's first layer (Mamba with a
     dense FFN) at full width with K's Mamba and FFN quantization tasks;
-22. one JSON line listing every ported kernel, then the result line.
+22. path R, the dry run and roofline (``launch/dryrun.py``,
+    ``analysis/op_stats.py``, ``analysis/roofline.py``; alone
+    ``--dryrun``). R1, in a process of its own beside the build (it
+    needs no card): ``dryrun.run_cell`` of xlstm-125m decode_32k on 2x16x16,
+    phi3-mini-3.8b train_4k on 16x16 and mixtral-8x7b prefill_32k on
+    16x16 with ``fused_attn+quant_serve``, on meta tensors, each row ok
+    with every term finite and positive, printed. R2, after path L2 and
+    before any profiler session: phi3-mini at full width, 2 of its 32
+    layers, float32, one rank: a train step on 8 × 1024 tokens, a prefill
+    of 2 × 2048 with ``fused_attn+quant_serve`` (K6 and K5 on the card)
+    and a decode step of 8 rows at a 4096 context, each counted as a dry
+    run on meta tensors and then on the card under the same counter
+    (after a warm-up step): FLOPs, the aten op tally and the kernel
+    launches equal, the predicted peak within 10% of
+    ``max_memory_allocated`` above the step's baseline, the measured
+    median (CUDA events) at least 0.95 · t_compute; measured / max(term)
+    printed;
+23. one JSON line listing every ported kernel, then the result line.
 
 Tolerances: assignments, masks and integer counts must be equal; K1/K7
 cluster sums may differ from the plain version's by the summation order
@@ -2475,7 +2495,12 @@ class Calls(list):
 
 
 def _host(x):
-    return x.cpu() if isinstance(x, torch.Tensor) else x
+    """A host copy of a card tensor, in page-locked memory: a pageable
+    copy of I1's 11.3 GB of checked operands took 11.8 s of its C step
+    (PR 27 run 6)."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
 
 
 @contextlib.contextmanager
@@ -3139,7 +3164,10 @@ def main_path_i1(kern, k1, power: str) -> dict:
     torch.cuda.empty_cache()
     out["lloyd"] = check_lloyd_at(k1, lloyd, "I1", power)
     del lloyd
+    gc.collect()
     torch.cuda.empty_cache()
+    # the page-locked copies back to the system (a CUDA build has it)
+    getattr(torch._C, "_host_emptyCache", lambda: None)()
     return out
 
 
@@ -5591,10 +5619,10 @@ def u_ranks(kern, rank: int, card: str) -> dict:
 #: U3 (xlstm-125m) and U4 (jamba-v0.1-52b): the split SSM mixers trained
 U_SSM = ("U3", "U4")
 #: their global batch (rows), L steps, and tokens a row (U3: two mLSTM
-#: chunks of 256 and 512 sLSTM steps, 1024 until the smoke's time limit
-#: asked for a cut; PERF.md §6)
+#: chunks of 256 and 512 sLSTM steps; U4: four Mamba scan chunks of 128;
+#: each 1024 until the smoke's time limit asked for a cut, PERF.md §6)
 U_SSM_ROWS, U_SSM_STEPS = 2, 2
-U_SSM_SEQ = {"U3": 512, "U4": H_SEQ}
+U_SSM_SEQ = {"U3": 512, "U4": 512}
 
 
 def u_ssm_config(label: str):
@@ -5823,6 +5851,205 @@ def run_ranks(flag: str, folder: Path, mark: str, prefix: str) -> dict:
     return found
 
 
+# ----------------------------------------------------------------------
+# path R: the dry run and roofline (launch/dryrun.py) against the card
+# ----------------------------------------------------------------------
+#: R1's production cells: (arch, shape, multi-pod, variant)
+R1_CELLS = (("xlstm-125m", "decode_32k", True, ""),
+            ("phi3-mini-3.8b", "train_4k", False, ""),
+            ("mixtral-8x7b", "prefill_32k", False, "fused_attn+quant_serve"))
+#: R2's one-rank cells of phi3-mini at R2_LAYERS layers, float32:
+#: (kind, tokens a row (decode: the context), rows, variant, timed runs)
+R2_LAYERS = 2
+R2_CELLS = (("train", 1024, 8, "", 5),
+            ("prefill", 2048, 2, "fused_attn+quant_serve", 10),
+            ("decode", 4096, 8, "", 20))
+R_PEAK_RTOL = 0.10          # predicted peak within 10% of the card's
+R_COMPUTE_FLOOR = 0.95      # measured median ≥ 0.95 · t_compute
+
+
+def r1_meta(card: str) -> None:
+    """R1: ``dryrun.run_cell`` of each R1 cell on this host (meta
+    tensors, no card): every row ok, every term finite and positive;
+    each row printed."""
+    from repro_torch.launch import dryrun
+    keys = ("flops_per_chip", "bytes_per_chip", "coll_bytes_per_chip",
+            "t_compute_s", "t_memory_s", "t_collective_s",
+            "peak_bytes_per_chip")
+    for arch, shape, multi_pod, variant in R1_CELLS:
+        t0 = time.time()
+        row = dryrun.run_cell(arch, shape, multi_pod, variant=variant)
+        label = f"path R1 {arch} {shape} {row['mesh']} {variant or '-'}"
+        check(row["status"] == "ok", f"{label}: {row.get('error')}\n"
+              f"{row.get('traceback', '')}")
+        check(all(math.isfinite(row[k]) and row[k] > 0 for k in keys),
+              f"{label}: a term is not finite and positive: "
+              f"{ {k: row[k] for k in keys} }")
+        print(f"{label} ({time.time() - t0:.1f} s on the host, modeled "
+              f"for [{card}]): {json.dumps(row, default=str)}", flush=True)
+
+
+def r2_config():
+    """phi3-mini-3.8b at full width, R2_LAYERS of its 32 layers, float32
+    (remat on, as configured)."""
+    cfg = h_config(R2_LAYERS)
+    check(cfg.remat and cfg.n_layers == R2_LAYERS, "path R2 config")
+    return cfg
+
+
+def r2_args(cfg, kind: str, seq: int, rows: int, variant: str, gen=None):
+    """The R2 cell's step arguments: the meta trees of
+    ``launch/inputs.py`` (``gen`` None), or their twin on the card from
+    the port's own inits and ``gen``."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import inputs
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.models.transformer import init_cache, init_params
+    sh = ShapeCfg(f"r2_{kind}", seq, rows, kind)
+    quant = "quant_serve" in variant
+    if gen is None:
+        if kind == "train":
+            return (inputs.train_state_specs(cfg),
+                    inputs.batch_specs(cfg, sh))
+        if kind == "prefill":
+            return inputs.prefill_specs(cfg, sh, quantized=quant,
+                                        dtype=torch.float32)
+        return inputs.decode_specs(cfg, sh, quantized=quant,
+                                   dtype=torch.float32)
+    dev = gen.device
+    if kind == "train":
+        batch = {k: torch.randint(0, cfg.vocab_size, (rows, seq),
+                                  generator=gen, device=dev)
+                 for k in ("inputs", "labels")}
+        return init_train_state(gen, cfg), batch
+    params = init_params(gen, cfg)
+    if quant:
+        params = inputs.quantize_params_meta(params, None, cfg, gen=gen)
+    if kind == "prefill":
+        return params, torch.randint(0, cfg.vocab_size, (rows, seq),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)
+    return (params, init_cache(cfg, rows, seq, torch.float32, device=dev),
+            torch.randint(0, cfg.vocab_size, (rows, 1), generator=gen,
+                          device=dev, dtype=torch.int32),
+            torch.full((rows,), seq - 1, dtype=torch.int64, device=dev))
+
+
+def _shapes(tree) -> list:
+    from repro_torch.tree import tree_leaves
+    out = []
+    for leaf in tree_leaves(tree):
+        for t in ([leaf] if isinstance(leaf, torch.Tensor)
+                  else [v for v in vars(leaf).values()
+                        if isinstance(v, torch.Tensor)]):
+            out.append((tuple(t.shape), t.dtype))
+    return out
+
+
+def r2_cells(kern, card: str) -> dict:
+    """R2: each R2 cell as a dry run on meta tensors, then eagerly on the
+    card under the same counter (``op_stats``), after a warm-up step:
+    counted FLOPs, the aten op tally and the kernel launches
+    (``build.launch_counts``) equal; the predicted peak (the counter's
+    live storages) within R_PEAK_RTOL of ``max_memory_allocated`` above
+    the step's baseline; the median of timed steps (CUDA events) at least
+    R_COMPUTE_FLOOR · t_compute. Returns the counted runs' launches."""
+    from repro_torch.analysis import op_stats
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import (
+        make_prefill_step, make_serve_step, make_train_step)
+    from repro_torch.models.attention import FLASH_SCOPE
+    check(not torch.backends.cuda.matmul.allow_tf32, "path R2: TF32 on")
+    cfg = r2_config()
+    labels = {kk: n for n, kk in kern.items()}
+    found = {}
+    for kind, seq, rows, variant, reps in R2_CELLS:
+        label = f"path R2 {kind} {rows} x {seq} {variant or '-'}"
+        stamp(label)
+        run_cfg = cfg.with_(fused_attention="fused_attn" in variant)
+        step = {"train": make_train_step, "prefill": make_prefill_step,
+                "decode": make_serve_step}[kind](run_cfg)
+        skip = (FLASH_SCOPE,) if "fused_attn" in variant else ()
+        meta = r2_args(cfg, kind, seq, rows, variant)
+        t0 = time.time()
+        ms = op_stats.analyze_step(step, *meta, skip_scopes=skip)
+        t_meta = time.time() - t0
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        args = r2_args(cfg, kind, seq, rows, variant, gen)
+        check(_shapes(args) == _shapes(meta),
+              f"{label}: the card's arguments differ from the meta trees")
+        del meta
+        step(*args)                       # warm-up (cuBLAS workspaces)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = build.launch_counts()
+        cs = op_stats.analyze_step(step, *args, skip_scopes=skip)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        card_launches = {labels[c]: n - before.get(c, 0)
+                         for c, n in build.launch_counts().items()
+                         if c in labels and n != before.get(c, 0)}
+        found[f"R2 {kind}"] = {n: card_launches.get(n, 0) for n in kern}
+        check(ms.flops == cs.flops and ms.flops_by_class
+              == cs.flops_by_class,
+              f"{label}: FLOPs meta {ms.flops_by_class} card "
+              f"{cs.flops_by_class}")
+        diff = {k: (ms.ops.get(k, 0), cs.ops.get(k, 0))
+                for k in set(ms.ops) | set(cs.ops)
+                if ms.ops.get(k, 0) != cs.ops.get(k, 0)}
+        check(not diff, f"{label}: op tally meta/card differs {diff}")
+        check(dict(ms.launches) == dict(cs.launches) == card_launches,
+              f"{label}: launches meta {dict(ms.launches)} counted "
+              f"{dict(cs.launches)} card {card_launches}")
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            step(*args)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / 1e3)
+        measured = statistics.median(times)
+        terms = rl.analyze(ms, arch=cfg.name, shape=f"{kind}_{seq}",
+                           mesh_name="1", chips=1, model_flops=0.0)
+        t_max = max(terms.t_compute, terms.t_memory, terms.t_collective)
+        rel = abs(ms.peak_bytes - peak) / peak
+        print(f"{label}: flops={ms.flops:.6g} {dict(ms.flops_by_class)} "
+              f"ops={sum(ms.ops.values())} ({len(ms.ops)} kinds) equal; "
+              f"launches {dict(ms.launches)} equal; t_compute_s="
+              f"{terms.t_compute:.6g} t_memory_s={terms.t_memory:.6g} "
+              f"t_collective_s={terms.t_collective:.6g} measured_s="
+              f"{measured:.6g} (median of {reps}, {min(times):.6g}–"
+              f"{max(times):.6g}) measured/max(term)="
+              f"{measured / t_max:.4g} bottleneck={terms.bottleneck}; "
+              f"peak predicted {ms.peak_bytes / 2**30:.4f} GiB, card "
+              f"{peak / 2**30:.4f} GiB above a baseline of "
+              f"{base / 2**30:.4f} (counter on the card "
+              f"{cs.peak_bytes / 2**30:.4f}), rel {rel:.4f}; meta trace "
+              f"{t_meta:.2f} s [{card}]", flush=True)
+        check(rel <= R_PEAK_RTOL, f"{label}: predicted peak "
+              f"{ms.peak_bytes} against the card's {peak}")
+        check(measured >= R_COMPUTE_FLOOR * terms.t_compute,
+              f"{label}: measured {measured} s below {R_COMPUTE_FLOOR} · "
+              f"t_compute {terms.t_compute}")
+        del args, cs, ms
+        gc.collect()
+        torch.cuda.empty_cache()
+    return found
+
+
+def dryrun_path(kern, card: str) -> dict:
+    """``python3 chip_smoke.py --dryrun``: path R, R1 then R2."""
+    stamp("path R1")
+    r1_meta(card)
+    stamp("path R2")
+    return r2_cells(kern, card)
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -5854,9 +6081,31 @@ def main() -> int:
         build.build(["kmeans_assign_moments.cu", "count_above.cu"])
         host_launch_cost(k1, k2, card)
         return 0
+    if sys.argv[1:] == ["--dryrun-meta"]:
+        r1_meta(card)
+        return 0
+    r1 = None
+    if not sys.argv[1:]:
+        # path R1 needs neither the kernels nor the card: a process of
+        # its own on the host's cores that nvcc leaves free
+        r1 = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--dryrun-meta"], stdout=subprocess.PIPE,
+                              text=True)
     t0 = time.time()
-    logs = build.build(build.SOURCES)
-    print(f"build_s={time.time() - t0:.2f} sources={sorted(logs)}")
+    try:
+        logs = build.build(build.SOURCES)
+        print(f"build_s={time.time() - t0:.2f} sources={sorted(logs)}")
+        if r1 is not None:
+            stamp("path R1 (beside the build)")
+            r1_out = r1.communicate(timeout=600)[0]
+    finally:
+        if r1 is not None and r1.poll() is None:
+            r1.kill()
+            r1.wait()
+    if r1 is not None:
+        print(r1_out, end="", flush=True)
+        check(r1.returncode == 0,
+              f"the process of path R1 exited with {r1.returncode}")
     for src_name, log in logs.items():
         for line in log.splitlines():
             if "Function properties for" in line:
@@ -5905,6 +6154,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--tp-train-rank"]:
         tp_train_rank(kern, int(sys.argv[2]), card)
         return 0
+    if sys.argv[1:] == ["--dryrun"]:
+        dryrun_path(kern, card)
+        return 0
     t_start = time.time()
     stamp('kernel phase')
     rec = kernel_phase(k1, k2, power)
@@ -5943,6 +6195,10 @@ def main() -> int:
                   "J engine": path_j["engine"]})
     stamp('path L2')
     paths["L2"] = main_path_l2(kern, k1, power)
+    # R2 before any profiler session (one leaves cost on later launches);
+    # R1 ran beside the build
+    stamp('path R2')
+    paths.update(r2_cells(kern, card))
     stamp('profiles')
     profile_phase(kern, path_c, power)
     device_times(k2, k6, mrec["K9"][0], srec["K6"][0], card)

@@ -58,6 +58,10 @@ class HardwareSpec:
     link_bw: float         # interconnect bytes/s per chip (one direction)
     vmem_bytes: int        # fast on-chip memory a block can take
     hbm_bytes: int         # device memory per chip
+    tf32_flops: float = 0.0   # TF32 tensor-core FLOP/s (one pass)
+    bf16_flops: float = 0.0   # bf16 tensor-core FLOP/s
+    nic_bw: float = 0.0       # bytes/s per chip to other nodes (one way)
+    node_size: int = 1        # chips joined by ``link_bw`` in one node
 
     @property
     def ridge_intensity(self) -> float:
@@ -65,12 +69,17 @@ class HardwareSpec:
         return self.peak_flops / self.hbm_bw
 
 
-#: H100 SXM at its 700 W limit: 3.35 TB/s of HBM3, 67 TFLOP/s f32 on the
-#: CUDA cores (what the C-step kernels use), NVLink 4 at 900 GB/s both
-#: ways (450 GB/s a direction), 227 KiB of shared memory a block.
-#: ``hbm_bytes`` is the card's own, read by :func:`detect_hardware`.
+#: H100 SXM at its 700 W limit, dense rates of NVIDIA's spec sheet (not
+#: measured): 3.35 TB/s of HBM3, 67 TFLOP/s f32 on the CUDA cores (what
+#: the C-step kernels and cuBLAS's f32 products with TF32 off use), 494.7
+#: TFLOP/s TF32 and 989.4 TFLOP/s bf16 on the tensor cores, NVLink 4 at
+#: 900 GB/s both ways (450 GB/s a direction) among the 8 GPUs of an HGX
+#: node, one 400 Gb/s NDR NIC a GPU (50 GB/s) between nodes, 227 KiB of
+#: shared memory a block. ``hbm_bytes`` is the card's own, read by
+#: :func:`detect_hardware`.
 H100 = HardwareSpec("h100", "h100", 67e12, 3.35e12, 450e9,
-                    227 * 1024, 0)
+                    227 * 1024, 0, tf32_flops=494.7e12,
+                    bf16_flops=989.4e12, nic_bw=50e9, node_size=8)
 #: deliberately coarse (one server socket), as in the JAX package: it
 #: only ranks alternatives
 CPU = HardwareSpec("cpu", "cpu", 1e12, 100e9, 25e9,

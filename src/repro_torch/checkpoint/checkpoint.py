@@ -83,8 +83,7 @@ def _rank_world() -> tuple[int, int]:
 
 def _barrier() -> None:
     if _rank_world()[1] > 1:
-        import torch.distributed as dist
-        dist.barrier()
+        sharding.barrier()
 
 
 class CheckpointManager:

@@ -75,10 +75,18 @@ the batch's ranks once. :func:`param_layout` says of each leaf whether it
 is split, whole or copied, which the global norm and the LC penalty
 read to count each weight once.
 
-Nothing here imports a collective backend at import time; the collectives
-run only where a mesh with a process group is given. ``gloo`` takes CUDA
-tensors in these collectives (it stages them through the host itself),
-which is how two ranks share one card, where NCCL refuses them.
+Every ``torch.distributed`` collective of the port is called here, by
+one function (:func:`_collective`), which reports it to an active
+``analysis/op_stats.py`` counter (primitive, output bytes, group size)
+before it issues it. On a dry run's mesh (``launch/mesh.py:
+abstract_mesh``) the groups are recording groups
+(:class:`RecordingGroup`): the collective is recorded and issues nothing
+(a sum leaves its input as it is, a gather's output stays unwritten).
+Nothing here imports a collective backend at import time; the
+collectives run only where a mesh with a process group is given.
+``gloo`` takes CUDA tensors in these collectives (it stages them through
+the host itself), which is how two ranks share one card, where NCCL
+refuses them.
 """
 from __future__ import annotations
 
@@ -88,6 +96,7 @@ import threading
 
 import torch
 
+from repro_torch.analysis import op_stats
 from repro_torch.tree import tree_map
 
 # candidates: tuples of mesh axis names (joint sharding) tried in order;
@@ -283,6 +292,58 @@ def constrain(x, names: tuple):
 # ----------------------------------------------------------------------
 # ranks, process groups and the collectives of the data axis
 # ----------------------------------------------------------------------
+class RecordingGroup:
+    """The process group of a dry run's mesh (``launch/mesh.py:
+    abstract_mesh``): the ``size`` ranks along mesh ``axes``. A
+    collective on it is recorded and issues nothing."""
+
+    def __init__(self, axes: tuple, size: int):
+        self.axes, self.size = tuple(axes), int(size)
+
+    def __repr__(self):
+        return f"RecordingGroup(axes={self.axes}, size={self.size})"
+
+
+def group_size(group) -> int:
+    """The number of ranks in ``group`` (``None``: the default group)."""
+    if isinstance(group, RecordingGroup):
+        return group.size
+    import torch.distributed as dist
+    return dist.get_world_size(group)
+
+
+def _collective(primitive: str, group, out=None, inp=None,
+                op: str = "sum"):
+    """The one call site of the port's ``torch.distributed``
+    collectives: ``"all-reduce"`` of ``out`` in place (by ``op``, "sum"
+    or "max"), ``"all-gather"`` of every rank's ``inp`` into ``out``
+    (``all_gather_into_tensor``), or ``"barrier"``. It reports the
+    collective to the active ``op_stats`` counters, then issues it,
+    unless ``group`` is a dry run's :class:`RecordingGroup`. Returns
+    ``out``."""
+    op_stats.record_collective(primitive, out, group_size(group),
+                               getattr(group, "axes", None))
+    if isinstance(group, RecordingGroup):
+        return out
+    import torch.distributed as dist
+    if primitive == "all-reduce":
+        dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=group)
+    elif primitive == "all-gather":
+        dist.all_gather_into_tensor(out, inp, group=group)
+    elif primitive == "barrier":
+        dist.barrier(group=group)
+    else:
+        raise ValueError(f"unknown collective {primitive!r}")
+    return out
+
+
+def barrier(group=None) -> None:
+    """Every rank of ``group`` (``None``: the default group) waits for
+    the others."""
+    _collective("barrier", group)
+
+
 def entry_rank(mesh, entry) -> int:
     """This rank's index among the ranks that ``entry``'s axes span
     (row-major over the entry's axes in order)."""
@@ -316,7 +377,6 @@ def gather_items(tree, mesh, entry):
     (``all_gather_into_tensor`` over ``entry``'s process group, in rank
     order): a leaf of ``m`` rows on each of ``n`` ranks comes back with
     ``n·m`` rows, the same on every rank."""
-    import torch.distributed as dist
     group = entry_group(mesh, entry)
     n = entry_size(mesh, entry)
     done: dict = {}
@@ -330,8 +390,7 @@ def gather_items(tree, mesh, entry):
                 done[id(x)] = blk.clone()
                 return done[id(x)]
             out = blk.new_empty((n * blk.shape[0], *blk.shape[1:]))
-            dist.all_gather_into_tensor(out, blk, group=group)
-            done[id(x)] = out
+            done[id(x)] = _collective("all-gather", group, out, blk)
         return done[id(x)]
 
     return tree_map(gather, tree)
@@ -339,9 +398,7 @@ def gather_items(tree, mesh, entry):
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` summed over ``group``, in place (returned)."""
-    import torch.distributed as dist
-    dist.all_reduce(x, group=group)
-    return x
+    return _collective("all-reduce", group, x)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -457,20 +514,15 @@ def model_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """``x`` reduced over ``group`` in place (returned), by ``op`` ("sum"
     or "max"): every collective of the ``"model"`` axis but the gathers
     goes through here."""
-    import torch.distributed as dist
-    dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max"
-                    else dist.ReduceOp.SUM, group=group)
-    return x
+    return _collective("all-reduce", group, x, op=op)
 
 
 def model_gather(x: torch.Tensor, group, m: int) -> torch.Tensor:
     """The ``m`` ranks' blocks of ``x`` (one shape on every rank) stacked
     in rank order along a new leading axis: ``(m, *x.shape)``."""
-    import torch.distributed as dist
     blk = x.contiguous().reshape(1, -1)
     out = blk.new_empty((m, blk.shape[1]))
-    dist.all_gather_into_tensor(out, blk, group=group)
-    return out.reshape(m, *x.shape)
+    return _collective("all-gather", group, out, blk).reshape(m, *x.shape)
 
 
 def _join_blocks(stacked: torch.Tensor, dim: int) -> torch.Tensor:
@@ -480,8 +532,10 @@ def _join_blocks(stacked: torch.Tensor, dim: int) -> torch.Tensor:
                                            *shape[dim + 1:])
 
 
-def _wants_grad(x: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and x.requires_grad
+def _wants_grad(x) -> bool:
+    """Whether autograd records ``x``'s use (never a weight form's)."""
+    return (torch.is_grad_enabled() and isinstance(x, torch.Tensor)
+            and x.requires_grad)
 
 
 class _CopyToModel(torch.autograd.Function):

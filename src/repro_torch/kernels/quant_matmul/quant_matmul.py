@@ -19,9 +19,13 @@ Two regimes, picked by M inside the launch:
   ``mma.sync`` with the 3-pass split for f32 accuracy.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
-version for a CPU tensor. Unlike the Pallas K5 (compare-select dequant,
-C ≤ 16), the CUDA K5 reads the codebook through a lookup table and takes
-any C ≤ 256.
+version for a CPU tensor; on meta tensors (the dry run) it checks the
+operands as for a launch and returns an empty output (the decode GEMV's
+split-K workspace, freed as the launch is queued, is not allocated). On
+meta as on the card it reports its launch to an active
+``analysis/op_stats.py`` counter (:func:`cost`). Unlike the Pallas K5
+(compare-select dequant, C ≤ 16), the CUDA K5 reads the codebook
+through a lookup table and takes any C ≤ 256.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from functools import lru_cache
 
 import torch
 
+from repro_torch.analysis import op_stats
 from repro_torch.kernels.build import (
     CudaKernel, on_card, raw_stream, stream_buffer)
 from repro_torch.kernels.quant_matmul.ref import (
@@ -48,6 +53,8 @@ _ARGS = [_p, _p, _p, ctypes.c_int, _p, ctypes.c_longlong,
          ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _p, _p, _p]
 KERNEL_U8 = CudaKernel("quant_matmul.cu", "quant_matmul_u8", _ARGS)
 KERNEL_PACKED4 = CudaKernel("quant_matmul.cu", "quant_matmul_packed4", _ARGS)
+#: each kernel's label in ``op_stats`` counts
+_LABELS = {KERNEL_U8: "K5", KERNEL_PACKED4: "K4"}
 
 @lru_cache(maxsize=None)
 def _sm_count(dev: int) -> int:
@@ -71,9 +78,19 @@ def gemv_slices(rows: int, n: int, dev: int = 0) -> int:
     return _slices(rows, n, _sm_count(dev))
 
 
+def cost(m: int, k: int, n: int, w_bytes: int,
+         codes: int) -> tuple[float, float, str]:
+    """(FLOPs, boundary bytes, FLOP class) of one launch: 2·M·K·N, on
+    the CUDA cores in f32 for the decode GEMV (M ≤ ``GEMV_MAX_M``) and
+    as the 3-pass TF32 split above; x, the ``w_bytes`` of indices and the
+    codebook read and y written once."""
+    nbytes = 4.0 * (m * k + m * n + codes) + w_bytes
+    return 2.0 * m * k * n, nbytes, "f32" if m <= GEMV_MAX_M else "tf32"
+
+
 def _refuse(name: str, x, w, codebook, k: int, max_codes: int):
     """Raise the error that names what the kernel does not take."""
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name}: no kernel for device {x.device}")
     if x.dtype != torch.float32 or codebook.dtype != torch.float32:
         raise TypeError(f"{name} needs float32 x and codebook, got "
@@ -100,7 +117,7 @@ def _refuse(name: str, x, w, codebook, k: int, max_codes: int):
 def _launch(kernel: CudaKernel, name: str, x, w, codebook, k: int,
             max_codes: int) -> torch.Tensor:
     # one combined check; _refuse names the first rule broken
-    if not (x.device.type == "cuda" and x.dtype == torch.float32
+    if not (x.device.type in ("cuda", "meta") and x.dtype == torch.float32
             and codebook.dtype == torch.float32 and w.dtype == torch.uint8
             and x.ndim == 2 and w.ndim == 2 and codebook.ndim == 1
             and x.shape[1] == k and w.device == x.device
@@ -110,25 +127,30 @@ def _launch(kernel: CudaKernel, name: str, x, w, codebook, k: int,
             and 1 <= k <= _INT_MAX and 1 <= codebook.shape[0] <= max_codes):
         _refuse(name, x, w, codebook, k, max_codes)
     m, n = x.shape[0], w.shape[1]
-    dev = x.get_device()
-    stream = raw_stream(dev)
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    slices, ws, counters = 1, None, None
-    if m <= GEMV_MAX_M:
-        slices = _slices(w.shape[0], n, _sm_count(dev))
-        if slices > 1:
-            counters = stream_buffer("gemv tickets", dev, stream,
-                                     max(-(-n // GEMV_COLS), 1024),
-                                     torch.int32, True)
-            # held until the launch is queued, so that no allocation in
-            # between takes its memory
-            ws = torch.empty((slices, m, n), dtype=torch.float32,
-                             device=x.device)
-    with on_card(dev):
-        kernel(x.data_ptr(), w.data_ptr(), codebook.data_ptr(),
-               codebook.shape[0], y.data_ptr(), m, n, k, slices,
-               None if ws is None else ws.data_ptr(),
-               None if counters is None else counters.data_ptr(), stream)
+    with op_stats.kernel(_LABELS[kernel], *cost(m, k, n, w.numel(),
+                                                codebook.shape[0])):
+        y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+        if x.is_meta:
+            return y
+        dev = x.get_device()
+        stream = raw_stream(dev)
+        slices, ws, counters = 1, None, None
+        if m <= GEMV_MAX_M:
+            slices = _slices(w.shape[0], n, _sm_count(dev))
+            if slices > 1:
+                counters = stream_buffer("gemv tickets", dev, stream,
+                                         max(-(-n // GEMV_COLS), 1024),
+                                         torch.int32, True)
+                # held until the launch is queued, so that no allocation
+                # in between takes its memory
+                ws = torch.empty((slices, m, n), dtype=torch.float32,
+                                 device=x.device)
+        with on_card(dev):
+            kernel(x.data_ptr(), w.data_ptr(), codebook.data_ptr(),
+                   codebook.shape[0], y.data_ptr(), m, n, k, slices,
+                   None if ws is None else ws.data_ptr(),
+                   None if counters is None else counters.data_ptr(),
+                   stream)
     return y
 
 
@@ -137,7 +159,8 @@ def quant_matmul(x: torch.Tensor, idx: torch.Tensor,
     """K5: y = x @ codebook[idx]; x (M, K) f32, idx (K, N) uint8,
     codebook (C ≤ 256,) f32 → (M, N) f32. On a CUDA tensor this launches
     the kernel on the current stream without synchronising; on a CPU
-    tensor it runs the plain version."""
+    tensor it runs the plain version; on a meta tensor it returns the
+    output's shape."""
     if x.device.type == "cpu":
         return quant_matmul_plain(x, idx, codebook)
     return _launch(KERNEL_U8, "quant_matmul", x, idx, codebook,
@@ -150,7 +173,8 @@ def quant_matmul_packed(x: torch.Tensor, packed: torch.Tensor,
     2·packed.shape[0], packed (K/2, N) uint8, codebook (C ≤ 16,) f32 →
     (M, N) f32. Both nibbles of a byte are unpacked in the kernel. On a
     CUDA tensor this launches the kernel on the current stream without
-    synchronising; on a CPU tensor it runs the plain version."""
+    synchronising; on a CPU tensor it runs the plain version; on a meta
+    tensor it returns the output's shape."""
     if x.device.type == "cpu":
         return quant_matmul_packed_plain(x, packed, codebook)
     return _launch(KERNEL_PACKED4, "quant_matmul_packed", x, packed,

@@ -7,6 +7,8 @@ a rank) over the default process group, which the caller initializes
 environment); ``make_debug_mesh`` alone sets up a one-rank group when
 none exists. Meshes are CUDA meshes unless ``device_type`` says
 otherwise (``"cpu"`` for ``gloo`` ranks on the CPU).
+:func:`abstract_mesh` stands in for a production mesh where there are
+no ranks (the dry run, ``launch/dryrun.py``): it needs no process group.
 """
 from __future__ import annotations
 
@@ -103,3 +105,78 @@ def launch_mesh(shape: str, device=None):
             torch.cuda.set_device(dev)
         dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
     return dev, make_debug_mesh(sizes, device_type=dev.type)
+
+
+class AbstractMesh:
+    """A mesh of ``shape`` over ``axes`` seen from one rank, with no
+    process group: what the port's sharding code reads of a
+    ``DeviceMesh`` (``mesh_dim_names``, ``shape``, ``get_local_rank``,
+    ``get_group``, and ``mesh[axes]._flatten().get_group()`` for a joint
+    entry). Its groups are recording groups (``sharding.RecordingGroup``):
+    every collective on them is recorded and issues nothing."""
+
+    def __init__(self, shape: tuple, axes: tuple, rank: int = 0):
+        if len(shape) != len(axes):
+            raise ValueError(f"shape {tuple(shape)} and axes "
+                             f"{tuple(axes)} differ in length")
+        n = math.prod(shape)
+        if not 0 <= rank < n:
+            raise ValueError(f"rank {rank} outside a mesh of {n}")
+        self.shape = tuple(int(d) for d in shape)
+        self.mesh_dim_names = tuple(axes)
+        self.rank = rank
+        coords, r = [], rank
+        for d in reversed(self.shape):
+            coords.append(r % d)
+            r //= d
+        self._coords = dict(zip(self.mesh_dim_names, reversed(coords)))
+
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    def get_local_rank(self, axis: str) -> int:
+        return self._coords[axis]
+
+    def get_group(self, axis: str | None = None):
+        return self._group(self.mesh_dim_names if axis is None
+                           else (axis,))
+
+    def _group(self, axes: tuple):
+        from repro_torch.distributed.sharding import RecordingGroup
+        sizes = dict(zip(self.mesh_dim_names, self.shape))
+        return RecordingGroup(axes, math.prod(sizes[a] for a in axes))
+
+    def __getitem__(self, axes):
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return _Joint(self._group(axes))
+
+    def __repr__(self):
+        return (f"AbstractMesh(shape={self.shape}, "
+                f"axes={self.mesh_dim_names}, rank={self.rank})")
+
+
+class _Joint:
+    """``mesh[axes]`` of an :class:`AbstractMesh`, as
+    ``sharding.entry_group`` reads a joint entry:
+    ``._flatten().get_group()``."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def _flatten(self):
+        return self
+
+    def get_group(self):
+        return self.group
+
+
+def abstract_mesh(shape: tuple, axes: tuple | None = None, rank: int = 0):
+    """The mesh of ``shape`` (axes ``("data", "model")``, or ``("pod",
+    "data", "model")`` for three dims) as rank ``rank`` sees it, with no
+    process group (:class:`AbstractMesh`): the dry run's stand-in for the
+    reference's 512 host devices. ``sharding.shard_bounds`` asserts even
+    splits, so rank 0's shard shapes stand for every rank's."""
+    if axes is None:
+        axes = ("data", "model") if len(shape) == 2 else \
+            ("pod", "data", "model")
+    return AbstractMesh(tuple(shape), tuple(axes), rank)

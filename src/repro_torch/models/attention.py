@@ -40,6 +40,7 @@ import math
 
 import torch
 
+from repro_torch.analysis import op_stats
 from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -47,6 +48,8 @@ from repro_torch.models.layers import (
     apply_rope, apply_w, dense_init, rms_norm, wload)
 
 NEG_INF = -1e30
+#: the ``op_stats`` scope of the work the flash kernel fuses
+FLASH_SCOPE = "fused_flash_attention"
 
 
 def init_attn(gen: torch.Generator, cfg) -> dict:
@@ -160,7 +163,20 @@ def blockwise_attention(q, k, v, q_positions, k_positions, *,
     device, rather than cut the graph. Otherwise
     the loop below runs, scanning q chunks × kv chunks with running
     (m, l, acc) so the (Sq, Sk) logits are never formed.
+
+    Either route runs inside ``op_stats.scope(FLASH_SCOPE)``: the work
+    the flash kernel fuses. The reference tags its ``fused=True`` branch
+    so; here the kernel reports its own launch, and a dry run that
+    models the kernel where it cannot run (a train step: K6 is
+    forward-only) skips the scope's bytes as the reference does.
     """
+    with op_stats.scope(FLASH_SCOPE):
+        return _blockwise_attention(q, k, v, q_positions, k_positions,
+                                    window, q_chunk, kv_chunk, scale, fused)
+
+
+def _blockwise_attention(q, k, v, q_positions, k_positions, window,
+                         q_chunk, kv_chunk, scale, fused):
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     dv = v.shape[-1]                      # may differ from d (MLA)

@@ -176,8 +176,7 @@ def _moe_local(x, router_w, wg, wu, wd, cfg, *, e0: int, e_local: int,
     f_e = torch.mean(torch.sum(onehot, dim=1), dim=0)
     p_e = torch.mean(probs, dim=0)
     if batch_group is not None:
-        import torch.distributed as dist
-        n = dist.get_world_size(batch_group)
+        n = sharding.group_size(batch_group)
         f_e = sharding.all_reduce_sum(f_e.clone(), batch_group) / n
         p_e = sharding.differentiable_sum(p_e, batch_group) / n
     aux = e * torch.sum(f_e * p_e)

@@ -678,7 +678,10 @@ def _slstm_cell(params, wx_t, state, cfg):
     di = hn * dh
     c, n, hprev, m = state
     hh = hprev.reshape(-1, hn, dh)
-    rec = torch.einsum("bhd,ghde->bghe", hh, params["r"])
+    # the wider of the two dtypes, as the reference's einsum promotes
+    # (bf16 serving weights against an f32 state)
+    dt = torch.promote_types(hh.dtype, params["r"].dtype)
+    rec = torch.einsum("bhd,ghde->bghe", hh.to(dt), params["r"].to(dt))
     pre = (wx_t.reshape(-1, 4, di) + rec.reshape(-1, 4, di)
            + params["b"].reshape(4, di)[None])
     it, ft, zt, ot = pre.unbind(dim=1)

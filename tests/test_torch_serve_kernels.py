@@ -313,13 +313,20 @@ def test_cpu_calls_run_the_plain_versions_and_count_no_launch():
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
-    x = torch.zeros(2, 8, device="meta")
-    idx = torch.zeros((8, 4), dtype=torch.uint8, device="meta")
-    cb = torch.zeros(4, device="meta")
+    # the meta device has a branch of its own since the dry run (shapes
+    # only: tests/test_torch_dryrun.py); a device with neither a kernel
+    # nor a plain version stands in as an object that reports it
+    import types
+    dev = torch.device("xpu")
+
+    def on_dev(*shape):
+        return types.SimpleNamespace(device=dev, shape=shape, is_cuda=False,
+                                     is_cpu=False, is_meta=False)
+    x, idx, cb = on_dev(2, 8), on_dev(8, 4), on_dev(4)
     with pytest.raises(ValueError, match="no kernel for device"):
         k45.quant_matmul(x, idx, cb)
     with pytest.raises(ValueError, match="no kernel for device"):
-        k45.quant_matmul_packed(x, idx[:4], cb)
-    q = torch.zeros(1, 1, 1, 4, 8, device="meta")
+        k45.quant_matmul_packed(x, on_dev(4, 4), cb)
+    q, kv = on_dev(1, 1, 1, 4, 8), on_dev(1, 1, 4, 8)
     with pytest.raises(ValueError, match="no kernel for device"):
-        k6.flash_attention(q, q[:, :, 0], q[:, :, 0])
+        k6.flash_attention(q, kv, kv)

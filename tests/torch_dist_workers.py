@@ -662,3 +662,52 @@ def tp_ssm(rank, world, inputs_path, out_dir):
                                       "state": whole, "lc_state": lc_state,
                                       "steps": rec.steps}
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+# ----------------------------------------------------------------------
+# the dry run's collectives against a real step's
+# ----------------------------------------------------------------------
+def dryrun_config():
+    """Reduced phi3-mini in float32, for the dry run's collectives."""
+    from repro_torch import configs
+    return configs.reduced_config(
+        configs.get_config("phi3-mini-3.8b")).with_(dtype="float32")
+
+
+DRYRUN_SHAPES = {"prefill": (16, 4), "train": (16, 4)}   # (seq, batch)
+
+
+def dryrun_collectives(rank, world, shape, out_dir):
+    """A real prefill and train step of :func:`dryrun_config` on this
+    rank of a gloo mesh of ``shape`` under the op counter; writes each
+    step's collectives as (primitive, bytes, group size) lists."""
+    from repro_torch.analysis import op_stats
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import inputs
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import (
+        init_train_state, make_prefill_step, make_train_step)
+    from repro_torch.models.transformer import init_params
+    cfg = dryrun_config()
+    mesh = make_debug_mesh(shape, device_type="cpu")
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+    s, b = DRYRUN_SHAPES["prefill"]
+    params = sharding.shard_params(init_params(gen, cfg), cfg, mesh,
+                                   sharding.SERVE_RULES)
+    rows = inputs.local_rows(b, mesh, sharding.SERVE_RULES)
+    toks = torch.randint(0, cfg.vocab_size, (rows, s), generator=gen,
+                         dtype=torch.int32)
+    with sharding.use_mesh(mesh, sharding.SERVE_RULES):
+        st = op_stats.analyze_step(make_prefill_step(cfg), params, toks)
+    out["prefill"] = [(c.primitive, c.bytes, c.size)
+                      for c in st.collectives]
+    s, b = DRYRUN_SHAPES["train"]
+    state = sharding.shard_train_state(init_train_state(gen, cfg), cfg,
+                                       mesh, sharding.DEFAULT_RULES)
+    batch = {k: torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+             for k in ("inputs", "labels")}
+    with sharding.use_mesh(mesh, sharding.DEFAULT_RULES):
+        st = op_stats.analyze_step(make_train_step(cfg), state, batch)
+    out["train"] = [(c.primitive, c.bytes, c.size) for c in st.collectives]
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
