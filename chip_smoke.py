@@ -23,6 +23,9 @@
     python3 chip_smoke.py --dryrun      # path R alone: the dry run and
                                         # roofline against the card
                                         # (--dryrun-meta: R1 only)
+    python3 chip_smoke.py --lint        # the domain linter alone: its
+                                        # four layers on the card, the
+                                        # trace layer on its toy probes
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit (nvcc). Every ``Server`` and ``ServingEngine`` serves
@@ -89,7 +92,7 @@ Phases, each of which fails the run:
    model: 24 Poisson requests of mixed lengths; then the engine through
    CUDA graphs against the eager programs on a short trace
    (``engine_against_eager``: every request's tokens equal, each mode's
-   tokens/s, p50/p99 latency and TTFT, in turns);
+   tokens/s, p50/p99 latency and TTFT, one run each);
 10. K3, K7, K8 and K9 (the threshold masks and the single-vector count
     and k-means kernels) against their plain versions on the card,
     timed beside their bounds;
@@ -306,7 +309,19 @@ Phases, each of which fails the run:
     ``max_memory_allocated`` above the step's baseline, the measured
     median (CUDA events) at least 0.95 · t_compute; measured / max(term)
     printed;
-23. one JSON line listing every ported kernel, then the result line.
+23. the domain linter (``repro_torch.analysis.lint``; alone ``--lint``),
+    right after the build: the ``ast`` and ``contract`` layers over
+    ``src/repro_torch`` and the ``ops`` layer on CUDA tensors with the
+    ``cuda`` backend (every registered solver, every scheme family's
+    grouped C step alone and planned, the serving programs, each run
+    once under ``op_stats.OpCounter``; K1's Lloyd loop, K2's bisection
+    and K3 must launch under it); its ``trace`` layer runs at full width
+    on problems the smoke builds anyway: ``check_engine_retraces`` on
+    every engine trace (D's 24 requests first), ``retraces`` over the LM
+    phase's 3 boundaries and ``check_planner_cache`` after one
+    ``release_graphs()`` there. Any finding fails the run; the findings
+    and the seconds print on ``lint`` lines;
+24. one JSON line listing every ported kernel, then the result line.
 
 Tolerances: assignments, masks and integer counts must be equal; K1/K7
 cluster sums may differ from the plain version's by the summation order
@@ -1228,12 +1243,16 @@ def lm_problem(g):
 
 
 def lm_phase(kern, power: str) -> dict:
+    from repro_torch.analysis import cost
+    from repro_torch.analysis.lint import trace_count
     g = torch.Generator(device="cuda").manual_seed(1)
     torch.cuda.reset_peak_memory_stats()
     kappa = int(0.05 * LM_ITEM)
     with twinned(kern) as twins:
         params, lc = lm_problem(g)
         (tw,) = twins
+        # the linter's trace layer reads these boundaries' program keys
+        record = trace_count.instrument(lc)
         groups = lc.group_summary(params)
         print("LM groups:", [(g_["tasks"], g_["items"], g_["solver"],
                               g_["backend"]) for g_ in groups], flush=True)
@@ -1287,13 +1306,57 @@ def lm_phase(kern, power: str) -> dict:
                   f"shifted_distortion="
                   f"{ {n: (round(pre[n], 3), round(float(post[n]), 3)) for n in pre} }",
                   flush=True)
-        tw.report("LM C step", power)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2**30
         print(f"LM peak_memory_gib={peak:.2f}", flush=True)
+        # lint, trace layer: each program keyed at one boundary, then one
+        # release_graphs() and one more C step that re-plans nothing
+        t0 = time.time()
+        found = trace_count.retraces(record, context="LM")
+        keys, at, n_b = dict(record), dict(record.at), record.boundaries
+        before = cost.cache_stats()
+        found += trace_count.check_planner_cache(
+            lc, params, state, boundaries=0, context="LM planner-cache")
+        torch.cuda.synchronize()
+        after = cost.cache_stats()
+        print(f"lint trace LM: program keys {keys} at boundaries {at} of "
+              f"{n_b}; after release_graphs() "
+              f"plan hits +{after['plan_hits'] - before['plan_hits']} "
+              f"misses +{after['plan_misses'] - before['plan_misses']}; "
+              f"{len(found)} findings in {time.time() - t0:.2f} s "
+              f"(the extra C step included) [{power}]", flush=True)
+        check(not found, "LM: lint: " + "; ".join(f.format() for f in found))
+        tw.report("LM C step", power)
+        reset(kern)
         del params, state
     torch.cuda.empty_cache()
     return total
+
+
+def lint_phase(kern, power: str, layers=("ast", "contract", "ops")) -> None:
+    """The domain linter on the card (``run_lint(device="cuda")``): the
+    ``ast`` and ``contract`` layers over ``src/repro_torch``, the ``ops``
+    layer on CUDA tensors with the ``cuda`` backend, and with ``trace``
+    its toy probes (the full run reads D's and LM's runs instead). Fails
+    on any finding, and where K1's Lloyd loop, K2's bisection or K3 did
+    not launch under the ops layer. Its launches, on the toy tensors of
+    the ops layer, stay out of the kernels line's counts."""
+    from repro_torch.analysis.lint import run_lint
+    reset(kern)
+    t0 = time.time()
+    report = run_lint(layers=layers, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    n = launches(kern)
+    for f in report.findings:
+        print(f"lint finding: {f.format()}", flush=True)
+    print(f"lint {'+'.join(layers)} on the card: {len(report.findings)} "
+          f"findings in {secs:.2f} s; launches "
+          f"{ {k: v for k, v in n.items() if v} } [{power}]", flush=True)
+    check(not report.findings, f"lint: {len(report.findings)} findings")
+    if "ops" in layers:
+        check(all(n[k] > 0 for k in ("K1loop", "K2loop", "K3")),
+              f"lint: the ops layer did not launch K1, K2 and K3: {n}")
 
 
 def gemm_row(k45, name: str, m: int, k: int, n: int, c: int, g,
@@ -2522,6 +2585,10 @@ def calls_of(module, name: str, first: int, to_host: bool = False,
 
     def wrapped(*args, **kw):
         out = fn(*args, **kw)
+        if args[0].is_meta:
+            # the planner counting a group's solve on meta tensors
+            # (``grouping.count_group``): nothing ran on the card
+            return out
         if when() if when is not None else seen[0] >= first:
             calls.partitions.append(partition_items(args[0].shape[0]))
             kept_args, kept = args, out
@@ -3257,8 +3324,11 @@ def engine_trace(kern, label: str, cfg, serving, n_req: int, prompts,
     check(all(n[k] > 0 for k in kernels)
           and n == only(kern, **{k: n[k] for k in kernels}),
           f"{label} launches {n}")
-    check(eng.trace_counts == {"decode": 1, "prefill": 1, "reset": 1},
-          f"{label} program signatures {eng.trace_counts}")
+    # the linter's trace layer on this run (no second trace)
+    from repro_torch.analysis.lint import trace_count
+    retraced = trace_count.check_engine_retraces(eng, context=label)
+    check(not retraced, f"{label}: lint: "
+          + "; ".join(f.format() for f in retraced))
     check(eng.programs.graphs and eng.programs.captured == 3,
           f"{label}: the engine captured {eng.programs.captured} graphs")
     st = out["stats"]
@@ -3379,8 +3449,8 @@ def warm_engines(cfg, serving):
 
 def engine_against_eager(label: str, cfg, serving, power: str) -> dict:
     """The engine through CUDA graphs against the same programs run
-    eagerly (``warm_engines``), on SHORT_TRACE in turns (eager, graphs,
-    graphs, eager): every request's greedy tokens equal in every run;
+    eagerly (``warm_engines``), on SHORT_TRACE once in each mode (eager,
+    then graphs): every request's greedy tokens equal in both runs;
     each run's tokens/s, p50/p99 latency and TTFT; the capture's seconds
     and graph-pool bytes. The trace's requests all arrive at once
     (SHORT_TRACE)."""
@@ -3388,7 +3458,7 @@ def engine_against_eager(label: str, cfg, serving, power: str) -> dict:
     n_req, prompts, new = SHORT_TRACE
     engines = warm_engines(cfg, serving)
     stats, tokens = {m: [] for m in MODES}, []
-    for m in ("eager", "graphs", "graphs", "eager"):
+    for m in MODES:
         eng = engines[m]
         out = eng.run(poisson_requests(cfg, n_req, prompts, new, seed=6,
                                        start=eng._now, gap=0.0))
@@ -3412,8 +3482,8 @@ def engine_against_eager(label: str, cfg, serving, power: str) -> dict:
 
     print(f"{label} engine, CUDA graphs against eager (8 slots, {n_req} "
           f"requests, prompts {prompts[0]}-{prompts[1]}, max_new "
-          f"{new[0]}-{new[1]}, after a warm-up; runs in turns eager, "
-          f"graphs, graphs, eager): greedy tokens equal; "
+          f"{new[0]}-{new[1]}, after a warm-up; one run each, eager then "
+          f"graphs): greedy tokens equal; "
           + " ".join(f"{m}: " + " | ".join(fmt(st) for st in sts) + ";"
                      for m, sts in stats.items())
           + f" capture_s={progs.capture_s:.3f} graph_pool_gib="
@@ -6157,12 +6227,17 @@ def main() -> int:
     if sys.argv[1:] == ["--dryrun"]:
         dryrun_path(kern, card)
         return 0
+    if sys.argv[1:] == ["--lint"]:
+        lint_phase(kern, power, ("ast", "contract", "ops", "trace"))
+        return 0
     t_start = time.time()
+    stamp('lint')
+    lint_phase(kern, power)
     stamp('kernel phase')
     rec = kernel_phase(k1, k2, power)
     frec = fused_phase(k1, k2, power)
-    paths = {"A": main_path_a(kern, power), "B": main_path_b(kern, power),
-             "LM": lm_phase(kern, power)}
+    paths = {"A": main_path_a(kern, power),
+             "B": main_path_b(kern, power), "LM": lm_phase(kern, power)}
     stamp('serving kernels')
     srec = serve_kernel_phase(k45, k6, power)
     stamp('path C')

@@ -22,8 +22,12 @@ Functions of the reference with no CUDA meaning, and not ported:
   ``kernels/build.py:blocks_per_item``).
 * ``gemm_tiles``: K4/K5 pick their regime by M inside the launch
   (``kernels/quant_matmul/quant_matmul.py``).
-* ``refine_with_hlo``: it reads XLA HLO, which PyTorch does not make;
-  every plan is ``source="analytic"`` and says so in its fallbacks.
+
+``refine_with_hlo`` becomes :func:`refine_with_counts`: where the
+reference lowers a group to HLO and counts it, the port runs the group's
+solve on meta tensors under ``op_stats.OpCounter``
+(``core/grouping.py:count_group``) and takes its terms from the counted
+ops.
 
 The module does not import ``core.grouping`` (grouping imports it).
 """
@@ -116,18 +120,36 @@ def detect_hardware(device=None) -> HardwareSpec:
 # The plan record
 # ---------------------------------------------------------------------------
 
+#: what a plan counts at its first read (:meth:`GroupPlan.terms`)
+_COUNTED = ("flops", "bytes", "coll_bytes", "t_compute", "t_memory",
+            "t_collective", "source", "fallbacks")
+
+
+def _counted(name: str) -> property:
+    return property(lambda self: self.terms()[name])
+
+
 @dataclasses.dataclass(frozen=True)
 class GroupPlan:
     """One group's planner decisions plus the cost terms behind them.
 
-    ``block_rows`` is always ``None`` (the kernels size their grids) and
-    ``source`` ``"analytic"``. ``shard_mode`` is ``"none"`` without a mesh
+    ``block_rows`` is always ``None`` (the kernels size their grids).
+    ``source`` is ``"counted"`` where the terms come from the group's
+    counted solve (:func:`refine_with_counts`), else ``"analytic"``, and
+    then ``fallbacks`` says why. ``shard_mode`` is ``"none"`` without a mesh
     (or where the ``"items"`` rule resolves no axis), ``"sharded"`` where
     each rank of the mesh's data axis solves its block of the items and
     the blocks are gathered (``core/grouping.py``), ``"replicated"``
     where every rank solves the whole group (a solver whose bits depend
     on the batch). ``fallbacks`` records every decision the planner could
     not make or apply, with its reason.
+
+    The decisions (the fields) are fixed when the plan is made. The
+    terms, ``source`` and ``fallbacks`` are counted at their first read
+    (:meth:`terms`) and kept: the C step reads only the decisions, so it
+    counts nothing, while ``group_summary`` and the lint read the terms.
+    ``plan[key]`` reads any of them by name, as the reference's plan
+    dict.
     """
 
     backend: str                    # dispatch backend ("torch"/"cuda"/...)
@@ -135,16 +157,28 @@ class GroupPlan:
     block_rows: int | None
     n_chunks: int                   # launches the packed group splits into
     shard_mode: str                 # "none" | "sharded" | "replicated"
-    flops: float                    # modeled FLOPs for the whole group
-    bytes: float                    # modeled device-memory traffic
-    coll_bytes: float
-    t_compute: float                # seconds at peak_flops
-    t_memory: float                 # seconds at hbm_bw
-    t_collective: float
     working_set_bytes: int          # packed operands + outputs resident
-    source: str
-    fallbacks: tuple[str, ...]
     hardware: str                   # HardwareSpec.name used
+    # the analytic terms, source and fallbacks, and "refine": the count
+    # that replaces them at the first read (None once it ran)
+    _terms: dict = dataclasses.field(repr=False, compare=False)
+
+    def terms(self) -> dict:
+        """The cost terms, ``source`` and ``fallbacks``, refined from the
+        group's counted solve the first time they are read."""
+        refine = self._terms["refine"]
+        if refine is not None:
+            self._terms.update(refine(), refine=None)
+        return self._terms
+
+    flops = _counted("flops")            # modeled FLOPs for the whole group
+    bytes = _counted("bytes")            # modeled device-memory traffic
+    coll_bytes = _counted("coll_bytes")
+    t_compute = _counted("t_compute")    # seconds at peak_flops
+    t_memory = _counted("t_memory")      # seconds at hbm_bw
+    t_collective = _counted("t_collective")
+    source = _counted("source")
+    fallbacks = _counted("fallbacks")
 
     @property
     def modeled_ms(self) -> float:
@@ -156,11 +190,14 @@ class GroupPlan:
              "collective": self.t_collective}
         return max(t, key=t.get)
 
-    def as_dict(self) -> dict:
-        d = dataclasses.asdict(self)
-        d["modeled_ms"] = self.modeled_ms
-        d["bottleneck"] = self.bottleneck
-        return d
+    def __getitem__(self, key: str):
+        if key not in _PLAN_KEYS:
+            raise KeyError(key)
+        return getattr(self, key)
+
+
+_PLAN_KEYS = tuple(f.name for f in dataclasses.fields(GroupPlan)
+                   if f.repr) + _COUNTED + ("modeled_ms", "bottleneck")
 
 
 # ---------------------------------------------------------------------------
@@ -374,8 +411,28 @@ def choose_chunks(working_set_bytes: int, n_items: int,
 # The planner entry point
 # ---------------------------------------------------------------------------
 
-#: what every port plan lacks against the reference's
-_NO_HLO = "hlo-refine:not-ported(no XLA HLO)"
+def refine_with_counts(stats, terms: dict, hw: HardwareSpec) -> dict:
+    """Replace the analytic FLOP and byte terms with the counted ones of
+    ``stats`` (an ``op_stats.Stats`` of the group's solve), the
+    counterpart of the reference's ``refine_with_hlo``; the collective
+    bytes come from the same count. A term the count leaves at zero keeps
+    the analytic value, as in the reference. FLOPs are rated at the
+    card's f32 peak, as the analytic terms are."""
+    refined = dict(terms)
+    if stats.flops > 0:
+        refined["flops"] = float(stats.flops)
+        refined["t_compute"] = stats.flops / hw.peak_flops
+    if stats.bytes > 0:
+        refined["bytes"] = float(stats.bytes)
+        refined["t_memory"] = stats.bytes / hw.hbm_bw
+    coll = float(stats.coll_bytes)
+    refined["coll_bytes"] = coll
+    refined["t_collective"] = coll / hw.link_bw if coll else 0.0
+    return refined
+
+
+#: a plan under a mesh keeps its analytic terms, as the reference's
+_UNDER_MESH = "count-refine-skipped:under-mesh"
 
 
 def plan_group(signature, n_items, arrays, out_shapes, *,
@@ -384,7 +441,7 @@ def plan_group(signature, n_items, arrays, out_shapes, *,
                chunk_exact: tuple[str, ...] = (),
                base_fallbacks: tuple = (),
                hw: HardwareSpec, mesh=None,
-               items_entry=None) -> GroupPlan:
+               count_fn: Callable, items_entry=None) -> GroupPlan:
     """Plan one packed group. Cached on :func:`plan_key` (the chunk
     budget is not in the key: :func:`clear_caches` after changing
     ``CHUNK_BUDGET_BYTES``). ``registered`` lists the dispatch backends
@@ -400,7 +457,16 @@ def plan_group(signature, n_items, arrays, out_shapes, *,
     ``"sharded"`` (each rank solves its block of the items, as a chunk of
     the group) and never chunks: the plan records the reference's
     ``chunking-disabled-under-mesh`` where it would have; any other group
-    is ``"replicated"``, with the reason in ``fallbacks``."""
+    is ``"replicated"``, with the reason in ``fallbacks``.
+
+    Without a mesh, ``count_fn(backend)`` (the group's solve counted on
+    meta tensors, ``grouping.count_group``) refines the terms
+    (:func:`refine_with_counts`, ``source="counted"``) when they are
+    first read (:meth:`GroupPlan.terms`); where it raises, the plan
+    records ``count-refine-failed:<exception>`` and keeps the analytic
+    terms. The refinement replaces only the terms: the backend, the
+    chunks and the shard mode stay the analytic plan's, as in the
+    reference."""
     key = plan_key(signature, n_items, arrays, requested_backend, hw, mesh)
     cached = _PLAN_CACHE.get(key)
     if cached is not None:
@@ -411,7 +477,7 @@ def plan_group(signature, n_items, arrays, out_shapes, *,
     terms = estimate_terms(signature, solver, arrays, out_shapes, hw)
     backend, fallbacks = choose_backend(requested_backend, solver,
                                         registered, terms, hw)
-    fallbacks = list(base_fallbacks) + fallbacks + [_NO_HLO]
+    fallbacks = list(base_fallbacks) + fallbacks
     exact = solver is None or backend in chunk_exact
     shard_mode = "none"
     if mesh is not None and items_entry is not None:
@@ -429,14 +495,24 @@ def plan_group(signature, n_items, arrays, out_shapes, *,
         fallbacks.append(f"chunking-disabled:{solver}-on-{backend}-"
                          f"depends-on-the-batch")
         n_chunks = 1
+    fallbacks = tuple(fallbacks)
+    refine = None
+    if mesh is not None:
+        fallbacks += (_UNDER_MESH,)
+    else:
+        def refine() -> dict:
+            try:
+                return dict(refine_with_counts(count_fn(backend), terms, hw),
+                            source="counted")
+            except Exception as e:  # noqa: BLE001 — recorded in the plan
+                return {"fallbacks": fallbacks + (
+                    f"count-refine-failed:{type(e).__name__}",)}
     plan = GroupPlan(
         backend=backend, solver=solver, block_rows=None,
         n_chunks=n_chunks, shard_mode=shard_mode,
-        flops=terms["flops"], bytes=terms["bytes"],
-        coll_bytes=terms["coll_bytes"], t_compute=terms["t_compute"],
-        t_memory=terms["t_memory"], t_collective=terms["t_collective"],
-        working_set_bytes=terms["working_set_bytes"], source="analytic",
-        fallbacks=tuple(fallbacks), hardware=hw.name)
+        working_set_bytes=terms["working_set_bytes"], hardware=hw.name,
+        _terms=dict(terms, source="analytic", fallbacks=fallbacks,
+                    refine=refine))
     _PLAN_CACHE[key] = plan
     return plan
 

@@ -43,12 +43,23 @@ step). No compiler is in the loop:
   (``arg_bytes``), the counterpart of ``compiled.memory_analysis()``.
 
 Ops whose tensors all lie on the CPU (host scalars, the RNG states a
-checkpoint keeps) count in nothing: the counts are the device's. Of the
-reference's lint helpers, :func:`linalg_ops`,
-:func:`host_reads` (``aten._local_scalar_dense`` of a device tensor: a
-sync on the card, an error on meta) and :func:`f64_ops` are here;
-``parse_input_output_alias`` and ``custom_call_targets`` have no eager
-counterpart yet.
+checkpoint keeps) count in nothing: the counts are the device's. A
+counter made with ``cpu=True`` counts them too, for a run whose device is
+the CPU (the lint's ``--device cpu``); its ``host`` tensors (the sketch
+seeds, a CPU tensor on every device) stay host values there.
+:func:`repeated` counts a loop run once for its trip count, where the
+trips differ only in values (the Jacobi rounds of the low-rank solvers on
+meta tensors): the counterpart of the reference's trip counts.
+
+The reference's lint helpers over a step's counts: :func:`linalg_ops`,
+:func:`host_reads` (``aten._local_scalar_dense`` of a device tensor, or a
+copy of one to the host: a sync on the card, an error on meta),
+:func:`f64_ops`, :func:`call_targets` (the counterpart of
+``custom_call_targets``: the hand-written kernels a counted call
+launched, by each wrapper's report and launch counter, and the library
+linear-algebra ops) and :func:`input_output_alias` (the counterpart of
+``parse_input_output_alias``: the arguments whose storages a call's
+outputs still hold).
 """
 from __future__ import annotations
 
@@ -150,6 +161,9 @@ class Stats:
     host_reads: list = field(default_factory=list)
     linalg: list = field(default_factory=list)
     f64: list = field(default_factory=list)
+    #: launches by the kernels' launch counters (``kernels/build.py``),
+    #: by label: what ran on the card while the counter was entered
+    wrapper_launches: Counter = field(default_factory=Counter)
 
     def add(self, other: "Stats", mult: float = 1.0):
         self.flops += other.flops * mult
@@ -199,22 +213,49 @@ def _backward_scope():
 class OpCounter(TorchDispatchMode):
     """Counts every aten op run inside it (module docstring) into
     ``self.stats``. ``args``: what the step is given (their storages are
-    ``arg_bytes`` and do not count in the step's peak)."""
+    ``arg_bytes`` and do not count in the step's peak). ``cpu``: count
+    ops on CPU tensors too (a run whose device is the CPU); ``host``:
+    tensors that are host values by design, whose reads are not host
+    reads."""
 
-    def __init__(self, skip_scopes: tuple = (), args=()):
+    def __init__(self, skip_scopes: tuple = (), args=(), cpu: bool = False,
+                 host=()):
         super().__init__()
         self.skip_scopes = tuple(skip_scopes)
         self.stats = Stats()
+        self.cpu = bool(cpu)
+        self._host = {t.untyped_storage()._cdata for t in _leaves(host)}
+        self._mult = 1
         self._scopes: list = []
         self._kernel = 0
         self._live: dict = {}
         self._seen = set()
         self._cur = 0
+        self._launch0: dict = {}
         for t in _leaves(args):
             key = _storage_key(t)
             if key is not None and key not in self._seen:
                 self._seen.add(key)
                 self.stats.arg_bytes += _rounded(t.untyped_storage().nbytes())
+
+    def __enter__(self):
+        from repro_torch.kernels.build import launch_counts
+        self._launch0 = launch_counts()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.build import launch_counts
+        for c, n in launch_counts().items():
+            d = n - self._launch0.get(c, 0)
+            if d:
+                self.stats.wrapper_launches[c.label] += d
+        return super().__exit__(*exc)
+
+    def _on_device(self, t: torch.Tensor) -> bool:
+        """Whether ``t`` is the step's device data (not a host value)."""
+        if not t.is_cpu:
+            return True
+        return self.cpu and t.untyped_storage()._cdata not in self._host
 
     def _skipping(self) -> bool:
         if any(s in self.skip_scopes for s in self._scopes):
@@ -243,15 +284,23 @@ class OpCounter(TorchDispatchMode):
         name = _name(func)
         st = self.stats
         ins = _tensors((args, kwargs))
-        if name == "_local_scalar_dense" and ins and not ins[0].is_cpu:
+        if name == "_local_scalar_dense" and ins and self._on_device(ins[0]):
             st.host_reads.append(str(ins[0].device))
         out = func(*args, **kwargs)
         outs = _tensors(out)
+        # a device tensor copied to the host (``.cpu()``, ``.tolist()``)
+        src, dst = ((ins[1], ins[0]) if name == "copy" and len(ins) > 1
+                    else (ins[0] if ins else None, outs[0] if outs else None))
+        if name in ("_to_copy", "copy") and src is not None \
+                and dst is not None and not src.is_cpu and dst.is_cpu:
+            st.host_reads.append(str(src.device))
         for t in outs:
             self._track(t)
-        if self._kernel or all(t.is_cpu for t in ins + outs):
+        if self._kernel or (not self.cpu
+                            and all(t.is_cpu for t in ins + outs)):
             return out
-        st.ops[str(func)] += 1
+        mult = self._mult
+        st.ops[str(func)] += mult
         if name.startswith(("linalg_", "_linalg_")) or name in _LINALG:
             st.linalg.append(str(func))
         if name != "_to_copy" and any(
@@ -259,7 +308,7 @@ class OpCounter(TorchDispatchMode):
             st.f64.append(str(func))
         if func.overloadpacket in MATMULS:
             from torch.utils.flop_counter import flop_registry
-            n = float(flop_registry[func.overloadpacket](
+            n = mult * float(flop_registry[func.overloadpacket](
                 *args, **kwargs, out_val=out))
             st.flops += n
             cls = flop_class(ins[0].dtype)
@@ -267,10 +316,10 @@ class OpCounter(TorchDispatchMode):
         if func.is_view or name in _NO_DATA:
             return out
         if self._skipping():
-            st.skipped_ops += 1
+            st.skipped_ops += mult
             return out
-        out_b = float(sum(_nbytes(t) for t in outs))
-        in_b = float(sum(_nbytes(t) for t in ins))
+        out_b = mult * float(sum(_nbytes(t) for t in outs))
+        in_b = mult * float(sum(_nbytes(t) for t in ins))
         st.bytes += in_b + out_b
         st.bytes_major += in_b + out_b if name in _MAJOR else 2.0 * out_b
         return out
@@ -386,7 +435,9 @@ def kernel(name: str, flops: float, nbytes: float, flop_cls: str):
     if counter is None:
         return _NULL
     st = counter.stats
-    st.launches[name] += 1
+    mult = counter._mult
+    flops, nbytes = mult * flops, mult * nbytes
+    st.launches[name] += mult
     st.flops += flops
     st.flops_by_class[flop_cls] = st.flops_by_class.get(flop_cls, 0.0) \
         + flops
@@ -394,6 +445,28 @@ def kernel(name: str, flops: float, nbytes: float, flop_cls: str):
     st.bytes_major += nbytes
     st.kernel_bytes += nbytes
     return _Kernel(counter)
+
+
+class _Repeated:
+    __slots__ = ("counter", "n", "old")
+
+    def __init__(self, counter, n):
+        self.counter, self.n, self.old = counter, int(n), None
+
+    def __enter__(self):
+        self.old = self.counter._mult
+        self.counter._mult = self.old * self.n
+
+    def __exit__(self, *exc):
+        self.counter._mult = self.old
+
+
+def repeated(n: int):
+    """The ops run inside count ``n`` times over: a loop run once for
+    its ``n`` trips, where the trips differ only in values (on meta
+    tensors, which carry none). A no-op outside a counter."""
+    counter = active()
+    return _NULL if counter is None else _Repeated(counter, n)
 
 
 def record_collective(primitive: str, out, size: int,
@@ -432,6 +505,38 @@ def f64_ops(stats: Stats) -> list[str]:
     return list(stats.f64)
 
 
+def call_targets(stats: Stats) -> dict[str, int]:
+    """{target: count} of what a counted call reached outside aten's
+    plain ops: each hand-written kernel by its label (``"K1loop"``,
+    ``"K3"``, ...; the larger of its wrapper's reports, :func:`kernel`,
+    and its launch counter's launches, which agree on the card; meta
+    tensors have reports only) and each library linear-algebra op. The
+    counterpart of ``custom_call_targets``."""
+    out: dict[str, int] = {}
+    for label in set(stats.launches) | set(stats.wrapper_launches):
+        out[label] = int(max(stats.launches.get(label, 0),
+                             stats.wrapper_launches.get(label, 0)))
+    for op in stats.linalg:
+        out[op] = out.get(op, 0) + 1
+    return out
+
+
+def input_output_alias(args, out) -> set[int]:
+    """The positions of ``args`` (a call's positional arguments) whose
+    every tensor storage ``out`` (the call's result) still holds: the
+    arguments the call updated in place and handed back, the counterpart
+    of ``parse_input_output_alias``'s donated parameters that the
+    compiler aliased into outputs. An argument without tensors is not
+    listed."""
+    held = {t.untyped_storage()._cdata for t in _leaves(out)}
+    aliased = set()
+    for i, a in enumerate(args):
+        own = [t.untyped_storage()._cdata for t in _leaves(a)]
+        if own and all(k in held for k in own):
+            aliased.add(i)
+    return aliased
+
+
 def causal_pairs(s: int, window: int = 0) -> int:
     """The (query, key) pairs a causal attention over ``s`` positions
     keeps (within ``window`` keys when it is above 0)."""
@@ -441,6 +546,7 @@ def causal_pairs(s: int, window: int = 0) -> int:
 
 
 __all__ = ["Stats", "Collective", "OpCounter", "analyze_step", "active",
-           "scope", "kernel", "record_collective", "linalg_ops",
-           "host_reads", "f64_ops", "flop_class", "causal_pairs",
+           "scope", "kernel", "repeated", "record_collective",
+           "linalg_ops", "host_reads", "f64_ops", "call_targets",
+           "input_output_alias", "flop_class", "causal_pairs",
            "MATMULS", "BLOCK"]

@@ -80,7 +80,7 @@ from repro_torch.core.penalty import lc_penalty
 from repro_torch.core.tasks import (
     CompressionTask, check_disjoint, flatten_params, get_path, set_path)
 from repro_torch.core.views import AsVector
-from repro_torch.graphs import Programs
+from repro_torch.graphs import Programs, captured
 from repro_torch.interop import resolve_device
 from repro_torch.kernels.dispatch import REQUESTS
 from repro_torch.tree import tree_leaves, tree_map
@@ -533,6 +533,7 @@ def _by_path(tasks, params, lc) -> dict:
     return out
 
 
+@captured
 def _multipliers(tasks, x: dict, mu,
                  in_place: bool = False) -> list[torch.Tensor]:
     """λ − μ(w − Δ(Θ)) for every path, in task and path order (into
@@ -545,6 +546,7 @@ def _multipliers(tasks, x: dict, mu,
 
 
 def _distortions(tasks, device):
+    @captured
     def run(mu, x):
         out = []
         for t in tasks:
@@ -558,6 +560,7 @@ def _distortions(tasks, device):
 
 
 def _shifted_distortions(tasks, device):
+    @captured
     def run(mu, x):
         out = []
         for t in tasks:

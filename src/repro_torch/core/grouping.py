@@ -73,6 +73,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.core.schemes.base import (
     add_leading_axis, cat_items, drop_leading_axis, map_items, pack_thetas,
@@ -121,6 +122,7 @@ def _plan_multi_group(group, xs: dict, thetas: dict | None,
     sig = t0.group_signature(xs[t0.name], batched=batched)
     xs_m = {t.name: _meta(xs[t.name]) for t in group}
     fallbacks = () if batched else ("item-by-item-path",)
+    th_m = None
     if thetas is None:
         arrays = out = (_item_packer(group, xs_m, counts)(0, sum(counts)),)
         fallbacks += ("theta-shapes-unknown:planned-from-the-items",)
@@ -133,13 +135,24 @@ def _plan_multi_group(group, xs: dict, thetas: dict | None,
     registered = solver_table().get(solver, ())
     entry = (None if mesh is None
              else items_partition(sum(counts), mesh, rules)[0])
+
+    def count_fn(chosen):
+        # the solve the C step runs, on meta tensors: the plan's terms
+        # from the counted ops (the reference lowers to HLO here). The
+        # cached plan keeps this closure until a term is read, so it
+        # holds only meta tensors, never the C step's xs or Θ
+        if th_m is None:
+            raise ValueError("theta-shapes-unknown")
+        return count_group(group, xs_m, th_m, backend=chosen,
+                           device="meta")
+
     return cost.plan_group(
         sig, sum(counts), arrays, out,
         requested_backend=str(backend) if backend is not None else "off",
         solver=solver, registered=registered,
         chunk_exact=tuple(b for b in registered if chunk_exact(solver, b)),
         base_fallbacks=fallbacks, hw=cost.detect_hardware(device),
-        mesh=mesh, items_entry=entry)
+        mesh=mesh, count_fn=count_fn, items_entry=entry)
 
 
 def _apply_plan(scheme, solver_fn, plan, device):
@@ -226,11 +239,12 @@ def describe_groups(tasks: Sequence[CompressionTask], xs: dict,
     (``"replicated"``, with the reason in ``shard_reason``).
 
     ``planner="on"`` attaches each multi-task group's
-    :class:`repro_torch.analysis.cost.GroupPlan` as a ``plan`` dict (the
-    modeled roofline terms, the chosen backend and chunks, the recorded
-    fallbacks): the same cached plan the C step will use, with Θ's
-    shapes from the scheme's init on meta tensors (nothing runs). When
-    planned, ``backend`` reports the planner's choice."""
+    :class:`repro_torch.analysis.cost.GroupPlan` as ``plan`` (read by
+    key as the reference's dict: the modeled roofline terms, the chosen
+    backend and chunks, the recorded fallbacks): the same cached plan the
+    C step will use, with Θ's shapes from the scheme's init on meta
+    tensors (nothing runs until a term is read). When planned,
+    ``backend`` reports the planner's choice."""
     out = []
     for group in build_groups(tasks, xs, backend=backend, device=device):
         t0 = group[0]
@@ -239,7 +253,7 @@ def describe_groups(tasks: Sequence[CompressionTask], xs: dict,
         solver_fn, actual = _task_solver(t0.scheme, backend, device)
         counts = [t.view.item_count(xs[t.name]) for t in group]
         solver = t0.scheme.solver if solver_fn is not None else None
-        plan_dict = None
+        plan = None
         if planner == "on" and grouped:
             try:
                 thetas = {t.name: t.scheme_init(_meta(xs[t.name]))
@@ -252,7 +266,6 @@ def describe_groups(tasks: Sequence[CompressionTask], xs: dict,
                                      backend,
                                      _device_of(xs, group, device),
                                      mesh, rules)
-            plan_dict = plan.as_dict()
             if solver_fn is not None:
                 actual = plan.backend
         entry, pad, mode, reason = (
@@ -271,7 +284,7 @@ def describe_groups(tasks: Sequence[CompressionTask], xs: dict,
             "shard_reason": reason,
             "solver": solver,
             "backend": actual,
-            "plan": plan_dict,
+            "plan": plan,
         })
     return out
 
@@ -485,6 +498,48 @@ def _pack_group(group: Sequence[CompressionTask], xs: dict, thetas: dict,
     return (items,) + warm, thetas_lead
 
 
+def count_group(group: Sequence[CompressionTask], xs: dict, thetas: dict,
+                mu=1.0, backend: str | None = None, device=None,
+                plan=None):
+    """Count one group's packed C solve under ``op_stats.OpCounter``
+    (``repro_torch.analysis.op_stats``) and return its ``Stats``: the
+    counterpart of the reference's ``lower_group``, and what the lint's
+    op layer and the planner read.
+
+    It runs exactly the solve :func:`grouped_compress` runs for
+    ``group``: the same packing (:func:`_pack_group`, outside the count,
+    as the reference packs outside its lowered program), the same solver
+    resolution, the planner's backend and chunks when ``plan`` is given,
+    and each launch in the group's partition. It takes the tensors it is
+    given: meta tensors (the planner's shapes; the kernels' wrappers only
+    allocate their outputs and report their launches), CPU tensors (the
+    kernels' plain versions; the ops on the CPU count, the sketch seeds
+    as host values) or CUDA tensors (the kernels launch). A singleton
+    group counts the same packed program over its one task. μ is a 0-d
+    float32 tensor on the items' device, as the LC driver passes it."""
+    from repro_torch.analysis import op_stats
+    scheme = group[0].scheme
+    dev = torch.device(_device_of(xs, group, device))
+    solver_fn, _ = _task_solver(scheme, backend, dev)
+    n_chunks = 1
+    if plan is not None:
+        n_chunks = plan.n_chunks
+        solver_fn = _apply_plan(scheme, solver_fn, plan, dev)
+    counts = [t.view.item_count(xs[t.name]) for t in group]
+    arrays, _ = _pack_group(group, xs, thetas, counts, solver_fn, dev)
+    if not isinstance(mu, torch.Tensor):
+        mu = torch.full((), float(mu), dtype=torch.float32, device=dev)
+    host = (arrays[-1],) if scheme.wants_key else ()
+    counter = op_stats.OpCounter(args=arrays, cpu=dev.type == "cpu",
+                                 host=host)
+    # counted alone: a counter around the caller (a dry run's step whose
+    # C step plans a group) sees none of these ops
+    with _disable_current_modes(), counter:
+        _run_group_solve(_group_solve(scheme, solver_fn, mu), arrays,
+                         sum(counts), n_chunks)
+    return counter.stats
+
+
 def solve_task(task: CompressionTask, x, theta, mu,
                backend: str | None = None, device=None):
     """One task's C solve, kernel-dispatched when the scheme opts in: the
@@ -680,7 +735,8 @@ class GroupExecutable:
                 theta = compress(xi, *rest)
                 return theta, decompress(theta)
 
-        self.program = self.programs.program(run, name="group solve")
+        self.program = self.programs.program(
+            run, name=f"group solve {scheme.name}")
 
     def parts(self, mu, items, like, warm: tuple,
               lend: bool = False) -> list:

@@ -30,6 +30,15 @@ class AdditiveCombination(CompressionScheme):
         self.domain = ("matrix" if any(s.domain == "matrix" for s in schemes)
                        else "vector")
 
+    @classmethod
+    def contract_examples(cls):
+        # imports here, not at the top: the base machinery must not pull
+        # the sibling scheme modules into an import cycle
+        from repro_torch.core.schemes.prune import ConstraintL0Pruning
+        from repro_torch.core.schemes.quantize import AdaptiveQuantization
+        return (cls([AdaptiveQuantization(k=2, iters=2),
+                     ConstraintL0Pruning(kappa=4)], iters=2),)
+
     def group_key(self):
         subs = tuple(s.group_key() for s in self.schemes)
         if any(k is None for k in subs):

@@ -126,6 +126,24 @@ class CompressionScheme:
         return (cbp is not None and cbp is not CompressionScheme
                 and cp is not None and issubclass(cbp, cp))
 
+    @classmethod
+    def contract_examples(cls) -> tuple["CompressionScheme", ...]:
+        """Representative *instances* for static tooling.
+
+        The lint's contract layer (``repro_torch.analysis.lint``) builds
+        each scheme class to read its declared contract (``group_key``/
+        ``batch_key``/``batch_operands``/``init_key``) and counts its
+        grouped C step on toy shapes, without a model. Subclasses with
+        required constructor arguments override this with one or more
+        cheap instances (small hyperparameters: counting cost, not
+        fidelity, is what matters); the default covers no-argument
+        constructors and returns ``()`` when the class cannot be built
+        bare (the linter then reports it as uncovered)."""
+        try:
+            return (cls(),)
+        except TypeError:
+            return ()
+
     # ------------------------------------------------------------------
     def distortion(self, w: torch.Tensor, theta: Theta) -> torch.Tensor:
         """‖w − Δ(Θ)‖² — the C-step objective, used by monitors/tests."""

@@ -76,6 +76,10 @@ class LowRank(CompressionScheme):
     wants_key = True       # per-item sketch seeds from the C-step engine
     gspmd_safe = True
 
+    @classmethod
+    def contract_examples(cls):
+        return (cls(target_rank=2),)
+
     def __init__(self, target_rank: int, randomized: str | bool = "auto"):
         if target_rank < 1:
             raise ValueError(f"target_rank must be ≥ 1, got {target_rank}")
@@ -151,6 +155,12 @@ class RankSelection(CompressionScheme):
     solver_operands = ("alpha",)
     wants_key = True
     gspmd_safe = True
+
+    @classmethod
+    def contract_examples(cls):
+        # max_rank bounds the sketch so the batched solver engages; the
+        # unbounded variant covers the exact-spectrum item-by-item path
+        return (cls(alpha=1e-3, max_rank=3), cls(alpha=1e-3))
 
     def __init__(self, alpha: float, cost: str = "storage",
                  max_rank: int | None = None):

@@ -70,6 +70,10 @@ class ConstraintL0Pruning(CompressionScheme):
     solver = "topk_mask"
     solver_operands = ("kappa",)
 
+    @classmethod
+    def contract_examples(cls):
+        return (cls(kappa=4),)
+
     def __init__(self, kappa: int):
         assert kappa >= 1
         self.kappa = int(kappa)
@@ -113,6 +117,10 @@ class ConstraintL1Pruning(CompressionScheme):
     solver = "project_l1_ball"
     solver_operands = ("radius",)
 
+    @classmethod
+    def contract_examples(cls):
+        return (cls(kappa=1.0),)
+
     def __init__(self, kappa: float):
         self.kappa = float(kappa)
 
@@ -150,6 +158,10 @@ class PenaltyL0Pruning(CompressionScheme):
 
     domain = "vector"
 
+    @classmethod
+    def contract_examples(cls):
+        return (cls(alpha=1e-3),)
+
     def __init__(self, alpha: float):
         self.alpha = float(alpha)
 
@@ -183,6 +195,10 @@ class PenaltyL1Pruning(CompressionScheme):
     domain = "vector"
     solver = "soft_threshold"
     solver_operands = ("alpha",)
+
+    @classmethod
+    def contract_examples(cls):
+        return (cls(alpha=1e-3),)
 
     def __init__(self, alpha: float):
         self.alpha = float(alpha)

@@ -109,6 +109,11 @@ class AdaptiveQuantization(CompressionScheme):
     solver = "kmeans_lloyd"
     solver_operands = ("kvalid",)
 
+    @classmethod
+    def contract_examples(cls):
+        # few iterations: the lint counts this, it does not fit anything
+        return (cls(k=2, iters=2),)
+
     def __init__(self, k: int = 2, iters: int = 25, use_dp_init: bool = False,
                  dp_bins: int = 2048):
         assert k >= 2

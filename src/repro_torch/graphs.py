@@ -260,6 +260,15 @@ class Program:
         return out, _Graph(graph, fed, out, delta, keep)
 
 
+def captured(fn):
+    """Mark ``fn`` as a body that runs as a :class:`Program` (captured as
+    a CUDA graph on the card), where it reaches :meth:`Programs.program`
+    through a table rather than by name: the lint's AST layer
+    (``repro_torch.analysis.lint.ast_rules``) then holds it to the rules
+    of a captured body. Returns ``fn`` unchanged."""
+    return fn
+
+
 class Programs:
     """The programs of one owner on ``device``: with ``graphs`` (the
     default on a CUDA device; an error on any other) they run as CUDA

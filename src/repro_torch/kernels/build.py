@@ -195,10 +195,13 @@ class LaunchCounter:
     """The launch count of one wrapper. A kernel is its own counter; a
     wrapper that shares another's kernel (K7 and K8 launch the K1 and K2
     entry points at I = 1) passes its own to :meth:`CudaKernel.__call__`.
-    Every counter made is registered for :func:`launch_counts`."""
+    Every counter made is registered for :func:`launch_counts`.
+    ``label`` names the kernel (``"K1loop"``, ``"K3"``, ...) as its
+    wrapper reports it to ``analysis/op_stats.py``."""
 
-    def __init__(self):
+    def __init__(self, label: str = ""):
         self.launches = 0
+        self.label = label
         _COUNTERS.add(self)
 
 
@@ -214,8 +217,9 @@ class CudaKernel(LaunchCounter):
     launch adds one to ``counter`` (default: the kernel's own
     ``launches``)."""
 
-    def __init__(self, source: str, symbol: str, argtypes: list):
-        super().__init__()
+    def __init__(self, source: str, symbol: str, argtypes: list,
+                 label: str = ""):
+        super().__init__(label or symbol)
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes

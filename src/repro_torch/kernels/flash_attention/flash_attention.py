@@ -37,7 +37,7 @@ KERNEL = CudaKernel(
     "flash_attention.cu", "flash_attention_fwd",
     [_p, _p, _p, _p, ctypes.c_longlong, ctypes.c_longlong,
      ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-     ctypes.c_int, ctypes.c_float, _p])
+     ctypes.c_int, ctypes.c_float, _p], "K6")
 
 
 def cost(b: int, kvh: int, g: int, s: int, d: int, dv: int,

@@ -24,7 +24,10 @@ A partition that depends on P alone would keep chunks on the whole grid,
 but would push small groups past the grid, off their resident slices
 (:func:`_slice_resident`). The partials workspace and the single pass's
 tickets (zeroed, left zero by every launch) are kept per card and
-stream, so a launch allocates only its outputs.
+stream, so a launch allocates only its outputs. On meta tensors (the
+planner's counts and the dry run) the Lloyd loop only allocates its
+outputs; on meta as on the card it reports its launch to an active
+``analysis/op_stats.py`` counter (:func:`lloyd_cost`).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from functools import lru_cache
 
 import torch
 
+from repro_torch.analysis import op_stats
 from repro_torch.kernels.build import (
     CudaKernel, LaunchCounter, blocks_per_item, on_card, partition_items,
     raw_stream, stream_buffer)
@@ -50,11 +54,11 @@ _ll = ctypes.c_longlong
 _i = ctypes.c_int
 KERNEL = CudaKernel(
     "kmeans_assign_moments.cu", "kmeans_assign_moments_batched",
-    [_p, _p, _ll, _ll, _i, _i, _p, _p, _p, _p, _p, _ll, _p])
+    [_p, _p, _ll, _ll, _i, _i, _p, _p, _p, _p, _p, _ll, _p], "K1")
 LLOYD = CudaKernel(
     "kmeans_assign_moments.cu", "kmeans_lloyd_batched",
-    [_p, _p, _ll, _ll, _i, _i, _i, _i, _p, _p, _p, _ll, _p])
-SINGLE = LaunchCounter()
+    [_p, _p, _ll, _ll, _i, _i, _i, _i, _p, _p, _p, _ll, _p], "K1loop")
+SINGLE = LaunchCounter("K7")
 
 def _padded_k(k: int) -> int:
     """The kernel instance's cluster capacity (KP in the source)."""
@@ -95,18 +99,21 @@ def _slice_resident(w: torch.Tensor, k: int) -> bool:
 
 
 def _checked(name: str, w: torch.Tensor, codebooks: torch.Tensor,
-             ndim: int) -> None:
+             ndim: int, meta: bool = False) -> None:
     """w (I, P) and codebooks (I, K) (``ndim`` 2), or w (P,) and one
-    codebook (K,) (``ndim`` 1)."""
+    codebook (K,) (``ndim`` 1); ``meta``: meta tensors are taken too, by
+    a wrapper that has a meta branch."""
+    devices = ("cuda", "meta") if meta else ("cuda",)
     # one combined test on the launch path; the rules one by one below
-    if (w.is_cuda and w.dtype is _F32 and codebooks.dtype is _F32
+    if (w.device.type in devices and w.dtype is _F32
+            and codebooks.dtype is _F32
             and w.dim() == ndim == codebooks.dim() and w.numel() > 0
             and 1 <= codebooks.shape[-1] <= MAX_K
             and (ndim == 1 or codebooks.shape[0] == w.shape[0])
             and codebooks.device == w.device and w.is_contiguous()
             and codebooks.is_contiguous()):
         return
-    if w.device.type != "cuda":
+    if w.device.type not in devices:
         raise ValueError(f"{name}: no kernel for device {w.device}")
     if w.dtype != torch.float32 or codebooks.dtype != torch.float32:
         raise TypeError(f"{name} needs float32 operands, got {w.dtype} "
@@ -148,6 +155,17 @@ def kmeans_assign_moments(w: torch.Tensor, codebook: torch.Tensor):
     return _moments(w, codebook, 1, SINGLE)
 
 
+def lloyd_cost(n_items: int, p: int, k: int,
+               iters: int) -> tuple[float, float, str]:
+    """(operations, boundary bytes, class) of one Lloyd loop launch, the
+    function's least: a step places each element (one comparison at the
+    least) and adds it to its cluster's sum and count, and the final
+    pass places it once more, 3·iters + 1 an element; w read and the
+    assignment written once, the codebooks read and written."""
+    return (float(n_items * p * (3 * iters + 1)),
+            8.0 * n_items * p + 8.0 * n_items * k, "f32")
+
+
 def kmeans_lloyd_batched(w: torch.Tensor, codebooks: torch.Tensor,
                          iters: int):
     """The Lloyd loop in one launch: w (I, P) f32, ascending codebooks
@@ -161,26 +179,30 @@ def kmeans_lloyd_batched(w: torch.Tensor, codebooks: torch.Tensor,
     cannot place raises. On a CPU tensor it runs the plain loop."""
     if w.device.type == "cpu":
         return kmeans_lloyd_batched_plain(w, codebooks, iters)
-    _checked("kmeans_lloyd_batched", w, codebooks, 2)
+    _checked("kmeans_lloyd_batched", w, codebooks, 2, meta=True)
     if not 0 <= iters < 2**31:
         raise ValueError(f"kmeans_lloyd_batched: iters must be ≥ 0, got "
                          f"{iters}")
     n_items, p = w.shape
     k = codebooks.shape[1]
-    dev = w.get_device()
-    grid = _grid(dev, k)
-    bpi = _blocks_per_item(n_items, p, grid)
-    stream = raw_stream(dev)
-    ws = stream_buffer("kmeans workspace", dev, stream,
-                       2 * n_items * bpi * _padded_k(k) * 8, torch.uint8,
-                       False)
-    cb = torch.empty((n_items, k), dtype=_F32, device=w.device)
-    assign = torch.empty((n_items, p), dtype=torch.int32, device=w.device)
-    with on_card(dev):
-        LLOYD(w.data_ptr(), codebooks.data_ptr(), n_items, p, k, int(iters),
-              bpi, grid, cb.data_ptr(), assign.data_ptr(), ws.data_ptr(),
-              ws.numel(), stream)
-    return cb, assign
+    with op_stats.kernel("K1loop", *lloyd_cost(n_items, p, k, iters)):
+        cb = torch.empty((n_items, k), dtype=_F32, device=w.device)
+        assign = torch.empty((n_items, p), dtype=torch.int32,
+                             device=w.device)
+        if w.is_meta:
+            return cb, assign
+        dev = w.get_device()
+        grid = _grid(dev, k)
+        bpi = _blocks_per_item(n_items, p, grid)
+        stream = raw_stream(dev)
+        ws = stream_buffer("kmeans workspace", dev, stream,
+                           2 * n_items * bpi * _padded_k(k) * 8, torch.uint8,
+                           False)
+        with on_card(dev):
+            LLOYD(w.data_ptr(), codebooks.data_ptr(), n_items, p, k,
+                  int(iters), bpi, grid, cb.data_ptr(), assign.data_ptr(),
+                  ws.data_ptr(), ws.numel(), stream)
+        return cb, assign
 
 
 def _moments(w: torch.Tensor, codebooks: torch.Tensor, n_items: int,

@@ -29,8 +29,10 @@ diagonals give no rotation), rotations guarded to the identity where the
 off-diagonal is zero, symmetrisation after each round, and a stable
 descending sort of the eigenvalues. JAX runs the rounds in one compiled
 ``fori_loop``; here each round is ~30 eager PyTorch ops, so a call costs
-``sweeps × (k − 1)`` rounds of host-side launches. All-zero items give
-exact-zero factors, never NaN.
+``sweeps × (k − 1)`` rounds of host-side launches. On meta tensors (the
+planner's counts) one round runs, counted for every round
+(``op_stats.repeated``), and the sketch is a meta tensor. All-zero items
+give exact-zero factors, never NaN.
 """
 from __future__ import annotations
 
@@ -40,6 +42,8 @@ from functools import lru_cache, partial
 
 import numpy as np
 import torch
+
+from repro_torch.analysis import op_stats
 
 
 def _round_robin_schedule(k: int) -> np.ndarray:
@@ -95,7 +99,7 @@ def jacobi_eigh_batched(a: torch.Tensor, sweeps: int = 10):
         rounds.append((p, q, torch.cat([p, q, p, q]),
                        torch.cat([p, q, q, p])))
 
-    for step in range(sweeps * n_rounds):
+    def rotate(a, v, step):
         p, q, jr, jc = rounds[step % n_rounds]
         app = a[:, p, p]
         aqq = a[:, q, q]
@@ -112,7 +116,18 @@ def jacobi_eigh_batched(a: torch.Tensor, sweeps: int = 10):
         j[:, jr, jc] = torch.cat([c, c, s, -s], dim=1)
         a = torch.bmm(torch.bmm(j.transpose(1, 2), a), j)
         a = 0.5 * (a + a.transpose(1, 2))           # kill drift
-        v = torch.bmm(v, j)
+        return a, torch.bmm(v, j)
+
+    steps = sweeps * n_rounds
+    if a.is_meta:
+        # shapes only (the planner's counts): every round runs the same
+        # ops on the same shapes, so one round counts for all of them
+        if steps:
+            with op_stats.repeated(steps):
+                a, v = rotate(a, v, 0)
+    else:
+        for step in range(steps):
+            a, v = rotate(a, v, step)
 
     lam = torch.diagonal(a, dim1=-2, dim2=-1)       # (I, kp)
     order = torch.argsort(-lam, dim=-1, stable=True)
@@ -191,6 +206,9 @@ def gaussian_sketch(keys: torch.Tensor, n: int, k: int,
     a sketch and a rerun draws the same one. Within
     :func:`held_sketches` a sketch drawn before is handed back."""
     seeds = tuple(keys.tolist())
+    if torch.device(device).type == "meta":
+        return torch.empty((len(seeds), n, k), dtype=torch.float32,
+                           device="meta")
     store = getattr(_HELD, "store", None)
     key = (seeds, n, k, torch.device(device))
     if store is not None and key in store:

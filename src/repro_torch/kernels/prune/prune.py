@@ -14,7 +14,10 @@ The ports of ``src/repro/kernels/prune/prune.py`` (Pallas, TPU):
 
 The sources' notes give the designs and the bounds. Each wrapper launches
 its kernel for a CUDA tensor and runs its plain version (``ref.py``) for
-a CPU tensor; each counts its own launches (``KERNEL`` for K2,
+a CPU tensor. On meta tensors (the planner's counts and the dry run) the
+bisection and K3 only allocate their outputs; on meta as on the card
+they report their launch to an active ``analysis/op_stats.py`` counter
+(:func:`topk_cost`, :func:`mask_cost`). Each counts its own launches (``KERNEL`` for K2,
 ``COUNT_SINGLE`` for K8, ``TOPK`` for the bisection at any I,
 ``MASK_KERNEL`` for K3, ``MASK_SINGLE`` for K9).
 
@@ -31,6 +34,7 @@ from functools import lru_cache
 
 import torch
 
+from repro_torch.analysis import op_stats
 from repro_torch.kernels.build import (
     CudaKernel, LaunchCounter, blocks_per_item, on_card, raw_stream,
     stream_buffer)
@@ -46,27 +50,33 @@ _ll = ctypes.c_longlong
 _i = ctypes.c_int
 _ARGS = [_p, _p, _ll, _ll, _i, _p, _p]
 KERNEL = CudaKernel("count_above.cu", "count_above_batched",
-                    [_p, _p, _ll, _ll, _i, _i, _p, _p, _p])
+                    [_p, _p, _ll, _ll, _i, _i, _p, _p, _p], "K2")
 TOPK = CudaKernel("count_above.cu", "topk_threshold_batched",
-                  [_p, _p, _ll, _ll, _i, _i, _i, _i, _p, _p, _p, _ll, _p])
-MASK_KERNEL = CudaKernel("mask_apply.cu", "mask_apply_batched", _ARGS)
+                  [_p, _p, _ll, _ll, _i, _i, _i, _i, _p, _p, _p, _ll, _p],
+                  "K2loop")
+MASK_KERNEL = CudaKernel("mask_apply.cu", "mask_apply_batched", _ARGS,
+                         "K3")
 MASK_SINGLE = CudaKernel(
     "mask_apply.cu", "mask_apply_single",
-    [_p, _p, ctypes.c_float, ctypes.c_longlong, _p, _p])
-COUNT_SINGLE = LaunchCounter()
+    [_p, _p, ctypes.c_float, ctypes.c_longlong, _p, _p], "K9")
+COUNT_SINGLE = LaunchCounter("K8")
 _F32 = torch.float32
 _I32 = torch.int32
 
 
 def _checked(name: str, w: torch.Tensor, t: torch.Tensor,
-             t_dtype=_F32) -> None:
+             t_dtype=_F32, meta: bool = False) -> None:
+    """Raise unless the operands are the kernel's (``meta``: meta tensors
+    are taken too, by a wrapper that has a meta branch)."""
+    devices = ("cuda", "meta") if meta else ("cuda",)
     # one combined test on the launch path; the rules one by one below
-    if (w.is_cuda and w.dtype is _F32 and t.dtype is t_dtype
+    if (w.device.type in devices and w.dtype is _F32
+            and t.dtype is t_dtype
             and w.dim() == 2 and w.shape[0] >= 1 and w.shape[1] >= 1
             and t.shape == (w.shape[0],) and t.device == w.device
             and w.is_contiguous() and t.is_contiguous()):
         return
-    if w.device.type != "cuda":
+    if w.device.type not in devices:
         raise ValueError(f"{name}: no kernel for device {w.device}")
     if w.dtype != torch.float32 or t.dtype != t_dtype:
         raise TypeError(f"{name} needs float32 w and {t_dtype} per-item "
@@ -159,6 +169,21 @@ def count_above(w: torch.Tensor, t) -> torch.Tensor:
     return _count(w, t, 1, True, COUNT_SINGLE)
 
 
+def topk_cost(n_items: int, p: int) -> tuple[float, float, str]:
+    """(operations, boundary bytes, class) of one bisection launch, the
+    function's least: each weight's magnitude compared against the final
+    bounds (2 an element); w and κ read once, lo, hi and the count
+    written once."""
+    return 2.0 * n_items * p, 4.0 * n_items * p + 16.0 * n_items, "f32"
+
+
+def mask_cost(n_items: int, p: int) -> tuple[float, float, str]:
+    """(operations, boundary bytes, class) of one K3 launch: a magnitude
+    and a comparison an element; w read and the result written once,
+    the thresholds read."""
+    return 2.0 * n_items * p, 8.0 * n_items * p + 4.0 * n_items, "f32"
+
+
 def topk_threshold_batched(w: torch.Tensor, kappa: torch.Tensor,
                            iters: int = 30, strict: bool = False,
                            with_stats: bool = False):
@@ -183,10 +208,23 @@ def topk_threshold_batched(w: torch.Tensor, kappa: torch.Tensor,
             return lo, hi, n_hi
         stats = torch.tensor([0, -1, iters + 2, -1], dtype=torch.int32)
         return lo, hi, n_hi, stats.repeat(w.shape[0], 1)
-    _checked("topk_threshold_batched", w, kappa, _I32)
+    _checked("topk_threshold_batched", w, kappa, _I32, meta=True)
     if not 0 <= iters < 2**31 or w.shape[1] >= 2**31:
         raise ValueError(f"topk_threshold_batched takes P < 2^31 and "
                          f"iters ≥ 0; got P={w.shape[1]}, iters={iters}")
+    n_items, p = w.shape
+    with op_stats.kernel("K2loop", *topk_cost(n_items, p)):
+        if w.is_meta:
+            if with_stats:
+                raise ValueError("topk_threshold_batched: with_stats "
+                                 "reads the card")
+            lo = w.new_empty((n_items,))
+            return lo, w.new_empty((n_items,)), kappa.new_empty((n_items,))
+        return _bisect(w, kappa, iters, strict, with_stats)
+
+
+def _bisect(w, kappa, iters: int, strict: bool, with_stats: bool):
+    """The bisection's launch on checked CUDA operands."""
     n_items, p = w.shape
     dev = w.get_device()
     grid = _grid(dev)
@@ -217,16 +255,19 @@ def mask_apply_batched(w: torch.Tensor, t: torch.Tensor,
     without synchronising; on a CPU tensor it runs the plain version."""
     if w.device.type == "cpu":
         return mask_apply_batched_plain(w, t, strict)
-    _checked("mask_apply_batched", w, t)
+    _checked("mask_apply_batched", w, t, meta=True)
     if w.shape[0] > 65535:               # the mask kernel's grid y
         raise ValueError(f"mask_apply_batched takes I ≤ 65535; got "
                          f"I={w.shape[0]}")
-    w, out = _fresh_out(w)
-    dev = w.get_device()
-    with on_card(dev):
-        MASK_KERNEL(w.data_ptr(), t.data_ptr(), w.shape[0], w.shape[1],
-                    int(bool(strict)), out.data_ptr(), raw_stream(dev))
-    return out
+    with op_stats.kernel("K3", *mask_cost(w.shape[0], w.shape[1])):
+        if w.is_meta:
+            return w.new_empty(w.shape)
+        w, out = _fresh_out(w)
+        dev = w.get_device()
+        with on_card(dev):
+            MASK_KERNEL(w.data_ptr(), t.data_ptr(), w.shape[0], w.shape[1],
+                        int(bool(strict)), out.data_ptr(), raw_stream(dev))
+        return out
 
 
 def mask_apply(w: torch.Tensor, t) -> torch.Tensor:

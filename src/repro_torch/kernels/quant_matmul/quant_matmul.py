@@ -51,10 +51,10 @@ _INT_MAX = 2**31 - 1
 _p = ctypes.c_void_p
 _ARGS = [_p, _p, _p, ctypes.c_int, _p, ctypes.c_longlong,
          ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _p, _p, _p]
-KERNEL_U8 = CudaKernel("quant_matmul.cu", "quant_matmul_u8", _ARGS)
-KERNEL_PACKED4 = CudaKernel("quant_matmul.cu", "quant_matmul_packed4", _ARGS)
+KERNEL_U8 = CudaKernel("quant_matmul.cu", "quant_matmul_u8", _ARGS, "K5")
+KERNEL_PACKED4 = CudaKernel("quant_matmul.cu", "quant_matmul_packed4", _ARGS,
+                            "K4")
 #: each kernel's label in ``op_stats`` counts
-_LABELS = {KERNEL_U8: "K5", KERNEL_PACKED4: "K4"}
 
 @lru_cache(maxsize=None)
 def _sm_count(dev: int) -> int:
@@ -127,7 +127,7 @@ def _launch(kernel: CudaKernel, name: str, x, w, codebook, k: int,
             and 1 <= k <= _INT_MAX and 1 <= codebook.shape[0] <= max_codes):
         _refuse(name, x, w, codebook, k, max_codes)
     m, n = x.shape[0], w.shape[1]
-    with op_stats.kernel(_LABELS[kernel], *cost(m, k, n, w.numel(),
+    with op_stats.kernel(kernel.label, *cost(m, k, n, w.numel(),
                                                 codebook.shape[0])):
         y = torch.empty((m, n), dtype=torch.float32, device=x.device)
         if x.is_meta:

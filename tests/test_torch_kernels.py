@@ -515,8 +515,12 @@ def test_single_vector_wrappers_use_plain_version_only_on_cpu():
     for call in (lambda: k1.kmeans_assign_moments(w.to("meta"),
                                                   cb.to("meta")),
                  lambda: k2.count_above(w.to("meta"), t.to("meta")),
-                 lambda: k2.mask_apply(w.to("meta"), t.to("meta")),
-                 lambda: k2.mask_apply_batched(w[None].to("meta"),
-                                               t[None].to("meta"))):
+                 lambda: k2.mask_apply(w.to("meta"), t.to("meta"))):
         with pytest.raises(ValueError):
             call()
+    # K3 has a meta branch (the planner's counts): its output's shape,
+    # no launch
+    out = k2.mask_apply_batched(w[None].to("meta"), t[None].to("meta"))
+    assert out.is_meta and out.shape == (1, w.numel())
+    assert before == (k1.SINGLE.launches, k2.COUNT_SINGLE.launches,
+                      k2.MASK_KERNEL.launches, k2.MASK_SINGLE.launches)

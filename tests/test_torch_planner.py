@@ -424,10 +424,12 @@ def test_planner_argument_validation_and_group_summary():
         plan = r["plan"]
         assert plan["backend"] == r["backend"] == "torch"
         assert plan["n_chunks"] == jr["plan"]["n_chunks"] == 1
-        assert plan["source"] == "analytic" and plan["block_rows"] is None
+        assert plan["source"] == "counted" and plan["block_rows"] is None
         assert plan["shard_mode"] == "none" and plan["hardware"] == "cpu"
         assert plan["bottleneck"] in ("compute", "memory", "collective")
-        assert plan["modeled_ms"] > 0.0 and plan["fallbacks"]
+        # refined from the group's counted solve: nothing fell back
+        assert plan["modeled_ms"] > 0.0 and not any(
+            f.startswith("count-refine-failed") for f in plan["fallbacks"])
     # an init that reads values (the DP warm start's histogram) has no
     # shapes-only run: its group is planned from the items, and the plan
     # says so; Ternarize's init gathers its threshold on the device (no
